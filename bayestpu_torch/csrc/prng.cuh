@@ -1,0 +1,41 @@
+// Counter-hash PRNG shared by every masked kernel of bayestpu_torch.
+//
+// Replaces the Pallas helpers _mix, _seed_stream, _coord_bits and
+// _keep_threshold (bayestpu/kernels/masked_matmul.py:63-107) and the mask
+// bits of masked_conv._tile_mask_bits. The bits of element (row, col) are a
+// pure function of (seeds, global row, global col), all uint32 with
+// wraparound, so a mask never depends on a kernel's tiling and the CUDA
+// kernels reproduce the JAX package's masks bit for bit. An element is kept
+// iff coord_bits(row, col, seed_stream(s0, s1)) < threshold, where the
+// threshold min(round((1 - rate) * 2^32), 2^32 - 1) is computed on the host.
+#pragma once
+
+#include <cstdint>
+
+namespace bayestpu {
+
+// murmur3/triple32-style avalanche finalizer
+__host__ __device__ __forceinline__ uint32_t mix(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+// Per-(seed pair) stream constant; int32 seeds are reinterpreted as uint32.
+__host__ __device__ __forceinline__ uint32_t seed_stream(int32_t s0,
+                                                         int32_t s1) {
+  return mix(static_cast<uint32_t>(s0) * 0x9E3779B1u ^
+             static_cast<uint32_t>(s1) * 0x85EBCA77u ^ 0xC2B2AE35u);
+}
+
+__host__ __device__ __forceinline__ uint32_t coord_bits(uint32_t grow,
+                                                        uint32_t gcol,
+                                                        uint32_t stream) {
+  const uint32_t x = mix(grow * 0x27D4EB2Fu ^ gcol ^ stream);
+  return mix(x ^ gcol * 0x165667B1u);
+}
+
+}  // namespace bayestpu

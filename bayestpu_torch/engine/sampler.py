@@ -1,0 +1,80 @@
+"""Monte-Carlo sampling: temporal and spatial mapping of the MC samples.
+
+Counterpart of ``bayestpu/engine/sampler.py:52-130``, on explicit seeds:
+``seeds`` is the (S, n_sites, 2) int32 tensor of ``core.rng.sample_seeds``
+(or seeds captured from the JAX package), on the model's device.
+
+- temporal: the whole network runs once per sample; every stochastic head
+  launches the single-sample kernel.
+- spatial: the backbone runs once and each stochastic head launches the
+  samples kernel once for all S.
+
+Sample *i* sees the same masks in both mappings, so their per-sample logits
+agree.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from bayestpu_torch.core.config import BayesConfig, DropoutKind, SamplingMode
+
+
+class Predictive(NamedTuple):
+    """probs (E, B, C): MC mean of the softmax; var (E, B, C): per-class
+    variance over samples; entropy (E, B): entropy of the mean."""
+
+    probs: torch.Tensor
+    var: torch.Tensor
+    entropy: torch.Tensor
+    num_samples: int
+
+
+def _entropy(p: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return -torch.sum(p * torch.log(p + eps), dim=-1)
+
+
+def mc_logits(model, x: torch.Tensor, seeds: torch.Tensor,
+              mode: SamplingMode = SamplingMode.SPATIAL) -> torch.Tensor:
+    """All per-sample, per-exit logits: (S, E, B, C)."""
+    if mode is SamplingMode.TEMPORAL:
+        return torch.stack([model(x, seeds[s]).logits
+                            for s in range(seeds.shape[0])])
+    if mode is not SamplingMode.SPATIAL:
+        raise NotImplementedError(
+            f"the {mode.value} mapping is not ported (sharding: ROADMAP "
+            "Queue 1 item 13; BayesEngine runs an untuned AUTO as spatial)")
+    return model(x, seeds).logits
+
+
+def predictive(model, x: torch.Tensor, seeds: torch.Tensor,
+               mode: SamplingMode = SamplingMode.SPATIAL) -> Predictive:
+    """MC-averaged predictive distribution (materializes all samples)."""
+    probs = torch.softmax(mc_logits(model, x, seeds, mode), dim=-1)
+    mean = probs.mean(dim=0)
+    var = probs.var(dim=0, correction=0)
+    return Predictive(mean, var, _entropy(mean), seeds.shape[0])
+
+
+def mc_moments(model, x: torch.Tensor, seeds: torch.Tensor) -> Predictive:
+    """Streaming predictive moments, one sample at a time (the temporal
+    mapping): sum and sum of squares of the softmax, never all samples."""
+    num_samples = seeds.shape[0]
+    s1 = s2 = None
+    for s in range(num_samples):
+        p = torch.softmax(model(x, seeds[s]).logits, dim=-1)
+        s1 = p if s1 is None else s1 + p
+        s2 = p * p if s2 is None else s2 + p * p
+    mean = s1 / num_samples
+    var = torch.clamp(s2 / num_samples - mean * mean, min=0.0)
+    return Predictive(mean, var, _entropy(mean), num_samples)
+
+
+def num_effective_samples(bayes: BayesConfig, num_samples: int | None = None
+                          ) -> int:
+    """Masksembles enumerates its masks; MC dropout draws ``num_samples``."""
+    if bayes.kind is DropoutKind.MASK:
+        return bayes.num_masks
+    return num_samples if num_samples is not None else bayes.num_samples

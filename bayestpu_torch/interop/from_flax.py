@@ -1,0 +1,62 @@
+"""Load a JAX/Flax variables tree into a port model, by name.
+
+``variables`` is the ``{"params": …, "batch_stats": …}`` tree of the JAX
+package's ``model.init`` / training state, as nested dicts of numpy arrays
+(``jax.tree.map(np.asarray, variables)``). Each leaf fills the port's
+parameter (``params``) or buffer (``batch_stats``) whose dotted name is the
+leaf's path: ``params/block0/convbn0/conv/kernel`` →
+``block0.convbn0.conv.kernel``. Conv kernels go from HWIO to OIHW; dense
+kernels stay ``(in, out)``. A missing or extra name, or a shape mismatch,
+raises.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
+    out: dict[str, Any] = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, name + "."))
+        else:
+            out[name] = v
+    return out
+
+
+def _fill(targets: dict[str, torch.Tensor], leaves: dict[str, Any],
+          collection: str) -> None:
+    missing = sorted(set(targets) - set(leaves))
+    extra = sorted(set(leaves) - set(targets))
+    if missing or extra:
+        raise KeyError(f"{collection}: names differ from the model's — "
+                       f"missing {missing}, extra {extra}")
+    for name, t in targets.items():
+        arr = np.array(leaves[name], dtype=np.float32)   # a writable copy
+        if arr.ndim == 4:                      # HWIO → OIHW
+            arr = arr.transpose(3, 2, 0, 1)
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"{collection}/{name}: shape {arr.shape} does "
+                             f"not fit {tuple(t.shape)}")
+        with torch.no_grad():
+            t.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+
+
+def load_flax_variables(model: nn.Module,
+                        variables: Mapping[str, Any]) -> nn.Module:
+    """Fill ``model``'s parameters from ``variables["params"]`` and its
+    buffers from ``variables["batch_stats"]``; returns ``model``."""
+    unknown = sorted(set(variables) - {"params", "batch_stats"})
+    if unknown:
+        raise KeyError(f"collections not held by a port model: {unknown}")
+    _fill(dict(model.named_parameters()),
+          _flatten(variables.get("params", {})), "params")
+    _fill(dict(model.named_buffers()),
+          _flatten(variables.get("batch_stats", {})), "batch_stats")
+    return model

@@ -1,0 +1,236 @@
+"""Matmul with the MC-dropout mask fused in: plain PyTorch versions and the
+wrappers of the CUDA kernels in ``bayestpu_torch/csrc/masked_matmul.cu``.
+
+Counterpart of ``bayestpu/kernels/masked_matmul.py`` (the forward of
+``dropout_matmul``, ``dropout_matmul_samples`` and
+``dropout_matmul_inference``). The mask of element ``(r, c)`` of x is a pure
+counter hash of ``(seeds, r, c)`` — the global, unpadded coordinates — so
+every kernel, tiling and sample mapping reproduces it bit for bit, and so
+does the JAX package: an element is kept iff
+``coord_bits(r, c, seed_stream(s0, s1)) < keep_threshold(rate)``, all in
+uint32 with wraparound. The plain versions compute those bits in int64 with
+``& 0xFFFFFFFF`` after every multiply.
+
+Scaling follows the JAX kernels exactly: the Python scale ``1/(1-rate)`` is
+first rounded to x's dtype (bf16: 1.3359375 for rate 0.25, not 1.3333),
+``x * scale`` is rounded to x's dtype, and the product with w is accumulated
+in f32.
+
+Dispatch is by the tensors' device: CPU tensors take the plain version, CUDA
+tensors launch the kernel (or raise), and any other device raises. There is
+no fallback from the kernel to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+_M32 = 0xFFFFFFFF
+_DTYPES = (torch.float32, torch.bfloat16)
+
+# Launches of each CUDA kernel since the last reset; CPU calls do not count.
+launch_counts: dict[str, int] = {"dropout_matmul": 0,
+                                 "dropout_matmul_samples": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+# ------------------------------------------------------------------ PRNG
+
+
+def keep_threshold(rate: float) -> int:
+    """keep iff bits < keep_prob * 2^32 (uint32 compare)."""
+    return min(int(round((1.0 - rate) * 2.0 ** 32)), 2 ** 32 - 1)
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``(x * c) mod 2^32`` for int64 ``x`` in [0, 2^32) and a uint32
+    constant, split in 16-bit halves so no int64 product overflows."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def mix(x: torch.Tensor) -> torch.Tensor:
+    """murmur3/triple32-style avalanche finalizer on uint32 values held in
+    int64."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def _u32(v) -> torch.Tensor:
+    """int32 (or any integer) values reinterpreted as uint32, in int64."""
+    return torch.as_tensor(v).to(torch.int64) & _M32
+
+
+def seed_stream(s0, s1) -> torch.Tensor:
+    """Per-(seed pair) stream constant mixed into every element's counter.
+    Seeds are int32 and reinterpreted as uint32, so negative seeds work."""
+    return mix(_mul32(_u32(s0), 0x9E3779B1) ^ _mul32(_u32(s1), 0x85EBCA77)
+               ^ 0xC2B2AE35)
+
+
+def coord_bits(grow, gcol, stream) -> torch.Tensor:
+    """Uniform uint32 bits (in int64) as a pure function of (global row,
+    global col, stream)."""
+    grow, gcol, stream = _u32(grow), _u32(gcol), _u32(stream)
+    x = mix(_mul32(grow, 0x27D4EB2F) ^ gcol ^ stream)
+    return mix(x ^ _mul32(gcol, 0x165667B1))
+
+
+def keep_mask(seeds: torch.Tensor, m: int, k: int, rate: float
+               ) -> torch.Tensor:
+    """(m, k) bool keep mask of one seed pair, on the seeds' device."""
+    rows = torch.arange(m, dtype=torch.int64, device=seeds.device)[:, None]
+    cols = torch.arange(k, dtype=torch.int64, device=seeds.device)[None, :]
+    return coord_bits(rows, cols, seed_stream(seeds[0], seeds[1])) \
+        < keep_threshold(rate)
+
+
+def scale_of(rate: float, dtype: torch.dtype) -> float:
+    """The dropout scale ``1/(1-rate)`` as the kernels apply it: rounded to
+    the compute dtype first, as JAX turns the Python scale into a constant
+    of x's dtype."""
+    return float(torch.tensor(1.0 / (1.0 - rate), dtype=dtype))
+
+
+# -------------------------------------------------------- plain versions
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` accumulated in f32: bf16 products are exact in f32."""
+    return torch.matmul(x.float(), w.float())
+
+
+def dropout_matmul_plain(x: torch.Tensor, w: torch.Tensor,
+                         seeds: torch.Tensor, rate: float) -> torch.Tensor:
+    """``dropout(x) @ w`` in plain PyTorch on any device: (M, N) f32."""
+    if rate == 0.0:
+        return matmul_f32(x, w)
+    keep = keep_mask(seeds, x.shape[0], x.shape[1], rate)
+    scale = torch.tensor(scale_of(rate, x.dtype), dtype=x.dtype,
+                         device=x.device)
+    xm = torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype,
+                                                  device=x.device))
+    return matmul_f32(xm, w)
+
+
+def dropout_matmul_samples_plain(x: torch.Tensor, w: torch.Tensor,
+                                 seeds: torch.Tensor, rate: float
+                                 ) -> torch.Tensor:
+    """All S samples in plain PyTorch: (S, M, N) f32, sample s equal to
+    ``dropout_matmul_plain(x, w, seeds[s], rate)`` bit for bit."""
+    num_samples = seeds.shape[0]
+    if rate == 0.0:
+        y = matmul_f32(x, w)
+        return y.expand((num_samples,) + tuple(y.shape))
+    return torch.stack([dropout_matmul_plain(x, w, seeds[s], rate)
+                        for s in range(num_samples)])
+
+
+# -------------------------------------------------------------- wrappers
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, seeds: torch.Tensor,
+           seeds_ndim: int, rate: float) -> None:
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1): {rate}")
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"need x (M, K) and w (K, N); got {tuple(x.shape)} "
+                         f"and {tuple(w.shape)}")
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise TypeError(f"x and w must both be float32 or bfloat16; got "
+                        f"{x.dtype} and {w.dtype}")
+    if (seeds.dtype != torch.int32 or seeds.dim() != seeds_ndim
+            or seeds.shape[-1] != 2):
+        want = "(2,)" if seeds_ndim == 1 else "(S, 2)"
+        raise ValueError(f"seeds must be int32 of shape {want}; got "
+                         f"{seeds.dtype} {tuple(seeds.shape)}")
+    if not (x.device == w.device == seeds.device):
+        raise ValueError(f"x, w and seeds must be on one device; got "
+                         f"{x.device}, {w.device}, {seeds.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}: the port runs "
+                         "its kernels on CUDA and their plain versions on "
+                         "the CPU")
+
+
+def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
+            seeds: torch.Tensor, rate: float) -> torch.Tensor:
+    """Launch one of the CUDA kernels on PyTorch's current stream. ``seeds``
+    is (S, 2); the single-sample kernel is called with S == 1."""
+    from bayestpu_torch.kernels import _build
+
+    for t, what in ((x, "x"), (w, "w"), (seeds, "seeds")):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+    m, k = x.shape
+    n = w.shape[1]
+    s = seeds.shape[0]
+    single = name == "dropout_matmul"
+    out = torch.empty((m, n) if single else (s, m, n), dtype=torch.float32,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.library("masked_matmul")
+    with torch.cuda.device(x.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        args = [ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w.data_ptr()),
+                ctypes.c_void_p(seeds.data_ptr()),
+                ctypes.c_void_p(out.data_ptr()), m, k, n]
+        if not single:
+            args.append(s)
+        args += [keep_threshold(rate), scale_of(rate, x.dtype),
+                 int(x.dtype == torch.bfloat16), stream]
+        rc = getattr(lib, "bt_" + name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel failed to launch: cudaError_t "
+                           f"{rc}")
+    launch_counts[name] += 1
+    return out
+
+
+def dropout_matmul(x: torch.Tensor, w: torch.Tensor, seeds: torch.Tensor,
+                   rate: float) -> torch.Tensor:
+    """``dropout(x) @ w`` with the mask fused into the kernel (forward only).
+
+    x: (M, K) f32/bf16; w: (K, N) of x's dtype; seeds: (2,) int32 on x's
+    device. Returns (M, N) f32. Rate 0 is a plain matmul.
+    """
+    _check(x, w, seeds, 1, rate)
+    if x.device.type == "cpu" or rate == 0.0:
+        return dropout_matmul_plain(x, w, seeds, rate)
+    return _launch("dropout_matmul", x, w, seeds.reshape(1, 2), rate)
+
+
+def dropout_matmul_samples(x: torch.Tensor, w: torch.Tensor,
+                           seeds: torch.Tensor, rate: float) -> torch.Tensor:
+    """All-samples fused MC head: ``stack([dropout_s(x) @ w for s in S])``.
+
+    seeds: (S, 2) int32. Returns (S, M, N) f32 with sample s bit-identical to
+    ``dropout_matmul(x, w, seeds[s], rate)`` on the same device. The kernel
+    stages each x tile once for all samples of a block.
+    """
+    _check(x, w, seeds, 2, rate)
+    if x.device.type == "cpu" or rate == 0.0:
+        return dropout_matmul_samples_plain(x, w, seeds, rate)
+    return _launch("dropout_matmul_samples", x, w, seeds, rate)
+
+
+def dropout_matmul_inference(x: torch.Tensor, w: torch.Tensor,
+                             seeds: torch.Tensor, rate: float
+                             ) -> torch.Tensor:
+    """Inference entry of the masked heads. ``seeds`` (2,) gives one sample,
+    (M, N); ``seeds`` (S, 2) gives every sample in one launch, (S, M, N) —
+    what the JAX package's vmap rule does. The CUDA samples kernel splits S
+    over blocks itself, so no sample chunking happens here."""
+    if seeds.dim() == 1:
+        return dropout_matmul(x, w, seeds, rate)
+    return dropout_matmul_samples(x, w, seeds, rate)
