@@ -1,10 +1,13 @@
 // Fused MC-dropout matmul kernels for Hopper (sm_90a), plain C interface.
 //
-// Replaces two Pallas TPU kernels of bayestpu/kernels/masked_matmul.py:
+// Replaces three Pallas TPU kernels of bayestpu/kernels/masked_matmul.py:
 //   dropout_matmul_kernel          <- _dropout_matmul_kernel (:113-132),
 //                                     called by dropout_matmul (:211-249)
 //   dropout_matmul_samples_kernel  <- _dropout_matmul_samples_kernel
 //                                     (:286-311), dropout_matmul_samples
+//   dropout_apply_kernel           <- _dropout_mask_kernel (:135-148),
+//                                     called by _dropout_apply (:151-176)
+//                                     in the backward of dropout_matmul
 // Both compute out[s] = (x * keep_s(row, col) * scale) @ w in f32, where
 // keep_s is the counter hash of prng.cuh on the GLOBAL, unpadded coordinates
 // of x and seeds[s]. Under bf16 the product x * scale is rounded to bf16
@@ -39,6 +42,8 @@ constexpr int BN = 16;                  // columns of w and out per block
 constexpr int BK = 32;                  // depth of one staged k tile
 constexpr int THREADS = BM * BN;        // one output element per thread
 constexpr int SAMPLES_PER_BLOCK = 16;   // samples kernel: grid.z splits S
+constexpr int APPLY_THREADS = 256;      // dropout_apply: threads per block
+constexpr int APPLY_MAX_BLOCKS = 132 * 16;  // grid-stride beyond this
 
 template <typename T>
 struct Elem;
@@ -156,6 +161,37 @@ __global__ void __launch_bounds__(THREADS)
                                            thresh, scale);
 }
 
+// dropout(x) alone: out[r, c] = keep(r, c) ? f32(x[r, c]) * scale : 0, with
+// the mask bit for bit that of the forward kernels (same hash, same global
+// coordinates). The backward of dropout_matmul applies it to g @ w^T (f32)
+// and to x (f32 or bf16) instead of storing the forward's mask. The scale
+// is f32(1 / (1 - rate)) whatever x's dtype, and the product is rounded
+// once to f32, as the JAX kernel casts to f32 before it multiplies.
+//
+// What bounds it on an H100: an elementwise pass, so memory. At the
+// vgg11_me head shape (128 x 512) it reads 128 KiB (bf16) or 256 KiB (f32)
+// and writes 256 KiB: 0.117 us or 0.156 us at 3.35 TB/s, far below a
+// launch. The design is the simple one: a grid-stride loop, one element per
+// thread per trip, neighbouring threads on neighbouring addresses so loads
+// and stores coalesce; the seed stream is hashed once per thread.
+template <typename T>
+__global__ void __launch_bounds__(APPLY_THREADS)
+    dropout_apply_kernel(const T* __restrict__ x,
+                         const int32_t* __restrict__ seeds,
+                         float* __restrict__ out, int M, int K,
+                         uint32_t thresh, float scale) {
+  const uint32_t stream = bayestpu::seed_stream(seeds[0], seeds[1]);
+  const size_t n = static_cast<size_t>(M) * K;
+  const size_t step = static_cast<size_t>(gridDim.x) * blockDim.x;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += step) {
+    const uint32_t r = static_cast<uint32_t>(i / K);
+    const uint32_t c = static_cast<uint32_t>(i % K);
+    const uint32_t bits = bayestpu::coord_bits(r, c, stream);
+    out[i] = bits < thresh ? __fmul_rn(Elem<T>::load(x + i), scale) : 0.f;
+  }
+}
+
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError()
@@ -199,6 +235,26 @@ extern "C" int bt_dropout_matmul_samples(const void* x, const void* w,
     dropout_matmul_samples_kernel<float><<<grid, THREADS, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), sd, o, M,
         K, N, S, thresh, scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bt_dropout_apply(const void* x, const void* seeds, void* out,
+                                int M, int K, uint32_t thresh, float scale,
+                                int is_bf16, void* stream) {
+  const size_t n = static_cast<size_t>(M) * K;
+  const size_t want = (n + APPLY_THREADS - 1) / APPLY_THREADS;
+  const dim3 grid(static_cast<unsigned>(
+      want < APPLY_MAX_BLOCKS ? want : APPLY_MAX_BLOCKS));
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* sd = static_cast<const int32_t*>(seeds);
+  auto* o = static_cast<float*>(out);
+  if (is_bf16) {
+    dropout_apply_kernel<__nv_bfloat16><<<grid, APPLY_THREADS, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), sd, o, M, K, thresh, scale);
+  } else {
+    dropout_apply_kernel<float><<<grid, APPLY_THREADS, 0, st>>>(
+        static_cast<const float*>(x), sd, o, M, K, thresh, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }

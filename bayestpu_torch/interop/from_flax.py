@@ -7,7 +7,7 @@ parameter (``params``) or buffer (``batch_stats``) whose dotted name is the
 leaf's path: ``params/block0/convbn0/conv/kernel`` →
 ``block0.convbn0.conv.kernel``. Conv kernels go from HWIO to OIHW; dense
 kernels stay ``(in, out)``. A missing or extra name, or a shape mismatch,
-raises.
+raises. ``to_flax_variables`` goes the other way.
 """
 
 from __future__ import annotations
@@ -60,3 +60,25 @@ def load_flax_variables(model: nn.Module,
     _fill(dict(model.named_buffers()),
           _flatten(variables.get("batch_stats", {})), "batch_stats")
     return model
+
+
+def _nest(named: Mapping[str, torch.Tensor]) -> dict[str, Any]:
+    out: dict[str, Any] = {}
+    for name, t in named.items():
+        *path, leaf = name.split(".")
+        node = out
+        for k in path:
+            node = node.setdefault(k, {})
+        arr = t.detach().float().cpu().numpy()
+        node[leaf] = arr.transpose(2, 3, 1, 0).copy() if arr.ndim == 4 \
+            else arr.copy()                                # OIHW → HWIO
+    return out
+
+
+def to_flax_variables(model: nn.Module) -> dict[str, Any]:
+    """The inverse of ``load_flax_variables``: ``{"params": …,
+    "batch_stats": …}`` as nested dicts of f32 numpy arrays (copies), conv
+    kernels back in HWIO — what ``BayesEngine.attach`` takes, as the JAX
+    training state's ``variables()`` feeds the JAX engine."""
+    return {"params": _nest(dict(model.named_parameters())),
+            "batch_stats": _nest(dict(model.named_buffers()))}

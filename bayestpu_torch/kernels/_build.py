@@ -36,6 +36,8 @@ _SIGNATURES: dict[str, dict[str, list]] = {
         # x, w, seeds, out, M, K, N, S, thresh, scale, is_bf16, stream
         "bt_dropout_matmul_samples": [_P, _P, _P, _P, _I, _I, _I, _I, _U32,
                                       _F, _I, _P],
+        # x, seeds, out, M, K, thresh, scale, is_bf16, stream
+        "bt_dropout_apply": [_P, _P, _P, _I, _I, _U32, _F, _I, _P],
     },
 }
 

@@ -1,9 +1,10 @@
 """Matmul with the MC-dropout mask fused in: plain PyTorch versions and the
 wrappers of the CUDA kernels in ``bayestpu_torch/csrc/masked_matmul.cu``.
 
-Counterpart of ``bayestpu/kernels/masked_matmul.py`` (the forward of
-``dropout_matmul``, ``dropout_matmul_samples`` and
-``dropout_matmul_inference``). The mask of element ``(r, c)`` of x is a pure
+Counterpart of ``bayestpu/kernels/masked_matmul.py``: ``dropout_matmul``
+(trainable, with the backward that regenerates the mask through
+``dropout_apply``), ``dropout_matmul_samples`` and
+``dropout_matmul_inference``. The mask of element ``(r, c)`` of x is a pure
 counter hash of ``(seeds, r, c)`` — the global, unpadded coordinates — so
 every kernel, tiling and sample mapping reproduces it bit for bit, and so
 does the JAX package: an element is kept iff
@@ -11,10 +12,13 @@ does the JAX package: an element is kept iff
 uint32 with wraparound. The plain versions compute those bits in int64 with
 ``& 0xFFFFFFFF`` after every multiply.
 
-Scaling follows the JAX kernels exactly: the Python scale ``1/(1-rate)`` is
-first rounded to x's dtype (bf16: 1.3359375 for rate 0.25, not 1.3333),
-``x * scale`` is rounded to x's dtype, and the product with w is accumulated
-in f32.
+Scaling follows the JAX kernels exactly. In the forward kernels the Python
+scale ``1/(1-rate)`` is first rounded to x's dtype (bf16: 1.3359375 for rate
+0.25, not 1.3333), ``x * scale`` is rounded to x's dtype, and the product
+with w is accumulated in f32. ``dropout_apply`` (the backward's mask) casts
+x to f32 first and multiplies by the f32 scale (1.3333334 at rate 0.25)
+whatever x's dtype, as ``_dropout_mask_kernel`` does; the two scales differ
+under bf16 in the JAX package too.
 
 Dispatch is by the tensors' device: CPU tensors take the plain version, CUDA
 tensors launch the kernel (or raise), and any other device raises. There is
@@ -32,7 +36,8 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 # Launches of each CUDA kernel since the last reset; CPU calls do not count.
 launch_counts: dict[str, int] = {"dropout_matmul": 0,
-                                 "dropout_matmul_samples": 0}
+                                 "dropout_matmul_samples": 0,
+                                 "dropout_apply": 0}
 
 
 def reset_launch_counts() -> None:
@@ -101,6 +106,12 @@ def scale_of(rate: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(1.0 / (1.0 - rate), dtype=dtype))
 
 
+def apply_scale(rate: float) -> float:
+    """The scale of ``dropout_apply``: ``1/(1-rate)`` rounded to f32 for
+    every input dtype (``_dropout_mask_kernel`` multiplies an f32 cast)."""
+    return scale_of(rate, torch.float32)
+
+
 # -------------------------------------------------------- plain versions
 
 
@@ -135,42 +146,95 @@ def dropout_matmul_samples_plain(x: torch.Tensor, w: torch.Tensor,
                         for s in range(num_samples)])
 
 
+def dropout_apply_plain(x: torch.Tensor, seeds: torch.Tensor,
+                        rate: float) -> torch.Tensor:
+    """``dropout(x)`` alone in plain PyTorch: (M, K) f32, the forward's mask
+    times the f32 scale."""
+    keep = keep_mask(seeds, x.shape[0], x.shape[1], rate)
+    scale = torch.tensor(apply_scale(rate), dtype=torch.float32,
+                         device=x.device)
+    return torch.where(keep, x.float() * scale,
+                       torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def dropout_matmul_vjp_plain(x: torch.Tensor, w: torch.Tensor,
+                             seeds: torch.Tensor, rate: float,
+                             g: torch.Tensor
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dw) of ``dropout(x) @ w`` for the f32 cotangent g (M, N), in
+    plain PyTorch: ``dx = dropout(g @ wᵀ)`` and ``dw = dropout(x)ᵀ @ g``,
+    both f32 products rounded to x's and w's dtype at the end
+    (``masked_matmul.py:252-266``)."""
+    g = g.float()
+    if rate == 0.0:
+        return (torch.matmul(g, w.float().T).to(x.dtype),
+                torch.matmul(x.float().T, g).to(w.dtype))
+    gx = torch.matmul(g, w.float().T)
+    dx = dropout_apply_plain(gx, seeds, rate).to(x.dtype)
+    dw = torch.matmul(dropout_apply_plain(x, seeds, rate).T, g).to(w.dtype)
+    return dx, dw
+
+
 # -------------------------------------------------------------- wrappers
 
 
-def _check(x: torch.Tensor, w: torch.Tensor, seeds: torch.Tensor,
-           seeds_ndim: int, rate: float) -> None:
+def _check_rate_seeds(x: torch.Tensor, seeds: torch.Tensor, seeds_ndim: int,
+                      rate: float) -> None:
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate must be in [0, 1): {rate}")
-    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
-        raise ValueError(f"need x (M, K) and w (K, N); got {tuple(x.shape)} "
-                         f"and {tuple(w.shape)}")
-    if x.dtype not in _DTYPES or w.dtype != x.dtype:
-        raise TypeError(f"x and w must both be float32 or bfloat16; got "
-                        f"{x.dtype} and {w.dtype}")
     if (seeds.dtype != torch.int32 or seeds.dim() != seeds_ndim
             or seeds.shape[-1] != 2):
         want = "(2,)" if seeds_ndim == 1 else "(S, 2)"
         raise ValueError(f"seeds must be int32 of shape {want}; got "
                          f"{seeds.dtype} {tuple(seeds.shape)}")
-    if not (x.device == w.device == seeds.device):
-        raise ValueError(f"x, w and seeds must be on one device; got "
-                         f"{x.device}, {w.device}, {seeds.device}")
+    if x.device != seeds.device:
+        raise ValueError(f"x and seeds must be on one device; got "
+                         f"{x.device} and {seeds.device}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}: the port runs "
                          "its kernels on CUDA and their plain versions on "
                          "the CPU")
 
 
-def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
-            seeds: torch.Tensor, rate: float) -> torch.Tensor:
-    """Launch one of the CUDA kernels on PyTorch's current stream. ``seeds``
-    is (S, 2); the single-sample kernel is called with S == 1."""
+def _check(x: torch.Tensor, w: torch.Tensor, seeds: torch.Tensor,
+           seeds_ndim: int, rate: float) -> None:
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"need x (M, K) and w (K, N); got {tuple(x.shape)} "
+                         f"and {tuple(w.shape)}")
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise TypeError(f"x and w must both be float32 or bfloat16; got "
+                        f"{x.dtype} and {w.dtype}")
+    if w.device != x.device:
+        raise ValueError(f"x and w must be on one device; got {x.device} "
+                         f"and {w.device}")
+    _check_rate_seeds(x, seeds, seeds_ndim, rate)
+
+
+def _call(name: str, device: torch.device, tensors: dict, args: list
+          ) -> None:
+    """Call the C entry ``bt_<name>`` of ``masked_matmul.cu`` with the
+    pointers of ``tensors`` (each must be contiguous), then ``args``, then
+    PyTorch's current stream; count the launch."""
     from bayestpu_torch.kernels import _build
 
-    for t, what in ((x, "x"), (w, "w"), (seeds, "seeds")):
+    for what, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous")
+    lib = _build.library("masked_matmul")
+    with torch.cuda.device(device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        ptrs = [ctypes.c_void_p(t.data_ptr()) for t in tensors.values()]
+        rc = getattr(lib, "bt_" + name)(*ptrs, *args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel failed to launch: cudaError_t "
+                           f"{rc}")
+    launch_counts[name] += 1
+
+
+def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
+            seeds: torch.Tensor, rate: float) -> torch.Tensor:
+    """Launch one of the matmul kernels on PyTorch's current stream.
+    ``seeds`` is (S, 2); the single-sample kernel is called with S == 1."""
     m, k = x.shape
     n = w.shape[1]
     s = seeds.shape[0]
@@ -179,35 +243,83 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
                       device=x.device)
     if out.numel() == 0:
         return out
-    lib = _build.library("masked_matmul")
-    with torch.cuda.device(x.device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        args = [ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w.data_ptr()),
-                ctypes.c_void_p(seeds.data_ptr()),
-                ctypes.c_void_p(out.data_ptr()), m, k, n]
-        if not single:
-            args.append(s)
-        args += [keep_threshold(rate), scale_of(rate, x.dtype),
-                 int(x.dtype == torch.bfloat16), stream]
-        rc = getattr(lib, "bt_" + name)(*args)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel failed to launch: cudaError_t "
-                           f"{rc}")
-    launch_counts[name] += 1
+    _call(name, x.device, {"x": x, "w": w, "seeds": seeds, "out": out},
+          [m, k, n] + ([] if single else [s])
+          + [keep_threshold(rate), scale_of(rate, x.dtype),
+             int(x.dtype == torch.bfloat16)])
     return out
+
+
+def dropout_apply(x: torch.Tensor, seeds: torch.Tensor,
+                  rate: float) -> torch.Tensor:
+    """``dropout(x)`` alone: x (M, K) f32/bf16, seeds (2,) int32 on x's
+    device. Returns (M, K) f32 with the forward kernels' mask bit for bit,
+    scaled by the f32 ``1/(1-rate)`` (``_dropout_apply``)."""
+    if x.dim() != 2:
+        raise ValueError(f"need x (M, K); got {tuple(x.shape)}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16; got {x.dtype}")
+    _check_rate_seeds(x, seeds, 1, rate)
+    if x.device.type == "cpu":
+        return dropout_apply_plain(x, seeds, rate)
+    m, k = x.shape
+    out = torch.empty((m, k), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    _call("dropout_apply", x.device, {"x": x, "seeds": seeds, "out": out},
+          [m, k, keep_threshold(rate), apply_scale(rate),
+           int(x.dtype == torch.bfloat16)])
+    return out
+
+
+class DropoutMatmul(torch.autograd.Function):
+    """``dropout(x) @ w`` with the backward that regenerates the mask from
+    the seeds instead of storing it (``jax.custom_vjp`` of
+    ``masked_matmul.py:179-269``). It saves x, w and seeds. Its backward
+    runs ``dx = dropout(g @ wᵀ)`` and ``dw = dropout(x)ᵀ @ g``: the two f32
+    products by ``torch.matmul`` (XLA's ``jnp.dot`` in the JAX package),
+    the masks by ``dropout_apply``; dx and dw are rounded to x's and w's
+    dtype, so under bf16 both reach the f32 parameters bf16-rounded."""
+
+    @staticmethod
+    def forward(ctx, x, w, seeds, rate):
+        ctx.save_for_backward(x, w, seeds)
+        ctx.rate = rate
+        if x.device.type == "cpu" or rate == 0.0:
+            return dropout_matmul_plain(x, w, seeds, rate)
+        return _launch("dropout_matmul", x, w, seeds.reshape(1, 2), rate)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, seeds = ctx.saved_tensors
+        rate = ctx.rate
+        need_x, need_w = ctx.needs_input_grad[:2]
+        g = g.float().contiguous()
+        dx = dw = None
+        if rate == 0.0:
+            if need_x:
+                dx = torch.matmul(g, w.float().T).to(x.dtype)
+            if need_w:
+                dw = torch.matmul(x.float().T, g).to(w.dtype)
+            return dx, dw, None, None
+        if need_x:
+            dx = dropout_apply(torch.matmul(g, w.float().T), seeds,
+                               rate).to(x.dtype)
+        if need_w:
+            dw = torch.matmul(dropout_apply(x, seeds, rate).T, g).to(w.dtype)
+        return dx, dw, None, None
 
 
 def dropout_matmul(x: torch.Tensor, w: torch.Tensor, seeds: torch.Tensor,
                    rate: float) -> torch.Tensor:
-    """``dropout(x) @ w`` with the mask fused into the kernel (forward only).
+    """``dropout(x) @ w`` with the mask fused into the kernel; trainable
+    through ``DropoutMatmul``.
 
     x: (M, K) f32/bf16; w: (K, N) of x's dtype; seeds: (2,) int32 on x's
     device. Returns (M, N) f32. Rate 0 is a plain matmul.
     """
     _check(x, w, seeds, 1, rate)
-    if x.device.type == "cpu" or rate == 0.0:
-        return dropout_matmul_plain(x, w, seeds, rate)
-    return _launch("dropout_matmul", x, w, seeds.reshape(1, 2), rate)
+    return DropoutMatmul.apply(x, w, seeds, rate)
 
 
 def dropout_matmul_samples(x: torch.Tensor, w: torch.Tensor,

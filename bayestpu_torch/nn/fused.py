@@ -1,12 +1,14 @@
 """``BayesDense``: an MC-dropout site fused into the dense layer after it.
 
 Counterpart of ``bayestpu.nn.fused.BayesDense`` (``fused.py:499-614``), the
-MC and no-dropout branches at inference. With MC dropout at rate > 0 the
-mask is generated inside the CUDA matmul kernel
-(``bayestpu_torch.kernels.masked_matmul``); seeds of shape (2,) run one
-sample, seeds of shape (S, 2) run all S samples in one launch (the spatial
-mapping). Under bf16 both x and the kernel are cast to bf16 and the f32
-bias is added to the f32 product.
+MC and no-dropout branches, in training and at inference. With MC dropout at
+rate > 0 the mask is generated inside the CUDA matmul kernel
+(``bayestpu_torch.kernels.masked_matmul``). At inference seeds of shape (2,)
+run one sample and seeds of shape (S, 2) run all S samples in one launch
+(the spatial mapping). In training (``self.training``) the seeds are (2,)
+and the head goes through the trainable ``dropout_matmul``, whose backward
+regenerates the mask (``fused.py:581-588``). Under bf16 both x and the
+kernel are cast to bf16 and the f32 bias is added to the f32 product.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import torch
 from torch import nn
 
 from bayestpu_torch.core.config import BayesConfig, DropoutKind, QuantConfig
-from bayestpu_torch.kernels.masked_matmul import dropout_matmul_inference
+from bayestpu_torch.kernels.masked_matmul import (dropout_matmul,
+                                                  dropout_matmul_inference)
 from bayestpu_torch.nn.layers import _QUANT_TODO, dot, lecun_normal_
 
 
@@ -50,14 +53,14 @@ class BayesDense(nn.Module):
 
     def forward(self, x: torch.Tensor, seeds: torch.Tensor | None = None
                 ) -> torch.Tensor:
-        """x: (B, in); seeds: (2,) or (S, 2) int32 on x's device for a
-        stochastic head, ignored otherwise. Returns (B, out) or (S, B, out)
-        f32."""
+        """x: (B, in); seeds: (2,) (or (S, 2) at inference) int32 on x's
+        device for a stochastic head, ignored otherwise. Returns (B, out) or
+        (S, B, out) f32."""
         if self.stochastic:
-            y = dropout_matmul_inference(
-                x.to(self.dtype).contiguous(),
-                self.kernel.to(self.dtype).contiguous(), seeds,
-                self.bayes.rate)
+            mm = dropout_matmul if self.training else dropout_matmul_inference
+            y = mm(x.to(self.dtype).contiguous(),
+                   self.kernel.to(self.dtype).contiguous(), seeds,
+                   self.bayes.rate)
         else:
             y = dot(x, self.kernel, self.dtype)
         return y + self.bias if self.bias is not None else y

@@ -1,18 +1,22 @@
-"""Inference building blocks: ``Dense``, ``BatchNorm``, ``ConvBN``,
-``QuantAct``, ``max_pool`` and ``avg_pool``.
+"""Building blocks: ``Dense``, ``BatchNorm``, ``ConvBN``, ``QuantAct``,
+``max_pool`` and ``avg_pool``.
 
 Counterpart of ``bayestpu/nn/layers.py`` for the float path (``quant=None``).
 Parameters keep the Flax names and layouts (dense kernels ``(in, out)``,
 BatchNorm ``scale``/``bias`` with ``mean``/``var`` buffers) except conv
 kernels, which are OIHW. Image activations flow as NCHW tensors, in
 ``channels_last`` memory when the model is fed NHWC images; dense
-activations are ``(..., features)``.
+activations are ``(..., features)``. ``module.training`` (``model.train()``
+/ ``model.eval()``) plays the JAX ``train=`` flag.
 
 Under a bf16 compute dtype the layers reproduce the JAX package's rounding
-points: a dense contraction casts both operands to bf16 and accumulates in
-f32; ``ConvBN`` folds BN into the kernel in f32, casts it to bf16, rounds
-the conv output to bf16, then adds the f32 bias, applies the relu and stores
-bf16 (``bayestpu/nn/fused.py:274-278,326-343,465-474``).
+points. A dense contraction casts both operands to bf16 and accumulates in
+f32. At inference ``ConvBN`` folds BN into the kernel in f32, casts it to
+bf16, rounds the conv output to bf16, then adds the f32 bias, applies the
+relu and stores bf16 (``bayestpu/nn/fused.py:274-278,326-343,465-474``). In
+training it convolves the bf16 casts of x and the unfolded kernel, upcasts
+the output to f32 and applies BN with batch statistics, so activations stay
+f32 between layers (``layers.py:238-246``, ``fused.py:223-241``).
 """
 
 from __future__ import annotations
@@ -74,11 +78,21 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Flax ``nn.BatchNorm`` with ``use_running_average=True``."""
+    """Flax ``nn.BatchNorm`` over dim 1 (channels of NCHW, features of
+    (B, F)): running averages in eval mode, batch statistics in train mode.
 
-    def __init__(self, features: int, epsilon: float = 1e-5):
+    Train mode follows flax 0.12's ``_compute_stats``: f32 statistics over
+    every other dim, the fast biased variance ``E[x²] − E[x]²`` clamped at
+    0, and the running update ``m·running + (1−m)·batch`` under no_grad.
+    ``momentum`` is Flax's (0.99 by default; ``ConvBN`` passes 0.9), which
+    is 1 − ``nn.BatchNorm2d``'s, and the running variance is the biased one.
+    """
+
+    def __init__(self, features: int, epsilon: float = 1e-5,
+                 momentum: float = 0.99):
         super().__init__()
         self.epsilon = epsilon
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -97,9 +111,21 @@ class BatchNorm(nn.Module):
         return inv, self.bias - self.mean * inv
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        if self.training:
+            x = x.float()
+            axes = [d for d in range(x.dim()) if d != 1]
+            mean = x.mean(axes)
+            var = torch.clamp_min((x * x).mean(axes) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
         # flax's order of operations: (x - mean) * (rsqrt(var+eps)*scale) + b
-        mul = torch.rsqrt(self.var + self.epsilon) * self.scale
-        return (x - self.mean) * mul + self.bias
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
 
 
 class _Conv(nn.Module):
@@ -135,28 +161,38 @@ def _torch_padding(padding, kernel_size: Sequence[int],
 
 
 class ConvBN(nn.Module):
-    """Conv + BatchNorm folded at inference (no conv bias), with the
-    activation owned by the layer: kernel * inv in f32, cast to the compute
-    dtype, conv, output rounded to the compute dtype, + f32 shift, relu,
-    store in the compute dtype (bf16 residency) or f32."""
+    """Conv + BatchNorm (no conv bias), with the activation owned by the
+    layer.
+
+    Eval: BN folded: kernel * inv in f32, cast to the compute dtype, conv,
+    output rounded to the compute dtype, + f32 shift, relu, store in the
+    compute dtype (bf16 residency) or f32. Train: conv of the compute-dtype
+    casts of x and the kernel, output upcast to f32, BN with batch
+    statistics (momentum 0.9, ``layers.py:209``), relu; f32 out."""
 
     def __init__(self, in_ch: int, features: int,
                  kernel_size: Sequence[int] = (3, 3),
                  strides: Sequence[int] = (1, 1), padding="SAME",
-                 dtype: torch.dtype = torch.float32, epsilon: float = 1e-5):
+                 dtype: torch.dtype = torch.float32, epsilon: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
         self.dtype = dtype
         self.strides = tuple(strides)
         self.padding = _torch_padding(padding, kernel_size, strides)
         self.conv = _Conv(in_ch, features, kernel_size)
-        self.bn = BatchNorm(features, epsilon)
+        self.bn = BatchNorm(features, epsilon, momentum)
+
+    def _conv(self, x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x.to(self.dtype), kernel.to(self.dtype),
+                        stride=self.strides, padding=self.padding).float()
 
     def forward(self, x: torch.Tensor, act: str | None = None
                 ) -> torch.Tensor:
+        if self.training:
+            y = self.bn(self._conv(x, self.conv.kernel))
+            return torch.relu(y) if act == "relu" else y
         inv, shift = self.bn.fold()
-        kernel = (self.conv.kernel * inv[:, None, None, None]).to(self.dtype)
-        y = F.conv2d(x.to(self.dtype), kernel, stride=self.strides,
-                     padding=self.padding).float()
+        y = self._conv(x, self.conv.kernel * inv[:, None, None, None])
         y = y + shift[:, None, None]
         if act == "relu":
             y = torch.relu(y)

@@ -10,6 +10,12 @@ the classifier):
   exit cascades run once; only the stochastic heads see S, each in one
   multi-sample kernel launch; logits (S, E, B, C).
 
+A model is built in eval mode, as the JAX model's ``train=False`` default.
+In train mode (``model.train()``, the JAX ``train=True``) seeds are
+(n_sites, 2): BatchNorm uses batch statistics and updates its running
+averages, activations stay f32 between layers, and every stochastic head
+goes through the trainable ``dropout_matmul``.
+
 Parameter names follow the Flax tree (``block0.convbn0.conv.kernel`` ≙
 ``params/block0/convbn0/conv/kernel``), so ``interop.from_flax`` loads JAX
 variables by name.
@@ -106,7 +112,7 @@ class _VGGExitHead(nn.Module):
 
 
 class VGG(nn.Module):
-    """Multi-exit Bayesian VGG over a block config (inference).
+    """Multi-exit Bayesian VGG over a block config.
 
     The JAX model's masked-conv sites (``dropout="block"``), hidden-layer
     sites (``head_sites``) and quantization are not ported yet and raise.
@@ -168,6 +174,7 @@ class VGG(nn.Module):
         for head in heads:
             head.site = self.num_sites if head.stochastic else None
             self.num_sites += head.stochastic
+        self.eval()
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Flax's initializers, drawn in module order from ``generator``."""
@@ -182,11 +189,13 @@ class VGG(nn.Module):
                 else seeds[..., head.site, :].contiguous())
 
     def forward(self, x: torch.Tensor, seeds: torch.Tensor) -> ExitOutputs:
-        if seeds.dim() not in (2, 3) or seeds.shape[-2:] != (self.num_sites,
-                                                            2):
-            raise ValueError(f"seeds must be (n_sites, 2) or (S, n_sites, 2) "
-                             f"with n_sites={self.num_sites}; got "
-                             f"{tuple(seeds.shape)}")
+        dims = (2,) if self.training else (2, 3)
+        if seeds.dim() not in dims or seeds.shape[-2:] != (self.num_sites,
+                                                           2):
+            want = ("(n_sites, 2) in train mode" if self.training
+                    else "(n_sites, 2) or (S, n_sites, 2)")
+            raise ValueError(f"seeds must be {want} with n_sites="
+                             f"{self.num_sites}; got {tuple(seeds.shape)}")
         sample_shape = tuple(seeds.shape[:-2])
         exits, feats = [], []
 

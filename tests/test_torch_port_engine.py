@@ -304,7 +304,8 @@ def test_engine_guards(engine):
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, bayestpu_torch, bayestpu_torch.engine.engine, "
-            "bayestpu_torch.nn.zoo, bayestpu_torch.kernels._build\n"
+            "bayestpu_torch.nn.zoo, bayestpu_torch.kernels._build, "
+            "bayestpu_torch.train.loop, bayestpu_torch.data.datasets\n"
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "
             "'bayestpu') or m.startswith(('jax.', 'flax.', 'optax.', "
             "'bayestpu.'))]\n"

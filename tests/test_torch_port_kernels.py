@@ -183,8 +183,11 @@ def test_cpu_calls_launch_nothing():
     x, w = _inputs(8, 8, 8)
     tmm.dropout_matmul_samples(torch.from_numpy(x), torch.from_numpy(w),
                                torch.from_numpy(_seeds(2)), 0.5)
+    tmm.dropout_apply(torch.from_numpy(x), torch.from_numpy(_seeds(1)[0]),
+                      0.5)
     assert tmm.launch_counts == {"dropout_matmul": 0,
-                                 "dropout_matmul_samples": 0}
+                                 "dropout_matmul_samples": 0,
+                                 "dropout_apply": 0}
 
 
 # ---------------------------------------------------------------- guards
