@@ -1,32 +1,47 @@
 // Fused MC-dropout matmul kernels for Hopper (sm_90a), plain C interface.
 //
-// Replaces three Pallas TPU kernels of bayestpu/kernels/masked_matmul.py:
-//   dropout_matmul_kernel          <- _dropout_matmul_kernel (:113-132),
-//                                     called by dropout_matmul (:211-249)
-//   dropout_matmul_samples_kernel  <- _dropout_matmul_samples_kernel
-//                                     (:286-311), dropout_matmul_samples
-//   dropout_apply_kernel           <- _dropout_mask_kernel (:135-148),
-//                                     called by _dropout_apply (:151-176)
-//                                     in the backward of dropout_matmul
-// Both compute out[s] = (x * keep_s(row, col) * scale) @ w in f32, where
-// keep_s is the counter hash of prng.cuh on the GLOBAL, unpadded coordinates
-// of x and seeds[s]. Under bf16 the product x * scale is rounded to bf16
-// (scale already rounded to bf16 by the caller), exactly as the JAX kernel
-// computes it, and the dot is accumulated in f32.
+// Replaces five Pallas TPU kernels of bayestpu/kernels/masked_matmul.py:
+//   dropout_matmul_kernel<float|bf16>  <- _dropout_matmul_kernel (:113-132),
+//                                         called by dropout_matmul (:211-249)
+//   dropout_matmul_samples_kernel<float|bf16>
+//                                      <- _dropout_matmul_samples_kernel
+//                                         (:286-311), dropout_matmul_samples
+//   dropout_apply_kernel               <- _dropout_mask_kernel (:135-148),
+//                                         called by _dropout_apply (:151-176)
+//                                         in the backward of dropout_matmul
+//   dropout_matmul_kernel<int8_t>      <- _dropout_matmul_int8_kernel
+//                                         (:444-465), dropout_matmul_int8
+//                                         (:468-516)
+//   dropout_matmul_samples_kernel<int8_t>
+//                                      <- _dropout_matmul_int8_samples_kernel
+//                                         (:519-546),
+//                                         dropout_matmul_int8_samples (:549)
+// The float kernels compute out[s] = (x * keep_s(row, col) * scale) @ w in
+// f32, where keep_s is the counter hash of prng.cuh on the GLOBAL, unpadded
+// coordinates of x and seeds[s]. Under bf16 the product x * scale is
+// rounded to bf16 (scale already rounded to bf16 by the caller), exactly as
+// the JAX kernel computes it, and the dot is accumulated in f32. The int8
+// kernels mask the int8 x with the same bits, accumulate int8 x int8 in
+// int32 (exact in any order) and write f32(acc) * out_scale, where out_scale
+// is the f32 nearest to x_step * w_step / (1 - rate): the only roundings are
+// int32 -> f32 and that one multiply, so they equal the JAX kernels bit for
+// bit.
 //
-// What bounds them on an H100: at the vgg11_me head shape (x 128x512 bf16,
-// w 512x10, S = 10) one samples launch moves about 128 KiB of x, 10 KiB of w
-// and 51 KiB of output and does about 13 MFLOP: well under a microsecond of
-// memory or tensor-core time, so the launch itself and the serial K loop of
+// What bounds them on an H100: at the vgg11_me head shape (x 128x512, w
+// 512x10, S = 10) one samples launch moves about 128 KiB of bf16 x (64 KiB
+// of int8 x), 10 KiB (5 KiB) of w and 51 KiB of output and does about 13
+// M operations: bytes bound, 0.06 us (0.036 us int8) at 3.35 TB/s, against
+// 0.013 us of bf16 tensor-core time (0.007 us at the 1,979 TOP/s int8
+// peak), well under a launch, so the launch itself and the serial K loop of
 // a few blocks set the pace. The design is the simple one, right first:
 // one block per (16-row, 16-col) output tile loops over K in 32-deep tiles;
 // each x tile is staged in shared memory ONCE and masked from there for
-// every sample the block owns (up to 16, one f32 accumulator each in
+// every sample the block owns (up to 16, one accumulator each in
 // registers), so x is read from device memory once for all samples. Ragged
-// M, N and K edges are masked in the kernel, not padded in memory. Both
-// kernels run the same tile routine, so sample s of the samples kernel is
-// bit-identical to the single kernel with seeds[s]. wgmma, TMA and
-// pipelining are later work.
+// M, N and K edges are masked in the kernel, not padded in memory. Every
+// kernel runs the same tile routine, so sample s of a samples kernel is
+// bit-identical to the single kernel with seeds[s]. wgmma (the s8 tensor
+// cores for int8), TMA and pipelining are later work.
 #include <cstddef>
 #include <cstdint>
 
@@ -45,26 +60,61 @@ constexpr int SAMPLES_PER_BLOCK = 16;   // samples kernel: grid.z splits S
 constexpr int APPLY_THREADS = 256;      // dropout_apply: threads per block
 constexpr int APPLY_MAX_BLOCKS = 132 * 16;  // grid-stride beyond this
 
+// What the tile routine needs of an element type: V, the type a staged
+// value and an accumulator have; load; scaled, the masked value before the
+// dot; madd, one multiply-add; and out, the stored f32 result. For the
+// float types `scale` is the dropout scale applied by `scaled`; for int8 it
+// is out_scale, applied once by `out`.
 template <typename T>
 struct Elem;
 
 template <>
 struct Elem<float> {
+  using V = float;
   static __device__ __forceinline__ float load(const float* p) { return *p; }
   // x * scale, rounded once to f32
   static __device__ __forceinline__ float scaled(float v, float s) {
     return __fmul_rn(v, s);
   }
+  static __device__ __forceinline__ float madd(float a, float b, float acc) {
+    return __fmaf_rn(a, b, acc);
+  }
+  static __device__ __forceinline__ float out(float acc, float) { return acc; }
 };
 
 template <>
 struct Elem<__nv_bfloat16> {
+  using V = float;
   static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
     return __bfloat162float(*p);
   }
   // x * scale, rounded to bf16 (the f32 product of two bf16 values is exact)
   static __device__ __forceinline__ float scaled(float v, float s) {
     return __bfloat162float(__float2bfloat16_rn(__fmul_rn(v, s)));
+  }
+  static __device__ __forceinline__ float madd(float a, float b, float acc) {
+    return __fmaf_rn(a, b, acc);
+  }
+  static __device__ __forceinline__ float out(float acc, float) { return acc; }
+};
+
+template <>
+struct Elem<int8_t> {
+  using V = int32_t;
+  static __device__ __forceinline__ int32_t load(const int8_t* p) {
+    return *p;
+  }
+  // the int8 kernels mask without scaling; the scale comes once, in out()
+  static __device__ __forceinline__ int32_t scaled(int32_t v, float) {
+    return v;
+  }
+  static __device__ __forceinline__ int32_t madd(int32_t a, int32_t b,
+                                                 int32_t acc) {
+    return acc + a * b;
+  }
+  // f32(acc), rounded to nearest even, times the f32 out_scale
+  static __device__ __forceinline__ float out(int32_t acc, float s) {
+    return __fmul_rn(__int2float_rn(acc), s);
   }
 };
 
@@ -75,9 +125,10 @@ __device__ __forceinline__ void masked_tile_matmul(
     const T* __restrict__ x, const T* __restrict__ w,
     const int32_t* __restrict__ seeds, float* __restrict__ out, int M, int K,
     int N, int S, uint32_t thresh, float scale) {
-  __shared__ float xs[BM][BK];   // x tile as loaded
-  __shared__ float xm[BM][BK];   // x tile under one sample's mask
-  __shared__ float ws[BK][BN];
+  using V = typename Elem<T>::V;
+  __shared__ V xs[BM][BK];   // x tile as loaded
+  __shared__ V xm[BM][BK];   // x tile under one sample's mask
+  __shared__ V ws[BK][BN];
   __shared__ uint32_t streams[NS];
 
   const int tid = threadIdx.x;
@@ -92,9 +143,9 @@ __device__ __forceinline__ void masked_tile_matmul(
     streams[tid] = bayestpu::seed_stream(seeds[2 * (s0 + tid)],
                                          seeds[2 * (s0 + tid) + 1]);
   }
-  float acc[NS];
+  V acc[NS];
 #pragma unroll
-  for (int s = 0; s < NS; ++s) acc[s] = 0.f;
+  for (int s = 0; s < NS; ++s) acc[s] = V(0);
 
   for (int k0 = 0; k0 < K; k0 += BK) {
     for (int i = tid; i < BM * BK; i += THREADS) {
@@ -102,14 +153,14 @@ __device__ __forceinline__ void masked_tile_matmul(
       const int gr = row0 + r, gc = k0 + c;
       xs[r][c] = (gr < M && gc < K)
                      ? Elem<T>::load(x + static_cast<size_t>(gr) * K + gc)
-                     : 0.f;
+                     : V(0);
     }
     for (int i = tid; i < BK * BN; i += THREADS) {
       const int r = i / BN, c = i % BN;
       const int gr = k0 + r, gc = col0 + c;
       ws[r][c] = (gr < K && gc < N)
                      ? Elem<T>::load(w + static_cast<size_t>(gr) * N + gc)
-                     : 0.f;
+                     : V(0);
     }
     __syncthreads();
 #pragma unroll
@@ -120,12 +171,14 @@ __device__ __forceinline__ void masked_tile_matmul(
           const uint32_t bits = bayestpu::coord_bits(
               static_cast<uint32_t>(row0 + r), static_cast<uint32_t>(k0 + c),
               streams[s]);
-          xm[r][c] = bits < thresh ? Elem<T>::scaled(xs[r][c], scale) : 0.f;
+          xm[r][c] = bits < thresh ? Elem<T>::scaled(xs[r][c], scale) : V(0);
         }
         __syncthreads();
-        float a = acc[s];
+        V a = acc[s];
 #pragma unroll
-        for (int kk = 0; kk < BK; ++kk) a = __fmaf_rn(xm[tr][kk], ws[kk][tc], a);
+        for (int kk = 0; kk < BK; ++kk) {
+          a = Elem<T>::madd(xm[tr][kk], ws[kk][tc], a);
+        }
         acc[s] = a;
         __syncthreads();
       }
@@ -136,7 +189,10 @@ __device__ __forceinline__ void masked_tile_matmul(
   if (r < M && c < N) {
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
-      if (s < ns) out[(static_cast<size_t>(s0 + s) * M + r) * N + c] = acc[s];
+      if (s < ns) {
+        out[(static_cast<size_t>(s0 + s) * M + r) * N + c] =
+            Elem<T>::out(acc[s], scale);
+      }
     }
   }
 }
@@ -256,5 +312,33 @@ extern "C" int bt_dropout_apply(const void* x, const void* seeds, void* out,
     dropout_apply_kernel<float><<<grid, APPLY_THREADS, 0, st>>>(
         static_cast<const float*>(x), sd, o, M, K, thresh, scale);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bt_dropout_matmul_int8(const void* x, const void* w,
+                                      const void* seeds, void* out, int M,
+                                      int K, int N, uint32_t thresh,
+                                      float out_scale, void* stream) {
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, 1);
+  dropout_matmul_kernel<int8_t>
+      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
+          static_cast<const int32_t*>(seeds), static_cast<float*>(out), M, K,
+          N, thresh, out_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bt_dropout_matmul_int8_samples(const void* x, const void* w,
+                                              const void* seeds, void* out,
+                                              int M, int K, int N, int S,
+                                              uint32_t thresh,
+                                              float out_scale, void* stream) {
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN,
+                  (S + SAMPLES_PER_BLOCK - 1) / SAMPLES_PER_BLOCK);
+  dropout_matmul_samples_kernel<int8_t>
+      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
+          static_cast<const int32_t*>(seeds), static_cast<float*>(out), M, K,
+          N, S, thresh, out_scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,8 +4,9 @@ Counterpart of ``bayestpu/engine/engine.py``. The engine owns the model on
 one device, which is ``"cuda"`` unless the caller asks for the CPU; it
 raises when asked for a card that is not there, and never falls back.
 Inputs are NHWC images (numpy or torch); seeds are integers from which
-``core.rng.sample_seeds`` derives every MC mask. OOD noise, ``autotune``,
-``compile`` and sample-axis sharding come with later slices.
+``core.rng.sample_seeds`` derives every MC mask. ``evaluate`` can add the
+OOD check (aPE on gaussian noise images). ``autotune``, ``compile``,
+``evaluate_repeated`` and sample-axis sharding come with later slices.
 """
 
 from __future__ import annotations
@@ -20,7 +21,12 @@ from bayestpu_torch.engine import sampler
 from bayestpu_torch.engine.sampler import Predictive
 from bayestpu_torch.interop.from_flax import load_flax_variables
 from bayestpu_torch.metrics.ece import eval_metrics
-from bayestpu_torch.metrics.entropy import mean_predictive_entropy
+from bayestpu_torch.metrics.entropy import (mean_predictive_entropy,
+                                            random_noise_data,
+                                            random_noise_like)
+
+# the seed of the OOD noise generator (the JAX engine's jax.random.key(99))
+NOISE_SEED = 99
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -103,14 +109,34 @@ class BayesEngine:
             return sampler.mc_moments(self.model, x, seeds)
         return sampler.predictive(self.model, x, seeds, SamplingMode.SPATIAL)
 
+    def _noise_for(self, x: torch.Tensor, dataset: str | None
+                   ) -> torch.Tensor:
+        """OOD probe inputs of x's shape: with ``dataset``, the reference's
+        fixed per-dataset stats; without, x's own mean and std."""
+        gen = torch.Generator().manual_seed(NOISE_SEED)
+        if dataset is not None:
+            return random_noise_data(gen, dataset, tuple(x.shape)).to(
+                self.device)
+        noise = random_noise_like(gen, tuple(x.shape)).to(self.device)
+        return x.mean() + x.std(correction=0) * noise
+
     @torch.inference_mode()
     def evaluate(self, x: Any, y: Any, seed: int = 0,
-                 num_samples: int | None = None) -> dict[str, float]:
+                 num_samples: int | None = None, ood_check: bool = False,
+                 dataset: str | None = None) -> dict[str, float]:
         """acc / NLL / MSE / ECE / aPE of the final exit's MC predictive,
-        fetched from the device in one transfer."""
+        fetched from the device in one transfer. ``ood_check`` adds
+        ``aPE_ood``, the aPE on gaussian noise images of x's shape drawn
+        with the same seed's masks (``engine.py:221-260``); ``dataset``
+        names the benchmark whose fixed noise stats to use."""
+        x = self._input(x)
         probs = self.predict(x, seed, num_samples).probs[-1]
         labels = torch.as_tensor(y, dtype=torch.int64, device=self.device)
         mets = eval_metrics(probs, labels)
         mets["aPE"] = mean_predictive_entropy(probs)
+        if ood_check:
+            noise = self._noise_for(x, dataset)
+            mets["aPE_ood"] = mean_predictive_entropy(
+                self.predict(noise, seed, num_samples).probs[-1])
         values = torch.stack([v.float() for v in mets.values()]).tolist()
         return dict(zip(mets, values))

@@ -38,6 +38,11 @@ _SIGNATURES: dict[str, dict[str, list]] = {
                                       _F, _I, _P],
         # x, seeds, out, M, K, thresh, scale, is_bf16, stream
         "bt_dropout_apply": [_P, _P, _P, _I, _I, _U32, _F, _I, _P],
+        # x_q, w_q, seeds, out, M, K, N, thresh, out_scale, stream
+        "bt_dropout_matmul_int8": [_P, _P, _P, _P, _I, _I, _I, _U32, _F, _P],
+        # x_q, w_q, seeds, out, M, K, N, S, thresh, out_scale, stream
+        "bt_dropout_matmul_int8_samples": [_P, _P, _P, _P, _I, _I, _I, _I,
+                                           _U32, _F, _P],
     },
 }
 

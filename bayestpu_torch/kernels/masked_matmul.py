@@ -3,8 +3,9 @@ wrappers of the CUDA kernels in ``bayestpu_torch/csrc/masked_matmul.cu``.
 
 Counterpart of ``bayestpu/kernels/masked_matmul.py``: ``dropout_matmul``
 (trainable, with the backward that regenerates the mask through
-``dropout_apply``), ``dropout_matmul_samples`` and
-``dropout_matmul_inference``. The mask of element ``(r, c)`` of x is a pure
+``dropout_apply``), ``dropout_matmul_samples``, ``dropout_matmul_inference``
+and their int8 twins ``dropout_matmul_int8``, ``dropout_matmul_int8_samples``
+and ``dropout_matmul_int8_inference`` (``:430-637``). The mask of element ``(r, c)`` of x is a pure
 counter hash of ``(seeds, r, c)`` — the global, unpadded coordinates — so
 every kernel, tiling and sample mapping reproduces it bit for bit, and so
 does the JAX package: an element is kept iff
@@ -18,7 +19,11 @@ scale ``1/(1-rate)`` is first rounded to x's dtype (bf16: 1.3359375 for rate
 with w is accumulated in f32. ``dropout_apply`` (the backward's mask) casts
 x to f32 first and multiplies by the f32 scale (1.3333334 at rate 0.25)
 whatever x's dtype, as ``_dropout_mask_kernel`` does; the two scales differ
-under bf16 in the JAX package too.
+under bf16 in the JAX package too. The int8 functions mask the int8 x
+with the same bits, accumulate int8 × int8 exactly in int32 and return
+``f32(acc) * out_scale``, ``out_scale`` being the f32 nearest to the Python
+double ``x_step * w_step / (1 - rate)``, as JAX's weak-typed constant: they
+equal the JAX kernels bit for bit.
 
 Dispatch is by the tensors' device: CPU tensors take the plain version, CUDA
 tensors launch the kernel (or raise), and any other device raises. There is
@@ -29,7 +34,10 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
+
+from bayestpu_torch.core.quant import int_mm
 
 _M32 = 0xFFFFFFFF
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -37,7 +45,9 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # Launches of each CUDA kernel since the last reset; CPU calls do not count.
 launch_counts: dict[str, int] = {"dropout_matmul": 0,
                                  "dropout_matmul_samples": 0,
-                                 "dropout_apply": 0}
+                                 "dropout_apply": 0,
+                                 "dropout_matmul_int8": 0,
+                                 "dropout_matmul_int8_samples": 0}
 
 
 def reset_launch_counts() -> None:
@@ -232,22 +242,27 @@ def _call(name: str, device: torch.device, tensors: dict, args: list
 
 
 def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
-            seeds: torch.Tensor, rate: float) -> torch.Tensor:
-    """Launch one of the matmul kernels on PyTorch's current stream.
-    ``seeds`` is (S, 2); the single-sample kernel is called with S == 1."""
+            seeds: torch.Tensor, args: list) -> torch.Tensor:
+    """Launch one of the matmul kernels on PyTorch's current stream with
+    the trailing C arguments ``args``. ``seeds`` is (S, 2); a single-sample
+    kernel is called with S == 1 and returns (M, N), a samples kernel
+    (S, M, N)."""
     m, k = x.shape
     n = w.shape[1]
     s = seeds.shape[0]
-    single = name == "dropout_matmul"
+    single = not name.endswith("_samples")
     out = torch.empty((m, n) if single else (s, m, n), dtype=torch.float32,
                       device=x.device)
     if out.numel() == 0:
         return out
     _call(name, x.device, {"x": x, "w": w, "seeds": seeds, "out": out},
-          [m, k, n] + ([] if single else [s])
-          + [keep_threshold(rate), scale_of(rate, x.dtype),
-             int(x.dtype == torch.bfloat16)])
+          [m, k, n] + ([] if single else [s]) + args)
     return out
+
+
+def _float_args(x: torch.Tensor, rate: float) -> list:
+    return [keep_threshold(rate), scale_of(rate, x.dtype),
+            int(x.dtype == torch.bfloat16)]
 
 
 def dropout_apply(x: torch.Tensor, seeds: torch.Tensor,
@@ -287,7 +302,8 @@ class DropoutMatmul(torch.autograd.Function):
         ctx.rate = rate
         if x.device.type == "cpu" or rate == 0.0:
             return dropout_matmul_plain(x, w, seeds, rate)
-        return _launch("dropout_matmul", x, w, seeds.reshape(1, 2), rate)
+        return _launch("dropout_matmul", x, w, seeds.reshape(1, 2),
+                       _float_args(x, rate))
 
     @staticmethod
     def backward(ctx, g):
@@ -333,7 +349,8 @@ def dropout_matmul_samples(x: torch.Tensor, w: torch.Tensor,
     _check(x, w, seeds, 2, rate)
     if x.device.type == "cpu" or rate == 0.0:
         return dropout_matmul_samples_plain(x, w, seeds, rate)
-    return _launch("dropout_matmul_samples", x, w, seeds, rate)
+    return _launch("dropout_matmul_samples", x, w, seeds,
+                   _float_args(x, rate))
 
 
 def dropout_matmul_inference(x: torch.Tensor, w: torch.Tensor,
@@ -346,3 +363,98 @@ def dropout_matmul_inference(x: torch.Tensor, w: torch.Tensor,
     if seeds.dim() == 1:
         return dropout_matmul(x, w, seeds, rate)
     return dropout_matmul_samples(x, w, seeds, rate)
+
+
+# ------------------------------------------------------------ int8 heads
+
+
+def int8_out_scale(x_step: float, w_step: float, rate: float) -> float:
+    """``x_step * w_step / (1 - rate)`` in Python double, rounded to the
+    nearest f32: the constant the JAX int8 kernels multiply by
+    (``masked_matmul.py:490,567``)."""
+    return float(np.float32(float(x_step) * float(w_step) / (1.0 - rate)))
+
+
+def dropout_matmul_int8_plain(x_q: torch.Tensor, w_q: torch.Tensor,
+                              seeds: torch.Tensor, rate: float,
+                              x_step: float, w_step: float) -> torch.Tensor:
+    """``f32(dropout(x_q) @ w_q) * out_scale`` in plain PyTorch on any
+    device: the mask of ``keep_mask`` zeroes int8 elements (no scaling
+    there), ``int_mm`` sums exactly in int32. Rate 0 applies no mask, as the
+    JAX kernel skips masking then (``:454``)."""
+    xm = x_q
+    if rate > 0.0:
+        keep = keep_mask(seeds, x_q.shape[0], x_q.shape[1], rate)
+        xm = torch.where(keep, x_q, torch.zeros((), dtype=torch.int8,
+                                                device=x_q.device))
+    return int_mm(xm, w_q).float() * int8_out_scale(x_step, w_step, rate)
+
+
+def dropout_matmul_int8_samples_plain(x_q: torch.Tensor, w_q: torch.Tensor,
+                                      seeds: torch.Tensor, rate: float,
+                                      x_step: float, w_step: float
+                                      ) -> torch.Tensor:
+    """All S int8 samples in plain PyTorch: (S, M, N) f32, sample s equal to
+    ``dropout_matmul_int8_plain(x_q, w_q, seeds[s], ...)`` bit for bit."""
+    return torch.stack([dropout_matmul_int8_plain(x_q, w_q, seeds[s], rate,
+                                                  x_step, w_step)
+                        for s in range(seeds.shape[0])])
+
+
+def _check_int8(x_q: torch.Tensor, w_q: torch.Tensor, seeds: torch.Tensor,
+                seeds_ndim: int, rate: float) -> None:
+    if x_q.dim() != 2 or w_q.dim() != 2 or x_q.shape[1] != w_q.shape[0]:
+        raise ValueError(f"need x_q (M, K) and w_q (K, N); got "
+                         f"{tuple(x_q.shape)} and {tuple(w_q.shape)}")
+    if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise TypeError(f"x_q and w_q must both be int8; got {x_q.dtype} and "
+                        f"{w_q.dtype}")
+    if w_q.device != x_q.device:
+        raise ValueError(f"x_q and w_q must be on one device; got "
+                         f"{x_q.device} and {w_q.device}")
+    _check_rate_seeds(x_q, seeds, seeds_ndim, rate)
+
+
+def dropout_matmul_int8(x_q: torch.Tensor, w_q: torch.Tensor,
+                        seeds: torch.Tensor, rate: float, x_step: float,
+                        w_step: float) -> torch.Tensor:
+    """``dequant(dropout(x_q) @ w_q)`` in int8: x_q (M, K) and w_q (K, N)
+    int8 (``core.quant.quantize_int8``), seeds (2,) int32 on their device.
+    Returns (M, N) f32 rescaled by ``x_step·w_step/(1-rate)``, with the
+    float kernels' mask. Inference only, as in the JAX package."""
+    _check_int8(x_q, w_q, seeds, 1, rate)
+    if x_q.device.type == "cpu" or rate == 0.0:
+        return dropout_matmul_int8_plain(x_q, w_q, seeds, rate, x_step,
+                                         w_step)
+    return _launch("dropout_matmul_int8", x_q, w_q, seeds.reshape(1, 2),
+                   [keep_threshold(rate),
+                    int8_out_scale(x_step, w_step, rate)])
+
+
+def dropout_matmul_int8_samples(x_q: torch.Tensor, w_q: torch.Tensor,
+                                seeds: torch.Tensor, rate: float,
+                                x_step: float, w_step: float
+                                ) -> torch.Tensor:
+    """All-samples int8 head: seeds (S, 2) int32; (S, M, N) f32 with sample
+    s bit-identical to ``dropout_matmul_int8(x_q, w_q, seeds[s], ...)``; the
+    kernel stages each int8 x tile once for all samples of a block."""
+    _check_int8(x_q, w_q, seeds, 2, rate)
+    if x_q.device.type == "cpu" or rate == 0.0:
+        return dropout_matmul_int8_samples_plain(x_q, w_q, seeds, rate,
+                                                 x_step, w_step)
+    return _launch("dropout_matmul_int8_samples", x_q, w_q, seeds,
+                   [keep_threshold(rate),
+                    int8_out_scale(x_step, w_step, rate)])
+
+
+def dropout_matmul_int8_inference(x_q: torch.Tensor, w_q: torch.Tensor,
+                                  seeds: torch.Tensor, rate: float,
+                                  x_step: float, w_step: float
+                                  ) -> torch.Tensor:
+    """Inference entry of the int8 heads: seeds (2,) → one sample (M, N);
+    seeds (S, 2) → every sample in one launch, (S, M, N), what the JAX
+    package's vmap rule does."""
+    if seeds.dim() == 1:
+        return dropout_matmul_int8(x_q, w_q, seeds, rate, x_step, w_step)
+    return dropout_matmul_int8_samples(x_q, w_q, seeds, rate, x_step,
+                                       w_step)

@@ -16,6 +16,14 @@ In train mode (``model.train()``, the JAX ``train=True``) seeds are
 averages, activations stay f32 between layers, and every stochastic head
 goes through the trainable ``dropout_matmul``.
 
+With ``quant`` (a ``QuantConfig``) the model is the JAX package's quantized
+VGG (``vgg.py:69-292``): QAT in train mode and the fake-quant model in eval
+mode, or with ``quant.int8_infer`` the int8 model, whose activations stay
+int8 on the ap_fixed grid from block to block (each block's last conv
+defers the cast past its max pool, then the block re-quantizes), whose exit
+heads dequantize before their average pool, and whose five MC heads run
+the int8 dropout-matmul kernels. ``QuantConfig`` adds no parameters.
+
 Parameter names follow the Flax tree (``block0.convbn0.conv.kernel`` ≙
 ``params/block0/convbn0/conv/kernel``), so ``interop.from_flax`` loads JAX
 variables by name.
@@ -30,6 +38,7 @@ import torch
 from torch import nn
 
 from bayestpu_torch.core.config import BayesConfig, DropoutKind, QuantConfig
+from bayestpu_torch.core.quant import dequantize_int8, quantize_int8
 from bayestpu_torch.nn.fused import BayesDense
 from bayestpu_torch.nn.layers import (BatchNorm, ConvBN, Dense, QuantAct,
                                       _Conv, avg_pool, max_pool)
@@ -64,20 +73,32 @@ def _flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class _VGGBlock(nn.Module):
-    """ConvBN+relu per channel width, then a 2×2 max pool."""
+    """ConvBN+relu(+QuantAct) per channel width, then a 2×2 max pool; the
+    int8 model re-quantizes after the pool. ``quant_input`` is False on
+    block 0, whose first conv takes the raw image."""
 
     def __init__(self, in_ch: int, channels: Sequence[int],
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, quant: QuantConfig | None = None,
+                 quant_input: bool = True):
         super().__init__()
+        self.quant = quant
         for i, ch in enumerate(channels):
-            self.add_module(f"convbn{i}", ConvBN(in_ch, ch, (3, 3),
-                                                 dtype=dtype))
+            self.add_module(f"convbn{i}", ConvBN(
+                in_ch, ch, (3, 3), dtype=dtype, quant=quant,
+                quant_input=quant_input if i == 0 else True))
             in_ch = ch
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for conv in self.children():
-            x = conv(x, act="relu")
-        return max_pool(x, 2, 2)
+        convs = list(self.children())
+        for i, conv in enumerate(convs):
+            x = conv(x, act="relu", act_quant=True,
+                     defer_int8=i == len(convs) - 1)
+        x = max_pool(x, 2, 2)
+        q = self.quant
+        if (not self.training and q is not None and q.int8_infer
+                and x.dtype != torch.int8):
+            x = quantize_int8(x, q)[0]    # exact: pooled grid values
+        return x
 
 
 class _VGGExitHead(nn.Module):
@@ -86,25 +107,29 @@ class _VGGExitHead(nn.Module):
 
     def __init__(self, in_ch: int, spatial: int, channels: Sequence[int],
                  num_classes: int, bayes: BayesConfig, dtype: torch.dtype,
-                 fused: bool):
+                 fused: bool, quant: QuantConfig | None = None):
         super().__init__()
+        self.quant = quant
         for i, ch in enumerate(channels):
             self.add_module(f"convbn{i + 1}", ConvBN(
                 in_ch, ch, (3, 3), (2, 2), padding=((1, 1), (1, 1)),
-                dtype=dtype))
+                dtype=dtype, quant=quant))
             in_ch, spatial = ch, (spatial + 1) // 2
         self.pool = spatial > 1
         if self.pool:
             spatial //= 2
         self.linear = BayesDense(in_ch * spatial * spatial, num_classes,
-                                 bayes=bayes, fused=fused, dtype=dtype)
+                                 bayes=bayes, fused=fused, quant=quant,
+                                 dtype=dtype)
 
     def forward(self, x: torch.Tensor, seeds: torch.Tensor | None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         y = torch.relu(x)
         for name, conv in self.named_children():
             if name != "linear":
-                y = conv(y, act="relu")
+                y = conv(y, act="relu", act_quant=True)
+        if y.dtype == torch.int8:
+            y = dequantize_int8(y, self.quant)   # avg_pool leaves the grid
         if self.pool:
             y = avg_pool(y, 2)
         feat = _flatten_nhwc(y)
@@ -115,7 +140,8 @@ class VGG(nn.Module):
     """Multi-exit Bayesian VGG over a block config.
 
     The JAX model's masked-conv sites (``dropout="block"``), hidden-layer
-    sites (``head_sites``) and quantization are not ported yet and raise.
+    sites (``head_sites``) and per-layer ``quant_overrides`` are not ported
+    yet and raise.
     ``input_shape`` (H, W, C) fixes the dense widths, which Flax infers from
     the first input.
     """
@@ -126,16 +152,19 @@ class VGG(nn.Module):
                  dropout: str | None = None, head_dims: Sequence[int] = (),
                  head_sites: bool = False, quant: QuantConfig | None = None,
                  dtype: torch.dtype = torch.float32, fused: bool = False,
-                 input_shape: tuple[int, int, int] = (32, 32, 3)):
+                 input_shape: tuple[int, int, int] = (32, 32, 3),
+                 quant_overrides: dict | None = None):
         super().__init__()
         if dropout is not None or head_sites:
             raise NotImplementedError(
                 "masked-conv and hidden-layer Bayesian sites are not ported "
                 "yet: ROADMAP Queue 1 item 11")
-        if quant is not None:
+        if quant_overrides:
             raise NotImplementedError(
-                "quantized VGG is not ported yet: ROADMAP Queue 1 item 8")
+                "per-layer quant_overrides (and mixed_head) are not ported "
+                "yet: ROADMAP Queue 1 item 8")
         self.bayes = bayes
+        self.quant = quant
         self.input_shape = tuple(input_shape)
         head_bayes = bayes if dropout_exit else dataclasses.replace(
             bayes, kind=DropoutKind.NONE)
@@ -144,7 +173,8 @@ class VGG(nn.Module):
         heads: list[BayesDense] = []
         self._exits: list[tuple[str, str | None]] = []  # (block, exit head)
         for i, chans in enumerate(blocks):
-            self.add_module(f"block{i}", _VGGBlock(c, chans, dtype))
+            self.add_module(f"block{i}", _VGGBlock(c, chans, dtype, quant,
+                                                   quant_input=i != 0))
             c, h = chans[-1], h // 2
             exit_name = None
             if n_exits > 1 and i < len(blocks) - 1:
@@ -154,20 +184,21 @@ class VGG(nn.Module):
                     chain.append(min(w, 512))
                 exit_name = f"exit{i + 1}"
                 head = _VGGExitHead(c, h, chain, num_classes, head_bayes,
-                                    dtype, fused)
+                                    dtype, fused, quant)
                 self.add_module(exit_name, head)
                 heads.append(head.linear)
             self._exits.append((f"block{i}", exit_name))
         width = c * h * h
         self.n_fc = len(head_dims)
         for j, d in enumerate(head_dims):
-            self.add_module(f"fc_{j}", Dense(width, d, dtype=dtype))
+            self.add_module(f"fc_{j}", Dense(width, d, quant=quant,
+                                             dtype=dtype))
             if j == 0:
                 self.add_module(f"fc_bn_{j}", BatchNorm(d))
-            self.add_module(f"fc_relu_{j}", QuantAct())
+            self.add_module(f"fc_relu_{j}", QuantAct(quant))
             width = d
         self.classifier = BayesDense(width, num_classes, bayes=head_bayes,
-                                     fused=fused, dtype=dtype)
+                                     fused=fused, quant=quant, dtype=dtype)
         heads.append(self.classifier)
         # MC site index of every head in JAX call order (None: deterministic)
         self.num_sites = 0
@@ -212,7 +243,9 @@ class VGG(nn.Module):
                 exits.append(head_out(logit))
                 feats.append(feat)
         out = _flatten_nhwc(out)
-        feats.append(out)
+        # the metrics take f32 features; fc_0 keeps the int8 view
+        feats.append(dequantize_int8(out, self.quant)
+                     if out.dtype == torch.int8 else out)
         for j in range(self.n_fc):
             out = getattr(self, f"fc_{j}")(out)
             if j == 0:
@@ -223,12 +256,23 @@ class VGG(nn.Module):
         return stack_exits(exits, feats)
 
 
+def _mixed_head(kw: dict) -> None:
+    """``mixed_head`` of the JAX ``build_vgg*`` functions (a 2×-bits fc_0
+    bias and relu, ``vgg.py:295-310``) rides on ``quant_overrides``, which
+    are not ported yet."""
+    if kw.pop("mixed_head", False):
+        raise NotImplementedError(
+            "mixed_head (per-layer quant_overrides) is not ported yet: "
+            "ROADMAP Queue 1 item 8")
+
+
 @register_model("vgg11")
 def build_vgg11(**kw) -> VGG:
     kw.setdefault("cfg_name", "vgg11")
     kw.setdefault("num_classes", 10)
     kw.setdefault("head_dims", (512, 512))
     kw.setdefault("dropout_exit", True)
+    _mixed_head(kw)
     return VGG(**kw)
 
 
@@ -239,4 +283,5 @@ def build_vgg11_me(**kw) -> VGG:
     kw.setdefault("head_dims", (512, 512))
     kw.setdefault("n_exits", 5)
     kw.setdefault("dropout_exit", True)
+    _mixed_head(kw)
     return VGG(**kw)

@@ -185,9 +185,16 @@ def test_cpu_calls_launch_nothing():
                                torch.from_numpy(_seeds(2)), 0.5)
     tmm.dropout_apply(torch.from_numpy(x), torch.from_numpy(_seeds(1)[0]),
                       0.5)
+    xq = torch.ones(8, 8, dtype=torch.int8)
+    tmm.dropout_matmul_int8_inference(xq, xq, torch.from_numpy(_seeds(2)),
+                                      0.5, 1.0, 1.0)
+    tmm.dropout_matmul_int8_inference(xq, xq, torch.from_numpy(_seeds(1)[0]),
+                                      0.5, 1.0, 1.0)
     assert tmm.launch_counts == {"dropout_matmul": 0,
                                  "dropout_matmul_samples": 0,
-                                 "dropout_apply": 0}
+                                 "dropout_apply": 0,
+                                 "dropout_matmul_int8": 0,
+                                 "dropout_matmul_int8_samples": 0}
 
 
 # ---------------------------------------------------------------- guards

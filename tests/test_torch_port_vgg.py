@@ -202,8 +202,12 @@ def test_registry_and_unported_branches():
     from bayestpu_torch.core.config import DropoutKind, QuantConfig
     with pytest.raises(NotImplementedError, match="Masksembles"):
         get_model("vgg11_me", bayes=BayesConfig(kind=DropoutKind.MASK))
+    # quantization is ported; its per-layer overrides are not
+    assert get_model("vgg11_me", quant=QuantConfig(),
+                     fused=True).quant == QuantConfig()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("vgg11_me", quant=QuantConfig())
+        get_model("vgg11_me", quant=QuantConfig(), fused=True,
+                  quant_overrides={"fc_0": QuantConfig()})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model("vgg11_me", dropout="block")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
