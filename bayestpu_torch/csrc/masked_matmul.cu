@@ -1,6 +1,6 @@
-// Fused MC-dropout matmul kernels for Hopper (sm_90a), plain C interface.
+// Fused masked-matmul kernels for Hopper (sm_90a), plain C interface.
 //
-// Replaces five Pallas TPU kernels of bayestpu/kernels/masked_matmul.py:
+// Replaces nine Pallas TPU kernels of bayestpu/kernels/masked_matmul.py:
 //   dropout_matmul_kernel<float|bf16>  <- _dropout_matmul_kernel (:113-132),
 //                                         called by dropout_matmul (:211-249)
 //   dropout_matmul_samples_kernel<float|bf16>
@@ -16,34 +16,59 @@
 //                                      <- _dropout_matmul_int8_samples_kernel
 //                                         (:519-546),
 //                                         dropout_matmul_int8_samples (:549)
-// The float kernels compute out[s] = (x * keep_s(row, col) * scale) @ w in
-// f32, where keep_s is the counter hash of prng.cuh on the GLOBAL, unpadded
-// coordinates of x and seeds[s]. Under bf16 the product x * scale is
-// rounded to bf16 (scale already rounded to bf16 by the caller), exactly as
-// the JAX kernel computes it, and the dot is accumulated in f32. The int8
-// kernels mask the int8 x with the same bits, accumulate int8 x int8 in
-// int32 (exact in any order) and write f32(acc) * out_scale, where out_scale
-// is the f32 nearest to x_step * w_step / (1 - rate): the only roundings are
-// int32 -> f32 and that one multiply, so they equal the JAX kernels bit for
-// bit.
+//   bank_matmul_samples_kernel<int8_t, int8_t>
+//                                      <- _bank_matmul_int8_samples_kernel
+//                                         (:640-666),
+//                                         bank_matmul_int8_samples (:669)
+//   bank_matmul_kernel<int8_t, int8_t> <- _bank_matmul_int8_kernel
+//                                         (:763-785), bank_matmul_int8 (:788)
+//   bank_matmul_samples_kernel<float|bf16, float>
+//                                      <- _bank_matmul_samples_kernel
+//                                         (:863-885), bank_matmul_samples
+//                                         (:888)
+//   bank_matmul_kernel<float|bf16, float>
+//                                      <- _bank_matmul_kernel (:843-860),
+//                                         bank_matmul (:976)
+// The MC-dropout float kernels compute out[s] = (x * keep_s(row, col) *
+// scale) @ w in f32, where keep_s is the counter hash of prng.cuh on the
+// GLOBAL, unpadded coordinates of x and seeds[s]. Under bf16 the product x *
+// scale is rounded to bf16 (scale already rounded to bf16 by the caller),
+// exactly as the JAX kernel computes it, and the dot is accumulated in f32.
+// The int8 kernels mask the int8 x with the same bits, accumulate int8 x
+// int8 in int32 (exact in any order) and write f32(acc) * out_scale, where
+// out_scale is the f32 nearest to x_step * w_step / (1 - rate): the only
+// roundings are int32 -> f32 and that one multiply, so they equal the JAX
+// kernels bit for bit. The Masksembles (bank) kernels compute out[s] = (x *
+// bank[idxs[s]]) @ w: the float ones in f32 (a bf16 x widened exactly, w and
+// the bank f32, the bank's value multiplied, not binarized, as the JAX
+// kernel's x_ref * row), the int8 ones with the row binarized as bank > 0.5
+// and out_scale the f32 nearest to x_step * w_step (no dropout rescale).
 //
 // What bounds them on an H100: at the vgg11_me head shape (x 128x512, w
-// 512x10, S = 10) one samples launch moves about 128 KiB of bf16 x (64 KiB
-// of int8 x), 10 KiB (5 KiB) of w and 51 KiB of output and does about 13
-// M operations: bytes bound, 0.06 us (0.036 us int8) at 3.35 TB/s, against
-// 0.013 us of bf16 tensor-core time (0.007 us at the 1,979 TOP/s int8
-// peak), well under a launch, so the launch itself and the serial K loop of
-// a few blocks set the pace. The design is the simple one, right first:
-// one block per (16-row, 16-col) output tile loops over K in 32-deep tiles;
-// each x tile is staged in shared memory ONCE and masked from there for
-// every sample the block owns (up to 16, one accumulator each in
-// registers), so x is read from device memory once for all samples. Ragged
-// M, N and K edges are masked in the kernel, not padded in memory. Every
-// kernel runs the same tile routine, so sample s of a samples kernel is
-// bit-identical to the single kernel with seeds[s]. wgmma (the s8 tensor
-// cores for int8), TMA and pipelining are later work.
+// 512x10, S = 10) one MC samples launch moves about 128 KiB of bf16 x (64
+// KiB of int8 x), 10 KiB (5 KiB) of w and 51 KiB of output and does about
+// 13 M operations: bytes bound, 0.06 us (0.036 us int8) at 3.35 TB/s,
+// against 0.013 us of bf16 tensor-core time (0.007 us at the 1,979 TOP/s
+// int8 peak). The Masksembles head (S = 4, bank 4x512 f32) moves 176 KiB
+// (bf16 x, f32 w, the bank's four rows, f32 output: 0.054 us) and does 5.2
+// M f32 multiply-adds' worth of operations, 0.078 us at the 67 TFLOP/s of
+// f32 outside the tensor cores (its products are f32, which TF32 would
+// round): operations bound; its int8 twin moves 97 KiB (0.030 us) for 0.003
+// us of int8 operations, bytes bound. Every one is well under a launch, so
+// the launch itself and the serial K loop of a few blocks set the pace. The
+// design is the simple one, right first: one block per (16-row, 16-col)
+// output tile loops over K in 32-deep tiles; each x tile is staged in
+// shared memory ONCE and masked from there for every sample the block owns
+// (up to 16, one accumulator each in registers), so x is read from device
+// memory once for all samples. The mask is a policy of the one tile
+// routine: the counter hash, or a bank row staged per k tile in shared
+// memory. Ragged M, N and K edges are masked in the kernel, not padded in
+// memory. Every kernel runs the same tile routine, so sample s of a samples
+// kernel is bit-identical to the single kernel with seeds[s] or idxs[s].
+// wgmma (the s8 tensor cores for int8), TMA and pipelining are later work.
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -118,18 +143,100 @@ struct Elem<int8_t> {
   }
 };
 
-// One (BM x BN) output tile for up to NS samples, samples
-// [blockIdx.z * NS, blockIdx.z * NS + ns).
+// Mask policies of the tile routine. A policy masks one staged x value
+// for one sample: `begin` loads what a block needs once (its samples' seed
+// streams or bank row indices), `stage` what one k tile needs, and `apply`
+// masks. Each keeps its own shared memory (`Smem`). The tile routine and
+// its summation order are the same for every policy.
+
+// MC dropout: the counter hash of prng.cuh on the GLOBAL coordinates of x;
+// keep iff coord_bits(row, col, stream_s) < thresh, the kept value
+// Elem::scaled by the dropout scale (the int8 kernels do not scale).
 template <typename T, int NS>
-__device__ __forceinline__ void masked_tile_matmul(
-    const T* __restrict__ x, const T* __restrict__ w,
-    const int32_t* __restrict__ seeds, float* __restrict__ out, int M, int K,
-    int N, int S, uint32_t thresh, float scale) {
+struct HashMask {
   using V = typename Elem<T>::V;
+  const int32_t* seeds;  // (S, 2)
+  uint32_t thresh;
+  float scale;
+  struct Smem {
+    uint32_t stream[NS];
+  };
+  __device__ __forceinline__ void begin(Smem& sm, int s0, int ns,
+                                        int tid) const {
+    if (tid < ns) {
+      sm.stream[tid] = bayestpu::seed_stream(seeds[2 * (s0 + tid)],
+                                             seeds[2 * (s0 + tid) + 1]);
+    }
+  }
+  __device__ __forceinline__ void stage(Smem&, int, int, int) const {}
+  __device__ __forceinline__ V apply(const Smem& sm, int s, int gr, int gc,
+                                     int, V v) const {
+    const uint32_t bits = bayestpu::coord_bits(
+        static_cast<uint32_t>(gr), static_cast<uint32_t>(gc), sm.stream[s]);
+    return bits < thresh ? Elem<T>::scaled(v, scale) : V(0);
+  }
+};
+
+// Masksembles: sample s multiplies x by row idxs[s] of the f32 bank (n, K).
+// The float kernels multiply by the bank's VALUE (x * row, rounded once to
+// f32; a bf16 x widens exactly first); the int8 kernels binarize the row
+// as bank > 0.5 and keep or zero the int8 x. The wrapper has already taken
+// every index modulo n (floor semantics), so a row read stays in bounds.
+// The rows of a k tile are staged in shared memory once for the block's
+// samples; columns beyond K read as 0.
+template <typename T, int NS>
+struct BankMask {
+  using V = typename Elem<T>::V;
+  const float* bank;     // (n, K) f32
+  const int32_t* idxs;   // (S,) in [0, n); nullptr: every sample is idx0
+  int idx0;
+  int K;
+  struct Smem {
+    int idx[NS];
+    V row[NS][BK];
+  };
+  __device__ __forceinline__ void begin(Smem& sm, int s0, int ns,
+                                        int tid) const {
+    if (tid < ns) sm.idx[tid] = idxs != nullptr ? idxs[s0 + tid] : idx0;
+  }
+  __device__ __forceinline__ void stage(Smem& sm, int k0, int ns,
+                                        int tid) const {
+    for (int i = tid; i < ns * BK; i += THREADS) {
+      const int s = i / BK, c = i % BK, gc = k0 + c;
+      const float b =
+          gc < K ? bank[static_cast<size_t>(sm.idx[s]) * K + gc] : 0.f;
+      if constexpr (std::is_same<V, float>::value) {
+        sm.row[s][c] = b;
+      } else {
+        sm.row[s][c] = b > 0.5f ? V(1) : V(0);
+      }
+    }
+  }
+  __device__ __forceinline__ V apply(const Smem& sm, int s, int, int, int c,
+                                     V v) const {
+    if constexpr (std::is_same<V, float>::value) {
+      return __fmul_rn(v, sm.row[s][c]);
+    } else {
+      return sm.row[s][c] != V(0) ? v : V(0);
+    }
+  }
+};
+
+// One (BM x BN) output tile for up to NS samples, samples
+// [blockIdx.z * NS, blockIdx.z * NS + ns), x of element type TX masked by
+// `mask`, w of type TW (the same staged type V), out f32:
+// Elem<TX>::out(acc, out_scale).
+template <typename TX, typename TW, int NS, typename Mask>
+__device__ __forceinline__ void masked_tile_matmul(
+    const TX* __restrict__ x, const TW* __restrict__ w, const Mask& mask,
+    float* __restrict__ out, int M, int K, int N, int S, float out_scale) {
+  using V = typename Elem<TX>::V;
+  static_assert(std::is_same<V, typename Elem<TW>::V>::value,
+                "x and w must stage as one type");
   __shared__ V xs[BM][BK];   // x tile as loaded
   __shared__ V xm[BM][BK];   // x tile under one sample's mask
   __shared__ V ws[BK][BN];
-  __shared__ uint32_t streams[NS];
+  __shared__ typename Mask::Smem msm;
 
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * BM;
@@ -139,10 +246,8 @@ __device__ __forceinline__ void masked_tile_matmul(
   const int tr = tid / BN;
   const int tc = tid % BN;
 
-  if (tid < ns) {
-    streams[tid] = bayestpu::seed_stream(seeds[2 * (s0 + tid)],
-                                         seeds[2 * (s0 + tid) + 1]);
-  }
+  mask.begin(msm, s0, ns, tid);
+  __syncthreads();
   V acc[NS];
 #pragma unroll
   for (int s = 0; s < NS; ++s) acc[s] = V(0);
@@ -152,32 +257,30 @@ __device__ __forceinline__ void masked_tile_matmul(
       const int r = i / BK, c = i % BK;
       const int gr = row0 + r, gc = k0 + c;
       xs[r][c] = (gr < M && gc < K)
-                     ? Elem<T>::load(x + static_cast<size_t>(gr) * K + gc)
+                     ? Elem<TX>::load(x + static_cast<size_t>(gr) * K + gc)
                      : V(0);
     }
     for (int i = tid; i < BK * BN; i += THREADS) {
       const int r = i / BN, c = i % BN;
       const int gr = k0 + r, gc = col0 + c;
       ws[r][c] = (gr < K && gc < N)
-                     ? Elem<T>::load(w + static_cast<size_t>(gr) * N + gc)
+                     ? Elem<TW>::load(w + static_cast<size_t>(gr) * N + gc)
                      : V(0);
     }
+    mask.stage(msm, k0, ns, tid);
     __syncthreads();
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
       if (s < ns) {  // uniform over the block
         for (int i = tid; i < BM * BK; i += THREADS) {
           const int r = i / BK, c = i % BK;
-          const uint32_t bits = bayestpu::coord_bits(
-              static_cast<uint32_t>(row0 + r), static_cast<uint32_t>(k0 + c),
-              streams[s]);
-          xm[r][c] = bits < thresh ? Elem<T>::scaled(xs[r][c], scale) : V(0);
+          xm[r][c] = mask.apply(msm, s, row0 + r, k0 + c, c, xs[r][c]);
         }
         __syncthreads();
         V a = acc[s];
 #pragma unroll
         for (int kk = 0; kk < BK; ++kk) {
-          a = Elem<T>::madd(xm[tr][kk], ws[kk][tc], a);
+          a = Elem<TX>::madd(xm[tr][kk], ws[kk][tc], a);
         }
         acc[s] = a;
         __syncthreads();
@@ -191,7 +294,7 @@ __device__ __forceinline__ void masked_tile_matmul(
     for (int s = 0; s < NS; ++s) {
       if (s < ns) {
         out[(static_cast<size_t>(s0 + s) * M + r) * N + c] =
-            Elem<T>::out(acc[s], scale);
+            Elem<TX>::out(acc[s], out_scale);
       }
     }
   }
@@ -203,7 +306,8 @@ __global__ void __launch_bounds__(THREADS)
                           const int32_t* __restrict__ seeds,
                           float* __restrict__ out, int M, int K, int N,
                           uint32_t thresh, float scale) {
-  masked_tile_matmul<T, 1>(x, w, seeds, out, M, K, N, 1, thresh, scale);
+  masked_tile_matmul<T, T, 1>(x, w, HashMask<T, 1>{seeds, thresh, scale},
+                              out, M, K, N, 1, scale);
 }
 
 template <typename T>
@@ -213,8 +317,36 @@ __global__ void __launch_bounds__(THREADS)
                                   const int32_t* __restrict__ seeds,
                                   float* __restrict__ out, int M, int K, int N,
                                   int S, uint32_t thresh, float scale) {
-  masked_tile_matmul<T, SAMPLES_PER_BLOCK>(x, w, seeds, out, M, K, N, S,
-                                           thresh, scale);
+  masked_tile_matmul<T, T, SAMPLES_PER_BLOCK>(
+      x, w, HashMask<T, SAMPLES_PER_BLOCK>{seeds, thresh, scale}, out, M, K,
+      N, S, scale);
+}
+
+// Masksembles heads (rows 6-9 of the kernel table). One bank row per
+// sample; sample s of the samples kernel runs the tile routine exactly as
+// the single kernel does at idxs[s], so the two agree bit for bit.
+template <typename TX, typename TW>
+__global__ void __launch_bounds__(THREADS)
+    bank_matmul_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+                       const float* __restrict__ bank,
+                       float* __restrict__ out, int M, int K, int N, int idx,
+                       float out_scale) {
+  masked_tile_matmul<TX, TW, 1>(
+      x, w, BankMask<TX, 1>{bank, nullptr, idx, K}, out, M, K, N, 1,
+      out_scale);
+}
+
+template <typename TX, typename TW>
+__global__ void __launch_bounds__(THREADS)
+    bank_matmul_samples_kernel(const TX* __restrict__ x,
+                               const TW* __restrict__ w,
+                               const float* __restrict__ bank,
+                               const int32_t* __restrict__ idxs,
+                               float* __restrict__ out, int M, int K, int N,
+                               int S, float out_scale) {
+  masked_tile_matmul<TX, TW, SAMPLES_PER_BLOCK>(
+      x, w, BankMask<TX, SAMPLES_PER_BLOCK>{bank, idxs, 0, K}, out, M, K, N,
+      S, out_scale);
 }
 
 // dropout(x) alone: out[r, c] = keep(r, c) ? f32(x[r, c]) * scale : 0, with
@@ -340,5 +472,73 @@ extern "C" int bt_dropout_matmul_int8_samples(const void* x, const void* w,
           static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
           static_cast<const int32_t*>(seeds), static_cast<float*>(out), M, K,
           N, S, thresh, out_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bt_bank_matmul(const void* x, const void* w, const void* bank,
+                              void* out, int M, int K, int N, int idx,
+                              int is_bf16, void* stream) {
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, 1);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* b = static_cast<const float*>(bank);
+  const auto* wf = static_cast<const float*>(w);
+  auto* o = static_cast<float*>(out);
+  if (is_bf16) {
+    bank_matmul_kernel<__nv_bfloat16, float><<<grid, THREADS, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), wf, b, o, M, K, N, idx, 1.f);
+  } else {
+    bank_matmul_kernel<float, float><<<grid, THREADS, 0, st>>>(
+        static_cast<const float*>(x), wf, b, o, M, K, N, idx, 1.f);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bt_bank_matmul_samples(const void* x, const void* w,
+                                      const void* bank, const void* idxs,
+                                      void* out, int M, int K, int N, int S,
+                                      int is_bf16, void* stream) {
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN,
+                  (S + SAMPLES_PER_BLOCK - 1) / SAMPLES_PER_BLOCK);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* b = static_cast<const float*>(bank);
+  const auto* ix = static_cast<const int32_t*>(idxs);
+  const auto* wf = static_cast<const float*>(w);
+  auto* o = static_cast<float*>(out);
+  if (is_bf16) {
+    bank_matmul_samples_kernel<__nv_bfloat16, float>
+        <<<grid, THREADS, 0, st>>>(static_cast<const __nv_bfloat16*>(x), wf,
+                                   b, ix, o, M, K, N, S, 1.f);
+  } else {
+    bank_matmul_samples_kernel<float, float><<<grid, THREADS, 0, st>>>(
+        static_cast<const float*>(x), wf, b, ix, o, M, K, N, S, 1.f);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bt_bank_matmul_int8(const void* x, const void* w,
+                                   const void* bank, void* out, int M, int K,
+                                   int N, int idx, float out_scale,
+                                   void* stream) {
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, 1);
+  bank_matmul_kernel<int8_t, int8_t>
+      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
+          static_cast<const float*>(bank), static_cast<float*>(out), M, K, N,
+          idx, out_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bt_bank_matmul_int8_samples(const void* x, const void* w,
+                                           const void* bank, const void* idxs,
+                                           void* out, int M, int K, int N,
+                                           int S, float out_scale,
+                                           void* stream) {
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN,
+                  (S + SAMPLES_PER_BLOCK - 1) / SAMPLES_PER_BLOCK);
+  bank_matmul_samples_kernel<int8_t, int8_t>
+      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
+          static_cast<const float*>(bank), static_cast<const int32_t*>(idxs),
+          static_cast<float*>(out), M, K, N, S, out_scale);
   return static_cast<int>(cudaGetLastError());
 }

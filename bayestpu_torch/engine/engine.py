@@ -4,9 +4,11 @@ Counterpart of ``bayestpu/engine/engine.py``. The engine owns the model on
 one device, which is ``"cuda"`` unless the caller asks for the CPU; it
 raises when asked for a card that is not there, and never falls back.
 Inputs are NHWC images (numpy or torch); seeds are integers from which
-``core.rng.sample_seeds`` derives every MC mask. ``evaluate`` can add the
-OOD check (aPE on gaussian noise images). ``autotune``, ``compile``,
-``evaluate_repeated`` and sample-axis sharding come with later slices.
+``core.rng.sample_seeds`` derives every MC mask. A Masksembles model
+enumerates its masks: S is ``num_masks`` and sample *i* runs mask *i*.
+``evaluate`` can add the OOD check (aPE on gaussian noise images).
+``autotune``, ``compile``, ``evaluate_repeated`` and sample-axis sharding
+come with later slices.
 """
 
 from __future__ import annotations
@@ -94,15 +96,20 @@ class BayesEngine:
     def predict(self, x: Any, seed: int = 0, num_samples: int | None = None,
                 sample_idx: int | None = None
                 ) -> Predictive | torch.Tensor:
-        """MC-averaged predictive distribution over ``num_samples`` samples,
-        or with ``sample_idx`` the per-exit softmax (E, B, C) of that one
-        sample, which equals sample ``sample_idx`` of the MC average."""
+        """MC-averaged predictive distribution over ``num_samples`` samples
+        (a Masksembles model: over its ``num_masks`` masks), or with
+        ``sample_idx`` the per-exit softmax (E, B, C) of that one sample —
+        for Masksembles the fork's ``predict(x, mask_index=i)`` — which
+        equals sample ``sample_idx`` of the MC average."""
         if not self.ready:
             raise RuntimeError("engine not initialized: call init()/attach()")
         x = self._input(x)
         if sample_idx is not None:
+            if sample_idx < 0:
+                raise ValueError(f"sample_idx must be >= 0; got {sample_idx}")
             seeds = self.seeds(seed, sample_idx + 1)[sample_idx]
-            return torch.softmax(self.model(x, seeds).logits, dim=-1)
+            return torch.softmax(self.model(x, seeds, sample_idx).logits,
+                                 dim=-1)
         seeds = self.seeds(seed, sampler.num_effective_samples(
             self.bayes, num_samples))
         if self._mode() is SamplingMode.TEMPORAL:

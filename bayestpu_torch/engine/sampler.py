@@ -2,11 +2,14 @@
 
 Counterpart of ``bayestpu/engine/sampler.py:52-130``, on explicit seeds:
 ``seeds`` is the (S, n_sites, 2) int32 tensor of ``core.rng.sample_seeds``
-(or seeds captured from the JAX package), on the model's device.
+(or seeds captured from the JAX package), on the model's device. Sample *i*
+also gets the index *i*, which a Masksembles model uses as its mask index
+(``i % num_masks``) and an MC model ignores (``sampler.py:61-72,115-127``);
+a Masksembles model has no MC sites, so its seeds are (S, 0, 2).
 
-- temporal: the whole network runs once per sample; every stochastic head
+- temporal: the whole network runs once per sample; every Bayesian head
   launches the single-sample kernel.
-- spatial: the backbone runs once and each stochastic head launches the
+- spatial: the backbone runs once and each Bayesian head launches the
   samples kernel once for all S.
 
 Sample *i* sees the same masks in both mappings, so their per-sample logits
@@ -40,13 +43,14 @@ def mc_logits(model, x: torch.Tensor, seeds: torch.Tensor,
               mode: SamplingMode = SamplingMode.SPATIAL) -> torch.Tensor:
     """All per-sample, per-exit logits: (S, E, B, C)."""
     if mode is SamplingMode.TEMPORAL:
-        return torch.stack([model(x, seeds[s]).logits
+        return torch.stack([model(x, seeds[s], s).logits
                             for s in range(seeds.shape[0])])
     if mode is not SamplingMode.SPATIAL:
         raise NotImplementedError(
             f"the {mode.value} mapping is not ported (sharding: ROADMAP "
             "Queue 1 item 13; BayesEngine runs an untuned AUTO as spatial)")
-    return model(x, seeds).logits
+    return model(x, seeds, torch.arange(seeds.shape[0], dtype=torch.int32,
+                                        device=x.device)).logits
 
 
 def predictive(model, x: torch.Tensor, seeds: torch.Tensor,
@@ -64,7 +68,7 @@ def mc_moments(model, x: torch.Tensor, seeds: torch.Tensor) -> Predictive:
     num_samples = seeds.shape[0]
     s1 = s2 = None
     for s in range(num_samples):
-        p = torch.softmax(model(x, seeds[s]).logits, dim=-1)
+        p = torch.softmax(model(x, seeds[s], s).logits, dim=-1)
         s1 = p if s1 is None else s1 + p
         s2 = p * p if s2 is None else s2 + p * p
     mean = s1 / num_samples

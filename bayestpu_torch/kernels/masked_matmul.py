@@ -1,14 +1,19 @@
-"""Matmul with the MC-dropout mask fused in: plain PyTorch versions and the
-wrappers of the CUDA kernels in ``bayestpu_torch/csrc/masked_matmul.cu``.
+"""Masked matmuls — MC dropout and Masksembles — fused into one kernel:
+plain PyTorch versions and the wrappers of the CUDA kernels in
+``bayestpu_torch/csrc/masked_matmul.cu``.
 
 Counterpart of ``bayestpu/kernels/masked_matmul.py``: ``dropout_matmul``
 (trainable, with the backward that regenerates the mask through
 ``dropout_apply``), ``dropout_matmul_samples``, ``dropout_matmul_inference``
 and their int8 twins ``dropout_matmul_int8``, ``dropout_matmul_int8_samples``
-and ``dropout_matmul_int8_inference`` (``:430-637``). The mask of element ``(r, c)`` of x is a pure
-counter hash of ``(seeds, r, c)`` — the global, unpadded coordinates — so
-every kernel, tiling and sample mapping reproduces it bit for bit, and so
-does the JAX package: an element is kept iff
+and ``dropout_matmul_int8_inference`` (``:430-637``); and the Masksembles
+heads ``bank_matmul``, ``bank_matmul_samples``, ``bank_matmul_inference``
+and their int8 twins ``bank_matmul_int8``, ``bank_matmul_int8_samples`` and
+``bank_matmul_int8_inference`` (``:640-1021``). The MC mask of element
+``(r, c)`` of x is a pure counter hash of ``(seeds, r, c)`` — the global,
+unpadded coordinates — so every kernel, tiling and sample mapping
+reproduces it bit for bit, and so does the JAX package: an element is kept
+iff
 ``coord_bits(r, c, seed_stream(s0, s1)) < keep_threshold(rate)``, all in
 uint32 with wraparound. The plain versions compute those bits in int64 with
 ``& 0xFFFFFFFF`` after every multiply.
@@ -24,6 +29,16 @@ with the same bits, accumulate int8 × int8 exactly in int32 and return
 ``f32(acc) * out_scale``, ``out_scale`` being the f32 nearest to the Python
 double ``x_step * w_step / (1 - rate)``, as JAX's weak-typed constant: they
 equal the JAX kernels bit for bit.
+
+The Masksembles functions take an f32 ``bank`` (num_masks, K) and a sample
+index, taken modulo num_masks with floor semantics (−1 is the last mask),
+as ``idx % num_masks`` in JAX. The float ones compute ``(x · bank[idx]) @
+w`` in f32 — a bf16 x is widened exactly, and the bank's value multiplies
+x, it is not binarized — and the int8 ones keep the int8 x where
+``bank[idx] > 0.5``, sum exactly in int32 and return ``f32(acc) *
+out_scale`` with ``out_scale`` the f32 nearest to ``x_step * w_step`` (no
+dropout rescale). ``*_inference`` takes an int index (one sample, (M, N))
+or a 1-D tensor of S indices (every sample in one launch, (S, M, N)).
 
 Dispatch is by the tensors' device: CPU tensors take the plain version, CUDA
 tensors launch the kernel (or raise), and any other device raises. There is
@@ -47,7 +62,11 @@ launch_counts: dict[str, int] = {"dropout_matmul": 0,
                                  "dropout_matmul_samples": 0,
                                  "dropout_apply": 0,
                                  "dropout_matmul_int8": 0,
-                                 "dropout_matmul_int8_samples": 0}
+                                 "dropout_matmul_int8_samples": 0,
+                                 "bank_matmul": 0,
+                                 "bank_matmul_samples": 0,
+                                 "bank_matmul_int8": 0,
+                                 "bank_matmul_int8_samples": 0}
 
 
 def reset_launch_counts() -> None:
@@ -458,3 +477,207 @@ def dropout_matmul_int8_inference(x_q: torch.Tensor, w_q: torch.Tensor,
         return dropout_matmul_int8(x_q, w_q, seeds, rate, x_step, w_step)
     return dropout_matmul_int8_samples(x_q, w_q, seeds, rate, x_step,
                                        w_step)
+
+
+# ------------------------------------------------------ Masksembles heads
+
+
+def bank_index(sample_idx, num_masks: int) -> int:
+    """An int (or 0-d integer tensor) sample index taken modulo
+    ``num_masks`` with floor semantics, as JAX's ``idx % num_masks``."""
+    if isinstance(sample_idx, torch.Tensor):
+        if sample_idx.dim() != 0 or sample_idx.is_floating_point():
+            raise ValueError(f"sample_idx must be an integer scalar; got "
+                             f"{sample_idx.dtype} {tuple(sample_idx.shape)}")
+        sample_idx = int(sample_idx)
+    return int(sample_idx) % num_masks
+
+
+def bank_indices(idxs: torch.Tensor, num_masks: int) -> torch.Tensor:
+    """1-D integer sample indices modulo ``num_masks`` (floor semantics, so
+    every row read stays in the bank), as contiguous int32 on their
+    device."""
+    if (not isinstance(idxs, torch.Tensor) or idxs.dim() != 1
+            or idxs.is_floating_point() or idxs.dtype == torch.bool):
+        raise ValueError("sample indices must be a 1-D integer tensor")
+    return torch.remainder(idxs, num_masks).to(torch.int32).contiguous()
+
+
+def bank_matmul_plain(x: torch.Tensor, w: torch.Tensor, bank: torch.Tensor,
+                      sample_idx: int) -> torch.Tensor:
+    """``(x · bank[idx]) @ w`` in plain PyTorch on any device: (M, N) f32,
+    x widened to f32 and multiplied by the row's values."""
+    row = bank[bank_index(sample_idx, bank.shape[0])]
+    return matmul_f32(x.float() * row, w)
+
+
+def bank_matmul_samples_plain(x: torch.Tensor, w: torch.Tensor,
+                              bank: torch.Tensor, idxs: torch.Tensor
+                              ) -> torch.Tensor:
+    """All S samples in plain PyTorch: (S, M, N) f32, sample s equal to
+    ``bank_matmul_plain(x, w, bank, idxs[s])`` bit for bit."""
+    rows = bank_indices(idxs, bank.shape[0]).tolist()
+    if not rows:
+        return torch.empty((0, x.shape[0], w.shape[1]), dtype=torch.float32,
+                           device=x.device)
+    return torch.stack([bank_matmul_plain(x, w, bank, i) for i in rows])
+
+
+def bank_matmul_int8_plain(x_q: torch.Tensor, w_q: torch.Tensor,
+                           bank: torch.Tensor, sample_idx: int,
+                           x_step: float, w_step: float) -> torch.Tensor:
+    """``f32((x_q where bank[idx] > 0.5) @ w_q) * out_scale`` in plain
+    PyTorch on any device; ``int_mm`` sums exactly in int32."""
+    keep = bank[bank_index(sample_idx, bank.shape[0])] > 0.5
+    xm = torch.where(keep, x_q, torch.zeros((), dtype=torch.int8,
+                                            device=x_q.device))
+    return int_mm(xm, w_q).float() * bank_out_scale(x_step, w_step)
+
+
+def bank_matmul_int8_samples_plain(x_q: torch.Tensor, w_q: torch.Tensor,
+                                   bank: torch.Tensor, idxs: torch.Tensor,
+                                   x_step: float, w_step: float
+                                   ) -> torch.Tensor:
+    """All S int8 samples in plain PyTorch: (S, M, N) f32, sample s equal to
+    ``bank_matmul_int8_plain(x_q, w_q, bank, idxs[s], ...)`` bit for bit."""
+    rows = bank_indices(idxs, bank.shape[0]).tolist()
+    if not rows:
+        return torch.empty((0, x_q.shape[0], w_q.shape[1]),
+                           dtype=torch.float32, device=x_q.device)
+    return torch.stack([bank_matmul_int8_plain(x_q, w_q, bank, i, x_step,
+                                               w_step) for i in rows])
+
+
+def bank_out_scale(x_step: float, w_step: float) -> float:
+    """``x_step * w_step`` in Python double, rounded to the nearest f32: the
+    constant the JAX bank int8 kernels multiply by (``:687,808``); no
+    ``1/(1-rate)`` here."""
+    return int8_out_scale(x_step, w_step, 0.0)
+
+
+def _check_bank(x: torch.Tensor, w: torch.Tensor, bank: torch.Tensor,
+                int8: bool) -> None:
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"need x (M, K) and w (K, N); got {tuple(x.shape)} "
+                         f"and {tuple(w.shape)}")
+    if bank.dim() != 2 or bank.shape[1] != x.shape[1] or bank.shape[0] < 1:
+        raise ValueError(f"need bank (num_masks, K) with K={x.shape[1]}; "
+                         f"got {tuple(bank.shape)}")
+    if int8 and (x.dtype != torch.int8 or w.dtype != torch.int8):
+        raise TypeError(f"x_q and w_q must both be int8; got {x.dtype} and "
+                        f"{w.dtype}")
+    if not int8 and (x.dtype not in _DTYPES or w.dtype != torch.float32):
+        raise TypeError(f"x must be float32 or bfloat16 and w float32; got "
+                        f"{x.dtype} and {w.dtype}")
+    if bank.dtype != torch.float32:
+        raise TypeError(f"bank must be float32; got {bank.dtype}")
+    if w.device != x.device or bank.device != x.device:
+        raise ValueError(f"x, w and bank must be on one device; got "
+                         f"{x.device}, {w.device} and {bank.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}: the port runs "
+                         "its kernels on CUDA and their plain versions on "
+                         "the CPU")
+
+
+def _launch_bank(name: str, x: torch.Tensor, w: torch.Tensor,
+                 bank: torch.Tensor, index, args: list) -> torch.Tensor:
+    """Launch a bank kernel: ``index`` is the int row of a single kernel,
+    (M, N) out, or the int32 row tensor (S,) of a samples kernel, (S, M, N)
+    out; ``args`` are the trailing C arguments."""
+    m, k = x.shape
+    n = w.shape[1]
+    tensors = {"x": x, "w": w, "bank": bank}
+    if isinstance(index, int):
+        shape, dims = (m, n), [m, k, n, index]
+    else:
+        if index.device != x.device:
+            raise ValueError(f"sample indices must be on x's device "
+                             f"{x.device}; got {index.device}")
+        tensors["idxs"] = index
+        shape, dims = (index.shape[0], m, n), [m, k, n, index.shape[0]]
+    out = torch.empty(shape, dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    tensors["out"] = out
+    _call(name, x.device, tensors, dims + args)
+    return out
+
+
+def bank_matmul(x: torch.Tensor, w: torch.Tensor, bank: torch.Tensor,
+                sample_idx) -> torch.Tensor:
+    """``(x · bank[sample_idx % num_masks]) @ w``, the Masksembles fused
+    head. x: (M, K) f32/bf16; w: (K, N) f32; bank: (num_masks, K) f32;
+    sample_idx: an int. Returns (M, N) f32. Inference only, as in JAX."""
+    _check_bank(x, w, bank, False)
+    idx = bank_index(sample_idx, bank.shape[0])
+    if x.device.type == "cpu":
+        return bank_matmul_plain(x, w, bank, idx)
+    return _launch_bank("bank_matmul", x, w, bank, idx,
+                        [int(x.dtype == torch.bfloat16)])
+
+
+def bank_matmul_samples(x: torch.Tensor, w: torch.Tensor, bank: torch.Tensor,
+                        idxs: torch.Tensor) -> torch.Tensor:
+    """Every mask index in one launch: idxs (S,) integer on x's device.
+    Returns (S, M, N) f32 with sample s bit-identical to ``bank_matmul(x, w,
+    bank, idxs[s])`` on the same device; x tiles are staged once for all
+    samples of a block."""
+    _check_bank(x, w, bank, False)
+    rows = bank_indices(idxs, bank.shape[0])
+    if x.device.type == "cpu":
+        return bank_matmul_samples_plain(x, w, bank, rows)
+    return _launch_bank("bank_matmul_samples", x, w, bank, rows,
+                        [int(x.dtype == torch.bfloat16)])
+
+
+def bank_matmul_inference(x: torch.Tensor, w: torch.Tensor,
+                          bank: torch.Tensor, sample_idx) -> torch.Tensor:
+    """Inference entry of the Masksembles heads: an int ``sample_idx`` runs
+    one sample, (M, N); a 1-D tensor of S indices runs every sample in one
+    launch, (S, M, N) — what the JAX package's vmap rule does (it chunks S
+    by 32; per-sample results do not depend on the chunking)."""
+    if isinstance(sample_idx, torch.Tensor) and sample_idx.dim() == 1:
+        return bank_matmul_samples(x, w, bank, sample_idx)
+    return bank_matmul(x, w, bank, sample_idx)
+
+
+def bank_matmul_int8(x_q: torch.Tensor, w_q: torch.Tensor,
+                     bank: torch.Tensor, sample_idx, x_step: float,
+                     w_step: float) -> torch.Tensor:
+    """``dequant((x_q ⊙ (bank[sample_idx % num_masks] > 0.5)) @ w_q)``: x_q
+    (M, K) and w_q (K, N) int8, bank (num_masks, K) f32, an int index.
+    Returns (M, N) f32 rescaled by ``x_step·w_step``."""
+    _check_bank(x_q, w_q, bank, True)
+    idx = bank_index(sample_idx, bank.shape[0])
+    if x_q.device.type == "cpu":
+        return bank_matmul_int8_plain(x_q, w_q, bank, idx, x_step, w_step)
+    return _launch_bank("bank_matmul_int8", x_q, w_q, bank, idx,
+                        [bank_out_scale(x_step, w_step)])
+
+
+def bank_matmul_int8_samples(x_q: torch.Tensor, w_q: torch.Tensor,
+                             bank: torch.Tensor, idxs: torch.Tensor,
+                             x_step: float, w_step: float) -> torch.Tensor:
+    """Every mask index of the int8 head in one launch: (S, M, N) f32 with
+    sample s bit-identical to ``bank_matmul_int8(x_q, w_q, bank, idxs[s],
+    ...)``."""
+    _check_bank(x_q, w_q, bank, True)
+    rows = bank_indices(idxs, bank.shape[0])
+    if x_q.device.type == "cpu":
+        return bank_matmul_int8_samples_plain(x_q, w_q, bank, rows, x_step,
+                                              w_step)
+    return _launch_bank("bank_matmul_int8_samples", x_q, w_q, bank, rows,
+                        [bank_out_scale(x_step, w_step)])
+
+
+def bank_matmul_int8_inference(x_q: torch.Tensor, w_q: torch.Tensor,
+                               bank: torch.Tensor, sample_idx,
+                               x_step: float, w_step: float) -> torch.Tensor:
+    """Inference entry of the int8 Masksembles heads: an int index → one
+    sample (M, N); a 1-D tensor of S indices → every sample in one launch,
+    (S, M, N)."""
+    if isinstance(sample_idx, torch.Tensor) and sample_idx.dim() == 1:
+        return bank_matmul_int8_samples(x_q, w_q, bank, sample_idx, x_step,
+                                        w_step)
+    return bank_matmul_int8(x_q, w_q, bank, sample_idx, x_step, w_step)

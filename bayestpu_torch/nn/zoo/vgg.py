@@ -1,32 +1,44 @@
 """VGG-11 with Bayesian multi-exit heads (counterpart of
 ``bayestpu/nn/zoo/vgg.py``; ``vgg11`` and ``vgg11_me`` are ported).
 
-``VGG.forward(x, seeds)`` takes NHWC images and the MC seeds of every
-Bayesian site, numbered in the JAX model's call order (exit1 … exit4, then
-the classifier):
+``VGG.forward(x, seeds, sample_idx=None)`` takes NHWC images, the MC seeds
+of every MC-dropout site, numbered in the JAX model's call order (exit1 …
+exit4, then the classifier), and for a Masksembles model the mask index of
+each sample:
 
-- seeds (n_sites, 2): one sample; logits (E, B, C).
+- seeds (n_sites, 2): one sample; logits (E, B, C). ``sample_idx`` is an
+  int, 0 by default.
 - seeds (S, n_sites, 2): the spatial mapping. The deterministic backbone and
-  exit cascades run once; only the stochastic heads see S, each in one
-  multi-sample kernel launch; logits (S, E, B, C).
+  exit cascades run once; only the Bayesian heads see S, each in one
+  multi-sample kernel launch; logits (S, E, B, C). ``sample_idx`` is a 1-D
+  integer tensor of S indices on the model's device, ``arange(S)`` by
+  default.
+
+S comes from the seeds' leading axis in both cases, so a Masksembles model
+(``BayesConfig(kind=MASK)``: its five heads are Masksembles sites and
+``num_sites`` is 0) takes seeds of shape (0, 2) or (S, 0, 2), and an MC
+model ignores ``sample_idx``, as the JAX layers do.
 
 A model is built in eval mode, as the JAX model's ``train=False`` default.
 In train mode (``model.train()``, the JAX ``train=True``) seeds are
 (n_sites, 2): BatchNorm uses batch statistics and updates its running
-averages, activations stay f32 between layers, and every stochastic head
-goes through the trainable ``dropout_matmul``.
+averages, activations stay f32 between layers, every MC head goes through
+the trainable ``dropout_matmul`` and every Masksembles head splits the
+batch into ``num_masks`` groups, one mask each.
 
 With ``quant`` (a ``QuantConfig``) the model is the JAX package's quantized
 VGG (``vgg.py:69-292``): QAT in train mode and the fake-quant model in eval
 mode, or with ``quant.int8_infer`` the int8 model, whose activations stay
 int8 on the ap_fixed grid from block to block (each block's last conv
 defers the cast past its max pool, then the block re-quantizes), whose exit
-heads dequantize before their average pool, and whose five MC heads run
-the int8 dropout-matmul kernels. ``QuantConfig`` adds no parameters.
+heads dequantize before their average pool, and whose five heads run the
+int8 dropout-matmul or bank-matmul kernels. ``QuantConfig`` adds no
+parameters.
 
 Parameter names follow the Flax tree (``block0.convbn0.conv.kernel`` ≙
-``params/block0/convbn0/conv/kernel``), so ``interop.from_flax`` loads JAX
-variables by name.
+``params/block0/convbn0/conv/kernel``, ``exit1.linear.bank`` ≙
+``masks/exit1/linear/bank``), so ``interop.from_flax`` loads JAX variables
+by name.
 """
 
 from __future__ import annotations
@@ -122,8 +134,8 @@ class _VGGExitHead(nn.Module):
                                  bayes=bayes, fused=fused, quant=quant,
                                  dtype=dtype)
 
-    def forward(self, x: torch.Tensor, seeds: torch.Tensor | None
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, seeds: torch.Tensor | None,
+                sample_idx=None) -> tuple[torch.Tensor, torch.Tensor]:
         y = torch.relu(x)
         for name, conv in self.named_children():
             if name != "linear":
@@ -133,7 +145,7 @@ class _VGGExitHead(nn.Module):
         if self.pool:
             y = avg_pool(y, 2)
         feat = _flatten_nhwc(y)
-        return self.linear(feat, seeds), feat
+        return self.linear(feat, seeds, sample_idx), feat
 
 
 class VGG(nn.Module):
@@ -205,6 +217,7 @@ class VGG(nn.Module):
         for head in heads:
             head.site = self.num_sites if head.stochastic else None
             self.num_sites += head.stochastic
+        self.masked = any(head.masked for head in heads)
         self.eval()
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -219,7 +232,27 @@ class VGG(nn.Module):
         return (None if head.site is None
                 else seeds[..., head.site, :].contiguous())
 
-    def forward(self, x: torch.Tensor, seeds: torch.Tensor) -> ExitOutputs:
+    def _sample_idx(self, seeds: torch.Tensor, sample_idx, device):
+        """The Masksembles index argument of the heads (see the module
+        docstring); None for a model without Masksembles heads."""
+        if not self.masked or self.training:
+            return None
+        if seeds.dim() == 3:
+            num = seeds.shape[0]
+            if sample_idx is None:
+                return torch.arange(num, dtype=torch.int32, device=device)
+            if (not isinstance(sample_idx, torch.Tensor)
+                    or tuple(sample_idx.shape) != (num,)):
+                raise ValueError(f"with (S, n_sites, 2) seeds sample_idx "
+                                 f"must be a tensor of S={num} indices")
+            return sample_idx
+        if isinstance(sample_idx, torch.Tensor) and sample_idx.dim() != 0:
+            raise ValueError("with (n_sites, 2) seeds sample_idx must be an "
+                             "int")
+        return 0 if sample_idx is None else sample_idx
+
+    def forward(self, x: torch.Tensor, seeds: torch.Tensor,
+                sample_idx=None) -> ExitOutputs:
         dims = (2,) if self.training else (2, 3)
         if seeds.dim() not in dims or seeds.shape[-2:] != (self.num_sites,
                                                            2):
@@ -227,6 +260,7 @@ class VGG(nn.Module):
                     else "(n_sites, 2) or (S, n_sites, 2)")
             raise ValueError(f"seeds must be {want} with n_sites="
                              f"{self.num_sites}; got {tuple(seeds.shape)}")
+        idx = self._sample_idx(seeds, sample_idx, x.device)
         sample_shape = tuple(seeds.shape[:-2])
         exits, feats = [], []
 
@@ -239,7 +273,8 @@ class VGG(nn.Module):
             out = getattr(self, block_name)(out)
             if exit_name is not None:
                 head = getattr(self, exit_name)
-                logit, feat = head(out, self._head_seeds(head.linear, seeds))
+                logit, feat = head(out, self._head_seeds(head.linear, seeds),
+                                   idx)
                 exits.append(head_out(logit))
                 feats.append(feat)
         out = _flatten_nhwc(out)
@@ -252,7 +287,7 @@ class VGG(nn.Module):
                 out = getattr(self, f"fc_bn_{j}")(out)
             out = getattr(self, f"fc_relu_{j}")(out)
         exits.append(head_out(self.classifier(
-            out, self._head_seeds(self.classifier, seeds))))
+            out, self._head_seeds(self.classifier, seeds), idx)))
         return stack_exits(exits, feats)
 
 

@@ -2,7 +2,8 @@
 
 Counterpart of ``bayestpu/train/loop.py``. A step runs the model in train
 mode (BatchNorm on batch statistics, the MC-dropout heads active through the
-trainable ``dropout_matmul``), the EED loss, the backward, the optimizer
+trainable ``dropout_matmul``, the Masksembles heads splitting the batch
+into one group per mask), the EED loss, thebackward, the optimizer
 chain of ``train.optim`` and the BatchNorm running averages. The JAX
 package jits a step (``make_train_step``) or a whole epoch (``lax.scan`` in
 ``make_train_epoch``); PyTorch runs eagerly, so a Python loop over batches
@@ -27,7 +28,8 @@ from torch import nn
 
 from bayestpu_torch.core.rng import EVAL_STEP0, step_seeds
 from bayestpu_torch.engine.engine import resolve_device
-from bayestpu_torch.interop.from_flax import to_flax_variables
+from bayestpu_torch.interop.from_flax import (buffers_by_collection,
+                                              to_flax_variables)
 from bayestpu_torch.train.losses import (EEDConfig, _ce, eed_loss,
                                          multi_exit_accuracy)
 from bayestpu_torch.train.optim import (GradientTransformation,
@@ -44,7 +46,8 @@ class TrainState:
     step: int = 0
 
     def variables(self) -> dict:
-        """``{"params": …, "batch_stats": …}`` as nested numpy dicts, what
+        """``{"params": …, "batch_stats": …}`` (and ``"masks"`` for a
+        Masksembles model) as nested numpy dicts, what
         ``BayesEngine.attach`` takes."""
         return to_flax_variables(self.model)
 
@@ -291,8 +294,9 @@ def bn_reestimate(model: nn.Module, xs: Iterable, seeds: torch.Tensor,
     (``loop.py:490-523``): ``passes`` momentum-averaged sweeps of the model
     in train mode over the batches ``xs``, each with the same ``seeds``
     (n_sites, 2), as the JAX sweep reuses one key. Updates the model's
-    buffers in place and returns them by name; the model's mode is
-    restored."""
+    BatchNorm statistics in place and returns them by name (the
+    ``batch_stats`` collection; a Masksembles bank is not one); the model's
+    mode is restored."""
     was_training = model.training
     dev = _device_of(model)
     model.train()
@@ -304,4 +308,4 @@ def bn_reestimate(model: nn.Module, xs: Iterable, seeds: torch.Tensor,
                                           device=dev), seeds)
     finally:
         model.train(was_training)
-    return dict(model.named_buffers())
+    return buffers_by_collection(model)["batch_stats"]

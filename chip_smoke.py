@@ -12,7 +12,10 @@ ends the run with a nonzero exit and no result line.
    card: the vgg11_me head shape and a ragged one, bf16 and f32 (int8 for
    the int8 kernels, bit for bit); exact mask readouts (the backward's mask
    and the int8 kernels' mask are the forward's); per-sample bit identity;
-   negative seeds; times.
+   negative seeds; times. The four Masksembles bank kernels at the
+   Masksembles head shape (S = 4) and a ragged one whose indices wrap and
+   include a negative one: float rows on a {0, 1} bank and on one with 2.0
+   entries, int8 rows bit for bit, per-sample bit identity, times.
 4. backward — autograd through ``dropout_matmul`` against
    ``dropout_matmul_vjp_plain`` at the head shape.
 5. slice   — vgg11_me at full width, bf16, batch 128, S=10, rate 0.25,
@@ -36,13 +39,28 @@ ends the run with a nonzero exit and no result line.
    bench's gate against the bf16 point, launch counts, spatial against
    temporal, the card against the CPU on 8 rows, the int8 and bf16 spatial
    p50 in turns, and the int8 predict profiled by kernel group.
-9. step_vs_cpu — one training step at batch 8 on the card and on the CPU
+9. mask    — the Masksembles vgg11_me of ``bench.py:723-739``
+   (``BayesConfig(kind=MASK, num_masks=4, scale=2.0)``, bf16, batch 128,
+   S = 4): the trained float weights with the model's own banks,
+   fine-tuned for 2 epochs under the batch split (no port kernel a step),
+   then served through ``BayesEngine(device="cuda")``: five
+   ``bank_matmul_samples`` launches per spatial predict, 20 ``bank_matmul``
+   per temporal one, ``predict(sample_idx=i)`` equal to sample i, spatial
+   against temporal, the card against the CPU on 8 rows, acc (≥ 0.5), ECE,
+   NLL, aPE, aPE_ood, times and a profiled predict; and the same weights
+   on the int8 model under ``INT8_Q`` (no QAT): five
+   ``bank_matmul_int8_samples`` launches per spatial predict, 20
+   ``bank_matmul_int8`` per temporal one, spatial and temporal
+   bit-identical, the card against the CPU, acc and ECE, the int8 and bf16
+   spatial p50 in turns.
+10. step_vs_cpu — one training step at batch 8 on the card and on the CPU
    from one seeded init and the same seeds, in f32 and bf16.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. The kernels' launches are those of the
-three main paths: the slice's predicts, the 936 training steps, and the
-int8 phase (QAT, BN re-estimation and serving).
+four main paths: the slice's predicts, the 936 training steps, the int8
+phase (QAT, BN re-estimation and serving) and the mask phase (fine-tune
+and serving, bf16 and int8).
 """
 
 from __future__ import annotations
@@ -63,7 +81,12 @@ REPLACES = {"dropout_matmul": "bayestpu/kernels/masked_matmul.py:113",
             "dropout_apply": "bayestpu/kernels/masked_matmul.py:135",
             "dropout_matmul_int8": "bayestpu/kernels/masked_matmul.py:444",
             "dropout_matmul_int8_samples":
-                "bayestpu/kernels/masked_matmul.py:519"}
+                "bayestpu/kernels/masked_matmul.py:519",
+            "bank_matmul_int8_samples":
+                "bayestpu/kernels/masked_matmul.py:640",
+            "bank_matmul_int8": "bayestpu/kernels/masked_matmul.py:763",
+            "bank_matmul_samples": "bayestpu/kernels/masked_matmul.py:863",
+            "bank_matmul": "bayestpu/kernels/masked_matmul.py:843"}
 HEAD = dict(M=128, K=512, N=10, S=10)     # each vgg11_me exit head
 RAGGED = dict(M=300, K=700, N=130, S=3)
 RATE = 0.25
@@ -111,6 +134,15 @@ INT8_GATE = {"acc_gap_max": 0.01, "ece_ratio_max": 2.0, "ape_ratio_min": 0.5}
 # |delta|_2 <= INT8_CPU_STEPS * 2^-7, against the widest column of the five
 # heads' quantized kernels (measured: bit-identical)
 INT8_CPU_STEPS = 4
+# Masksembles (bench.py:723-739): vgg11_me with BayesConfig(kind=MASK,
+# num_masks=4, scale=2.0); S = num_masks. Its heads at batch 128, and a
+# ragged shape whose indices wrap and include a negative one.
+NUM_MASKS, MASK_SCALE = 4, 2.0
+MASK_HEAD = dict(M=128, K=512, N=10, S=NUM_MASKS)
+MASK_RAGGED = dict(M=300, K=700, N=130, S=6)
+MASK_RAGGED_IDXS = [2, -1, 5, 0, 7, 3]
+# the short fine-tune of the float-trained weights under the batch split
+MASK_EPOCHS, MASK_LR = 2, 0.01
 
 
 def emit(obj: dict) -> None:
@@ -150,25 +182,34 @@ def cuda_ms(fn, iters: int, windows: int = 5) -> float:
     return statistics.median(per)
 
 
-def device_ms(fn, iters: int) -> float:
+def device_ms(fn, iters: int, only: str | None = None,
+              windows: int = 3) -> float:
     """Device time per call of ``fn``: the summed time of the CUDA kernels
-    it launches, from torch.profiler over ``iters`` calls after a warm-up.
-    Unlike ``cuda_ms`` it does not count the host's dispatch between
-    launches."""
+    it launches (of those whose name contains ``only``, if given), from
+    torch.profiler over ``iters`` calls after a warm-up. Unlike ``cuda_ms``
+    it does not count the host's dispatch between launches. A profiler
+    window now and then records no device activity at all (seen once in
+    dozens of windows on the H100); such a window is reported and taken
+    again, up to ``windows`` in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if str(ev.device_type).endswith("CUDA"))
-    check(us > 0, "the profiler saw no device time")
-    return us / iters / 1e3
+    for window in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                 if str(ev.device_type).endswith("CUDA")
+                 and (only is None or only in ev.key))
+        if us > 0:
+            return us / iters / 1e3
+        emit({"phase": "profiler", "empty_window": window + 1,
+              "only": only})
+    check(False, f"the profiler saw no device time in {windows} windows")
 
 
 def host_ms(fn, reps: int) -> float:
@@ -242,6 +283,154 @@ def _bound(name: str, shape: dict, dtype) -> tuple[float, str]:
                                        else "operations")
 
 
+def _bank_bound(name: str, shape: dict, esize: int, rows: int
+                ) -> tuple[float, str]:
+    """The bank kernels read x (esize bytes an element), w (f32, or int8 for
+    the int8 rows), the ``rows`` distinct f32 bank rows this run's indices
+    need and, in a samples kernel, S int32 indices; they write S·M·N f32.
+    Their 2·S·M·N·K operations are f32 for the float rows (the product of
+    x and the bank's value is f32, which TF32 would round: the 67 TFLOP/s
+    outside the tensor cores) and int8 for the int8 rows."""
+    m, k, n = shape["M"], shape["K"], shape["N"]
+    samples = name.endswith("_samples")
+    s = shape["S"] if samples else 1
+    int8 = "int8" in name
+    nbytes = (esize * m * k + (1 if int8 else 4) * k * n + 4 * k * rows
+              + (4 * s if samples else 0) + 4 * s * m * n)
+    t_bytes = nbytes / MEM_BYTES_PER_S
+    t_ops = 2 * s * m * n * k / PEAK_FLOPS["int8" if int8 else "float32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _check_bank(mm, shape: dict, label: str, gen, summary: dict) -> None:
+    """The bank kernels (rows 6-9) on the card against their plain
+    versions: the float rows with x in bf16 and f32, on the generated
+    {0, 1} bank and on one with 2.0 and 0.25 entries (the float kernels
+    multiply by the value, the int8 ones keep where it exceeds 0.5), to
+    KERNEL_RTOL of max|ref|; the int8 rows bit for bit; sample s of each
+    samples kernel bit-equal to its single kernel at idxs[s]; the int8
+    readout (ones @ eye) exactly out_scale where the row keeps. At the head
+    shape, their times."""
+    import torch
+    from bayestpu_torch.kernels.mask_bank import generation_wrapper
+    m, k, n, s = shape["M"], shape["K"], shape["N"], shape["S"]
+    idx_list = list(range(s)) if label == "head" else MASK_RAGGED_IDXS
+    idxs = torch.tensor(idx_list, dtype=torch.int32, device="cuda")
+    _, bank = generation_wrapper(k, NUM_MASKS, MASK_SCALE, rng=0)
+    bank = torch.from_numpy(bank).cuda().contiguous()   # numpy's is F-order
+    odd = bank.clone()
+    odd[0, ::7] = 2.0
+    odd[1, 1::5] = 0.25
+    xs_, ws_ = 2.0 ** -7, 2.0 ** -7
+    line = {"phase": "kernels", "shape": label, **shape, "idxs": idx_list,
+            "num_masks": NUM_MASKS}
+    same_per_sample = True
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(m, k, generator=gen).to(dtype).cuda()
+        w = (torch.randn(k, n, generator=gen) / k ** 0.5).cuda()
+        for bname, b in (("bank", bank), ("bank_with_2.0", odd)):
+            ys = mm.bank_matmul_samples(x, w, b, idxs)
+            singles = [mm.bank_matmul(x, w, b, i) for i in idx_list]
+            torch.cuda.synchronize()
+            rs = mm.bank_matmul_samples_plain(x, w, b, idxs)
+            for name, got, want in (
+                    ("bank_matmul_samples", ys, rs),
+                    ("bank_matmul", torch.stack(singles), rs)):
+                err = (got - want).abs().max().item()
+                tol = KERNEL_RTOL * max(1.0, want.abs().max().item())
+                check(err <= tol, f"{name} {label} {dtype} {bname}: {err} > "
+                      f"{tol}")
+                summary[name]["max_abs_err"] = max(
+                    summary[name]["max_abs_err"], err)
+                line[f"{name}_{str(dtype).split('.')[-1]}_{bname}_err"] = err
+            same_per_sample &= all(torch.equal(ys[i], singles[i])
+                                   for i in range(s))
+    xq = torch.randint(-128, 128, (m, k), generator=gen,
+                       dtype=torch.int8).cuda()
+    wq = torch.randint(-128, 128, (k, n), generator=gen,
+                       dtype=torch.int8).cuda()
+    int8_equal = True
+    for b in (bank, odd):
+        ys = mm.bank_matmul_int8_samples(xq, wq, b, idxs, xs_, ws_)
+        singles = [mm.bank_matmul_int8(xq, wq, b, i, xs_, ws_)
+                   for i in idx_list]
+        torch.cuda.synchronize()
+        rs = mm.bank_matmul_int8_samples_plain(xq, wq, b, idxs, xs_, ws_)
+        for name, got in (("bank_matmul_int8_samples", ys),
+                          ("bank_matmul_int8", torch.stack(singles))):
+            summary[name]["max_abs_err"] = max(
+                summary[name]["max_abs_err"], (got - rs).abs().max().item())
+            int8_equal &= torch.equal(got, rs)
+        same_per_sample &= all(torch.equal(ys[i], singles[i])
+                               for i in range(s))
+    ones = torch.ones(m, k, dtype=torch.int8, device="cuda")
+    eye = torch.eye(k, dtype=torch.int8, device="cuda")
+    readout = mm.bank_matmul_int8_samples(ones, eye, odd, idxs, xs_, ws_)
+    rows = torch.remainder(idxs, NUM_MASKS).long()
+    want = torch.where(odd[rows] > 0.5, mm.bank_out_scale(xs_, ws_), 0.0)
+    exact = torch.equal(readout, want[:, None, :].expand(s, m, k))
+    check(int8_equal and same_per_sample and exact,
+          f"bank kernels {label}: int8 bit-equal {int8_equal}, per sample "
+          f"{same_per_sample}, int8 readout {exact}")
+    line.update({"int8_bit_equal_plain": int8_equal,
+                 "samples_equal_single_bitwise": same_per_sample,
+                 "int8_readout_exact": exact,
+                 "out_scale": mm.bank_out_scale(xs_, ws_)})
+    if label == "head":
+        _time_bank(mm, shape, idxs, bank, xq, wq, gen, line, summary)
+    emit(line)
+
+
+def _time_bank(mm, shape, idxs, bank, xq, wq, gen, line, summary) -> None:
+    """Times of the bank kernels at the Masksembles head shape: bf16 x (the
+    main path's dtype) for the float rows, int8 for the int8 rows. ``ms``
+    counts the bank kernel alone (the wrapper's index remainder is a
+    separate small kernel); the library call is one PyTorch product on a
+    pre-masked x that the port never calls: ``torch.matmul`` of the
+    (S, M, K) masked f32 x, or ``torch._int_mm`` with N padded to 16."""
+    import torch
+    m, k, n, s = shape["M"], shape["K"], shape["N"], shape["S"]
+    xs_ = ws_ = 2.0 ** -7
+    x = torch.randn(m, k, generator=gen).to(torch.bfloat16).cuda()
+    w = (torch.randn(k, n, generator=gen) / k ** 0.5).cuda()
+    rows = bank[idxs.long()]
+    xm = x.float()[None] * rows[:, None, :]
+    xm8 = torch.where(rows[:, None, :] > 0.5, xq[None],
+                      torch.zeros((), dtype=torch.int8, device="cuda"))
+    wpad = torch.nn.functional.pad(wq, (0, (-n) % 8)).t().contiguous().t()
+    timings = {
+        "bank_matmul": (
+            lambda: mm.bank_matmul(x, w, bank, 0),
+            lambda: mm.bank_matmul_plain(x, w, bank, 0),
+            lambda: torch.matmul(xm[0], w), torch.bfloat16, 1),
+        "bank_matmul_samples": (
+            lambda: mm.bank_matmul_samples(x, w, bank, idxs),
+            lambda: mm.bank_matmul_samples_plain(x, w, bank, idxs),
+            lambda: torch.matmul(xm, w), torch.bfloat16, s),
+        "bank_matmul_int8": (
+            lambda: mm.bank_matmul_int8(xq, wq, bank, 0, xs_, ws_),
+            lambda: mm.bank_matmul_int8_plain(xq, wq, bank, 0, xs_, ws_),
+            lambda: torch._int_mm(xm8[0], wpad), torch.int8, 1),
+        "bank_matmul_int8_samples": (
+            lambda: mm.bank_matmul_int8_samples(xq, wq, bank, idxs, xs_,
+                                                ws_),
+            lambda: mm.bank_matmul_int8_samples_plain(xq, wq, bank, idxs,
+                                                      xs_, ws_),
+            lambda: torch._int_mm(xm8.reshape(s * m, k), wpad), torch.int8,
+            s),
+    }
+    for name, (kern, plain, lib, dtype, nrows) in timings.items():
+        t = {"ms": device_ms(kern, 200, only="bank_matmul"),
+             "plain_ms": device_ms(plain, 20),
+             "library_ms": device_ms(lib, 200),
+             "events_ms": cuda_ms(kern, 200)}
+        esize = {torch.bfloat16: 2, torch.int8: 1}[dtype]
+        t["bound_ms"], t["bound_by"] = _bank_bound(name, shape, esize, nrows)
+        line[name] = t
+        summary[name].update(t)
+
+
 def phase_kernels() -> dict:
     import torch
     from bayestpu_torch.kernels import masked_matmul as mm
@@ -295,6 +484,8 @@ def phase_kernels() -> dict:
             emit(line)
     for label, shape in (("head", HEAD), ("ragged", RAGGED)):
         _check_int8(mm, shape, label, gen, summary)
+    for label, shape in (("head", MASK_HEAD), ("ragged", MASK_RAGGED)):
+        _check_bank(mm, shape, label, gen, summary)
     return summary
 
 
@@ -559,7 +750,8 @@ def _by_group(rows: list) -> dict:
     groups: dict[str, dict] = {}
     for ms, calls, key in rows:
         k = key.lower()
-        group = ("port kernels" if "dropout_" in k else
+        port = "dropout_" in k or "bank_matmul" in k
+        group = ("port kernels" if port else
                  "convolutions" if any(w in k for w in (
                      "fprop", "dgrad", "wgrad", "conv")) else
                  "matmuls" if "gemm" in k or "cutlass" in k else
@@ -993,12 +1185,246 @@ def phase_int8(tr: dict) -> dict:
           "card_vs_cpu_rows0_7_logits_max_abs": d_cpu,
           "card_vs_cpu_tol": cpu_tol,
           "card_vs_cpu_rows_differing": int(
-              (d_rows.amax(dim=(0, 2)) > 0).sum()),
+              (d_rows.amax(dim=(0, 1, 3)) > 0).sum()),
           "int8_spatial_p50_ms": int8_ms, "bf16_spatial_p50_ms": bf16_ms,
           "int8_over_bf16": int8_ms / bf16_ms, "p50_ms_by_turn": p50s,
           "int8_mc_samples_per_s": BATCH * SAMPLES / (int8_ms / 1e3)})
     emit({"phase": "int8_profile", "what": "int8 spatial predict, profiled",
           **_profile_predict(i8, x, seed)})
+    return {"launches": launches}
+
+
+def phase_mask(tr: dict) -> dict:
+    """The Masksembles configuration that ``bench.py:723-739`` serves:
+    vgg11_me with ``BayesConfig(kind=MASK, num_masks=4, scale=2.0)``, bf16,
+    batch 128, fused, S = num_masks = 4. The float-trained weights of the
+    train phase with this model's own banks under ``masks`` are fine-tuned
+    for MASK_EPOCHS epochs under the batch split (SGD 0.9, cosine LR from
+    MASK_LR, clip 10), then served through ``BayesEngine(device="cuda")``
+    in bf16 and, as the bench serves its int8 twin (no QAT), under
+    ``INT8_Q``."""
+    import numpy as np
+    import torch
+    from bayestpu_torch.core.config import (BayesConfig, DropoutKind,
+                                            EngineConfig, QuantConfig,
+                                            SamplingMode)
+    from bayestpu_torch.core.quant import fake_quant
+    from bayestpu_torch.core.rng import step_seeds
+    from bayestpu_torch.engine import sampler
+    from bayestpu_torch.engine.engine import BayesEngine
+    from bayestpu_torch.interop.from_flax import (load_flax_variables,
+                                                  to_flax_variables)
+    from bayestpu_torch.kernels import masked_matmul as mm
+    from bayestpu_torch.nn.fused import BayesDense
+    from bayestpu_torch.nn.zoo import get_model
+    from bayestpu_torch.train import optim
+    from bayestpu_torch.train.loop import TrainState, make_train_step
+
+    cfg = BayesConfig(kind=DropoutKind.MASK, num_masks=NUM_MASKS,
+                      scale=MASK_SCALE)
+    int8_q = QuantConfig(8, 0, int8_infer=True)
+    s_mask = NUM_MASKS
+
+    def build(quant=None):
+        return get_model("vgg11_me", bayes=cfg, fused=True,
+                         dtype=torch.bfloat16, quant=quant)
+
+    def engine(quant=None, mode=SamplingMode.SPATIAL, device="cuda"):
+        return BayesEngine(build(quant), config=EngineConfig(mode=mode),
+                           device=device).attach(variables)
+
+    ds, xs, ys = tr["ds"], tr["xs"], tr["ys"]
+    nb = xs.shape[0]
+    steps = MASK_EPOCHS * nb
+    # ---- the main path, counted: the fine-tune, then serving
+    mm.reset_launch_counts()
+    model = build()
+    check(model.num_sites == 0 and model.masked, "a Masksembles vgg11_me")
+    load_flax_variables(model, {**tr["variables"],
+                                "masks": to_flax_variables(model)["masks"]})
+    model.cuda().train()
+    tx = optim.chain(optim.clip_by_global_norm(TRAIN_CLIP), optim.sgd(
+        optim.cosine_decay_schedule(MASK_LR, steps), 0.9))
+    state = TrainState(model, tx.init(dict(model.named_parameters())))
+    step = make_train_step(model, tx)
+    seeds = step_seeds(0, 0, model.num_sites).cuda()      # (0, 2)
+    losses, step_ms = [], []
+    t_ft = time.perf_counter()
+    for i in range(steps):
+        # epoch 1 free-running (throughput), epoch 2 step by step (p50)
+        t = time.perf_counter()
+        losses.append(step(state, xs[i % nb], ys[i % nb], seeds)["loss"])
+        if i == nb - 1:
+            torch.cuda.synchronize()
+            epoch1_s = time.perf_counter() - t_ft
+        elif i >= nb:
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+    ft_s = time.perf_counter() - t_ft
+    ft_launches = dict(mm.launch_counts)
+    check(ft_launches == counts(),
+          f"the batch-split fine-tune launched port kernels {ft_launches}")
+    loss = torch.stack(losses).float().cpu().numpy()
+    check(bool(np.isfinite(loss).all()), "Masksembles fine-tune loss finite")
+    variables = state.variables()
+    p50 = statistics.median(step_ms)
+    emit({"phase": "mask_train", "model": "vgg11_me",
+          "bayes": "BayesConfig(kind=MASK, num_masks=4, scale=2.0)",
+          "dtype": "bfloat16", "batch": BATCH, "epochs": MASK_EPOCHS,
+          "steps": steps, "lr": MASK_LR, "clip": TRAIN_CLIP,
+          "warm_start": "the train phase's float weights, own banks",
+          "launches_per_step": {kk: v / steps
+                                for kk, v in ft_launches.items()},
+          "seconds": ft_s, "step_p50_ms": p50, "step_min_ms": min(step_ms),
+          "images_per_s": nb * BATCH / epoch1_s,
+          "images_per_s_of_p50": BATCH / (p50 / 1e3),
+          "first_loss": float(loss[0]), "final_loss": float(loss[-1]),
+          "epoch_mean_loss": loss.reshape(MASK_EPOCHS, nb).mean(1).tolist()})
+
+    sp, tm = engine(), engine(mode=SamplingMode.TEMPORAL)
+    x = torch.from_numpy(ds.x_test[:BATCH]).cuda()
+    seed = 0
+    sp.predict(x, seed)                 # warm-up: cuDNN plans, allocator
+    tm.predict(x, seed)
+    torch.cuda.synchronize()
+    p_sp, sp_launches = _launched(lambda: sp.predict(x, seed))
+    p_tm, tm_launches = _launched(lambda: tm.predict(x, seed))
+    ones, one_launches = _launched(lambda: [
+        sp.predict(x, seed, sample_idx=i) for i in range(s_mask)])
+    check(p_sp.num_samples == s_mask, f"S {p_sp.num_samples} != num_masks")
+    check(sp_launches == counts(bank_matmul_samples=5),
+          f"Masksembles spatial predict launches {sp_launches}")
+    check(tm_launches == counts(bank_matmul=5 * s_mask),
+          f"Masksembles temporal predict launches {tm_launches}")
+    check(one_launches == counts(bank_matmul=5 * s_mask),
+          f"Masksembles one-mask predicts launches {one_launches}")
+    for name, p in (("spatial", p_sp.probs), ("temporal", p_tm.probs)):
+        check(p.shape == (5, BATCH, 10) and bool(torch.isfinite(p).all()),
+              f"Masksembles {name} probs")
+        check((p.sum(-1) - 1).abs().max().item() < 1e-5,
+              f"Masksembles {name} probs sum to 1")
+    d_probs = (p_sp.probs - p_tm.probs).abs().max().item()
+    check(d_probs < 1e-5, f"Masksembles spatial vs temporal probs {d_probs}")
+    with torch.inference_mode():
+        sd = sp.seeds(seed, s_mask)
+        l_sp = sampler.mc_logits(sp.model, x, sd, SamplingMode.SPATIAL)
+        l_tm = sampler.mc_logits(sp.model, x, sd, SamplingMode.TEMPORAL)
+        cpu = engine(device="cpu")
+        l_cpu = sampler.mc_logits(cpu.model, x[:8].cpu(), sd.cpu(),
+                                  SamplingMode.SPATIAL)
+    d_st = (l_sp - l_tm).abs().max().item()
+    check(d_st <= SPATIAL_TEMPORAL_ATOL,
+          f"Masksembles spatial vs temporal logits {d_st}")
+    d_one = max((ones[i] - torch.softmax(l_sp[i], -1)).abs().max().item()
+                for i in range(s_mask))
+    check(d_one <= SPATIAL_TEMPORAL_ATOL,
+          f"predict(sample_idx=i) vs sample i of the spatial logits {d_one}")
+    d_cpu = (l_sp[:, :, :8].cpu() - l_cpu).abs().max().item()
+    cpu_tol = CPU_REF_RTOL * max(1.0, l_cpu.abs().max().item())
+    check(d_cpu <= cpu_tol,
+          f"Masksembles card vs CPU rows 0-7: {d_cpu} > {cpu_tol}")
+    x_te, y_te = ds.x_test[:2000], ds.y_test[:2000]
+    t = time.perf_counter()
+    mets, ev_launches = _launched(lambda: sp.evaluate(
+        x_te, y_te, seed=0, ood_check=True, dataset="cifar10"))
+    eval_s = time.perf_counter() - t
+    check(ev_launches == counts(bank_matmul_samples=10),
+          f"Masksembles evaluate launches {ev_launches}")
+    check(all(np.isfinite(v) for v in mets.values()),
+          f"Masksembles metrics finite {mets}")
+    check(mets["acc"] >= 0.5, f"Masksembles accuracy {mets}")
+
+    # ---- int8: the same weights on the int8 model, no QAT; for
+    # attribution, on the fake-quant model too (the same ap_fixed<8,0>
+    # grid in float arithmetic, through the float bank kernels)
+    i8, i8_tm = engine(int8_q), engine(int8_q, SamplingMode.TEMPORAL)
+    t = time.perf_counter()
+    mets8, ev8_launches = _launched(lambda: i8.evaluate(
+        x_te, y_te, seed=0, ood_check=True, dataset="cifar10"))
+    eval8_s = time.perf_counter() - t
+    check(ev8_launches == counts(bank_matmul_int8_samples=10),
+          f"int8 Masksembles evaluate launches {ev8_launches}")
+    fq = engine(QuantConfig(8, 0))
+    mets_fq, fq_launches = _launched(lambda: fq.evaluate(
+        x_te, y_te, seed=0, ood_check=True, dataset="cifar10"))
+    check(fq_launches == counts(bank_matmul_samples=10),
+          f"fake-quant Masksembles evaluate launches {fq_launches}")
+    check(all(np.isfinite(v) for v in [*mets8.values(), *mets_fq.values()]),
+          f"int8 Masksembles metrics finite {mets8} {mets_fq}")
+    p8_sp, sp8_launches = _launched(lambda: i8.predict(x, seed))
+    p8_tm, tm8_launches = _launched(lambda: i8_tm.predict(x, seed))
+    check(sp8_launches == counts(bank_matmul_int8_samples=5),
+          f"int8 Masksembles spatial predict launches {sp8_launches}")
+    check(tm8_launches == counts(bank_matmul_int8=5 * s_mask),
+          f"int8 Masksembles temporal predict launches {tm8_launches}")
+    with torch.inference_mode():
+        l8_sp = sampler.mc_logits(i8.model, x, sd, SamplingMode.SPATIAL)
+        l8_tm = sampler.mc_logits(i8.model, x, sd, SamplingMode.TEMPORAL)
+        cpu8 = engine(int8_q, device="cpu")
+        l8_cpu = sampler.mc_logits(cpu8.model, x[:8].cpu(), sd.cpu(),
+                                   SamplingMode.SPATIAL)
+    launches = dict(mm.launch_counts)
+    check(torch.equal(l8_sp, l8_tm),
+          "int8 Masksembles spatial and temporal logits differ")
+    check(bool(torch.isfinite(p8_sp.probs).all())
+          and (p8_sp.probs - p8_tm.probs).abs().max().item() < 1e-5,
+          "int8 Masksembles probs")
+    d8_rows = (l8_sp[:, :, :8].cpu() - l8_cpu).abs()
+    d8_cpu = d8_rows.max().item()
+    # INT8_CPU_STEPS grid steps of a head's int8 input through the widest
+    # column of its quantized kernel (the bank only zeroes inputs; no
+    # dropout rescale)
+    cpu8_tol = INT8_CPU_STEPS * 2.0 ** -7 * max(
+        torch.linalg.vector_norm(fake_quant(h.kernel, int8_q), dim=0).max()
+        .item() for h in cpu8.model.modules() if isinstance(h, BayesDense))
+    check(d8_cpu <= cpu8_tol,
+          f"int8 Masksembles card vs CPU rows 0-7: {d8_cpu} > {cpu8_tol}")
+
+    # ---- times
+    spatial_ms = host_ms(lambda: sp.predict(x, seed), 30)
+    temporal_ms = host_ms(lambda: tm.predict(x, seed), 10)
+    loop_ms = host_ms(lambda: [sp.predict(x, seed, sample_idx=i)
+                               for i in range(s_mask)], 10)
+    order = [("bf16", sp), ("int8", i8), ("int8", i8), ("bf16", sp)]
+    p50s: dict = {"bf16": [], "int8": []}
+    for name, eng in order:
+        p50s[name].append(host_ms(lambda: eng.predict(x, seed), 15))
+    int8_ms = statistics.mean(p50s["int8"])
+    bf16_ms = statistics.mean(p50s["bf16"])
+    emit({"phase": "mask", "model": "vgg11_me",
+          "bayes": "BayesConfig(kind=MASK, num_masks=4, scale=2.0)",
+          "dtype": "bfloat16", "batch": BATCH, "samples": s_mask,
+          "test_images": len(x_te), "eval_seconds": eval_s, **mets,
+          "launches_main_path": launches,
+          "launches_spatial_predict": sp_launches,
+          "launches_temporal_predict": tm_launches,
+          "launches_one_mask_predicts": one_launches,
+          "spatial_vs_temporal_probs_max_abs": d_probs,
+          "spatial_vs_temporal_logits_max_abs": d_st,
+          "spatial_temporal_bit_identical": bool(torch.equal(l_sp, l_tm)),
+          "sample_idx_vs_spatial_probs_max_abs": d_one,
+          "card_vs_cpu_rows0_7_logits_max_abs": d_cpu,
+          "card_vs_cpu_tol": cpu_tol,
+          "spatial_p50_ms": spatial_ms,
+          "mc_samples_per_s": BATCH * s_mask / (spatial_ms / 1e3),
+          "temporal_p50_ms": temporal_ms, "host_loop_p50_ms": loop_ms})
+    emit({"phase": "mask_int8", "model": "vgg11_me",
+          "quant": "INT8_Q = QuantConfig(8, 0, int8_infer=True), no QAT",
+          "batch": BATCH, "samples": s_mask, "test_images": len(x_te),
+          "eval_seconds": eval8_s, **mets8, "fake_quant": mets_fq,
+          "launches_spatial_predict": sp8_launches,
+          "launches_temporal_predict": tm8_launches,
+          "spatial_temporal_bit_identical": True,
+          "card_vs_cpu_rows0_7_logits_max_abs": d8_cpu,
+          "card_vs_cpu_tol": cpu8_tol,
+          "card_vs_cpu_rows_differing": int(
+              (d8_rows.amax(dim=(0, 1, 3)) > 0).sum()),
+          "int8_spatial_p50_ms": int8_ms, "bf16_spatial_p50_ms": bf16_ms,
+          "int8_over_bf16": int8_ms / bf16_ms, "p50_ms_by_turn": p50s,
+          "int8_mc_samples_per_s": BATCH * s_mask / (int8_ms / 1e3)})
+    emit({"phase": "mask_profile",
+          "what": "Masksembles bf16 spatial predict, profiled",
+          **_profile_predict(sp, x, seed)})
     return {"launches": launches}
 
 
@@ -1080,10 +1506,11 @@ def main() -> int:
     phase_profile(sl)
     tr = phase_train()
     i8 = phase_int8(tr)
+    mk = phase_mask(tr)
     phase_step_vs_cpu()
     kernels = []
     for name, stats in summary.items():
-        launches = sum(ph["launches"][name] for ph in (sl, tr, i8))
+        launches = sum(ph["launches"][name] for ph in (sl, tr, i8, mk))
         check(launches > 0, f"{name} was never launched on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
                         "replaces": REPLACES[name],

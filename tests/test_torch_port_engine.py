@@ -128,7 +128,7 @@ def test_mc_moments_formulas_match_jax():
     want_var = jnp.maximum(s2 / 6 - mean * mean, 0.0)
 
     class Replay(torch.nn.Module):
-        def forward(self, x, seeds):
+        def forward(self, x, seeds, sample_idx=None):
             return tmultiexit.ExitOutputs(torch.from_numpy(
                 logits[int(seeds[0, 0])]))
 
@@ -305,7 +305,8 @@ def test_engine_guards(engine):
 def test_import_pulls_in_no_jax():
     code = ("import sys, bayestpu_torch, bayestpu_torch.engine.engine, "
             "bayestpu_torch.nn.zoo, bayestpu_torch.kernels._build, "
-            "bayestpu_torch.train.loop, bayestpu_torch.data.datasets\n"
+            "bayestpu_torch.train.loop, bayestpu_torch.data.datasets, "
+            "bayestpu_torch.nn.bayes, bayestpu_torch.kernels.mask_bank\n"
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "
             "'bayestpu') or m.startswith(('jax.', 'flax.', 'optax.', "
             "'bayestpu.'))]\n"

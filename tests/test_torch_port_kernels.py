@@ -194,7 +194,11 @@ def test_cpu_calls_launch_nothing():
                                  "dropout_matmul_samples": 0,
                                  "dropout_apply": 0,
                                  "dropout_matmul_int8": 0,
-                                 "dropout_matmul_int8_samples": 0}
+                                 "dropout_matmul_int8_samples": 0,
+                                 "bank_matmul": 0,
+                                 "bank_matmul_samples": 0,
+                                 "bank_matmul_int8": 0,
+                                 "bank_matmul_int8_samples": 0}
 
 
 # ---------------------------------------------------------------- guards

@@ -200,8 +200,12 @@ def test_registry_and_unported_branches():
     with pytest.raises(KeyError, match="available"):
         get_model("bogus")
     from bayestpu_torch.core.config import DropoutKind, QuantConfig
-    with pytest.raises(NotImplementedError, match="Masksembles"):
-        get_model("vgg11_me", bayes=BayesConfig(kind=DropoutKind.MASK))
+    # Masksembles heads are ported; its masked-conv sites are not
+    assert get_model("vgg11_me", bayes=BayesConfig(kind=DropoutKind.MASK),
+                     fused=True).num_sites == 0
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_model("vgg11_me", bayes=BayesConfig(kind=DropoutKind.MASK),
+                  dropout="block")
     # quantization is ported; its per-layer overrides are not
     assert get_model("vgg11_me", quant=QuantConfig(),
                      fused=True).quant == QuantConfig()
