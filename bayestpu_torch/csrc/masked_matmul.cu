@@ -180,16 +180,18 @@ struct HashMask {
 // Masksembles: sample s multiplies x by row idxs[s] of the f32 bank (n, K).
 // The float kernels multiply by the bank's VALUE (x * row, rounded once to
 // f32; a bf16 x widens exactly first); the int8 kernels binarize the row
-// as bank > 0.5 and keep or zero the int8 x. The wrapper has already taken
-// every index modulo n (floor semantics), so a row read stays in bounds.
-// The rows of a k tile are staged in shared memory once for the block's
-// samples; columns beyond K read as 0.
+// as bank > 0.5 and keep or zero the int8 x. `begin` takes every index
+// modulo n with floor semantics (JAX's idx % n: -1 -> n - 1), so a row read
+// stays in bounds whatever the caller passed, at no extra launch. The rows
+// of a k tile are staged in shared memory once for the block's samples;
+// columns beyond K read as 0.
 template <typename T, int NS>
 struct BankMask {
   using V = typename Elem<T>::V;
   const float* bank;     // (n, K) f32
-  const int32_t* idxs;   // (S,) in [0, n); nullptr: every sample is idx0
+  const int32_t* idxs;   // (S,) any int32; nullptr: every sample is idx0
   int idx0;
+  int n;
   int K;
   struct Smem {
     int idx[NS];
@@ -197,7 +199,10 @@ struct BankMask {
   };
   __device__ __forceinline__ void begin(Smem& sm, int s0, int ns,
                                         int tid) const {
-    if (tid < ns) sm.idx[tid] = idxs != nullptr ? idxs[s0 + tid] : idx0;
+    if (tid < ns) {
+      const int r = (idxs != nullptr ? idxs[s0 + tid] : idx0) % n;
+      sm.idx[tid] = r < 0 ? r + n : r;
+    }
   }
   __device__ __forceinline__ void stage(Smem& sm, int k0, int ns,
                                         int tid) const {
@@ -330,9 +335,9 @@ __global__ void __launch_bounds__(THREADS)
     bank_matmul_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
                        const float* __restrict__ bank,
                        float* __restrict__ out, int M, int K, int N, int idx,
-                       float out_scale) {
+                       int n, float out_scale) {
   masked_tile_matmul<TX, TW, 1>(
-      x, w, BankMask<TX, 1>{bank, nullptr, idx, K}, out, M, K, N, 1,
+      x, w, BankMask<TX, 1>{bank, nullptr, idx, n, K}, out, M, K, N, 1,
       out_scale);
 }
 
@@ -343,10 +348,10 @@ __global__ void __launch_bounds__(THREADS)
                                const float* __restrict__ bank,
                                const int32_t* __restrict__ idxs,
                                float* __restrict__ out, int M, int K, int N,
-                               int S, float out_scale) {
+                               int S, int n, float out_scale) {
   masked_tile_matmul<TX, TW, SAMPLES_PER_BLOCK>(
-      x, w, BankMask<TX, SAMPLES_PER_BLOCK>{bank, idxs, 0, K}, out, M, K, N,
-      S, out_scale);
+      x, w, BankMask<TX, SAMPLES_PER_BLOCK>{bank, idxs, 0, n, K}, out, M, K,
+      N, S, out_scale);
 }
 
 // dropout(x) alone: out[r, c] = keep(r, c) ? f32(x[r, c]) * scale : 0, with
@@ -477,7 +482,7 @@ extern "C" int bt_dropout_matmul_int8_samples(const void* x, const void* w,
 
 extern "C" int bt_bank_matmul(const void* x, const void* w, const void* bank,
                               void* out, int M, int K, int N, int idx,
-                              int is_bf16, void* stream) {
+                              int n, int is_bf16, void* stream) {
   const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, 1);
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* b = static_cast<const float*>(bank);
@@ -485,10 +490,11 @@ extern "C" int bt_bank_matmul(const void* x, const void* w, const void* bank,
   auto* o = static_cast<float*>(out);
   if (is_bf16) {
     bank_matmul_kernel<__nv_bfloat16, float><<<grid, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), wf, b, o, M, K, N, idx, 1.f);
+        static_cast<const __nv_bfloat16*>(x), wf, b, o, M, K, N, idx, n,
+        1.f);
   } else {
     bank_matmul_kernel<float, float><<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(x), wf, b, o, M, K, N, idx, 1.f);
+        static_cast<const float*>(x), wf, b, o, M, K, N, idx, n, 1.f);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -496,7 +502,7 @@ extern "C" int bt_bank_matmul(const void* x, const void* w, const void* bank,
 extern "C" int bt_bank_matmul_samples(const void* x, const void* w,
                                       const void* bank, const void* idxs,
                                       void* out, int M, int K, int N, int S,
-                                      int is_bf16, void* stream) {
+                                      int n, int is_bf16, void* stream) {
   const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN,
                   (S + SAMPLES_PER_BLOCK - 1) / SAMPLES_PER_BLOCK);
   const auto st = static_cast<cudaStream_t>(stream);
@@ -507,31 +513,31 @@ extern "C" int bt_bank_matmul_samples(const void* x, const void* w,
   if (is_bf16) {
     bank_matmul_samples_kernel<__nv_bfloat16, float>
         <<<grid, THREADS, 0, st>>>(static_cast<const __nv_bfloat16*>(x), wf,
-                                   b, ix, o, M, K, N, S, 1.f);
+                                   b, ix, o, M, K, N, S, n, 1.f);
   } else {
     bank_matmul_samples_kernel<float, float><<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(x), wf, b, ix, o, M, K, N, S, 1.f);
+        static_cast<const float*>(x), wf, b, ix, o, M, K, N, S, n, 1.f);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int bt_bank_matmul_int8(const void* x, const void* w,
                                    const void* bank, void* out, int M, int K,
-                                   int N, int idx, float out_scale,
+                                   int N, int idx, int n, float out_scale,
                                    void* stream) {
   const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, 1);
   bank_matmul_kernel<int8_t, int8_t>
       <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
           static_cast<const float*>(bank), static_cast<float*>(out), M, K, N,
-          idx, out_scale);
+          idx, n, out_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int bt_bank_matmul_int8_samples(const void* x, const void* w,
                                            const void* bank, const void* idxs,
                                            void* out, int M, int K, int N,
-                                           int S, float out_scale,
+                                           int S, int n, float out_scale,
                                            void* stream) {
   const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN,
                   (S + SAMPLES_PER_BLOCK - 1) / SAMPLES_PER_BLOCK);
@@ -539,6 +545,6 @@ extern "C" int bt_bank_matmul_int8_samples(const void* x, const void* w,
       <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
           static_cast<const float*>(bank), static_cast<const int32_t*>(idxs),
-          static_cast<float*>(out), M, K, N, S, out_scale);
+          static_cast<float*>(out), M, K, N, S, n, out_scale);
   return static_cast<int>(cudaGetLastError());
 }

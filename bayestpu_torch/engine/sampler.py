@@ -49,8 +49,7 @@ def mc_logits(model, x: torch.Tensor, seeds: torch.Tensor,
         raise NotImplementedError(
             f"the {mode.value} mapping is not ported (sharding: ROADMAP "
             "Queue 1 item 13; BayesEngine runs an untuned AUTO as spatial)")
-    return model(x, seeds, torch.arange(seeds.shape[0], dtype=torch.int32,
-                                        device=x.device)).logits
+    return model(x, seeds).logits    # sample_idx defaults to arange(S)
 
 
 def predictive(model, x: torch.Tensor, seeds: torch.Tensor,

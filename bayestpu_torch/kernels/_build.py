@@ -43,16 +43,16 @@ _SIGNATURES: dict[str, dict[str, list]] = {
         # x_q, w_q, seeds, out, M, K, N, S, thresh, out_scale, stream
         "bt_dropout_matmul_int8_samples": [_P, _P, _P, _P, _I, _I, _I, _I,
                                            _U32, _F, _P],
-        # x, w, bank, out, M, K, N, idx, is_bf16, stream
-        "bt_bank_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        # x, w, bank, idxs, out, M, K, N, S, is_bf16, stream
+        # x, w, bank, out, M, K, N, idx, num_masks, is_bf16, stream
+        "bt_bank_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # x, w, bank, idxs, out, M, K, N, S, num_masks, is_bf16, stream
         "bt_bank_matmul_samples": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _P],
-        # x_q, w_q, bank, out, M, K, N, idx, out_scale, stream
-        "bt_bank_matmul_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-        # x_q, w_q, bank, idxs, out, M, K, N, S, out_scale, stream
+                                   _I, _P],
+        # x_q, w_q, bank, out, M, K, N, idx, num_masks, out_scale, stream
+        "bt_bank_matmul_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        # x_q, w_q, bank, idxs, out, M, K, N, S, num_masks, out_scale, stream
         "bt_bank_matmul_int8_samples": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                        _F, _P],
+                                        _I, _F, _P],
     },
 }
 

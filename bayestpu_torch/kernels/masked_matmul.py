@@ -493,14 +493,14 @@ def bank_index(sample_idx, num_masks: int) -> int:
     return int(sample_idx) % num_masks
 
 
-def bank_indices(idxs: torch.Tensor, num_masks: int) -> torch.Tensor:
-    """1-D integer sample indices modulo ``num_masks`` (floor semantics, so
-    every row read stays in the bank), as contiguous int32 on their
-    device."""
+def bank_indices(idxs: torch.Tensor) -> torch.Tensor:
+    """1-D integer sample indices as contiguous int32 on their device (no
+    copy for int32). Any value in int32's range: the kernels take each
+    modulo ``num_masks`` with floor semantics themselves."""
     if (not isinstance(idxs, torch.Tensor) or idxs.dim() != 1
             or idxs.is_floating_point() or idxs.dtype == torch.bool):
         raise ValueError("sample indices must be a 1-D integer tensor")
-    return torch.remainder(idxs, num_masks).to(torch.int32).contiguous()
+    return idxs.to(torch.int32).contiguous()
 
 
 def bank_matmul_plain(x: torch.Tensor, w: torch.Tensor, bank: torch.Tensor,
@@ -516,7 +516,7 @@ def bank_matmul_samples_plain(x: torch.Tensor, w: torch.Tensor,
                               ) -> torch.Tensor:
     """All S samples in plain PyTorch: (S, M, N) f32, sample s equal to
     ``bank_matmul_plain(x, w, bank, idxs[s])`` bit for bit."""
-    rows = bank_indices(idxs, bank.shape[0]).tolist()
+    rows = bank_indices(idxs).tolist()
     if not rows:
         return torch.empty((0, x.shape[0], w.shape[1]), dtype=torch.float32,
                            device=x.device)
@@ -540,7 +540,7 @@ def bank_matmul_int8_samples_plain(x_q: torch.Tensor, w_q: torch.Tensor,
                                    ) -> torch.Tensor:
     """All S int8 samples in plain PyTorch: (S, M, N) f32, sample s equal to
     ``bank_matmul_int8_plain(x_q, w_q, bank, idxs[s], ...)`` bit for bit."""
-    rows = bank_indices(idxs, bank.shape[0]).tolist()
+    rows = bank_indices(idxs).tolist()
     if not rows:
         return torch.empty((0, x_q.shape[0], w_q.shape[1]),
                            dtype=torch.float32, device=x_q.device)
@@ -583,8 +583,8 @@ def _check_bank(x: torch.Tensor, w: torch.Tensor, bank: torch.Tensor,
 def _launch_bank(name: str, x: torch.Tensor, w: torch.Tensor,
                  bank: torch.Tensor, index, args: list) -> torch.Tensor:
     """Launch a bank kernel: ``index`` is the int row of a single kernel,
-    (M, N) out, or the int32 row tensor (S,) of a samples kernel, (S, M, N)
-    out; ``args`` are the trailing C arguments."""
+    (M, N) out, or the int32 index tensor (S,) of a samples kernel, (S, M,
+    N) out; ``args`` are the trailing C arguments."""
     m, k = x.shape
     n = w.shape[1]
     tensors = {"x": x, "w": w, "bank": bank}
@@ -596,6 +596,7 @@ def _launch_bank(name: str, x: torch.Tensor, w: torch.Tensor,
                              f"{x.device}; got {index.device}")
         tensors["idxs"] = index
         shape, dims = (index.shape[0], m, n), [m, k, n, index.shape[0]]
+    dims.append(bank.shape[0])
     out = torch.empty(shape, dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
@@ -624,10 +625,10 @@ def bank_matmul_samples(x: torch.Tensor, w: torch.Tensor, bank: torch.Tensor,
     bank, idxs[s])`` on the same device; x tiles are staged once for all
     samples of a block."""
     _check_bank(x, w, bank, False)
-    rows = bank_indices(idxs, bank.shape[0])
+    idxs = bank_indices(idxs)
     if x.device.type == "cpu":
-        return bank_matmul_samples_plain(x, w, bank, rows)
-    return _launch_bank("bank_matmul_samples", x, w, bank, rows,
+        return bank_matmul_samples_plain(x, w, bank, idxs)
+    return _launch_bank("bank_matmul_samples", x, w, bank, idxs,
                         [int(x.dtype == torch.bfloat16)])
 
 
@@ -663,11 +664,11 @@ def bank_matmul_int8_samples(x_q: torch.Tensor, w_q: torch.Tensor,
     sample s bit-identical to ``bank_matmul_int8(x_q, w_q, bank, idxs[s],
     ...)``."""
     _check_bank(x_q, w_q, bank, True)
-    rows = bank_indices(idxs, bank.shape[0])
+    idxs = bank_indices(idxs)
     if x_q.device.type == "cpu":
-        return bank_matmul_int8_samples_plain(x_q, w_q, bank, rows, x_step,
+        return bank_matmul_int8_samples_plain(x_q, w_q, bank, idxs, x_step,
                                               w_step)
-    return _launch_bank("bank_matmul_int8_samples", x_q, w_q, bank, rows,
+    return _launch_bank("bank_matmul_int8_samples", x_q, w_q, bank, idxs,
                         [bank_out_scale(x_step, w_step)])
 
 

@@ -3,7 +3,7 @@
 Counterpart of ``bayestpu/nn/bayes.py:91-159``. A Masksembles site holds a
 fixed bank of ``num_masks`` binary channel masks, generated in the
 constructor from the channel count by ``kernels.mask_bank`` with
-``np.random.default_rng(bank_seed)`` — the bank the Flax ``init`` draws —
+``np.random.default_rng(BANK_SEED)`` — the bank the Flax ``init`` draws —
 and kept as the buffer ``bank`` (the Flax ``masks`` collection, never a
 parameter). Channels are the last axis: (B, C) or NHWC inputs.
 
@@ -36,22 +36,23 @@ from bayestpu_torch.kernels.masked_matmul import bank_index
 # buffer named ``bank`` to it.
 MASKS_COLLECTION = "masks"
 
+# The seed of every bank: the default ``bank_seed`` of the Flax sites
+# (``bayes.py:111``, ``fused.py:513``), which no configuration changes.
+BANK_SEED = 0
+
 
 @functools.lru_cache(maxsize=None)
-def _bank_array(channels: int, num_masks: int, scale: float,
-                seed: int) -> np.ndarray:
+def _bank_array(channels: int, num_masks: int, scale: float) -> np.ndarray:
     _, bank = mask_bank.generation_wrapper(
-        channels, num_masks, scale, rng=np.random.default_rng(seed))
+        channels, num_masks, scale, rng=np.random.default_rng(BANK_SEED))
     bank.setflags(write=False)
     return bank
 
 
-def make_bank(channels: int, num_masks: int, scale: float,
-              seed: int = 0) -> torch.Tensor:
+def make_bank(channels: int, num_masks: int, scale: float) -> torch.Tensor:
     """The (num_masks, channels) f32 bank the Flax init draws for a site of
     ``channels`` channels (``bayes.py:118-124``, ``fused.py:542-548``)."""
-    return torch.from_numpy(_bank_array(channels, num_masks, scale,
-                                        seed).copy())
+    return torch.from_numpy(_bank_array(channels, num_masks, scale).copy())
 
 
 def batch_split(x: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
@@ -81,11 +82,9 @@ def apply_row(x: torch.Tensor, bank: torch.Tensor, sample_idx
 class Masksembles(nn.Module):
     """Fixed-mask-bank site over the channel (last) axis."""
 
-    def __init__(self, channels: int, num_masks: int = 4, scale: float = 2.0,
-                 bank_seed: int = 0):
+    def __init__(self, channels: int, num_masks: int = 4, scale: float = 2.0):
         super().__init__()
-        self.register_buffer("bank", make_bank(channels, num_masks, scale,
-                                               bank_seed))
+        self.register_buffer("bank", make_bank(channels, num_masks, scale))
 
     def forward(self, x: torch.Tensor, sample_idx=0) -> torch.Tensor:
         if self.training:

@@ -13,10 +13,11 @@ backward regenerates the mask (``fused.py:581-588``). Under bf16 both x and
 the kernel are cast to bf16 and the f32 bias is added to the f32 product.
 
 Masksembles (``kind=MASK``, ``fused.py:541-571``): the head holds the
-(num_masks, in_features) f32 buffer ``bank``, generated from ``bank_seed``
-as the Flax init does (``nn.bayes.make_bank``). At inference an int
-``sample_idx`` selects one mask, (B, out), and a 1-D tensor of S indices
-every mask in one launch, (S, B, out): ``bank_matmul_inference`` when
+(num_masks, in_features) f32 buffer ``bank``, generated from
+``nn.bayes.BANK_SEED`` as the Flax init does (``nn.bayes.make_bank``). At
+inference an int ``sample_idx`` selects one mask, (B, out), and a 1-D
+tensor of S indices every mask in one launch, (S, B, out):
+``bank_matmul_inference`` when
 fused, ``(x · bank[idx % n]) @ kernel`` when not. In training the batch
 splits into ``num_masks`` groups, group g under mask g, unfused as in JAX.
 This family computes in f32 whatever ``dtype`` is: a bf16 x times the f32
@@ -50,7 +51,7 @@ class BayesDense(nn.Module):
     def __init__(self, in_features: int, features: int,
                  bayes: BayesConfig = BayesConfig(), use_bias: bool = True,
                  fused: bool = True, quant: QuantConfig | None = None,
-                 dtype: torch.dtype = torch.float32, bank_seed: int = 0):
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.quant = quant
         self.fused = fused
@@ -68,7 +69,7 @@ class BayesDense(nn.Module):
                      else None)
         if self.masked:
             self.register_buffer("bank", make_bank(
-                in_features, bayes.num_masks, bayes.scale, bank_seed))
+                in_features, bayes.num_masks, bayes.scale))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         lecun_normal_(self.kernel, self.kernel.shape[0], generator)
@@ -76,18 +77,17 @@ class BayesDense(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor, seeds: torch.Tensor | None = None,
-                sample_idx=None) -> torch.Tensor:
+                sample_idx=0) -> torch.Tensor:
         """x: (B, in). An MC head takes seeds (2,) (or (S, 2) at inference)
         int32 on x's device; a Masksembles head takes ``sample_idx``, an int
-        (default 0) or at inference a 1-D integer tensor of S indices on x's
-        device; other heads ignore both. Returns (B, out) or (S, B, out)
-        f32."""
+        or at inference a 1-D integer tensor of S indices on x's device
+        (unused in training); other heads ignore both. Returns (B, out) or
+        (S, B, out) f32."""
         q = self.quant
         int8 = (q is not None and q.int8_infer and self.fused
                 and not self.training and x.shape[-1] >= q.int8_dense_min_dim)
         if self.masked:
-            y = self._bank_head(x, 0 if sample_idx is None else sample_idx,
-                                int8)
+            y = self._bank_head(x, sample_idx, int8)
         elif not self.stochastic:
             y = quant_dot(x, self.kernel, q, self.dtype, int8)
         else:

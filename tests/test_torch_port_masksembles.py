@@ -298,7 +298,7 @@ def test_masksembles_vgg_structure(mask_vars):
             dict(model.named_buffers())[f"{name}.bank"].numpy(),
             want["bank"])
     assert not any(n.endswith("bank") for n, _ in model.named_parameters())
-    # every head shares bank_seed 0 and width 512, so one bank, as in JAX
+    # every head shares BANK_SEED and width 512, so one bank, as in JAX
     assert torch.equal(heads[0].bank, heads[-1].bank)
 
 
