@@ -7,10 +7,16 @@ also gets the index *i*, which a Masksembles model uses as its mask index
 (``i % num_masks``) and an MC model ignores (``sampler.py:61-72,115-127``);
 a Masksembles model has no MC sites, so its seeds are (S, 0, 2).
 
-- temporal: the whole network runs once per sample; every Bayesian head
+- temporal: the whole network runs once per sample; every Bayesian site
   launches the single-sample kernel.
-- spatial: the backbone runs once and each Bayesian head launches the
-  samples kernel once for all S.
+- spatial: the model runs once with all S seeds: the deterministic layers
+  before the first Bayesian site run once, and that site launches the
+  samples kernel once for all S. Without conv sites (``vgg11_me``) every
+  site is a head, so the backbone runs once and each head launches one
+  samples kernel. With conv sites (``vgg11`` with ``dropout="block"``) the
+  activations carry S after the first site: the later deterministic layers
+  run on S·N rows, and each later site launches the single kernel once per
+  sample (JAX's ``lax.map`` fallback).
 
 Sample *i* sees the same masks in both mappings, so their per-sample logits
 agree.

@@ -6,9 +6,10 @@ with Masksembles sites — as nested dicts of numpy arrays
 (``jax.tree.map(np.asarray, variables)``). Each leaf fills the port's
 parameter (``params``) or buffer whose dotted name is the leaf's path:
 ``params/block0/convbn0/conv/kernel`` → ``block0.convbn0.conv.kernel``,
-``masks/exit1/linear/bank`` → ``exit1.linear.bank``. A buffer named
-``bank`` (a Masksembles bank) belongs to ``masks``, every other buffer (the
-BatchNorm statistics) to ``batch_stats``. Conv kernels go from HWIO to
+``masks/exit1/linear/bank`` → ``exit1.linear.bank``, a conv site's
+``masks/block1/convbn0/conv/bank`` → ``block1.convbn0.conv.bank``. A buffer
+named ``bank`` (a Masksembles bank) belongs to ``masks``, every other
+buffer (the BatchNorm statistics) to ``batch_stats``. Conv kernels go from HWIO to
 OIHW; dense kernels stay ``(in, out)``. A missing or extra name, a shape
 mismatch, or a collection the model does not hold (``masks`` for a model
 without banks) raises. ``to_flax_variables`` goes the other way.

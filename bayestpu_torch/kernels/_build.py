@@ -28,6 +28,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _U32, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, \
     ctypes.c_float
+# affine, out, dims (int array), fscale, out_kind, relu, inv_step, x_bf16,
+# w_bf16, stream
+_CONV_TAIL = [_P, _P, ctypes.POINTER(ctypes.c_int), _F, _I, _I, _F, _I, _I,
+              _P]
 # argtypes of every exported C function, by source name
 _SIGNATURES: dict[str, dict[str, list]] = {
     "masked_matmul": {
@@ -54,6 +58,18 @@ _SIGNATURES: dict[str, dict[str, list]] = {
         "bt_bank_matmul_int8_samples": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                         _I, _F, _P],
     },
+    # every masked_conv entry ends in the same arguments (masked_conv.cu)
+    "masked_conv": {name: head + _CONV_TAIL for name, head in {
+        # x, w, seeds (or null), thresh; one sample or S, from dims
+        "bt_masked_conv": [_P, _P, _P, _U32],
+        "bt_masked_conv_int8": [_P, _P, _P, _U32],
+        # x, w, bank, idx, num_masks
+        "bt_bank_conv": [_P, _P, _P, _I, _I],
+        "bt_bank_conv_int8": [_P, _P, _P, _I, _I],
+        # x, w, bank, idxs, num_masks
+        "bt_bank_conv_samples": [_P, _P, _P, _P, _I],
+        "bt_bank_conv_int8_samples": [_P, _P, _P, _P, _I],
+    }.items()},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -372,13 +372,29 @@ def dropout_matmul_samples(x: torch.Tensor, w: torch.Tensor,
                    _float_args(x, rate))
 
 
+def map_samples(fn, x: torch.Tensor, keys, stack=torch.stack
+                ) -> torch.Tensor:
+    """JAX's ``lax.map`` fallback of the vmap rules (``:407-411``): x (S,
+    ...) carries the sample axis, and sample s runs ``fn(x[s], keys[s])``,
+    one single-sample launch each; the S results joined by ``stack``."""
+    if len(keys) != x.shape[0]:
+        raise ValueError(f"x carries {x.shape[0]} samples but {len(keys)} "
+                         "seed pairs or indices came with it")
+    return stack([fn(x[s], keys[s]) for s in range(x.shape[0])])
+
+
 def dropout_matmul_inference(x: torch.Tensor, w: torch.Tensor,
                              seeds: torch.Tensor, rate: float
                              ) -> torch.Tensor:
     """Inference entry of the masked heads. ``seeds`` (2,) gives one sample,
     (M, N); ``seeds`` (S, 2) gives every sample in one launch, (S, M, N) —
     what the JAX package's vmap rule does. The CUDA samples kernel splits S
-    over blocks itself, so no sample chunking happens here."""
+    over blocks itself, so no sample chunking happens here. An x of (S, M,
+    K) with seeds (S, 2) carries the sample axis: one single launch per
+    sample (``map_samples``)."""
+    if x.dim() == 3:
+        return map_samples(lambda xs, sd: dropout_matmul(xs, w, sd, rate),
+                           x, seeds)
     if seeds.dim() == 1:
         return dropout_matmul(x, w, seeds, rate)
     return dropout_matmul_samples(x, w, seeds, rate)
@@ -472,7 +488,11 @@ def dropout_matmul_int8_inference(x_q: torch.Tensor, w_q: torch.Tensor,
                                   ) -> torch.Tensor:
     """Inference entry of the int8 heads: seeds (2,) → one sample (M, N);
     seeds (S, 2) → every sample in one launch, (S, M, N), what the JAX
-    package's vmap rule does."""
+    package's vmap rule does; x (S, M, K) → one single launch per
+    sample."""
+    if x_q.dim() == 3:
+        return map_samples(lambda xs, sd: dropout_matmul_int8(
+            xs, w_q, sd, rate, x_step, w_step), x_q, seeds)
     if seeds.dim() == 1:
         return dropout_matmul_int8(x_q, w_q, seeds, rate, x_step, w_step)
     return dropout_matmul_int8_samples(x_q, w_q, seeds, rate, x_step,
@@ -491,6 +511,21 @@ def bank_index(sample_idx, num_masks: int) -> int:
                              f"{sample_idx.dtype} {tuple(sample_idx.shape)}")
         sample_idx = int(sample_idx)
     return int(sample_idx) % num_masks
+
+
+def is_index_vector(sample_idx) -> bool:
+    """A 1-D tensor of S sample indices (the samples kernels' argument), as
+    opposed to one int index."""
+    return isinstance(sample_idx, torch.Tensor) and sample_idx.dim() == 1
+
+
+def host_indices(sample_idx) -> list[int]:
+    """S sample indices as Python ints for S single launches: a list or
+    tuple as it is, a 1-D integer tensor copied to the host (on a card, a
+    wait for the stream; a caller that maps several sites copies once)."""
+    if isinstance(sample_idx, (list, tuple)):
+        return [int(i) for i in sample_idx]
+    return bank_indices(sample_idx).tolist()
 
 
 def bank_indices(idxs: torch.Tensor) -> torch.Tensor:
@@ -637,8 +672,12 @@ def bank_matmul_inference(x: torch.Tensor, w: torch.Tensor,
     """Inference entry of the Masksembles heads: an int ``sample_idx`` runs
     one sample, (M, N); a 1-D tensor of S indices runs every sample in one
     launch, (S, M, N) — what the JAX package's vmap rule does (it chunks S
-    by 32; per-sample results do not depend on the chunking)."""
-    if isinstance(sample_idx, torch.Tensor) and sample_idx.dim() == 1:
+    by 32; per-sample results do not depend on the chunking). An x of (S,
+    M, K) with S indices runs one single launch per sample."""
+    if x.dim() == 3:
+        return map_samples(lambda xs, i: bank_matmul(xs, w, bank, i), x,
+                           host_indices(sample_idx))
+    if is_index_vector(sample_idx):
         return bank_matmul_samples(x, w, bank, sample_idx)
     return bank_matmul(x, w, bank, sample_idx)
 
@@ -677,8 +716,12 @@ def bank_matmul_int8_inference(x_q: torch.Tensor, w_q: torch.Tensor,
                                x_step: float, w_step: float) -> torch.Tensor:
     """Inference entry of the int8 Masksembles heads: an int index → one
     sample (M, N); a 1-D tensor of S indices → every sample in one launch,
-    (S, M, N)."""
-    if isinstance(sample_idx, torch.Tensor) and sample_idx.dim() == 1:
+    (S, M, N); an x of (S, M, K) → one single launch per sample."""
+    if x_q.dim() == 3:
+        return map_samples(lambda xs, i: bank_matmul_int8(
+            xs, w_q, bank, i, x_step, w_step), x_q,
+            host_indices(sample_idx))
+    if is_index_vector(sample_idx):
         return bank_matmul_int8_samples(x_q, w_q, bank, sample_idx, x_step,
                                         w_step)
     return bank_matmul_int8(x_q, w_q, bank, sample_idx, x_step, w_step)

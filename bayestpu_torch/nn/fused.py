@@ -1,8 +1,10 @@
-"""``BayesDense``: a Bayesian mask site fused into the dense layer after it.
+"""Bayesian mask sites fused into the layer after them: ``BayesDense``,
+``BayesConv`` and ``BayesConvInput``.
 
-Counterpart of ``bayestpu.nn.fused.BayesDense`` (``fused.py:499-614``): the
+Counterpart of ``bayestpu.nn.fused`` (``fused.py:123-614``): the
 MC-dropout, Masksembles and no-dropout branches, in training and at
-inference.
+inference. ``BayesConv`` is below ``BayesDense``, which this part
+describes.
 
 MC dropout at rate > 0: the mask is generated inside the CUDA matmul
 kernel (``bayestpu_torch.kernels.masked_matmul``). At inference seeds of
@@ -31,19 +33,33 @@ inference) x and the kernel are quantized to int8 and every MC head runs
 launch for S samples), every Masksembles head
 ``bank_matmul_int8_inference``; a head without a mask runs ``int8_matmul``
 (``fused.py:524-540,560-563,573-580,595-613``).
+
+x of shape (S, B, in) carries the sample axis (the activations after a
+spatial conv site, one row of x per sample): every Bayesian head then runs
+one single-sample launch per sample, seeds[s] or index s — JAX's
+``lax.map`` fallback (``masked_matmul.py:407-411``).
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 from torch import nn
 
 from bayestpu_torch.core.config import BayesConfig, DropoutKind, QuantConfig
+from bayestpu_torch.core.quant import (dequantize_int8, fake_quant, int8_step,
+                                       quantize_int8, unsigned)
+from bayestpu_torch.kernels.masked_conv import (
+    bank_conv_inference, bank_conv_int8_inference, conv2d_padded, conv_int8,
+    conv_int8_fused, dropout_conv, dropout_conv_inference,
+    dropout_conv_int8_inference, geometry, mask_apply_nhwc)
 from bayestpu_torch.kernels.masked_matmul import (
     bank_matmul_inference, bank_matmul_int8_inference, dropout_matmul,
     dropout_matmul_inference, dropout_matmul_int8_inference, matmul_f32)
 from bayestpu_torch.nn.bayes import apply_row, batch_split, make_bank
-from bayestpu_torch.nn.layers import (lecun_normal_, maybe_quant, quant_dot,
+from bayestpu_torch.nn.layers import (_Conv, _int8_conv_on_mxu,
+                                      lecun_normal_, maybe_quant, quant_dot,
                                       quant_operands)
 
 
@@ -118,4 +134,216 @@ class BayesDense(nn.Module):
         if self.fused:
             return bank_matmul_inference(x.contiguous(), kernel.contiguous(),
                                          self.bank, sample_idx)
-        return matmul_f32(apply_row(x, self.bank, sample_idx), kernel)
+        return matmul_f32(apply_row(x, self.bank, sample_idx,
+                                    carries_samples=x.dim() == 3), kernel)
+
+
+# The least input channels for which a masked conv runs fused
+# (``fused.py:84-98``): below it the JAX package routes the site unfused
+# (the TPU kernels pad channels to 128 lanes), and the port follows its
+# routing so that both run the same function.
+MASKED_CONV_FUSE_MIN_CH = 32
+
+
+def _masked_conv_fuse_worthwhile(in_ch: int) -> bool:
+    return in_ch >= MASKED_CONV_FUSE_MIN_CH
+
+
+_NOT_PORTED = ("the unfused MC conv site (BayesianDropout, threefry masks, "
+               "then the conv) is not ported yet: ROADMAP Queue 1 item 11")
+
+
+class BayesConvInput(nn.Module):
+    """Dropout on a conv input, generated and applied in one pass
+    (``fused.py:123-151``): ``dropout_apply`` on the (N·H·W, C) view, in
+    x's dtype; rate 0 is the identity. The unfused site (``fused=False``,
+    ``BayesianDropout``) is not ported and raises."""
+
+    def __init__(self, rate: float = 0.25, fused: bool = True):
+        super().__init__()
+        if rate > 0.0 and not fused:
+            raise NotImplementedError(_NOT_PORTED)
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, seeds: torch.Tensor | None = None
+                ) -> torch.Tensor:
+        if self.rate == 0.0:
+            return x
+        return mask_apply_nhwc(x, seeds, self.rate).to(x.dtype)
+
+
+class BayesConv(_Conv):
+    """(Bayesian mask → conv) with the mask fused into the conv kernel
+    (``fused.py:154-496``): ``kernel`` (OIHW) and for Masksembles the bank
+    buffer ``bank``. It has no bias of its own (``ConvBN`` builds the JAX
+    one with ``use_bias=False``): ``fold_bias`` feeds the epilogue.
+
+    ``forward(x, seeds=, sample_idx=, fold_scale=, fold_bias=, act=,
+    act_quant=, emit_int8=, defer_int8=)`` follows the JAX branches:
+
+    - MC at rate > 0, fused (stride 1 or 2, SAME/VALID/explicit padding, at
+      least ``MASKED_CONV_FUSE_MIN_CH`` input channels): training →
+      ``dropout_conv`` on the ``dtype`` casts; inference →
+      ``dropout_conv_inference`` with the BN fold and relu in the epilogue,
+      bf16 out in a bf16 float model, or under ``quant.int8_infer`` int8
+      out; an input wide enough for ``_int8_conv_on_mxu`` runs
+      ``dropout_conv_int8_inference`` instead. The unfused MC site raises
+      (``BayesianDropout``, threefry).
+    - Masksembles: training splits the batch (no kernel); inference runs
+      ``bank_conv_inference`` (f32 out even in a bf16 model: the f32 folded
+      kernel, never cast) or ``bank_conv_int8_inference``; unfused, ``x ·
+      row`` then the conv.
+    - no mask: the conv (``F.conv2d``, the JAX package's XLA conv) with the
+      epilogue in PyTorch, int8 × int8 for a wide int8 input, or with
+      ``quant.int8_det_pallas`` ``conv_int8_fused``.
+
+    A fused branch applies the bias to the f32 accumulator and emits int8
+    in the kernel whatever ``defer_int8`` says; the PyTorch path rounds a
+    bf16 conv to bf16 before the bias, as XLA does. ``seeds`` (2,) or (S,
+    2) and ``sample_idx`` (an int or S indices) select one sample or S, as
+    the kernels' ``_inference`` entries do; x of shape (S, N, C, H, W)
+    carries the sample axis and gets one single launch per sample.
+    """
+
+    def __init__(self, in_ch: int, features: int,
+                 kernel_size: Sequence[int] = (3, 3),
+                 strides: Sequence[int] = (1, 1), padding="SAME",
+                 bayes: BayesConfig | None = None, fused: bool = True,
+                 quant: QuantConfig | None = None,
+                 dtype: torch.dtype = torch.float32,
+                 quant_input: bool = True):
+        bayes = bayes if bayes is not None else BayesConfig(
+            kind=DropoutKind.NONE)
+        masked = bayes.kind is DropoutKind.MASK
+        super().__init__(in_ch, features, kernel_size, make_bank(
+            in_ch, bayes.num_masks, bayes.scale) if masked else None)
+        self.bayes, self.quant, self.dtype = bayes, quant, dtype
+        self.quant_input = quant_input
+        self.masked = masked
+        self.stochastic = bayes.kind is DropoutKind.MC and bayes.rate > 0.0
+        self.site = None
+        if tuple(strides) not in ((1, 1), (2, 2)):
+            raise NotImplementedError(f"strides {tuple(strides)}: the port "
+                                      "convolves at stride 1 or 2")
+        self.stride = int(strides[0])
+        self.padding = padding
+        geometry(8, 8, *kernel_size, padding, self.stride)  # validates
+        self.fusable = fused and _masked_conv_fuse_worthwhile(in_ch)
+        if self.stochastic and not self.fusable:
+            raise NotImplementedError(_NOT_PORTED)
+
+    def _xla_conv(self, x: torch.Tensor, kernel: torch.Tensor
+                  ) -> torch.Tensor:
+        """The JAX package's XLA conv (``_xla_conv``): operands cast to
+        ``dtype``, a bf16 conv rounded to bf16, f32 out; x of (S, N, ...)
+        folds its sample axis into the batch (no mask here)."""
+        lead = x.shape[:-3]
+        xb = x.reshape((-1,) + tuple(x.shape[-3:]))
+        g = geometry(xb.shape[2], xb.shape[3], kernel.shape[2],
+                     kernel.shape[3], self.padding, self.stride)
+        y = conv2d_padded(xb.to(self.dtype), kernel.to(self.dtype), g,
+                          self.stride).float()
+        return y.reshape(tuple(lead) + tuple(y.shape[1:]))
+
+    def forward(self, x: torch.Tensor, *, seeds: torch.Tensor | None = None,
+                sample_idx=0, fold_scale: torch.Tensor | None = None,
+                fold_bias: torch.Tensor | None = None, act: str | None = None,
+                act_quant: bool = False, emit_int8: bool = False,
+                defer_int8: bool = False) -> torch.Tensor:
+        train = self.training
+        in_ch, spatial = x.shape[-3], x.shape[-2]
+        kernel = self.kernel
+        q = self.quant
+        if fold_scale is not None and q is None:
+            kernel = kernel * fold_scale[:, None, None, None]
+        # under quant BN rides the epilogue in f32, never folded
+        epi_scale = (fold_scale.float() if fold_scale is not None
+                     and q is not None else None)
+        int8_mode = q is not None and q.int8_infer and not train
+        quantize_x = int8_mode and (x.dtype == torch.int8
+                                    or self.quant_input)
+        int8_exec = quantize_x and _int8_conv_on_mxu(in_ch, q, spatial)
+        int8_fused = int8_exec and self.fusable
+        if q is not None:
+            kernel = fake_quant(kernel, q)
+        if x.dtype == torch.int8 and q is None:
+            raise ValueError("int8-residency input requires a quant config "
+                             "on the consuming BayesConv")
+        x_f = dequantize_int8(x, q) if x.dtype == torch.int8 else x
+        bias_vec = fold_bias
+        out_step = (int8_step(q) if int8_mode and act == "relu"
+                    and (act_quant or emit_int8) else None)
+        out_dtype = (torch.bfloat16 if self.dtype == torch.bfloat16
+                     and not train and q is None else None)
+        kb = bias_vec
+        if epi_scale is not None:
+            kb = torch.stack([epi_scale, bias_vec if bias_vec is not None
+                              else torch.zeros_like(epi_scale)])
+        epi = dict(bias=kb, act=act, out_step=out_step, stride=self.stride)
+        if quantize_x:
+            # the float branches see the grid values the int8 ones consume
+            xq, xs = quantize_int8(x, q)
+            wq, ws = quantize_int8(kernel, q)
+            x_f = xq.float() * xs
+        done = False               # the epilogue ran in the kernel
+        if self.masked:
+            if train:
+                y = self._xla_conv(batch_split(x_f, self.bank, -3), kernel)
+            elif int8_fused:
+                y = bank_conv_int8_inference(xq, wq, self.bank, sample_idx,
+                                             xs, ws, self.padding, **epi)
+                done = True
+            elif self.fusable:
+                y = bank_conv_inference(x_f, kernel, self.bank, sample_idx,
+                                        self.padding, **epi)
+                done = True
+            else:
+                y = self._xla_conv(apply_row(
+                    x_f, self.bank, sample_idx, -3,
+                    carries_samples=x_f.dim() == 5), kernel)
+        elif self.stochastic:
+            if seeds is None:
+                raise ValueError("an MC conv site needs its seeds")
+            if int8_fused:
+                y = dropout_conv_int8_inference(
+                    xq, wq, seeds, self.bayes.rate, xs, ws, self.padding,
+                    **epi)
+                done = True
+            elif train:
+                y = dropout_conv(x_f.to(self.dtype), kernel.to(self.dtype),
+                                 seeds, self.bayes.rate, self.padding,
+                                 self.stride)
+            else:
+                y = dropout_conv_inference(
+                    x_f.to(self.dtype), kernel.to(self.dtype), seeds,
+                    self.bayes.rate, self.padding, out_dtype=out_dtype,
+                    **epi)
+                done = True
+        elif int8_fused and q.int8_det_pallas:
+            y = conv_int8_fused(xq, wq, xs, ws, padding=self.padding, **epi)
+            done = True
+        elif int8_exec:
+            g = geometry(x.shape[-2], x.shape[-1], kernel.shape[2],
+                         kernel.shape[3], self.padding, self.stride)
+            y = conv_int8(xq, wq, g, self.stride).float() * (xs * ws)
+        else:
+            y = self._xla_conv(x_f, kernel)
+        if not done:
+            # the epilogue of the paths that did not fuse it (``:465-496``)
+            if epi_scale is not None:
+                y = y * epi_scale[:, None, None]
+            if bias_vec is not None:
+                y = y + bias_vec[:, None, None]
+            if act == "relu":
+                y = torch.relu(y)
+            if out_step is not None:
+                if defer_int8:
+                    return fake_quant(y, unsigned(q)).to(torch.bfloat16)
+                return quantize_int8(y, q)[0]
+            if out_dtype is not None:
+                y = y.to(out_dtype)
+        # QuantAct on the fake-quant model, after a fused kernel too
+        if (out_step is None and act_quant and q is not None
+                and act is not None):
+            y = fake_quant(y, unsigned(q))
+        return y

@@ -12,12 +12,14 @@ activations are ``(..., features)``. ``module.training`` (``model.train()``
 
 Under a bf16 compute dtype the layers reproduce the JAX package's rounding
 points. A dense contraction casts both operands to bf16 and accumulates in
-f32. At inference ``ConvBN`` folds BN into the kernel in f32, casts it to
-bf16, rounds the conv output to bf16, then adds the f32 bias, applies the
-relu and stores bf16 (``bayestpu/nn/fused.py:274-278,326-343,465-474``). In
-training it convolves the bf16 casts of x and the unfolded kernel, upcasts
-the output to f32 and applies BN with batch statistics, so activations stay
-f32 between layers (``layers.py:238-246``, ``fused.py:223-241``).
+f32. ``ConvBN``'s conv is ``nn.fused.BayesConv``, the port of the JAX
+``BayesConv`` that ``ConvBN`` wraps: at inference a conv without a site
+folds BN into the kernel in f32, casts it to bf16, rounds the conv output
+to bf16, then adds the f32 bias, applies the relu and stores bf16
+(``bayestpu/nn/fused.py:274-278,326-343,465-474``). In training it
+convolves the bf16 casts of x and the unfolded kernel, upcasts the output
+to f32 and applies BN with batch statistics, so activations stay f32
+between layers (``layers.py:238-246``, ``fused.py:223-241``).
 
 With a ``QuantConfig`` the layers follow the JAX package's quantized
 branches (``layers.py:58-83,163-178``, ``fused.py:269-496`` with no mask):
@@ -49,8 +51,7 @@ from torch import nn
 
 from bayestpu_torch.core.config import QuantConfig
 from bayestpu_torch.core.quant import (dequantize_int8, fake_quant,
-                                       int8_conv2d, int8_matmul,
-                                       quantize_int8, unsigned)
+                                       int8_matmul, quantize_int8, unsigned)
 from bayestpu_torch.kernels.masked_matmul import matmul_f32
 
 
@@ -184,35 +185,21 @@ class BatchNorm(nn.Module):
 
 
 class _Conv(nn.Module):
-    """Holds the conv kernel (OIHW) under the Flax name ``conv/kernel``."""
+    """Holds the conv kernel (OIHW) under the Flax name ``conv/kernel`` and,
+    for a Masksembles site, its (num_masks, in_ch) f32 bank as the buffer
+    ``bank`` (``masks/<…>/conv/bank``)."""
 
-    def __init__(self, in_ch: int, features: int, kernel_size: Sequence[int]):
+    def __init__(self, in_ch: int, features: int, kernel_size: Sequence[int],
+                 bank: torch.Tensor | None = None):
         super().__init__()
         self.kernel = nn.Parameter(
             torch.empty(features, in_ch, *kernel_size))
+        if bank is not None:
+            self.register_buffer("bank", bank)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         o, i, kh, kw = self.kernel.shape
         lecun_normal_(self.kernel, i * kh * kw, generator)
-
-
-def _torch_padding(padding, kernel_size: Sequence[int],
-                   strides: Sequence[int]) -> tuple[int, int]:
-    """Symmetric per-dimension padding of F.conv2d for the Flax paddings the
-    ported models use: "SAME" at stride 1 with odd kernels, "VALID", or
-    explicit symmetric ((lo, hi), (lo, hi)) pairs."""
-    if padding == "VALID":
-        return (0, 0)
-    if padding == "SAME":
-        if any(s != 1 for s in strides) or any(k % 2 == 0
-                                               for k in kernel_size):
-            raise NotImplementedError(
-                "SAME padding is ported for stride 1 and odd kernels only")
-        return tuple(k // 2 for k in kernel_size)
-    pads = tuple((int(lo), int(hi)) for lo, hi in padding)
-    if any(lo != hi for lo, hi in pads):
-        raise NotImplementedError(f"asymmetric padding {padding}")
-    return tuple(lo for lo, _ in pads)
 
 
 def _int8_conv_on_mxu(in_ch: int, q: QuantConfig, spatial: int) -> bool:
@@ -227,94 +214,53 @@ def _int8_conv_on_mxu(in_ch: int, q: QuantConfig, spatial: int) -> bool:
 
 class ConvBN(nn.Module):
     """Conv + BatchNorm (no conv bias), with the activation owned by the
-    layer.
+    layer (``layers.py:181-260``). The conv is a ``BayesConv`` (``conv``),
+    with a Bayesian site on its input when ``bayes`` is given.
 
-    Float eval: BN folded: kernel * inv in f32, cast to the compute dtype,
-    conv, output rounded to the compute dtype, + f32 shift, relu, store in
-    the compute dtype (bf16 residency) or f32. Train: conv of the
-    compute-dtype casts of x and the kernel, output upcast to f32, BN with
-    batch statistics (momentum 0.9, ``layers.py:209``), relu; f32 out. The
-    quantized branches are in the module docstring. ``quant_input=False``
-    marks a model's entry conv, which takes the raw image and never
-    quantizes it."""
+    Train: ``bn(conv(x))`` with batch statistics (momentum 0.9), relu, and
+    under ``quant`` the unsigned fake-quant; f32 out. Eval: the running
+    statistics folded into the conv, ``inv`` and ``shift`` handed to
+    ``BayesConv`` as ``fold_scale``/``fold_bias`` with the activation — see
+    ``nn.fused.BayesConv`` for where they go on each branch.
+    ``quant_input=False`` marks a model's entry conv, which takes the raw
+    image and never quantizes it."""
 
     def __init__(self, in_ch: int, features: int,
                  kernel_size: Sequence[int] = (3, 3),
                  strides: Sequence[int] = (1, 1), padding="SAME",
                  dtype: torch.dtype = torch.float32, epsilon: float = 1e-5,
                  momentum: float = 0.9, quant: QuantConfig | None = None,
-                 quant_input: bool = True):
+                 quant_input: bool = True, bayes=None):
+        from bayestpu_torch.nn.fused import BayesConv
+
         super().__init__()
         self.quant = quant
-        self.quant_input = quant_input
-        self.dtype = dtype
-        self.strides = tuple(strides)
-        self.padding = _torch_padding(padding, kernel_size, strides)
-        self.conv = _Conv(in_ch, features, kernel_size)
+        self.conv = BayesConv(in_ch, features, kernel_size, strides, padding,
+                              bayes=bayes, quant=quant, dtype=dtype,
+                              quant_input=quant_input)
         self.bn = BatchNorm(features, epsilon, momentum)
 
-    def _conv(self, x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x.to(self.dtype), kernel.to(self.dtype),
-                        stride=self.strides, padding=self.padding).float()
-
     def forward(self, x: torch.Tensor, act: str | None = None,
-                act_quant: bool = False, defer_int8: bool = False
+                act_quant: bool = False, defer_int8: bool = False,
+                seeds: torch.Tensor | None = None, sample_idx=0
                 ) -> torch.Tensor:
         """``act_quant``: an unsigned fake-quant (QuantAct) follows the
         relu, or in the int8 model the epilogue emits int8. ``defer_int8``
-        (int8 model): emit the grid value in bf16 instead; the caller's max
-        pool commutes with the grid rounding and re-quantizes after it
-        (``fused.py:476-483``)."""
-        if self.quant is not None:
-            return self._forward_quant(x, act, act_quant, defer_int8)
+        (int8 model, unfused conv): emit the grid value in bf16 instead; the
+        caller's max pool commutes with the grid rounding and re-quantizes
+        after it (``fused.py:476-483``). ``seeds``/``sample_idx`` feed the
+        site: see ``BayesConv``."""
         if self.training:
-            y = self.bn(self._conv(x, self.conv.kernel))
-            return torch.relu(y) if act == "relu" else y
-        inv, shift = self.bn.fold()
-        y = self._conv(x, self.conv.kernel * inv[:, None, None, None])
-        y = y + shift[:, None, None]
-        if act == "relu":
-            y = torch.relu(y)
-        return y.to(self.dtype)
-
-    def _forward_quant(self, x: torch.Tensor, act: str | None,
-                       act_quant: bool, defer_int8: bool) -> torch.Tensor:
-        q = self.quant
-        kernel = fake_quant(self.conv.kernel, q)
-        if self.training:
-            y = self.bn(self._conv(x, kernel))
+            y = self.bn(self.conv(x, seeds=seeds, sample_idx=sample_idx))
             if act == "relu":
                 y = torch.relu(y)
-                if act_quant:
-                    y = fake_quant(y, unsigned(q))
+                if act_quant and self.quant is not None:
+                    y = fake_quant(y, unsigned(self.quant))
             return y
-        int8_mode = q.int8_infer
-        x_f = dequantize_int8(x, q) if x.dtype == torch.int8 else x
-        int8_exec = False
-        if int8_mode and (x.dtype == torch.int8 or self.quant_input):
-            # float branches see the grid values the int8 branch consumes
-            xq, xs = quantize_int8(x, q)
-            x_f = xq.float() * xs
-            int8_exec = _int8_conv_on_mxu(x.shape[1], q, x.shape[2])
-        if int8_exec:
-            wq, ws = quantize_int8(kernel, q)
-            y = int8_conv2d(xq, wq, self.strides, self.padding).float() * (
-                xs * ws)
-        else:
-            y = self._conv(x_f, kernel)
-        # BN as an f32 epilogue, never folded into the quantized kernel
         inv, shift = self.bn.fold()
-        y = y * inv[:, None, None]
-        y = y + shift[:, None, None]
-        if act == "relu":
-            y = torch.relu(y)
-        if int8_mode and act == "relu" and act_quant:
-            if defer_int8:
-                return fake_quant(y, unsigned(q)).to(torch.bfloat16)
-            return quantize_int8(y, q)[0]
-        if act_quant and act is not None:
-            return fake_quant(y, unsigned(q))
-        return y
+        return self.conv(x, seeds=seeds, sample_idx=sample_idx,
+                         fold_scale=inv, fold_bias=shift, act=act,
+                         act_quant=act_quant, defer_int8=defer_int8)
 
 
 class QuantAct(nn.Module):
@@ -338,12 +284,13 @@ def max_pool(x: torch.Tensor, window: int | tuple[int, int],
              strides: int | tuple[int, int] | None = None) -> torch.Tensor:
     """VALID max pool of an NCHW tensor. An int8 tensor on the grid pools
     as int8 by a windowed ``amax`` (``F.max_pool2d`` has no int8 kernel on
-    CUDA); the max of grid values stays on the grid."""
+    CUDA) over the NHWC view, so channels_last memory stays channels_last;
+    the max of grid values stays on the grid."""
     window = _pair(window)
     strides = _pair(strides) if strides else window
     if x.dtype == torch.int8:
-        return x.unfold(2, window[0], strides[0]).unfold(
-            3, window[1], strides[1]).amax(dim=(-2, -1))
+        return x.permute(0, 2, 3, 1).unfold(1, window[0], strides[0]).unfold(
+            2, window[1], strides[1]).amax(dim=(-2, -1)).permute(0, 3, 1, 2)
     return F.max_pool2d(x, window, strides)
 
 

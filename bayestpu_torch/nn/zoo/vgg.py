@@ -2,43 +2,57 @@
 ``bayestpu/nn/zoo/vgg.py``; ``vgg11`` and ``vgg11_me`` are ported).
 
 ``VGG.forward(x, seeds, sample_idx=None)`` takes NHWC images, the MC seeds
-of every MC-dropout site, numbered in the JAX model's call order (exit1 …
-exit4, then the classifier), and for a Masksembles model the mask index of
-each sample:
+of every MC-dropout site, numbered in the JAX model's call order (with
+``dropout="block"`` the block sites block1 … block4; then exit1 … exit4;
+then the classifier), and for a Masksembles model the mask index of each
+sample:
 
 - seeds (n_sites, 2): one sample; logits (E, B, C). ``sample_idx`` is an
   int, 0 by default.
-- seeds (S, n_sites, 2): the spatial mapping. The deterministic backbone and
-  exit cascades run once; only the Bayesian heads see S, each in one
-  multi-sample kernel launch; logits (S, E, B, C). ``sample_idx`` is a 1-D
-  integer tensor of S indices on the model's device, ``arange(S)`` by
-  default.
+- seeds (S, n_sites, 2): the spatial mapping, logits (S, E, B, C).
+  ``sample_idx`` is a 1-D integer tensor of S indices on the model's
+  device, ``arange(S)`` by default. The deterministic layers run once up
+  to the first Bayesian site, which runs all S samples in one samples
+  launch. Without conv sites (``vgg11_me``) that is each head, so the
+  backbone and exit cascades run once. With conv sites (``dropout="block"``)
+  the activations carry S from the first site on: the deterministic layers
+  take S folded into the batch, and each later site and the classifier
+  take x as (S, N, …) and launch once per sample (JAX's ``lax.map``
+  fallback), never with S folded into the batch, which would shift the
+  rows of the mask.
 
 S comes from the seeds' leading axis in both cases, so a Masksembles model
-(``BayesConfig(kind=MASK)``: its five heads are Masksembles sites and
+(``BayesConfig(kind=MASK)``: its sites are Masksembles sites and
 ``num_sites`` is 0) takes seeds of shape (0, 2) or (S, 0, 2), and an MC
 model ignores ``sample_idx``, as the JAX layers do.
+
+``dropout="block"`` (``vgg.py:215-238``) puts a Bayesian site after each
+block but the last. With ``fused=True`` and one exit the site fuses into
+the next block's first conv (``ConvBN(bayes=…)`` → ``BayesConv``, the
+masked-conv kernels), as in JAX; the materialized sites of ``fused=False``
+or of a multi-exit model (``BayesSite``) are not ported and raise.
 
 A model is built in eval mode, as the JAX model's ``train=False`` default.
 In train mode (``model.train()``, the JAX ``train=True``) seeds are
 (n_sites, 2): BatchNorm uses batch statistics and updates its running
-averages, activations stay f32 between layers, every MC head goes through
-the trainable ``dropout_matmul`` and every Masksembles head splits the
-batch into ``num_masks`` groups, one mask each.
+averages, activations stay f32 between layers, every MC site goes through
+the trainable ``dropout_conv`` or ``dropout_matmul`` and every Masksembles
+site splits the batch into ``num_masks`` groups, one mask each.
 
 With ``quant`` (a ``QuantConfig``) the model is the JAX package's quantized
 VGG (``vgg.py:69-292``): QAT in train mode and the fake-quant model in eval
 mode, or with ``quant.int8_infer`` the int8 model, whose activations stay
 int8 on the ap_fixed grid from block to block (each block's last conv
-defers the cast past its max pool, then the block re-quantizes), whose exit
-heads dequantize before their average pool, and whose five heads run the
-int8 dropout-matmul or bank-matmul kernels. ``QuantConfig`` adds no
-parameters.
+defers the cast past its max pool unless a fused site emits int8 itself,
+then the block re-quantizes), whose exit heads dequantize before their
+average pool, and whose Bayesian heads and sites run the int8 kernels.
+``QuantConfig`` adds no parameters.
 
 Parameter names follow the Flax tree (``block0.convbn0.conv.kernel`` ≙
 ``params/block0/convbn0/conv/kernel``, ``exit1.linear.bank`` ≙
-``masks/exit1/linear/bank``), so ``interop.from_flax`` loads JAX variables
-by name.
+``masks/exit1/linear/bank``, ``block1.convbn0.conv.bank`` ≙
+``masks/block1/convbn0/conv/bank``), so ``interop.from_flax`` loads JAX
+variables by name.
 """
 
 from __future__ import annotations
@@ -87,24 +101,48 @@ def _flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
 class _VGGBlock(nn.Module):
     """ConvBN+relu(+QuantAct) per channel width, then a 2×2 max pool; the
     int8 model re-quantizes after the pool. ``quant_input`` is False on
-    block 0, whose first conv takes the raw image."""
+    block 0, whose first conv takes the raw image. ``bayes_in``: a Bayesian
+    site on the block input, fused into the first conv (``conv_site``)."""
 
     def __init__(self, in_ch: int, channels: Sequence[int],
                  dtype: torch.dtype, quant: QuantConfig | None = None,
-                 quant_input: bool = True):
+                 quant_input: bool = True,
+                 bayes_in: BayesConfig | None = None):
         super().__init__()
         self.quant = quant
         for i, ch in enumerate(channels):
             self.add_module(f"convbn{i}", ConvBN(
                 in_ch, ch, (3, 3), dtype=dtype, quant=quant,
-                quant_input=quant_input if i == 0 else True))
+                quant_input=quant_input if i == 0 else True,
+                bayes=bayes_in if i == 0 else None))
             in_ch = ch
+        # a site that masks: it returns S samples for S seeds or indices
+        self.has_site = self.conv_site.masked or self.conv_site.stochastic
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def conv_site(self) -> nn.Module:
+        """The first conv, which carries the block's input site."""
+        return self.convbn0.conv
+
+    def forward(self, x: torch.Tensor, seeds: torch.Tensor | None = None,
+                sample_idx=0, carry: int | None = None) -> torch.Tensor:
+        """x (B, C, H, W), where B is S·N when ``carry`` = S (the
+        activations carry the sample axis, folded into the batch). A site
+        fed S seeds or indices returns S samples, folded the same way."""
         convs = list(self.children())
         for i, conv in enumerate(convs):
-            x = conv(x, act="relu", act_quant=True,
-                     defer_int8=i == len(convs) - 1)
+            kw = dict(act="relu", act_quant=True,
+                      defer_int8=i == len(convs) - 1)
+            if i == 0 and self.has_site:
+                # the kernels read NHWC; unfold for the site, which masks
+                # each sample's own rows
+                x = x.contiguous(memory_format=torch.channels_last)
+                xin = x.unflatten(0, (carry, -1)) if carry else x
+                x = conv(xin, seeds=seeds, sample_idx=sample_idx, **kw)
+                if x.dim() == 5:
+                    x = x.flatten(0, 1)
+            else:
+                x = conv(x, **kw)
         x = max_pool(x, 2, 2)
         q = self.quant
         if (not self.training and q is not None and q.int8_infer
@@ -151,9 +189,9 @@ class _VGGExitHead(nn.Module):
 class VGG(nn.Module):
     """Multi-exit Bayesian VGG over a block config.
 
-    The JAX model's masked-conv sites (``dropout="block"``), hidden-layer
-    sites (``head_sites``) and per-layer ``quant_overrides`` are not ported
-    yet and raise.
+    ``dropout="block"`` is ported fused (``fused=True``, one exit); the
+    materialized block sites, hidden-layer sites (``head_sites``) and
+    per-layer ``quant_overrides`` are not ported yet and raise.
     ``input_shape`` (H, W, C) fixes the dense widths, which Flax infers from
     the first input.
     """
@@ -167,9 +205,17 @@ class VGG(nn.Module):
                  input_shape: tuple[int, int, int] = (32, 32, 3),
                  quant_overrides: dict | None = None):
         super().__init__()
-        if dropout is not None or head_sites:
+        if dropout not in (None, "block"):
+            raise ValueError(f"dropout must be None or 'block'; got "
+                             f"{dropout!r}")
+        if dropout == "block" and not (fused and n_exits == 1):
             raise NotImplementedError(
-                "masked-conv and hidden-layer Bayesian sites are not ported "
+                "materialized block sites (BayesSite after each block, for "
+                "fused=False or n_exits > 1) are not ported yet: ROADMAP "
+                "Queue 1 item 11")
+        if head_sites:
+            raise NotImplementedError(
+                "hidden-layer Bayesian sites (head_sites) are not ported "
                 "yet: ROADMAP Queue 1 item 11")
         if quant_overrides:
             raise NotImplementedError(
@@ -182,11 +228,15 @@ class VGG(nn.Module):
             bayes, kind=DropoutKind.NONE)
         blocks = _blocks_of(CFGS[cfg_name])
         h, _, c = input_shape
-        heads: list[BayesDense] = []
+        # the Bayesian sites in JAX call order: each block's input site,
+        # then its exit head, …, then the classifier
+        sites: list[nn.Module] = []
         self._exits: list[tuple[str, str | None]] = []  # (block, exit head)
         for i, chans in enumerate(blocks):
-            self.add_module(f"block{i}", _VGGBlock(c, chans, dtype, quant,
-                                                   quant_input=i != 0))
+            block = _VGGBlock(c, chans, dtype, quant, quant_input=i != 0,
+                              bayes_in=bayes if dropout and i > 0 else None)
+            self.add_module(f"block{i}", block)
+            sites.append(block.conv_site)
             c, h = chans[-1], h // 2
             exit_name = None
             if n_exits > 1 and i < len(blocks) - 1:
@@ -198,7 +248,7 @@ class VGG(nn.Module):
                 head = _VGGExitHead(c, h, chain, num_classes, head_bayes,
                                     dtype, fused, quant)
                 self.add_module(exit_name, head)
-                heads.append(head.linear)
+                sites.append(head.linear)
             self._exits.append((f"block{i}", exit_name))
         width = c * h * h
         self.n_fc = len(head_dims)
@@ -211,13 +261,16 @@ class VGG(nn.Module):
             width = d
         self.classifier = BayesDense(width, num_classes, bayes=head_bayes,
                                      fused=fused, quant=quant, dtype=dtype)
-        heads.append(self.classifier)
-        # MC site index of every head in JAX call order (None: deterministic)
+        sites.append(self.classifier)
+        # MC site index of every site in JAX call order (None: no MC mask)
         self.num_sites = 0
-        for head in heads:
-            head.site = self.num_sites if head.stochastic else None
-            self.num_sites += head.stochastic
-        self.masked = any(head.masked for head in heads)
+        for site in sites:
+            site.site = self.num_sites if site.stochastic else None
+            self.num_sites += site.stochastic
+        self.masked = any(site.masked for site in sites)
+        # a block-input site that masks (dropout="block")
+        self.conv_sites = any(getattr(self, name).has_site
+                              for name, _ in self._exits)
         self.eval()
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -227,10 +280,10 @@ class VGG(nn.Module):
                 m.reset_parameters(generator)
 
     @staticmethod
-    def _head_seeds(head: BayesDense, seeds: torch.Tensor
+    def _site_seeds(site: nn.Module, seeds: torch.Tensor
                     ) -> torch.Tensor | None:
-        return (None if head.site is None
-                else seeds[..., head.site, :].contiguous())
+        return (None if site.site is None
+                else seeds[..., site.site, :].contiguous())
 
     def _sample_idx(self, seeds: torch.Tensor, sample_idx, device):
         """The Masksembles index argument of the heads (see the module
@@ -261,6 +314,13 @@ class VGG(nn.Module):
             raise ValueError(f"seeds must be {want} with n_sites="
                              f"{self.num_sites}; got {tuple(seeds.shape)}")
         idx = self._sample_idx(seeds, sample_idx, x.device)
+        # once the activations carry S, each site launches one kernel per
+        # sample with a host index: copy the indices to the host once,
+        # before any launch, rather than at every later site
+        idx_host = idx
+        if isinstance(idx, torch.Tensor) and self.conv_sites:
+            idx_host = (list(range(idx.shape[0])) if sample_idx is None
+                        else idx.tolist())
         sample_shape = tuple(seeds.shape[:-2])
         exits, feats = [], []
 
@@ -268,26 +328,35 @@ class VGG(nn.Module):
             # a deterministic head broadcasts over the sample axis
             return y.expand(sample_shape + tuple(y.shape[-2:]))
 
+        def unfold(y: torch.Tensor) -> torch.Tensor:
+            return y.unflatten(0, (carry, -1)) if carry else y
+
         out = x.permute(0, 3, 1, 2)          # NHWC → NCHW (channels_last)
+        carry = None    # S once the activations carry the sample axis
         for block_name, exit_name in self._exits:
-            out = getattr(self, block_name)(out)
+            block = getattr(self, block_name)
+            out = block(out, self._site_seeds(block.conv_site, seeds),
+                        idx_host if carry else idx, carry)
+            if block.has_site and sample_shape:
+                carry = sample_shape[0]   # the site returned S samples
             if exit_name is not None:
                 head = getattr(self, exit_name)
-                logit, feat = head(out, self._head_seeds(head.linear, seeds),
+                logit, feat = head(out, self._site_seeds(head.linear, seeds),
                                    idx)
                 exits.append(head_out(logit))
                 feats.append(feat)
         out = _flatten_nhwc(out)
         # the metrics take f32 features; fc_0 keeps the int8 view
-        feats.append(dequantize_int8(out, self.quant)
-                     if out.dtype == torch.int8 else out)
+        feats.append(unfold(dequantize_int8(out, self.quant)
+                            if out.dtype == torch.int8 else out))
         for j in range(self.n_fc):
             out = getattr(self, f"fc_{j}")(out)
             if j == 0:
                 out = getattr(self, f"fc_bn_{j}")(out)
             out = getattr(self, f"fc_relu_{j}")(out)
         exits.append(head_out(self.classifier(
-            out, self._head_seeds(self.classifier, seeds), idx)))
+            unfold(out), self._site_seeds(self.classifier, seeds),
+            idx_host if carry else idx)))
         return stack_exits(exits, feats)
 
 

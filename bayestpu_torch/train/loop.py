@@ -1,10 +1,11 @@
 """Training loop: the train step and the epoch loop with early stopping.
 
 Counterpart of ``bayestpu/train/loop.py``. A step runs the model in train
-mode (BatchNorm on batch statistics, the MC-dropout heads active through the
-trainable ``dropout_matmul``, the Masksembles heads splitting the batch
-into one group per mask), the EED loss, thebackward, the optimizer
-chain of ``train.optim`` and the BatchNorm running averages. The JAX
+mode (BatchNorm on batch statistics, the MC-dropout sites active through
+the trainable ``dropout_matmul`` and ``dropout_conv``, the Masksembles sites
+splitting the batch into one group per mask), the EED loss, the backward,
+the optimizer chain of ``train.optim`` and the BatchNorm running averages.
+The JAX
 package jits a step (``make_train_step``) or a whole epoch (``lax.scan`` in
 ``make_train_epoch``); PyTorch runs eagerly, so a Python loop over batches
 is the port's counterpart of both.

@@ -15,9 +15,17 @@ ends the run with a nonzero exit and no result line.
    negative seeds; times. The four Masksembles bank kernels at the
    Masksembles head shape (S = 4) and a ragged one whose indices wrap and
    include a negative one: float rows on a {0, 1} bank and on one with 2.0
-   entries, int8 rows bit for bit, per-sample bit identity, times.
+   entries, int8 rows bit for bit, per-sample bit identity, times. The
+   masked convs of ``masked_conv.cu`` (rows 10-11) at the block-1 site
+   shape and ragged geometries (stride 2 with asymmetric SAME, VALID,
+   explicit padding, 1x1 stride 2, F not a multiple of 8): bf16 and f32
+   against the plain versions, every int8 epilogue bit for bit, the exact
+   mask readout, per-sample identity, negative seeds, wrapping and
+   negative bank indices; times at the four block-site shapes.
 4. backward — autograd through ``dropout_matmul`` against
-   ``dropout_matmul_vjp_plain`` at the head shape.
+   ``dropout_matmul_vjp_plain`` at the head shape, and through
+   ``dropout_conv`` against ``dropout_conv_vjp_plain`` at the block-1 site
+   shape.
 5. slice   — vgg11_me at full width, bf16, batch 128, S=10, rate 0.25,
    seeded weights, through ``BayesEngine(device="cuda")``: spatial and
    temporal predictive and a host loop of one-sample predicts, with launch
@@ -53,15 +61,21 @@ ends the run with a nonzero exit and no result line.
    ``bank_matmul_int8`` per temporal one, spatial and temporal
    bit-identical, the card against the CPU, acc and ECE, the int8 and bf16
    spatial p50 in turns.
-10. step_vs_cpu — one training step at batch 8 on the card and on the CPU
+10. block   — ``vgg11`` with fused block sites (``dropout="block"``), bf16,
+   batch 128: seeded MC serving (S = 10) with exact launch counts, a
+   3-epoch MC fine-tune of the train phase's weights served on 2,000 test
+   images, its Masksembles twin (S = 4) fine-tuned under the batch split
+   and served, and the int8 models (also with ``int8_conv_min_ch=32``);
+   spatial against temporal, the card against the CPU (``phase_block``).
+11. step_vs_cpu — one training step at batch 8 on the card and on the CPU
    from one seeded init and the same seeds, in f32 and bf16.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. The kernels' launches are those of the
-four main paths: the slice's predicts, the 936 training steps, the int8
-phase (QAT, BN re-estimation and int8 serving) and the mask phase
-(fine-tune and serving, bf16 and int8); the fake-quant evaluates of the
-last two are attribution and not counted.
+five main paths: the slice's predicts, the 936 training steps, the int8
+phase (QAT, BN re-estimation and int8 serving), the mask phase
+(fine-tune and serving, bf16 and int8) and the block phases; the
+fake-quant evaluates are attribution and not counted.
 """
 
 from __future__ import annotations
@@ -144,6 +158,42 @@ MASK_RAGGED = dict(M=300, K=700, N=130, S=6)
 MASK_RAGGED_IDXS = [2, -1, 5, 0, 7, 3]
 # the short fine-tune of the float-trained weights under the batch split
 MASK_EPOCHS, MASK_LR = 2, 0.01
+# rows 10 and 11 of the kernel table: the masked convs of masked_conv.cu
+CONV_SOURCE = "bayestpu_torch/csrc/masked_conv.cu"
+CONV_REPLACES = {
+    name: f"bayestpu/kernels/masked_conv.py:{line}"
+    for names, line in (
+        (("dropout_conv", "dropout_conv_samples", "dropout_conv_int8",
+          "dropout_conv_int8_samples"), 371),          # _masked_conv_kernel
+        (("bank_conv", "bank_conv_samples", "bank_conv_int8",
+          "bank_conv_int8_samples"), 430))             # _bank_conv_kernel
+    for name in names}
+# the four fused block sites of vgg11 (dropout="block"), each the first conv
+# of blocks 1-4 at batch 128: (H = W, C, F), 3x3, SAME, stride 1
+CONV_SITES = [(16, 64, 128), (8, 128, 256), (4, 256, 512), (2, 512, 512)]
+# the site whose time the kernels line reports: the first at which the main
+# path launches the kernel (on the int8 model block 1's site runs the float
+# kernel, so the int8 single kernels start at block 2)
+CONV_SUMMARY_SITE = {"dropout_conv_int8": 1, "bank_conv_int8": 1}
+# ragged geometries: x NHWC, kernel size, F (not a multiple of 8), padding,
+# stride. SAME at stride 2 is asymmetric (16 -> 8 pads (0, 1)).
+CONV_RAGGED = {"same_s2": ((3, 15, 16, 40), 3, 20, "SAME", 2),
+               "valid": ((2, 9, 7, 33), 3, 13, "VALID", 1),
+               "explicit_s2": ((2, 9, 7, 35), 3, 11, ((2, 1), (0, 2)), 2),
+               "1x1_s2": ((3, 6, 6, 36), 1, 10, "SAME", 2)}
+CONV_S = 3                                  # samples of the checks
+CONV_RAGGED_IDXS = [2, -1, 5]               # bank indices: wrap, negative
+# the conv kernels' f32 sums against cuDNN's (TF32 off), relative to
+# max|ref|: the products are exact on both sides, the sums run in other
+# orders over up to 9 * 512 = 4,608 terms, 9x the head's K, and a sum's
+# rounding error grows as the square root of its length: 3x KERNEL_RTOL
+CONV_RTOL = 3 * KERNEL_RTOL
+# a bf16 store: an f32 value a few ulps off may round to the neighbouring
+# bf16 value, one bf16 ulp (at most 2^-7 of the value)
+BF16_OUT_RTOL = 2.0 ** -7
+# the block-site vgg11: the MC fine-tune of the train phase's weights (SGD
+# 0.9, cosine LR from BLOCK_LR, clip 10), then the Masksembles one
+BLOCK_EPOCHS, BLOCK_MASK_EPOCHS, BLOCK_LR = 3, 2, 0.01
 
 
 def emit(obj: dict) -> None:
@@ -155,12 +205,26 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
+def launch_counts() -> dict:
+    """The launch counters of every kernel wrapper, matmul and conv."""
+    from bayestpu_torch.kernels import masked_conv as mc
+    from bayestpu_torch.kernels import masked_matmul as mm
+    return {**mm.launch_counts, **mc.launch_counts}
+
+
+def reset_counts() -> None:
+    from bayestpu_torch.kernels import masked_conv as mc
+    from bayestpu_torch.kernels import masked_matmul as mm
+    mm.reset_launch_counts()
+    mc.reset_launch_counts()
+
+
 def counts(**nonzero: int) -> dict:
     """Every kernel's launch count: those named, 0 for the others."""
-    from bayestpu_torch.kernels import masked_matmul as mm
-    unknown = set(nonzero) - set(mm.launch_counts)
+    names = launch_counts()
+    unknown = set(nonzero) - set(names)
     check(not unknown, f"no such kernel {unknown}")
-    return {name: nonzero.get(name, 0) for name in mm.launch_counts}
+    return {name: nonzero.get(name, 0) for name in names}
 
 
 def cuda_ms(fn, iters: int, windows: int = 5) -> float:
@@ -632,13 +696,405 @@ def _time_kernels(mm, x, w, seeds, shape, dtype, line, summary) -> None:
             summary[name].update(t)
 
 
+def _conv_taps(size: int, k: int, lo: int, stride: int, out: int) -> int:
+    """(output position, tap) pairs along one axis that read an input
+    element, not the zero padding."""
+    return sum(0 <= o * stride + t - lo < size
+               for o in range(out) for t in range(k))
+
+
+def _conv_bound(name: str, x, w, s: int, out_bytes: int, padding="SAME",
+                stride: int = 1, mask_bytes: int = 0) -> tuple[float, str]:
+    """Least time of a masked conv on an H100: x and w read once, the mask
+    operands (seeds, or bank rows and indices) and the (2, F) affine read
+    once, S outputs written once, against 2 operations for each product
+    that reads an input element (taps on the zero padding excluded) per
+    sample, at the peak for the products' type: bf16 or int8 tensor cores
+    for the MC kernels, f32 outside them for the float bank kernels and an
+    f32 x."""
+    import torch
+    from bayestpu_torch.kernels import masked_conv as mc
+    n, c, h, wd = x.shape
+    f, _, kh, kw = w.shape
+    g = mc.geometry(h, wd, kh, kw, padding, stride)
+    macs = (n * c * f * _conv_taps(h, kh, g.ph, stride, g.ho)
+            * _conv_taps(wd, kw, g.pw, stride, g.wo))
+    nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
+              + 2 * f * 4 + mask_bytes + s * n * g.ho * g.wo * f * out_bytes)
+    kind = ("int8" if x.dtype == torch.int8 else
+            "bfloat16" if x.dtype == w.dtype == torch.bfloat16
+            and "bank" not in name else "float32")
+    t_bytes = nbytes / MEM_BYTES_PER_S
+    t_ops = 2 * s * macs / PEAK_FLOPS[kind]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _cl(t):
+    import torch
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+def _conv_data(xshape, k: int, f: int, dtype, gen):
+    """x (NCHW, channels_last) and w (OIHW) on the card from an NHWC shape,
+    the (2, F) affine, and int8 twins of x and w."""
+    import torch
+    n, h, wd, c = xshape
+    x = _cl(torch.randn(n, c, h, wd, generator=gen).to(dtype).cuda())
+    w = (torch.randn(f, c, k, k, generator=gen) / (k * k * c) ** 0.5).to(
+        dtype).cuda()
+    aff = torch.stack([torch.rand(f, generator=gen) + 0.5,
+                       0.3 * torch.randn(f, generator=gen)]).cuda()
+    xq = _cl(torch.randint(-128, 128, (n, c, h, wd), generator=gen,
+                           dtype=torch.int8).cuda())
+    wq = torch.randint(-128, 128, (f, c, k, k), generator=gen,
+                       dtype=torch.int8).cuda()
+    return x, w, aff, xq, wq
+
+
+def _conv_banks(c: int):
+    """The generated (4, C) bank and one with 2.0, 0.25 and negative
+    entries (the float kernels multiply by the value and, as JAX selects
+    the row by a max over a where, read a negative one as 0)."""
+    import torch
+    from bayestpu_torch.kernels.mask_bank import generation_wrapper
+    _, bank = generation_wrapper(c, NUM_MASKS, MASK_SCALE, rng=0)
+    bank = torch.from_numpy(bank).cuda().contiguous()
+    odd = bank.clone()
+    odd[0, ::7] = 2.0
+    odd[1, 1::5] = 0.25
+    odd[1, :5] = -1.5
+    return bank, odd
+
+
+def _conv_checks(label: str, xshape, k: int, f: int, padding, stride: int,
+                 gen, summary: dict) -> None:
+    """Rows 10 and 11 on the card against their plain versions at one
+    geometry: every float entry in bf16 and f32 (the (2, F) affine and
+    relu, f32 and bf16 stores) to CONV_RTOL; every int8 entry with every
+    epilogue bit for bit; sample s of each samples kernel bit-equal to its
+    single kernel; the first seed pair negative; bank indices that wrap and
+    a negative one; the mask-free conv_fused and conv_int8_fused."""
+    import torch
+    from bayestpu_torch.kernels import masked_conv as mc
+    seeds = _inputs(dict(M=1, K=1, N=1, S=CONV_S), torch.float32, gen)[2]
+    idxs = torch.tensor(CONV_RAGGED_IDXS, dtype=torch.int32, device="cuda")
+    kw = dict(stride=stride)
+    line = {"phase": "kernels", "kernel": "masked_conv", "shape": label,
+            "x_nhwc": list(xshape), "k": k, "F": f, "padding": padding,
+            "stride": stride, "rate": RATE, "samples": CONV_S,
+            "idxs": CONV_RAGGED_IDXS}
+    per_sample = True
+
+    def close(name, got, want, rtol, tag):
+        err = (got.float() - want.float()).abs().max().item()
+        tol = rtol * max(1.0, want.float().abs().max().item())
+        check(err <= tol, f"{name} {label} {tag}: {err} > {tol}")
+        if name in summary and not tag.endswith("bf16out"):
+            summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"],
+                                               err)
+        line[f"{name}_{tag}_err"] = err
+
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).split(".")[-1]
+        x, w, aff, _, _ = _conv_data(xshape, k, f, dtype, gen)
+        epi = dict(bias=aff, act="relu", **kw)
+        ys = mc.dropout_conv_samples(x, w, seeds, RATE, padding, **epi)
+        rs = mc.stack_samples([mc.dropout_conv_plain(
+            x, w, seeds[s], RATE, padding, stride, aff, "relu")
+            for s in range(CONV_S)])
+        close("dropout_conv_samples", ys, rs, CONV_RTOL, tag)
+        y16 = mc.dropout_conv_samples(x, w, seeds, RATE, padding,
+                                      out_dtype=torch.bfloat16, **epi)
+        r16 = mc.stack_samples([mc.dropout_conv_plain(
+            x, w, seeds[s], RATE, padding, stride, aff, "relu",
+            torch.bfloat16) for s in range(CONV_S)])
+        check(y16.dtype == torch.bfloat16, "bf16 store")
+        close("dropout_conv_samples", y16, r16, BF16_OUT_RTOL,
+              tag + "_bf16out")
+        singles = [mc.dropout_conv_inference(x, w, seeds[s].contiguous(),
+                                             RATE, padding, **epi)
+                   for s in range(CONV_S)]
+        per_sample &= all(torch.equal(ys[s], singles[s])
+                          for s in range(CONV_S))
+        close("dropout_conv", mc.dropout_conv(x, w, seeds[0].contiguous(),
+                                              RATE, padding, stride),
+              mc.dropout_conv_plain(x, w, seeds[0], RATE, padding, stride),
+              CONV_RTOL, tag)
+        close("conv_fused", mc.conv_fused(x, w, padding=padding, **epi),
+              mc.conv_fused_plain(x, w, aff, "relu", padding=padding,
+                                  stride=stride), CONV_RTOL, tag)
+        # Masksembles: the f32 folded kernel whatever x's dtype
+        wf = w.float()
+        for bname, bank in zip(("bank", "bank_odd"), _conv_banks(xshape[3])):
+            epi_b = dict(bias=aff[1], act="relu", **kw)
+            yb = mc.bank_conv_samples(x, wf, bank, idxs, padding, **epi_b)
+            rb = mc.stack_samples([mc.bank_conv_plain(
+                x, wf, bank, i, padding, stride, aff[1], "relu")
+                for i in CONV_RAGGED_IDXS])
+            close("bank_conv_samples", yb, rb, CONV_RTOL, f"{tag}_{bname}")
+            sb = [mc.bank_conv(x, wf, bank, i, padding, **epi_b)
+                  for i in CONV_RAGGED_IDXS]
+            close("bank_conv", torch.stack(sb), torch.stack(list(rb)),
+                  CONV_RTOL, f"{tag}_{bname}")
+            per_sample &= all(torch.equal(yb[s], sb[s])
+                              for s in range(len(sb)))
+    # int8, every epilogue, bit for bit
+    _, _, aff, xq, wq = _conv_data(xshape, k, f, torch.float32, gen)
+    steps = (2.0 ** -7, 2.0 ** -7)
+    int8_equal = True
+    _, odd = _conv_banks(xshape[3])
+    for ename, epi in (("f32", {}),
+                       ("affine_relu_int8", dict(bias=aff, act="relu",
+                                                 out_step=2.0 ** -7)),
+                       ("bias_int8", dict(bias=aff[1], out_step=2.0 ** -6)),
+                       ("affine_f32", dict(bias=aff))):
+        ys = mc.dropout_conv_int8_samples(xq, wq, seeds, RATE, *steps,
+                                          padding, stride=stride, **epi)
+        rs = mc.stack_samples([mc.dropout_conv_int8_plain(
+            xq, wq, seeds[s], RATE, *steps, padding, stride, **epi)
+            for s in range(CONV_S)])
+        singles = [mc.dropout_conv_int8(xq, wq, seeds[s].contiguous(), RATE,
+                                        *steps, padding, stride=stride, **epi)
+                   for s in range(CONV_S)]
+        yb = mc.bank_conv_int8_samples(xq, wq, odd, idxs, *steps, padding,
+                                       stride=stride, **epi)
+        rb = mc.stack_samples([mc.bank_conv_int8_plain(
+            xq, wq, odd, i, *steps, padding, stride, **epi)
+            for i in CONV_RAGGED_IDXS])
+        sb = [mc.bank_conv_int8(xq, wq, odd, i, *steps, padding,
+                                stride=stride, **epi)
+              for i in CONV_RAGGED_IDXS]
+        fused = mc.conv_int8_fused(xq, wq, *steps, padding=padding,
+                                   stride=stride, **epi)
+        rf = mc.dropout_conv_int8_plain(xq, wq, None, 0.0, *steps, padding,
+                                        stride, **epi)
+        for name, got, want in (
+                ("dropout_conv_int8_samples", ys, rs),
+                ("dropout_conv_int8", torch.stack(singles), rs),
+                ("bank_conv_int8_samples", yb, rb),
+                ("bank_conv_int8", torch.stack(sb), rb),
+                ("conv_int8_fused", fused, rf)):
+            same = torch.equal(got, want)
+            int8_equal &= same
+            err = (got.float() - want.float()).abs().max().item()
+            if name in summary:
+                summary[name]["max_abs_err"] = max(
+                    summary[name]["max_abs_err"], err)
+            line[f"{name}_{ename}_bit_equal"] = same
+        per_sample &= all(torch.equal(ys[s], singles[s])
+                          for s in range(CONV_S))
+        per_sample &= all(torch.equal(yb[s], sb[s]) for s in range(len(sb)))
+    check(int8_equal and per_sample,
+          f"conv kernels {label}: int8 bit-equal {int8_equal}, per sample "
+          f"{per_sample}")
+    line.update({"int8_bit_equal_plain": int8_equal,
+                 "samples_equal_single_bitwise": per_sample,
+                 "negative_seed_sample0": seeds[0].tolist()})
+    emit(line)
+
+
+def _conv_readout(gen) -> None:
+    """The exact mask readout: x = ones, w = a 1x1 identity (VALID), so
+    sample s is the mask of seeds[s] times the dtype's scale; equal to the
+    plain version, its nonzero pattern that of ``dropout_apply`` (the
+    backward's mask) and of the int8 kernel."""
+    import torch
+    from bayestpu_torch.kernels import masked_conv as mc
+    from bayestpu_torch.kernels import masked_matmul as mm
+    n, h, wd, c = 2, 5, 4, 40
+    seeds = _inputs(dict(M=1, K=1, N=1, S=CONV_S), torch.float32, gen)[2]
+    line = {"phase": "kernels", "kernel": "masked_conv", "shape": "readout",
+            "x_nhwc": [n, h, wd, c]}
+    r8 = mc.dropout_conv_int8_samples(
+        _cl(torch.ones(n, c, h, wd, dtype=torch.int8, device="cuda")),
+        torch.eye(c, dtype=torch.int8, device="cuda")[:, :, None, None],
+        seeds, RATE, 1.0, 1.0, "VALID")
+    for dtype in (torch.bfloat16, torch.float32):
+        ones = _cl(torch.ones(n, c, h, wd, dtype=dtype, device="cuda"))
+        eye = torch.eye(c, dtype=dtype, device="cuda")[:, :, None, None]
+        got = mc.dropout_conv_samples(ones, eye, seeds, RATE, "VALID")
+        want = mc.stack_samples([mc.dropout_conv_plain(
+            ones, eye, seeds[s], RATE, "VALID") for s in range(CONV_S)])
+        applied = torch.stack([mc.mask_apply_nhwc(ones, seeds[s].contiguous(),
+                                                  RATE)
+                               for s in range(CONV_S)])
+        vals = sorted(set(got.unique().tolist()))
+        ok = (torch.equal(got, want) and vals == [0.0, mm.scale_of(RATE,
+                                                                   dtype)]
+              and torch.equal(got != 0, applied != 0)
+              and torch.equal(got != 0, r8 != 0))
+        check(ok, f"conv mask readout {dtype}: values {vals}")
+        line[str(dtype).split(".")[-1]] = {
+            "readout_bit_exact": True, "values": vals,
+            "equals_dropout_apply_mask": True, "equals_int8_mask": True,
+            "keep_fraction": (got != 0).float().mean().item()}
+    emit(line)
+
+
+def _conv_times(gen, summary: dict) -> None:
+    """Times of rows 10 and 11 at the block-site shapes of the main path
+    (batch 128, 3x3, SAME, stride 1), in the dtypes and with the epilogues
+    the block-site vgg11 gives them: the MC float kernels on bf16 x and w
+    with the fold bias, relu and a bf16 store; the float bank kernels on
+    bf16 x and the f32 folded kernel with an f32 store; the int8 kernels
+    with the (2, F) BN affine, relu and an int8 store. The samples kernels
+    at the first site (S = 10 MC, 4 Masksembles), where the spatial
+    mapping launches them. At every site each kernel's output is held
+    against its plain version on the same inputs first: int8 bit for bit,
+    an f32 store to CONV_RTOL, a bf16 store to BF16_OUT_RTOL, and the MC
+    single kernel also with an f32 store. ``ms`` is the device time per
+    call from the profiler, ``events_ms`` CUDA events over back-to-back
+    calls;
+    ``library_ms`` one cuDNN ``F.conv2d`` of the pre-masked channels_last x
+    (all samples in its batch), which the port never calls; there is no
+    PyTorch int8 conv, so none for the int8 rows."""
+    import torch
+    import torch.nn.functional as F
+    from bayestpu_torch.kernels import masked_conv as mc
+    n = BATCH
+    steps = (2.0 ** -7, 2.0 ** -7)
+    for si, (hw, c, f) in enumerate(CONV_SITES):
+        x, w, aff, xq, wq = _conv_data((n, hw, hw, c), 3, f, torch.bfloat16,
+                                       gen)
+        wf = w.float()
+        bank, _ = _conv_banks(c)
+        seeds = _inputs(dict(M=1, K=1, N=1, S=SAMPLES), torch.float32,
+                        gen)[2]
+        s0 = seeds[0].contiguous()
+        idxs = torch.arange(NUM_MASKS, dtype=torch.int32, device="cuda")
+        b, bf16 = aff[1], torch.bfloat16
+        xm = torch.cat([mc._hash_masked(x, seeds[s], RATE)
+                        for s in range(SAMPLES)])
+        xb = torch.cat([x.float() * bank[i].view(1, -1, 1, 1)
+                        for i in range(NUM_MASKS)])
+        xm, xb = _cl(xm), _cl(xb)
+        runs = {
+            "dropout_conv": (
+                lambda: mc.dropout_conv_inference(
+                    x, w, s0, RATE, bias=b, act="relu", out_dtype=bf16),
+                lambda: mc.dropout_conv_plain(x, w, s0, RATE, "SAME", 1, b,
+                                              "relu", bf16),
+                lambda: F.conv2d(xm[:n], w, padding=1), 1, 2, 8),
+            "bank_conv": (
+                lambda: mc.bank_conv(x, wf, bank, 0, bias=b, act="relu"),
+                lambda: mc.bank_conv_plain(x, wf, bank, 0, "SAME", 1, b,
+                                           "relu"),
+                lambda: F.conv2d(xb[:n], wf, padding=1), 1, 4,
+                4 * c),
+            "dropout_conv_int8": (
+                lambda: mc.dropout_conv_int8(xq, wq, s0, RATE, *steps,
+                                             bias=aff, act="relu",
+                                             out_step=steps[0]),
+                lambda: mc.dropout_conv_int8_plain(
+                    xq, wq, s0, RATE, *steps, "SAME", 1, aff, "relu",
+                    steps[0]), None, 1, 1, 8),
+            "bank_conv_int8": (
+                lambda: mc.bank_conv_int8(xq, wq, bank, 0, *steps, bias=aff,
+                                          act="relu", out_step=steps[0]),
+                lambda: mc.bank_conv_int8_plain(
+                    xq, wq, bank, 0, *steps, "SAME", 1, aff, "relu",
+                    steps[0]), None, 1, 1, 4 * c),
+        }
+        if si == 0:
+            runs.update({
+                "dropout_conv_samples": (
+                    lambda: mc.dropout_conv_samples(
+                        x, w, seeds, RATE, bias=b, act="relu",
+                        out_dtype=bf16),
+                    lambda: mc.stack_samples([mc.dropout_conv_plain(
+                        x, w, seeds[s], RATE, "SAME", 1, b, "relu", bf16)
+                        for s in range(SAMPLES)]),
+                    lambda: F.conv2d(xm, w, padding=1), SAMPLES, 2,
+                    8 * SAMPLES),
+                "bank_conv_samples": (
+                    lambda: mc.bank_conv_samples(x, wf, bank, idxs, bias=b,
+                                                 act="relu"),
+                    lambda: mc.stack_samples([mc.bank_conv_plain(
+                        x, wf, bank, i, "SAME", 1, b, "relu")
+                        for i in range(NUM_MASKS)]),
+                    lambda: F.conv2d(xb, wf, padding=1), NUM_MASKS, 4,
+                    4 * NUM_MASKS * (c + 1)),
+                "dropout_conv_int8_samples": (
+                    lambda: mc.dropout_conv_int8_samples(
+                        xq, wq, seeds, RATE, *steps, bias=aff, act="relu",
+                        out_step=steps[0]),
+                    lambda: mc.stack_samples([mc.dropout_conv_int8_plain(
+                        xq, wq, seeds[s], RATE, *steps, "SAME", 1, aff,
+                        "relu", steps[0]) for s in range(SAMPLES)]),
+                    None, SAMPLES, 1, 8 * SAMPLES),
+                "bank_conv_int8_samples": (
+                    lambda: mc.bank_conv_int8_samples(
+                        xq, wq, bank, idxs, *steps, bias=aff, act="relu",
+                        out_step=steps[0]),
+                    lambda: mc.stack_samples([mc.bank_conv_int8_plain(
+                        xq, wq, bank, i, *steps, "SAME", 1, aff, "relu",
+                        steps[0]) for i in range(NUM_MASKS)]),
+                    None, NUM_MASKS, 1, 4 * NUM_MASKS * (c + 1)),
+            })
+        line = {"phase": "kernels", "kernel": "masked_conv",
+                "shape": f"site{si + 1}", "x_nhwc": [n, hw, hw, c], "F": f,
+                "k": 3, "padding": "SAME", "stride": 1}
+        checks = [(name, run[0], run[1]) for name, run in runs.items()]
+        checks.append(("dropout_conv", lambda: mc.dropout_conv_inference(
+            x, w, s0, RATE, bias=b, act="relu"), lambda: mc.dropout_conv_plain(
+                x, w, s0, RATE, "SAME", 1, b, "relu")))
+        for name, kern, plain in checks:
+            got, want = kern(), plain()
+            err = (got.float() - want.float()).abs().max().item()
+            if got.dtype == torch.int8:
+                check(torch.equal(got, want),
+                      f"{name} site{si + 1}: int8 not bit-equal, {err}")
+                tag = "int8"
+            else:
+                bf16_out = got.dtype == torch.bfloat16
+                tol = ((BF16_OUT_RTOL if bf16_out else CONV_RTOL)
+                       * max(1.0, want.float().abs().max().item()))
+                check(err <= tol, f"{name} site{si + 1}: {err} > {tol}")
+                tag = "bf16out" if bf16_out else "f32"
+            if tag != "bf16out":
+                summary[name]["max_abs_err"] = max(
+                    summary[name]["max_abs_err"], err)
+            line[f"{name}_{tag}_err"] = err
+        for name, (kern, plain, lib, s, out_bytes, mask_bytes) in \
+                runs.items():
+            xx = xq if "int8" in name else x
+            ww = wq if "int8" in name else (wf if "bank" in name else w)
+            t = {"ms": device_ms(kern, 20), "plain_ms": device_ms(plain, 3),
+                 "library_ms": (device_ms(lib, 20) if lib is not None
+                                else None),
+                 "events_ms": cuda_ms(kern, 20, 3)}
+            t["bound_ms"], t["bound_by"] = _conv_bound(
+                name, xx, ww, s, out_bytes, mask_bytes=mask_bytes)
+            line[name] = t
+            if si == CONV_SUMMARY_SITE.get(name, 0):
+                summary[name].update(t, shape=f"site{si + 1}")
+        emit(line)
+
+
+def phase_conv_kernels() -> dict:
+    """Rows 10 and 11 (``csrc/masked_conv.cu``) on the card: the checks of
+    ``_conv_checks`` at the block-1 site shape and the ragged geometries,
+    the mask readout, and at the four site shapes the main path's epilogues
+    against the plain versions, then the times."""
+    import torch
+    gen = torch.Generator().manual_seed(4321)
+    summary = {name: {"max_abs_err": 0.0} for name in CONV_REPLACES}
+    hw, c, f = CONV_SITES[0]
+    _conv_checks("site1", (BATCH, hw, hw, c), 3, f, "SAME", 1, gen, summary)
+    for label, (xshape, k, ff, padding, stride) in CONV_RAGGED.items():
+        _conv_checks(label, xshape, k, ff, padding, stride, gen, summary)
+    _conv_readout(gen)
+    _conv_times(gen, summary)
+    return summary
+
+
 def phase_slice() -> dict:
     import torch
     from bayestpu_torch.core.config import (BayesConfig, EngineConfig,
                                             SamplingMode)
     from bayestpu_torch.engine import sampler
     from bayestpu_torch.engine.engine import BayesEngine
-    from bayestpu_torch.kernels import masked_matmul as mm
     from bayestpu_torch.nn.zoo import get_model
 
     def build(mode: SamplingMode, device: str) -> BayesEngine:
@@ -663,16 +1119,16 @@ def phase_slice() -> dict:
     torch.cuda.synchronize()
 
     # ---- the main path, counted: spatial, temporal, host loop
-    mm.reset_launch_counts()
+    reset_counts()
     p_sp = sp.predict(x, seed, SAMPLES)
     torch.cuda.synchronize()
-    after_sp = dict(mm.launch_counts)
+    after_sp = launch_counts()
     p_tm = tm.predict(x, seed, SAMPLES)
     torch.cuda.synchronize()
-    after_tm = dict(mm.launch_counts)
+    after_tm = launch_counts()
     p_loop = host_loop()
     torch.cuda.synchronize()
-    launches = dict(mm.launch_counts)
+    launches = launch_counts()
     n_heads = sp.model.num_sites
     check(n_heads == 5, f"vgg11_me has {n_heads} MC sites")
     check(after_sp == counts(dropout_matmul_samples=5),
@@ -749,7 +1205,8 @@ def _by_group(rows: list) -> dict:
     groups: dict[str, dict] = {}
     for ms, calls, key in rows:
         k = key.lower()
-        port = "dropout_" in k or "bank_matmul" in k
+        port = ("dropout_" in k or "bank_matmul" in k
+                or "::conv_kernel<" in k)
         group = ("port kernels" if port else
                  "convolutions" if any(w in k for w in (
                      "fprop", "dgrad", "wgrad", "conv")) else
@@ -807,11 +1264,11 @@ def phase_backward() -> None:
         g = torch.randn(m, n, generator=gen).cuda()
         xr = x.clone().requires_grad_(True)
         wr = w.clone().requires_grad_(True)
-        before = dict(mm.launch_counts)
+        before = launch_counts()
         dx, dw = torch.autograd.grad(mm.dropout_matmul(xr, wr, s0, RATE),
                                      (xr, wr), g)
         torch.cuda.synchronize()
-        launched = {kk: mm.launch_counts[kk] - before[kk] for kk in before}
+        launched = {kk: launch_counts()[kk] - before[kk] for kk in before}
         px, pw = mm.dropout_matmul_vjp_plain(x, w, s0, RATE, g)
         line = {"phase": "backward", "shape": "head", **HEAD,
                 "dtype": name, "rate": RATE, "launches": launched}
@@ -827,6 +1284,48 @@ def phase_backward() -> None:
         check(dropped_zero, f"backward dx nonzero where dropped {name}")
         check(launched == counts(dropout_matmul=1, dropout_apply=2),
               f"backward launches {launched}")
+        line["dx_zero_where_dropped"] = dropped_zero
+        emit(line)
+    _conv_backward(gen)
+
+
+def _conv_backward(gen) -> None:
+    """torch.autograd through dropout_conv at the block-1 site shape
+    against dropout_conv_vjp_plain on the same card tensors: one forward
+    launch and two dropout_apply launches (the regenerated mask of x and of
+    dxm) per backward, dx exactly 0 wherever the mask drops."""
+    import torch
+    from bayestpu_torch.kernels import masked_conv as mc
+    hw, c, f = CONV_SITES[0]
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        x, w, _, _, _ = _conv_data((BATCH, hw, hw, c), 3, f, dtype, gen)
+        s0 = _inputs(dict(M=1, K=1, N=1, S=1), torch.float32, gen)[2][0]
+        g = _cl(torch.randn(BATCH, f, hw, hw, generator=gen).cuda())
+        xr = x.clone().requires_grad_(True)
+        wr = w.clone().requires_grad_(True)
+        before = launch_counts()
+        dx, dw = torch.autograd.grad(mc.dropout_conv(xr, wr, s0, RATE),
+                                     (xr, wr), g)
+        torch.cuda.synchronize()
+        launched = {kk: launch_counts()[kk] - before[kk] for kk in before}
+        px, pw = mc.dropout_conv_vjp_plain(x, w, s0, RATE, g)
+        line = {"phase": "backward", "shape": "site1",
+                "x_nhwc": [BATCH, hw, hw, c], "F": f, "dtype": name,
+                "rate": RATE, "launches": {k: v for k, v in launched.items()
+                                           if v}}
+        for what, got, ref in (("dx", dx, px), ("dw", dw, pw)):
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = BWD_RTOL[name] * ref.float().abs().max().item()
+            check(got.dtype == ref.dtype == dtype and err <= tol,
+                  f"conv backward {what} {name}: {err} > {tol}")
+            line[f"{what}_max_abs_err"] = err
+            line[f"{what}_tol"] = tol
+        keep = mc.keep_mask_nchw(s0, x, RATE)
+        dropped_zero = bool((dx[~keep] == 0).all())
+        check(dropped_zero, f"conv backward dx nonzero where dropped {name}")
+        check(launched == counts(dropout_conv=1, dropout_apply=2),
+              f"conv backward launches {launched}")
         line["dx_zero_where_dropped"] = dropped_zero
         emit(line)
 
@@ -845,7 +1344,6 @@ def phase_train() -> dict:
     from bayestpu_torch.core.rng import step_seeds
     from bayestpu_torch.data.datasets import get_dataset, iterate_batches
     from bayestpu_torch.engine.engine import BayesEngine
-    from bayestpu_torch.kernels import masked_matmul as mm
     from bayestpu_torch.nn.zoo import get_model
     from bayestpu_torch.train import optim
     from bayestpu_torch.train.loop import (create_state, make_train_step,
@@ -882,7 +1380,7 @@ def phase_train() -> dict:
             losses.append(step(state, xs[i % nb], ys[i % nb],
                                seeds[i])["loss"])
             if i == 0:
-                first_step.update(mm.launch_counts)
+                first_step.update(launch_counts())
             if timed:
                 torch.cuda.synchronize()
                 step_ms.append((time.perf_counter() - t) * 1e3)
@@ -892,7 +1390,7 @@ def phase_train() -> dict:
     # synchronise), but for three profiled steps a little way in; epochs
     # 3.. run free and give the throughput
     prof_steps, p0 = 3, nb + min(20, nb // 2)
-    mm.reset_launch_counts()
+    reset_counts()
     t_train = time.perf_counter()
     run(range(0, nb), False)
     run(range(nb, p0), True)
@@ -910,7 +1408,7 @@ def phase_train() -> dict:
     torch.cuda.synchronize()
     free_s = time.perf_counter() - t
     train_s = time.perf_counter() - t_train
-    launches = dict(mm.launch_counts)
+    launches = launch_counts()
     check(first_step == counts(dropout_matmul=5, dropout_apply=10),
           f"launches of one training step {first_step}")
     check(launches == counts(dropout_matmul=5 * steps,
@@ -955,7 +1453,7 @@ def phase_train() -> dict:
     state2 = create_state(model2, tx2, 1, ds.x_train[:BATCH])
     hist: dict = {}
     n_val = 4
-    mm.reset_launch_counts()
+    reset_counts()
     t = time.perf_counter()
     train_loop(model2, state2, tx2,
                lambda: iterate_batches(ds.x_train, ds.y_train, BATCH, seed=1),
@@ -965,7 +1463,7 @@ def phase_train() -> dict:
                reshuffle=True, history=hist, log_fn=lambda msg: None)
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t
-    loop_launches = dict(mm.launch_counts)
+    loop_launches = launch_counts()
     check(loop_launches == counts(dropout_matmul=5 * (nb + n_val),
                                   dropout_apply=10 * nb),
           f"train_loop launches {loop_launches}")
@@ -985,10 +1483,10 @@ def phase_train() -> dict:
     eval_s = time.perf_counter() - t
     check(all(np.isfinite(v) for v in mets.values()),
           f"trained metrics finite {mets}")
-    mm.reset_launch_counts()
+    reset_counts()
     pred = eng.predict(x_te[:BATCH], 0, SAMPLES)
     torch.cuda.synchronize()
-    serve_launches = dict(mm.launch_counts)
+    serve_launches = launch_counts()
     check(serve_launches == counts(dropout_matmul_samples=5),
           f"spatial predict of the trained weights {serve_launches}")
     check(pred.probs.shape == (5, BATCH, 10)
@@ -1005,11 +1503,10 @@ def phase_train() -> dict:
 def _launched(fn):
     """``fn()`` and the launches of each kernel during it."""
     import torch
-    from bayestpu_torch.kernels import masked_matmul as mm
-    before = dict(mm.launch_counts)
+    before = launch_counts()
     out = fn()
     torch.cuda.synchronize()
-    return out, {k: mm.launch_counts[k] - before[k] for k in before}
+    return out, {k: launch_counts()[k] - before[k] for k in before}
 
 
 def phase_int8(tr: dict) -> dict:
@@ -1029,7 +1526,6 @@ def phase_int8(tr: dict) -> dict:
     from bayestpu_torch.engine import sampler
     from bayestpu_torch.engine.engine import BayesEngine
     from bayestpu_torch.interop.from_flax import load_flax_variables
-    from bayestpu_torch.kernels import masked_matmul as mm
     from bayestpu_torch.nn.fused import BayesDense
     from bayestpu_torch.nn.zoo import get_model
     from bayestpu_torch.train import optim
@@ -1048,7 +1544,7 @@ def phase_int8(tr: dict) -> dict:
     steps = QAT_EPOCHS * nb
     seed = 0
     # ---- the main path, counted: QAT, BN re-estimation, serving
-    mm.reset_launch_counts()
+    reset_counts()
     # warm start (bench.py:113-121): the float parameters and BN
     # statistics, a fresh optimizer state
     model = load_flax_variables(build(qat_q), tr["variables"]).cuda().train()
@@ -1071,7 +1567,7 @@ def phase_int8(tr: dict) -> dict:
     torch.cuda.synchronize()
     free_s = time.perf_counter() - t_free
     qat_s = time.perf_counter() - t_qat
-    qat_launches = dict(mm.launch_counts)
+    qat_launches = launch_counts()
     check(qat_launches == counts(dropout_matmul=5 * steps,
                                  dropout_apply=10 * steps),
           f"QAT launches {qat_launches} over {steps} steps")
@@ -1144,7 +1640,7 @@ def phase_int8(tr: dict) -> dict:
                                   SamplingMode.SPATIAL)
     # the main path: QAT, BN re-estimation and int8 serving; the fake-quant
     # evaluate is attribution, not serving
-    launches = {k: v - side[k] for k, v in mm.launch_counts.items()}
+    launches = {k: v - side[k] for k, v in launch_counts().items()}
     d_st = (l_sp - l_tm).abs().max().item()
     check(d_st <= SPATIAL_TEMPORAL_ATOL,
           f"int8 spatial vs temporal logits {d_st}")
@@ -1217,7 +1713,6 @@ def phase_mask(tr: dict) -> dict:
     from bayestpu_torch.engine.engine import BayesEngine
     from bayestpu_torch.interop.from_flax import (load_flax_variables,
                                                   to_flax_variables)
-    from bayestpu_torch.kernels import masked_matmul as mm
     from bayestpu_torch.nn.fused import BayesDense
     from bayestpu_torch.nn.zoo import get_model
     from bayestpu_torch.train import optim
@@ -1240,7 +1735,7 @@ def phase_mask(tr: dict) -> dict:
     nb = xs.shape[0]
     steps = MASK_EPOCHS * nb
     # ---- the main path, counted: the fine-tune, then serving
-    mm.reset_launch_counts()
+    reset_counts()
     model = build()
     check(model.num_sites == 0 and model.masked, "a Masksembles vgg11_me")
     load_flax_variables(model, {**tr["variables"],
@@ -1264,7 +1759,7 @@ def phase_mask(tr: dict) -> dict:
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t) * 1e3)
     ft_s = time.perf_counter() - t_ft
-    ft_launches = dict(mm.launch_counts)
+    ft_launches = launch_counts()
     check(ft_launches == counts(),
           f"the batch-split fine-tune launched port kernels {ft_launches}")
     loss = torch.stack(losses).float().cpu().numpy()
@@ -1360,7 +1855,7 @@ def phase_mask(tr: dict) -> dict:
         l8_cpu = sampler.mc_logits(cpu8.model, x[:8].cpu(), sd.cpu(),
                                    SamplingMode.SPATIAL)
     # the main path ends here: fine-tune, bf16 and int8 serving
-    launches = dict(mm.launch_counts)
+    launches = launch_counts()
     fq = engine(QuantConfig(8, 0))
     mets_fq, fq_launches = _launched(lambda: fq.evaluate(
         x_te, y_te, seed=0, ood_check=True, dataset="cifar10"))
@@ -1430,6 +1925,305 @@ def phase_mask(tr: dict) -> dict:
           "what": "Masksembles bf16 spatial predict, profiled",
           **_profile_predict(sp, x, seed)})
     return {"launches": launches}
+
+
+def _block_serve(name: str, build, variables, want_sp: dict, want_tm: dict,
+                 x, st_tol, cpu_tol_fn, samples: int, mask: bool) -> dict:
+    """Serve one block-site model through ``BayesEngine(device="cuda")``:
+    exact launch counts of a spatial and a temporal predict, every
+    probability finite and summing to 1, the per-sample logits of the two
+    mappings within ``st_tol``, for Masksembles ``predict(sample_idx=i)``
+    equal to sample i, and rows 0-7 against the same model on the CPU
+    within ``cpu_tol_fn(cpu_model, cpu_logits)``."""
+    import torch
+    from bayestpu_torch.core.config import EngineConfig, SamplingMode
+    from bayestpu_torch.engine import sampler
+    from bayestpu_torch.engine.engine import BayesEngine
+
+    def engine(mode, device="cuda"):
+        eng = BayesEngine(build(), config=EngineConfig(mode=mode),
+                          device=device)
+        return (eng.attach(variables) if variables is not None
+                else eng.init(0, x[:1].cpu()))
+
+    sp, tm = engine(SamplingMode.SPATIAL), engine(SamplingMode.TEMPORAL)
+    seed = 11
+    sp.predict(x, seed, samples)           # warm-up: cuDNN plans, allocator
+    tm.predict(x, seed, samples)
+    p_sp, sp_launches = _launched(lambda: sp.predict(x, seed, samples))
+    p_tm, tm_launches = _launched(lambda: tm.predict(x, seed, samples))
+    check(sp_launches == counts(**want_sp),
+          f"block {name} spatial predict launches {sp_launches}")
+    check(tm_launches == counts(**want_tm),
+          f"block {name} temporal predict launches {tm_launches}")
+    for mode, p in (("spatial", p_sp.probs), ("temporal", p_tm.probs)):
+        check(p.shape == (1, x.shape[0], 10)
+              and bool(torch.isfinite(p).all())
+              and (p.sum(-1) - 1).abs().max().item() < 1e-5,
+              f"block {name} {mode} probs")
+    with torch.inference_mode():
+        sd = sp.seeds(seed, samples)
+        l_sp = sampler.mc_logits(sp.model, x, sd, SamplingMode.SPATIAL)
+        l_tm = sampler.mc_logits(sp.model, x, sd, SamplingMode.TEMPORAL)
+        cpu = engine(SamplingMode.SPATIAL, "cpu")
+        l_cpu = sampler.mc_logits(cpu.model, x[:8].cpu(), sd.cpu(),
+                                  SamplingMode.SPATIAL)
+    d_st = (l_sp - l_tm).abs().max().item()
+    tol = st_tol * max(1.0, l_tm.abs().max().item())
+    check(d_st <= tol, f"block {name} spatial vs temporal logits {d_st} > "
+          f"{tol}")
+    d_rows = (l_sp[:, :, :8].cpu() - l_cpu).abs()
+    cpu_tol = cpu_tol_fn(cpu.model, l_cpu)
+    check(d_rows.max().item() <= cpu_tol,
+          f"block {name} card vs CPU rows 0-7: {d_rows.max().item()} > "
+          f"{cpu_tol}")
+    out = {"launches_spatial_predict": {k: v for k, v in
+                                        sp_launches.items() if v},
+           "launches_temporal_predict": {k: v for k, v in
+                                         tm_launches.items() if v},
+           "spatial_vs_temporal_logits_max_abs": d_st,
+           "spatial_vs_temporal_tol": tol,
+           "spatial_temporal_bit_identical": bool(torch.equal(l_sp, l_tm)),
+           "card_vs_cpu_rows0_7_logits_max_abs": d_rows.max().item(),
+           "card_vs_cpu_tol": cpu_tol,
+           "card_vs_cpu_rows_differing": int(
+               (d_rows.amax(dim=(0, 1, 3)) > 0).sum()),
+           "spatial_p50_ms": host_ms(lambda: sp.predict(x, seed, samples),
+                                     10),
+           "temporal_p50_ms": host_ms(lambda: tm.predict(x, seed, samples),
+                                      5)}
+    out["mc_samples_per_s"] = x.shape[0] * samples / (
+        out["spatial_p50_ms"] / 1e3)
+    if mask:
+        ones, one_launches = _launched(lambda: [
+            sp.predict(x, seed, sample_idx=i) for i in range(samples)])
+        check(one_launches == counts(**want_tm),
+              f"block {name} one-mask predicts launches {one_launches}")
+        d_one = max((ones[i] - torch.softmax(l_sp[i], -1)).abs().max().item()
+                    for i in range(samples))
+        check(d_one <= st_tol, f"block {name} predict(sample_idx=i) vs "
+              f"sample i {d_one}")
+        out["sample_idx_vs_spatial_probs_max_abs"] = d_one
+    out["engine"] = sp
+    return out
+
+
+def _block_finetune(model, xs, ys, epochs: int, lr: float, want: dict
+                    ) -> tuple[dict, dict]:
+    """Fine-tune ``model`` (on the card, train mode) for ``epochs`` epochs
+    of the train phase's batches with SGD 0.9, cosine LR from ``lr``, clip
+    10 (the bench recipe's optimizer): the first step's launches must be
+    ``want``; epoch 1 runs free for the throughput, epoch 2 step by step
+    (host clock ending in a synchronise) for the p50."""
+    import numpy as np
+    import torch
+    from bayestpu_torch.core.rng import step_seeds
+    from bayestpu_torch.train import optim
+    from bayestpu_torch.train.loop import TrainState, make_train_step
+    nb = xs.shape[0]
+    steps = epochs * nb
+    tx = optim.chain(optim.clip_by_global_norm(TRAIN_CLIP), optim.sgd(
+        optim.cosine_decay_schedule(lr, steps), 0.9))
+    state = TrainState(model, tx.init(dict(model.named_parameters())))
+    step = make_train_step(model, tx)
+    seeds = step_seeds(0, range(steps), model.num_sites).cuda()
+    losses, step_ms, first = [], [], {}
+    t0 = time.perf_counter()
+    for i in range(steps):
+        t = time.perf_counter()
+        before = launch_counts() if i == 0 else None
+        losses.append(step(state, xs[i % nb], ys[i % nb], seeds[i])["loss"])
+        if i == 0:
+            first = {k: launch_counts()[k] - before[k] for k in before}
+        if i == nb - 1:
+            torch.cuda.synchronize()
+            epoch1_s = time.perf_counter() - t0
+        elif nb <= i < 2 * nb:
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    check(first == counts(**want), f"launches of one block-site training "
+          f"step {first}")
+    loss = torch.stack(losses).float().cpu().numpy()
+    check(bool(np.isfinite(loss).all()), "block-site training loss finite")
+    p50 = statistics.median(step_ms)
+    return state.variables(), {
+        "epochs": epochs, "steps": steps, "lr": lr, "clip": TRAIN_CLIP,
+        "seconds": time.perf_counter() - t0,
+        "launches_per_step": {k: v for k, v in first.items() if v},
+        "step_p50_ms": p50, "step_min_ms": min(step_ms),
+        "images_per_s": nb * BATCH / epoch1_s,
+        "images_per_s_of_p50": BATCH / (p50 / 1e3),
+        "first_loss": float(loss[0]), "final_loss": float(loss[-1]),
+        "epoch_mean_loss": loss.reshape(epochs, nb).mean(1).tolist()}
+
+
+def phase_block(tr: dict) -> dict:
+    """``vgg11`` with fused block sites (``dropout="block"``, ``fused=True``:
+    a site on the input of blocks 1-4, fused into the first conv, plus the
+    MC classifier head), bf16, batch 128, full width, as the deeper MC
+    placement of ``scripts/exp_ood_entropy.py:29-40``:
+
+    (a) MC, rate 0.25, S = 10, seeded weights: per spatial predict one
+        ``dropout_conv_samples`` launch (block 1's site, where x is shared),
+        30 ``dropout_conv`` (blocks 2-4: the activations carry the sample
+        axis, one launch a sample) and 10 ``dropout_matmul``; per temporal
+        predict 40 and 10; spatial against temporal; card against CPU.
+    (b) MC training: the train phase's vgg11_me weights (vgg11 shares every
+        name but ``exit*``) fine-tuned BLOCK_EPOCHS epochs; a step launches
+        4 ``dropout_conv``, 1 ``dropout_matmul`` and 10 ``dropout_apply``;
+        served on 2,000 test images (acc >= 0.5, ECE, NLL, aPE, aPE_ood).
+    (c) Masksembles (num_masks 4, scale 2.0, S = 4): (b)'s weights with the
+        model's own banks, BLOCK_MASK_EPOCHS epochs under the batch split
+        (no port kernel), served: 1 ``bank_conv_samples``, 12 ``bank_conv``
+        and 4 ``bank_matmul`` a spatial predict, 16 and 4 a temporal one,
+        ``predict(sample_idx=i)`` equal to sample i, card against CPU,
+        quality.
+    (d) The int8 models on (b)'s and (c)'s weights under INT8_Q, no QAT:
+        block 1's site runs the float kernel with an int8 store (64 input
+        channels at 16x16 are not int8-executed), blocks 2-4 and the head
+        the int8 kernels; with ``int8_conv_min_ch=32`` block 1's site
+        int8-executes too, through the int8 samples kernels. Card against
+        CPU within a few grid steps; acc and ECE."""
+    import numpy as np
+    import torch
+    from bayestpu_torch.core.config import (BayesConfig, DropoutKind,
+                                            QuantConfig)
+    from bayestpu_torch.core.quant import fake_quant
+    from bayestpu_torch.engine.engine import BayesEngine
+    from bayestpu_torch.interop.from_flax import (load_flax_variables,
+                                                  to_flax_variables)
+    from bayestpu_torch.nn.fused import BayesDense
+    from bayestpu_torch.nn.zoo import get_model
+
+    cfg_mc = BayesConfig(rate=RATE)
+    cfg_mask = BayesConfig(kind=DropoutKind.MASK, num_masks=NUM_MASKS,
+                           scale=MASK_SCALE)
+    int8_q = QuantConfig(8, 0, int8_infer=True)
+    int8_q32 = QuantConfig(8, 0, int8_infer=True, int8_conv_min_ch=32)
+
+    def model_fn(bayes, quant=None):
+        return lambda: get_model("vgg11", bayes=bayes, fused=True,
+                                 dropout="block", dtype=torch.bfloat16,
+                                 quant=quant)
+
+    def float_tol(model, l_cpu):
+        return CPU_REF_RTOL * max(1.0, l_cpu.abs().max().item())
+
+    def int8_tol(rescale):
+        # INT8_CPU_STEPS grid steps of a head's int8 input through the
+        # widest column of its quantized kernel, as the int8 phase
+        return lambda model, l_cpu: INT8_CPU_STEPS * 2.0 ** -7 * max(
+            torch.linalg.vector_norm(fake_quant(h.kernel, int8_q), dim=0)
+            .max().item() for h in model.modules()
+            if isinstance(h, BayesDense)) * rescale
+
+    ds, xs, ys = tr["ds"], tr["xs"], tr["ys"]
+    x = torch.from_numpy(ds.x_test[:BATCH]).cuda()
+    x_te, y_te = ds.x_test[:2000], ds.y_test[:2000]
+    s_mc, s_mask = SAMPLES, NUM_MASKS
+    check(model_fn(cfg_mc)().num_sites == 5 and
+          model_fn(cfg_mask)().num_sites == 0, "block-site vgg11 sites")
+    mc_sp = dict(dropout_conv_samples=1, dropout_conv=3 * s_mc,
+                 dropout_matmul=s_mc)
+    mc_tm = dict(dropout_conv=4 * s_mc, dropout_matmul=s_mc)
+    mask_sp = dict(bank_conv_samples=1, bank_conv=3 * s_mask,
+                   bank_matmul=s_mask)
+    mask_tm = dict(bank_conv=4 * s_mask, bank_matmul=s_mask)
+    # ---- the main path, counted: (a)-(d)
+    reset_counts()
+    t0 = time.perf_counter()
+    a = _block_serve("mc", model_fn(cfg_mc), None, mc_sp, mc_tm, x,
+                     CPU_REF_RTOL, float_tol, s_mc, False)
+    a.pop("engine")
+    emit({"phase": "block_mc", "model": "vgg11", "dropout": "block",
+          "weights": "seeded init", "dtype": "bfloat16", "batch": BATCH,
+          "samples": s_mc, "rate": RATE, **a,
+          "seconds": time.perf_counter() - t0})
+
+    # (b) MC training from the train phase's weights, without the exits
+    warm = {coll: {k: v for k, v in tree.items() if not k.startswith("exit")}
+            for coll, tree in tr["variables"].items()}
+    t0 = time.perf_counter()
+    model = load_flax_variables(model_fn(cfg_mc)(), warm).cuda().train()
+    v_mc, fit = _block_finetune(model, xs, ys, BLOCK_EPOCHS, BLOCK_LR,
+                                dict(dropout_conv=4, dropout_matmul=1,
+                                     dropout_apply=10))
+    eng = BayesEngine(model_fn(cfg_mc)(), device="cuda").attach(v_mc)
+    mets, ev_launches = _launched(lambda: eng.evaluate(
+        x_te, y_te, seed=0, num_samples=s_mc, ood_check=True,
+        dataset="cifar10"))
+    check(ev_launches == counts(**{k: 2 * v for k, v in mc_sp.items()}),
+          f"block MC evaluate launches {ev_launches}")
+    check(all(np.isfinite(v) for v in mets.values()) and mets["acc"] >= 0.5,
+          f"block MC trained metrics {mets}")
+    emit({"phase": "block_train", "model": "vgg11", "dropout": "block",
+          "dtype": "bfloat16", "batch": BATCH, "rate": RATE,
+          "warm_start": "the train phase's vgg11_me weights, exits dropped",
+          **fit, "test_images": len(x_te), "samples": s_mc, **mets,
+          "seconds": time.perf_counter() - t0})
+    emit({"phase": "block_profile",
+          "what": "block-site MC spatial predict of the trained weights, "
+                  "profiled",
+          **_profile_predict(eng, x, 11, reps=5)})
+
+    # (c) Masksembles: (b)'s weights with the model's own banks
+    t0 = time.perf_counter()
+    model = model_fn(cfg_mask)()
+    load_flax_variables(model, {**v_mc,
+                                "masks": to_flax_variables(model)["masks"]})
+    v_mask, fit_m = _block_finetune(model.cuda().train(), xs, ys,
+                                    BLOCK_MASK_EPOCHS, BLOCK_LR, {})
+    c = _block_serve("mask", model_fn(cfg_mask), v_mask, mask_sp, mask_tm, x,
+                     CPU_REF_RTOL, float_tol, s_mask, True)
+    mets_m, evm_launches = _launched(lambda: c.pop("engine").evaluate(
+        x_te, y_te, seed=0, ood_check=True, dataset="cifar10"))
+    check(evm_launches == counts(**{k: 2 * v for k, v in mask_sp.items()}),
+          f"block Masksembles evaluate launches {evm_launches}")
+    check(all(np.isfinite(v) for v in mets_m.values()),
+          f"block Masksembles metrics {mets_m}")
+    emit({"phase": "block_mask", "model": "vgg11", "dropout": "block",
+          "bayes": "BayesConfig(kind=MASK, num_masks=4, scale=2.0)",
+          "dtype": "bfloat16", "batch": BATCH, "samples": s_mask,
+          "finetune": fit_m, **c, "test_images": len(x_te), **mets_m,
+          "seconds": time.perf_counter() - t0})
+
+    # (d) the int8 models, no QAT
+    for name, cfg, variables, quant, samples, want_sp, want_tm, rescale in (
+            ("mc_int8", cfg_mc, v_mc, int8_q, s_mc,
+             dict(dropout_conv_samples=1, dropout_conv_int8=3 * s_mc,
+                  dropout_matmul_int8=s_mc),
+             dict(dropout_conv=s_mc, dropout_conv_int8=3 * s_mc,
+                  dropout_matmul_int8=s_mc), 1.0 / (1.0 - RATE)),
+            ("mask_int8", cfg_mask, v_mask, int8_q, s_mask,
+             dict(bank_conv_samples=1, bank_conv_int8=3 * s_mask,
+                  bank_matmul_int8=s_mask),
+             dict(bank_conv=s_mask, bank_conv_int8=3 * s_mask,
+                  bank_matmul_int8=s_mask), 1.0),
+            ("mc_int8_min_ch32", cfg_mc, v_mc, int8_q32, s_mc,
+             dict(dropout_conv_int8_samples=1, dropout_conv_int8=3 * s_mc,
+                  dropout_matmul_int8=s_mc),
+             dict(dropout_conv_int8=4 * s_mc, dropout_matmul_int8=s_mc),
+             1.0 / (1.0 - RATE)),
+            ("mask_int8_min_ch32", cfg_mask, v_mask, int8_q32, s_mask,
+             dict(bank_conv_int8_samples=1, bank_conv_int8=3 * s_mask,
+                  bank_matmul_int8=s_mask),
+             dict(bank_conv_int8=4 * s_mask, bank_matmul_int8=s_mask), 1.0)):
+        t0 = time.perf_counter()
+        d = _block_serve(name, model_fn(cfg, quant), variables, want_sp,
+                         want_tm, x, CPU_REF_RTOL, int8_tol(rescale),
+                         samples, False)
+        mets8 = d.pop("engine").evaluate(x_te, y_te, seed=0,
+                                         num_samples=samples)
+        check(all(np.isfinite(v) for v in mets8.values()),
+              f"block {name} metrics {mets8}")
+        emit({"phase": "block_int8", "model": "vgg11", "dropout": "block",
+              "config": name, "quant": repr(quant), "dtype": "bfloat16",
+              "batch": BATCH, "samples": samples, **d,
+              "test_images": len(x_te), "acc": mets8["acc"],
+              "ece_hist": mets8["ece_hist"], "nll": mets8["nll"],
+              "seconds": time.perf_counter() - t0})
+    return {"launches": launch_counts()}
 
 
 def phase_step_vs_cpu() -> None:
@@ -1505,19 +2299,24 @@ def main() -> int:
     smi = phase_card()
     phase_build()
     summary = phase_kernels()
+    summary.update(phase_conv_kernels())
     phase_backward()
     sl = phase_slice()
     phase_profile(sl)
     tr = phase_train()
     i8 = phase_int8(tr)
     mk = phase_mask(tr)
+    bl = phase_block(tr)
     phase_step_vs_cpu()
     kernels = []
     for name, stats in summary.items():
-        launches = sum(ph["launches"][name] for ph in (sl, tr, i8, mk))
+        launches = sum(ph["launches"][name] for ph in (sl, tr, i8, mk, bl))
         check(launches > 0, f"{name} was never launched on the main paths")
-        kernels.append({"name": name, "route": "cuda", "source": SOURCE,
-                        "replaces": REPLACES[name],
+        conv = name in CONV_REPLACES
+        kernels.append({"name": name, "route": "cuda",
+                        "source": CONV_SOURCE if conv else SOURCE,
+                        "replaces": (CONV_REPLACES if conv
+                                     else REPLACES)[name],
                         "launches": launches,
                         "max_abs_err": stats["max_abs_err"],
                         "ms": stats["ms"], "plain_ms": stats["plain_ms"],

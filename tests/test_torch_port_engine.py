@@ -306,7 +306,8 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, bayestpu_torch, bayestpu_torch.engine.engine, "
             "bayestpu_torch.nn.zoo, bayestpu_torch.kernels._build, "
             "bayestpu_torch.train.loop, bayestpu_torch.data.datasets, "
-            "bayestpu_torch.nn.bayes, bayestpu_torch.kernels.mask_bank\n"
+            "bayestpu_torch.nn.bayes, bayestpu_torch.kernels.mask_bank, "
+            "bayestpu_torch.kernels.masked_conv, bayestpu_torch.nn.fused\n"
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "
             "'bayestpu') or m.startswith(('jax.', 'flax.', 'optax.', "
             "'bayestpu.'))]\n"

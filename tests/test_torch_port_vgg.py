@@ -200,12 +200,20 @@ def test_registry_and_unported_branches():
     with pytest.raises(KeyError, match="available"):
         get_model("bogus")
     from bayestpu_torch.core.config import DropoutKind, QuantConfig
-    # Masksembles heads are ported; its masked-conv sites are not
+    # Masksembles heads and fused block sites are ported; materialized
+    # block sites (fused=False, or a multi-exit model) are not
     assert get_model("vgg11_me", bayes=BayesConfig(kind=DropoutKind.MASK),
                      fused=True).num_sites == 0
+    assert get_model("vgg11", bayes=BayesConfig(kind=DropoutKind.MASK),
+                     fused=True, dropout="block").num_sites == 0
+    assert get_model("vgg11", fused=True, dropout="block").num_sites == 5
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model("vgg11_me", bayes=BayesConfig(kind=DropoutKind.MASK),
                   dropout="block")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_model("vgg11_me", fused=True, dropout="block")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_model("vgg11", fused=False, dropout="block")
     # quantization is ported; its per-layer overrides are not
     assert get_model("vgg11_me", quant=QuantConfig(),
                      fused=True).quant == QuantConfig()
