@@ -12,7 +12,7 @@
 //   dropout_matmul_kernel<int8_t>      <- _dropout_matmul_int8_kernel
 //                                         (:444-465), dropout_matmul_int8
 //                                         (:468-516)
-//   dropout_matmul_samples_kernel<int8_t>
+//   dropout_matmul_int8_samples_mma_kernel
 //                                      <- _dropout_matmul_int8_samples_kernel
 //                                         (:519-546),
 //                                         dropout_matmul_int8_samples (:549)
@@ -65,7 +65,9 @@
 // memory. Ragged M, N and K edges are masked in the kernel, not padded in
 // memory. Every kernel runs the same tile routine, so sample s of a samples
 // kernel is bit-identical to the single kernel with seeds[s] or idxs[s].
-// wgmma (the s8 tensor cores for int8), TMA and pipelining are later work.
+// wgmma, TMA and pipelining are later work, but for the int8 MC samples
+// head, which has a kernel of its own on the s8 tensor cores (below,
+// before its entry point).
 #include <cstddef>
 #include <cstdint>
 #include <type_traits>
@@ -385,6 +387,104 @@ __global__ void __launch_bounds__(APPLY_THREADS)
   }
 }
 
+
+// The int8 MC samples head (row 5) on the s8 tensor cores:
+// out[s] = f32((x_q * keep_s) @ w_q) * out_scale, with keep_s the counter
+// hash of HashMask on the global coordinates of x. A block owns 16 rows of
+// x, 8 output columns and ONE sample (grid (ceil(M/16), ceil(N/8), S): 160
+// blocks at the vgg11_me head, x 128x512, w 512x10, S = 10, where the
+// shared routine above launched 8). Per K chunk of 512 it stages the x
+// tile as int8, 16 bytes a thread, masked once per element as it is
+// staged, and the w tile transposed to K-contiguous columns (B fragments),
+// N padded with zeros to 8 in shared memory; its 4 warps split the chunk's
+// k steps of mma.sync.m16n8k32 s8 -> s32 and the 4 partial sums are added
+// in shared memory. The int32 sums are exact in any order, so the result
+// equals the plain version and, per sample, the single kernel (row 4) bit
+// for bit; the epilogue f32(acc) * out_scale runs once.
+constexpr int I8_THREADS = 128;
+constexpr int I8_BM = 16;                 // rows of x: one m16 tile
+constexpr int I8_BN = 8;                  // columns of w: one n8 tile
+constexpr int I8_KC = 512;                // bytes of K staged at a time
+constexpr int I8_PITCH = I8_KC + 16;      // conflict-free 4-byte reads
+
+__global__ void __launch_bounds__(I8_THREADS)
+    dropout_matmul_int8_samples_mma_kernel(
+        const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+        const int32_t* __restrict__ seeds, float* __restrict__ out, int M,
+        int K, int N, uint32_t thresh, float out_scale) {
+  __shared__ __align__(16) int8_t xs[I8_BM][I8_PITCH];
+  __shared__ __align__(16) int8_t wt[I8_BN][I8_PITCH];
+  __shared__ int32_t red[I8_THREADS / 32][I8_BM * I8_BN];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = blockIdx.x * I8_BM, col0 = blockIdx.y * I8_BN;
+  const int s = blockIdx.z;
+  const uint32_t stream =
+      bayestpu::seed_stream(seeds[2 * s], seeds[2 * s + 1]);
+  const bool vec =
+      K % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int g = lane >> 2, t4 = lane & 3;
+  int32_t acc[4] = {0, 0, 0, 0};
+  for (int k0 = 0; k0 < K; k0 += I8_KC) {
+    for (int i = tid; i < I8_BM * (I8_KC / 16); i += I8_THREADS) {
+      const int r = i / (I8_KC / 16), c = (i % (I8_KC / 16)) * 16;
+      const int gr = row0 + r, gc = k0 + c;
+      alignas(16) int8_t e[16];
+      if (gr < M && gc < K && vec) {
+        *reinterpret_cast<uint4*>(e) = __ldg(reinterpret_cast<const uint4*>(
+            x + static_cast<size_t>(gr) * K + gc));
+      } else {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          e[j] = gr < M && gc + j < K ? x[static_cast<size_t>(gr) * K + gc + j]
+                                      : int8_t(0);
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const uint32_t bits = bayestpu::coord_bits(
+            static_cast<uint32_t>(gr), static_cast<uint32_t>(gc + j), stream);
+        if (bits >= thresh) e[j] = 0;
+      }
+      *reinterpret_cast<uint4*>(&xs[r][c]) = *reinterpret_cast<uint4*>(e);
+    }
+    for (int i = tid; i < I8_BN * I8_KC; i += I8_THREADS) {
+      const int kk = i / I8_BN, n = i % I8_BN;
+      const int gk = k0 + kk, gn = col0 + n;
+      wt[n][kk] = gk < K && gn < N ? w[static_cast<size_t>(gk) * N + gn]
+                                   : int8_t(0);
+    }
+    __syncthreads();
+    for (int kb = warp * 32; kb < I8_KC; kb += 32 * (I8_THREADS / 32)) {
+      const uint32_t a[4] = {
+          *reinterpret_cast<const uint32_t*>(&xs[g][kb + 4 * t4]),
+          *reinterpret_cast<const uint32_t*>(&xs[g + 8][kb + 4 * t4]),
+          *reinterpret_cast<const uint32_t*>(&xs[g][kb + 16 + 4 * t4]),
+          *reinterpret_cast<const uint32_t*>(&xs[g + 8][kb + 16 + 4 * t4])};
+      const uint32_t b0 =
+          *reinterpret_cast<const uint32_t*>(&wt[g][kb + 4 * t4]);
+      const uint32_t b1 =
+          *reinterpret_cast<const uint32_t*>(&wt[g][kb + 16 + 4 * t4]);
+      asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+          "{%0, %1, %2, %3};\n"
+          : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+    }
+    __syncthreads();
+  }
+  // accumulator r of the warp: row g (+8 for r >= 2), column 2·t4 (+1 odd)
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    red[warp][(g + (r >> 1) * 8) * I8_BN + 2 * t4 + (r & 1)] = acc[r];
+  __syncthreads();
+  const int r = tid / I8_BN, c = tid % I8_BN;
+  int32_t sum = 0;
+#pragma unroll
+  for (int v = 0; v < I8_THREADS / 32; ++v) sum += red[v][tid];
+  const int gr = row0 + r, gc = col0 + c;
+  if (gr < M && gc < N)
+    out[(static_cast<size_t>(s) * M + gr) * N + gc] =
+        Elem<int8_t>::out(sum, out_scale);
+}
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError()
@@ -470,13 +570,13 @@ extern "C" int bt_dropout_matmul_int8_samples(const void* x, const void* w,
                                               int M, int K, int N, int S,
                                               uint32_t thresh,
                                               float out_scale, void* stream) {
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN,
-                  (S + SAMPLES_PER_BLOCK - 1) / SAMPLES_PER_BLOCK);
-  dropout_matmul_samples_kernel<int8_t>
-      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-          static_cast<const int32_t*>(seeds), static_cast<float*>(out), M, K,
-          N, S, thresh, out_scale);
+  const dim3 grid((M + I8_BM - 1) / I8_BM, (N + I8_BN - 1) / I8_BN, S);
+  dropout_matmul_int8_samples_mma_kernel<<<grid, I8_THREADS, 0,
+                                           static_cast<cudaStream_t>(
+                                               stream)>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
+      static_cast<const int32_t*>(seeds), static_cast<float*>(out), M, K, N,
+      thresh, out_scale);
   return static_cast<int>(cudaGetLastError());
 }
 

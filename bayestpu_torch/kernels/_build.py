@@ -60,9 +60,12 @@ _SIGNATURES: dict[str, dict[str, list]] = {
     },
     # every masked_conv entry ends in the same arguments (masked_conv.cu)
     "masked_conv": {name: head + _CONV_TAIL for name, head in {
-        # x, w, seeds (or null), thresh; one sample or S, from dims
+        # x, w, seeds (or null), thresh; one sample or S, from dims; the
+        # _xs entries take x (S, N, H, W, C), sample s under seeds[s]
         "bt_masked_conv": [_P, _P, _P, _U32],
+        "bt_masked_conv_xs": [_P, _P, _P, _U32],
         "bt_masked_conv_int8": [_P, _P, _P, _U32],
+        "bt_masked_conv_int8_xs": [_P, _P, _P, _U32],
         # x, w, bank, idx, num_masks
         "bt_bank_conv": [_P, _P, _P, _I, _I],
         "bt_bank_conv_int8": [_P, _P, _P, _I, _I],

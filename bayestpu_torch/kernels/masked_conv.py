@@ -50,7 +50,10 @@ without a mask, as JAX does.
 
 Dispatch is by the tensors' device: CPU tensors take the plain version, CUDA
 tensors launch the kernel (or raise), any other device raises. Each launch
-adds one to its entry of ``launch_counts``.
+adds one to its entry of ``launch_counts``. On the card the routine follows
+the dtypes (``tensor_core``): row 10 with bf16 x and w, or int8, runs the
+tensor-core implicit GEMM of ``masked_conv.cu``; an f32 or mixed-type float
+conv and every bank conv run its CUDA-core routine.
 """
 
 from __future__ import annotations
@@ -70,11 +73,14 @@ from bayestpu_torch.kernels.masked_matmul import (
 _FLOAT = (torch.float32, torch.bfloat16)
 
 # Launches of each CUDA kernel since the last reset; CPU calls do not count.
-# conv_fused / conv_int8_fused are row 10's kernels without a mask.
+# conv_fused / conv_int8_fused are row 10's kernels without a mask; the _xs
+# ones row 10's launches on an x that carries the sample axis.
 launch_counts: dict[str, int] = {"dropout_conv": 0,
                                  "dropout_conv_samples": 0,
+                                 "dropout_conv_xs": 0,
                                  "dropout_conv_int8": 0,
                                  "dropout_conv_int8_samples": 0,
+                                 "dropout_conv_int8_xs": 0,
                                  "bank_conv": 0,
                                  "bank_conv_samples": 0,
                                  "bank_conv_int8": 0,
@@ -398,8 +404,48 @@ def _check_bank(x: torch.Tensor, bank: torch.Tensor) -> None:
                          f"{x.device} and {bank.device}")
 
 
+def _check_xs(x: torch.Tensor, w: torch.Tensor, seeds: torch.Tensor,
+              rate: float, int8: bool) -> None:
+    """x (S, N, C, H, W) that carries the sample axis, each sample in
+    channels_last memory and the samples outermost, as ``stack_samples``
+    leaves them (the _xs kernels read (S, N, H, W, C)); seeds (S, 2)."""
+    if x.dim() != 5:
+        raise ValueError(f"need x (S, N, C, H, W); got {tuple(x.shape)}")
+    _check(x[0], w, int8)
+    if not x.permute(0, 1, 3, 4, 2).is_contiguous():
+        raise ValueError("x (S, N, C, H, W) must hold each sample in "
+                         "channels_last memory, the samples outermost")
+    _check_rate_seeds(x, seeds, 2, rate)
+    if seeds.shape[0] != x.shape[0]:
+        raise ValueError(f"x carries {x.shape[0]} samples but "
+                         f"{seeds.shape[0]} seed pairs came with it")
+
+
 def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def tensor_core(entry: str, x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether ``bt_<entry>`` runs the tensor-core routine: the MC entries
+    (``masked_conv*``) with bf16 x and w, or int8. An f32 or mixed-type
+    float conv (TF32 would round its products) and the bank entries run
+    the CUDA-core routine."""
+    return (entry.startswith("masked_conv") and x.dtype == w.dtype
+            and x.dtype in (torch.bfloat16, torch.int8))
+
+
+def conv_weights(w: torch.Tensor, mma: bool) -> torch.Tensor:
+    """The OIHW w in the layout a routine reads: (KH·KW, F, Cp) for the
+    tensor-core one (K contiguous, C zero-padded to Cp, a multiple of 32
+    bytes of w's type), (KH, KW, C, F) for the CUDA-core one."""
+    f, c, kh, kw = w.shape
+    if not mma:
+        return w.permute(2, 3, 1, 0).contiguous()
+    ce = 32 // w.element_size()
+    wk = torch.zeros((kh * kw, f, -(-c // ce) * ce), dtype=w.dtype,
+                     device=w.device)
+    wk[:, :, :c] = w.permute(2, 3, 0, 1).reshape(kh * kw, f, c)
+    return wk
 
 
 def _launch(entry: str, counter: str, x: torch.Tensor, w: torch.Tensor,
@@ -407,14 +453,14 @@ def _launch(entry: str, counter: str, x: torch.Tensor, w: torch.Tensor,
             bias: torch.Tensor | None, epi: Epi, fscale: float
             ) -> torch.Tensor:
     """Launch ``bt_<entry>`` of ``masked_conv.cu`` on PyTorch's current
-    stream: x (NCHW, channels_last), the OIHW w permuted to the (KH, KW, C,
-    F) layout the kernel reads, the entry's own ``head`` arguments (the
-    mask tensors, or None, held here while the kernel is launched, and
-    ints), then the common tail. Returns (S, N, F, Ho, Wo), each sample in
-    channels_last memory."""
+    stream: x (NCHW, channels_last; (S, N, C, H, W) for an _xs entry), the
+    OIHW w in the layout of the entry's routine (``conv_weights``), the
+    entry's own ``head`` arguments (the mask tensors, or None, held here
+    while the kernel is launched, and ints), then the common tail. Returns
+    (S, N, F, Ho, Wo), each sample in channels_last memory."""
     from bayestpu_torch.kernels import _build
 
-    n, c, h, wd = x.shape
+    n, c, h, wd = x.shape[-4:]
     f, _, kh, kw = w.shape
     g = geometry(h, wd, kh, kw, padding, stride)
     out_dtype, out_kind = _OUT[epi.out]
@@ -424,7 +470,7 @@ def _launch(entry: str, counter: str, x: torch.Tensor, w: torch.Tensor,
         affine = affine_rows(bias, f)
         if affine is not None and affine.device != x.device:
             raise ValueError(f"bias must be on x's device {x.device}")
-        w_k = w.permute(2, 3, 1, 0).contiguous()
+        w_k = conv_weights(w, tensor_core(entry, x, w))
         head = [a.contiguous() if isinstance(a, torch.Tensor) else a
                 for a in head]
         dims = (ctypes.c_int * 13)(n, h, wd, c, f, kh, kw, stride, g.ph,
@@ -540,13 +586,21 @@ def dropout_conv_inference(x: torch.Tensor, w: torch.Tensor,
     """The inference entry of the MC conv sites (``:753-775`` and the vmap
     rule ``:732-748``): seeds (2,) → one sample, (N, F, Ho, Wo); seeds (S,
     2) with x (N, C, H, W) → every sample in one samples launch; seeds (S,
-    2) with x (S, N, C, H, W) → S single launches, one per sample of x. Rate
-    0 without an epilogue is the reference conv alone."""
+    2) with x (S, N, C, H, W) → sample s of x under seeds[s], as JAX's
+    ``lax.map`` fallback runs the single kernel per sample: one _xs launch
+    on the card, the single plain version per sample on the CPU. Rate 0
+    without an epilogue is the reference conv alone."""
     if x.dim() == 5:
-        return map_samples(
-            lambda xs, sd: dropout_conv_inference(
-                xs, w, sd, rate, padding, bias, act, out_dtype, out_step,
-                stride), x, seeds, stack_samples)
+        _check_xs(x, w, seeds, rate, False)
+        if x.device.type == "cpu" or rate == 0.0:
+            return map_samples(
+                lambda xs, sd: _dropout_conv_one(
+                    xs, w, sd, rate, padding, stride, bias, act, out_dtype,
+                    out_step), x, seeds, stack_samples)
+        return _launch("masked_conv_xs", "dropout_conv_xs", x, w,
+                       _seeds_arg(seeds, rate), x.shape[0], padding, stride,
+                       bias, make_epi(bias, act, out_step, out_dtype),
+                       scale_of(rate, x.dtype))
     if seeds.dim() == 2:
         return dropout_conv_samples(x, w, seeds, rate, padding, bias, act,
                                     out_dtype, out_step, stride)
@@ -638,12 +692,21 @@ def dropout_conv_int8_inference(x_q: torch.Tensor, w_q: torch.Tensor,
                                 bias=None, act=None, out_step=None,
                                 stride: int = 1) -> torch.Tensor:
     """The int8 twin of ``dropout_conv_inference`` (``:948-998``), with the
-    same three dispatch cases."""
+    same three dispatch cases (an x carrying the sample axis: one _xs
+    launch on the card, at rate 0 without a mask)."""
     if x_q.dim() == 5:
-        return map_samples(
-            lambda xs, sd: dropout_conv_int8_inference(
-                xs, w_q, sd, rate, x_step, w_step, padding, bias, act,
-                out_step, stride), x_q, seeds, stack_samples)
+        _check_xs(x_q, w_q, seeds, rate, True)
+        if x_q.device.type == "cpu":
+            return map_samples(
+                lambda xs, sd: _int8_one(xs, w_q, sd, rate, x_step, w_step,
+                                         padding, stride, bias, act,
+                                         out_step), x_q, seeds,
+                stack_samples)
+        head = _seeds_arg(seeds, rate) if rate > 0.0 else [None, 0]
+        return _launch("masked_conv_int8_xs", "dropout_conv_int8_xs", x_q,
+                       w_q, head, x_q.shape[0], padding, stride, bias,
+                       make_epi(bias, act, out_step, None),
+                       int8_out_scale(x_step, w_step, rate))
     if seeds.dim() == 2:
         return dropout_conv_int8_samples(x_q, w_q, seeds, rate, x_step,
                                          w_step, padding, bias, act,

@@ -472,7 +472,8 @@ def dropout_matmul_int8_samples(x_q: torch.Tensor, w_q: torch.Tensor,
                                 ) -> torch.Tensor:
     """All-samples int8 head: seeds (S, 2) int32; (S, M, N) f32 with sample
     s bit-identical to ``dropout_matmul_int8(x_q, w_q, seeds[s], ...)``; the
-    kernel stages each int8 x tile once for all samples of a block."""
+    kernel runs on the s8 tensor cores, one block per (16 rows, 8 columns,
+    sample), its exact int32 sums in any order."""
     _check_int8(x_q, w_q, seeds, 2, rate)
     if x_q.device.type == "cpu" or rate == 0.0:
         return dropout_matmul_int8_samples_plain(x_q, w_q, seeds, rate,

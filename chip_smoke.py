@@ -7,7 +7,10 @@ nothing of the JAX package. Each phase prints one JSON line; any failure
 ends the run with a nonzero exit and no result line.
 
 1. card    — ``nvidia-smi`` name and power limit, torch and CUDA versions.
-2. build   — compiles every kernel of ``bayestpu_torch/csrc`` with nvcc.
+2. build   — compiles every kernel of ``bayestpu_torch/csrc`` with nvcc;
+   then the ``tensor_cores`` line: registers and spills (``-Xptxas -v``)
+   of the tensor-core kernels and the HMMA/IMMA instructions that
+   ``cuobjdump -sass`` shows in them (fails if a kernel has none).
 3. kernels — each CUDA kernel against its plain PyTorch version on the
    card: the vgg11_me head shape and a ragged one, bf16 and f32 (int8 for
    the int8 kernels, bit for bit); exact mask readouts (the backward's mask
@@ -21,7 +24,9 @@ ends the run with a nonzero exit and no result line.
    explicit padding, 1x1 stride 2, F not a multiple of 8): bf16 and f32
    against the plain versions, every int8 epilogue bit for bit, the exact
    mask readout, per-sample identity, negative seeds, wrapping and
-   negative bank indices; times at the four block-site shapes.
+   negative bank indices, x carrying the sample axis (one _xs launch,
+   sample s bit-equal to the single launch on x[s]); times at the four
+   block-site shapes.
 4. backward — autograd through ``dropout_matmul`` against
    ``dropout_matmul_vjp_plain`` at the head shape, and through
    ``dropout_conv`` against ``dropout_conv_vjp_plain`` at the block-1 site
@@ -62,7 +67,9 @@ ends the run with a nonzero exit and no result line.
    bit-identical, the card against the CPU, acc and ECE, the int8 and bf16
    spatial p50 in turns.
 10. block   — ``vgg11`` with fused block sites (``dropout="block"``), bf16,
-   batch 128: seeded MC serving (S = 10) with exact launch counts, a
+   batch 128: seeded MC serving (S = 10) with exact launch counts (1
+   ``dropout_conv_samples``, 3 ``dropout_conv_xs``, 10 ``dropout_matmul``
+   a spatial predict), a
    3-epoch MC fine-tune of the train phase's weights served on 2,000 test
    images, its Masksembles twin (S = 4) fine-tuned under the batch split
    and served, and the int8 models (also with ``int8_conv_min_ch=32``);
@@ -71,7 +78,9 @@ ends the run with a nonzero exit and no result line.
    from one seeded init and the same seeds, in f32 and bf16.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``. The kernels' launches are those of the
+``{"ok": true, "device": {...}}``. ``--only kernels,conv`` runs the card
+and build phases and then only the named kernel checks (a quick check of
+a kernel change), and prints no result line. The kernels' launches are those of the
 five main paths: the slice's predicts, the 936 training steps, the int8
 phase (QAT, BN re-estimation and int8 serving), the mask phase
 (fine-tune and serving, bf16 and int8) and the block phases; the
@@ -163,8 +172,9 @@ CONV_SOURCE = "bayestpu_torch/csrc/masked_conv.cu"
 CONV_REPLACES = {
     name: f"bayestpu/kernels/masked_conv.py:{line}"
     for names, line in (
-        (("dropout_conv", "dropout_conv_samples", "dropout_conv_int8",
-          "dropout_conv_int8_samples"), 371),          # _masked_conv_kernel
+        (("dropout_conv", "dropout_conv_samples", "dropout_conv_xs",
+          "dropout_conv_int8", "dropout_conv_int8_samples",
+          "dropout_conv_int8_xs"), 371),               # _masked_conv_kernel
         (("bank_conv", "bank_conv_samples", "bank_conv_int8",
           "bank_conv_int8_samples"), 430))             # _bank_conv_kernel
     for name in names}
@@ -173,8 +183,13 @@ CONV_REPLACES = {
 CONV_SITES = [(16, 64, 128), (8, 128, 256), (4, 256, 512), (2, 512, 512)]
 # the site whose time the kernels line reports: the first at which the main
 # path launches the kernel (on the int8 model block 1's site runs the float
-# kernel, so the int8 single kernels start at block 2)
-CONV_SUMMARY_SITE = {"dropout_conv_int8": 1, "bank_conv_int8": 1}
+# kernel, so the int8 single kernels start at block 2; the _xs launches,
+# whose x carries the sample axis, start at block 2 too)
+CONV_SUMMARY_SITE = {"dropout_conv_int8": 1, "bank_conv_int8": 1,
+                     "dropout_conv_xs": 1, "dropout_conv_int8_xs": 1}
+# the kernels redesigned for the tensor cores, whose registers, spills and
+# SASS tensor-core instructions the build phase reports
+MMA_KERNELS = ("conv_mma_kernel", "dropout_matmul_int8_samples_mma_kernel")
 # ragged geometries: x NHWC, kernel size, F (not a multiple of 8), padding,
 # stride. SAME at stride 2 is asymmetric (16 -> 8 pads (0, 1)).
 CONV_RAGGED = {"same_s2": ((3, 15, 16, 40), 3, 20, "SAME", 2),
@@ -301,6 +316,53 @@ def phase_card() -> str:
     return smi
 
 
+def _mma_report(rep: dict) -> dict:
+    """For each tensor-core kernel (MMA_KERNELS), by mangled name: its
+    registers and spill bytes from ``-Xptxas -v``, and the tensor-core
+    instructions (HMMA, IMMA, HGMMA, IGMMA) that ``cuobjdump -sass`` of the
+    built library shows in it, where ``cuobjdump`` is on the machine."""
+    import re
+    import shutil
+    from bayestpu_torch.kernels import _build
+    fns: dict[str, dict] = {}
+    for log in rep["ptxas"].values():
+        cur = None
+        for ln in log.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(\w+)'?", ln)
+            if m:
+                cur = m.group(1)
+                continue
+            if cur is None or not any(k in cur for k in MMA_KERNELS):
+                continue
+            d = fns.setdefault(cur, {})
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                d["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m:
+                d["spill_stores"], d["spill_loads"] = map(int, m.groups())
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass_seen = False
+    for name in _build.sources():
+        try:
+            sass = subprocess.run([tool, "-sass", str(_build._lib_path(name))],
+                                  capture_output=True, text=True, check=True,
+                                  timeout=120).stdout
+        except (OSError, subprocess.SubprocessError):
+            continue
+        sass_seen = True
+        for part in sass.split("Function : ")[1:]:
+            fn = part.split(None, 1)[0]
+            if not any(k in fn for k in MMA_KERNELS):
+                continue
+            fns.setdefault(fn, {})["sass_tensor_core_ops"] = {
+                op: len(re.findall(rf"\b{op}\b", part))
+                for op in ("HMMA", "IMMA", "HGMMA", "IGMMA")}
+    return {"cuobjdump": sass_seen, "kernels": dict(sorted(fns.items()))}
+
+
 def phase_build() -> None:
     from bayestpu_torch.kernels import _build
     rep = _build.build_all()
@@ -309,6 +371,12 @@ def phase_build() -> None:
             for name, log in rep["ptxas"].items()}
     emit({"phase": "build", "seconds": rep["seconds"], "built": rep["built"],
           "ptxas": regs})
+    report = _mma_report(rep)
+    for name, d in report["kernels"].items():
+        ops = d.get("sass_tensor_core_ops")
+        check(ops is None or sum(ops.values()) > 0,
+              f"{name}: no tensor-core instruction in its SASS")
+    emit({"phase": "tensor_cores", **report})
 
 
 def _inputs(shape: dict, dtype, gen):
@@ -714,7 +782,7 @@ def _conv_bound(name: str, x, w, s: int, out_bytes: int, padding="SAME",
     f32 x."""
     import torch
     from bayestpu_torch.kernels import masked_conv as mc
-    n, c, h, wd = x.shape
+    n, c, h, wd = x.shape[-4:]          # x (S, N, C, H, W) carries S
     f, _, kh, kw = w.shape
     g = mc.geometry(h, wd, kh, kw, padding, stride)
     macs = (n * c * f * _conv_taps(h, kh, g.ph, stride, g.ho)
@@ -750,6 +818,22 @@ def _conv_data(xshape, k: int, f: int, dtype, gen):
     wq = torch.randint(-128, 128, (f, c, k, k), generator=gen,
                        dtype=torch.int8).cuda()
     return x, w, aff, xq, wq
+
+
+def _x5(xshape, dtype, gen):
+    """CONV_S inputs of NHWC shape ``xshape`` as x carrying the sample axis:
+    (S, N, C, H, W), each sample in channels_last memory, samples
+    outermost (``stack_samples``'s layout, which the _xs kernels read)."""
+    import torch
+    from bayestpu_torch.kernels import masked_conv as mc
+    n, h, wd, c = xshape
+    if dtype == torch.int8:
+        xs = [torch.randint(-128, 128, (n, c, h, wd), generator=gen,
+                            dtype=torch.int8) for _ in range(CONV_S)]
+    else:
+        xs = [torch.randn(n, c, h, wd, generator=gen).to(dtype)
+              for _ in range(CONV_S)]
+    return mc.stack_samples([_cl(t.cuda()) for t in xs])
 
 
 def _conv_banks(c: int):
@@ -824,6 +908,17 @@ def _conv_checks(label: str, xshape, k: int, f: int, padding, stride: int,
         close("conv_fused", mc.conv_fused(x, w, padding=padding, **epi),
               mc.conv_fused_plain(x, w, aff, "relu", padding=padding,
                                   stride=stride), CONV_RTOL, tag)
+        # x carrying the sample axis: one _xs launch, sample s of x5 under
+        # seeds[s] equal to the single launch on x5[s] bit for bit
+        x5 = _x5(xshape, dtype, gen)
+        yx = mc.dropout_conv_inference(x5, w, seeds, RATE, padding, **epi)
+        rx = mc.stack_samples([mc.dropout_conv_plain(
+            x5[s], w, seeds[s], RATE, padding, stride, aff, "relu")
+            for s in range(CONV_S)])
+        close("dropout_conv_xs", yx, rx, CONV_RTOL, tag)
+        per_sample &= all(torch.equal(yx[s], mc.dropout_conv_inference(
+            x5[s], w, seeds[s].contiguous(), RATE, padding, **epi))
+            for s in range(CONV_S))
         # Masksembles: the f32 folded kernel whatever x's dtype
         wf = w.float()
         for bname, bank in zip(("bank", "bank_odd"), _conv_banks(xshape[3])):
@@ -841,6 +936,7 @@ def _conv_checks(label: str, xshape, k: int, f: int, padding, stride: int,
                               for s in range(len(sb)))
     # int8, every epilogue, bit for bit
     _, _, aff, xq, wq = _conv_data(xshape, k, f, torch.float32, gen)
+    xq5 = _x5(xshape, torch.int8, gen)
     steps = (2.0 ** -7, 2.0 ** -7)
     int8_equal = True
     _, odd = _conv_banks(xshape[3])
@@ -869,9 +965,18 @@ def _conv_checks(label: str, xshape, k: int, f: int, padding, stride: int,
                                    stride=stride, **epi)
         rf = mc.dropout_conv_int8_plain(xq, wq, None, 0.0, *steps, padding,
                                         stride, **epi)
+        yx = mc.dropout_conv_int8_inference(xq5, wq, seeds, RATE, *steps,
+                                            padding, stride=stride, **epi)
+        rx = mc.stack_samples([mc.dropout_conv_int8_plain(
+            xq5[s], wq, seeds[s], RATE, *steps, padding, stride, **epi)
+            for s in range(CONV_S)])
+        per_sample &= all(torch.equal(yx[s], mc.dropout_conv_int8_inference(
+            xq5[s], wq, seeds[s].contiguous(), RATE, *steps, padding,
+            stride=stride, **epi)) for s in range(CONV_S))
         for name, got, want in (
                 ("dropout_conv_int8_samples", ys, rs),
                 ("dropout_conv_int8", torch.stack(singles), rs),
+                ("dropout_conv_int8_xs", yx, rx),
                 ("bank_conv_int8_samples", yb, rb),
                 ("bank_conv_int8", torch.stack(sb), rb),
                 ("conv_int8_fused", fused, rf)):
@@ -940,15 +1045,17 @@ def _conv_times(gen, summary: dict) -> None:
     bf16 x and the f32 folded kernel with an f32 store; the int8 kernels
     with the (2, F) BN affine, relu and an int8 store. The samples kernels
     at the first site (S = 10 MC, 4 Masksembles), where the spatial
-    mapping launches them. At every site each kernel's output is held
-    against its plain version on the same inputs first: int8 bit for bit,
-    an f32 store to CONV_RTOL, a bf16 store to BF16_OUT_RTOL, and the MC
-    single kernel also with an f32 store. ``ms`` is the device time per
-    call from the profiler, ``events_ms`` CUDA events over back-to-back
-    calls;
-    ``library_ms`` one cuDNN ``F.conv2d`` of the pre-masked channels_last x
-    (all samples in its batch), which the port never calls; there is no
-    PyTorch int8 conv, so none for the int8 rows."""
+    mapping launches them; the _xs launches (x carrying S = 10 samples) at
+    sites 2-4, each sample also bit-equal to the single launch on its x,
+    with cuDNN at batch S·N beside them. At every site each kernel's
+    output is held against its plain version on the same inputs first:
+    int8 bit for bit, an f32 store to CONV_RTOL, a bf16 store to
+    BF16_OUT_RTOL, and the MC single kernel also with an f32 store. ``ms``
+    is the device time per call from the profiler, ``events_ms`` CUDA
+    events over back-to-back calls; ``library_ms`` one cuDNN ``F.conv2d``
+    of the pre-masked channels_last x (all samples in its batch), which the
+    port never calls; there is no PyTorch int8 conv, so none for the int8
+    rows."""
     import torch
     import torch.nn.functional as F
     from bayestpu_torch.kernels import masked_conv as mc
@@ -1032,9 +1139,56 @@ def _conv_times(gen, summary: dict) -> None:
                         steps[0]) for i in range(NUM_MASKS)]),
                     None, NUM_MASKS, 1, 4 * NUM_MASKS * (c + 1)),
             })
+        if si > 0:
+            # x carrying the sample axis, as blocks 2-4 get it: one _xs
+            # launch for the S samples; cuDNN's conv of the pre-masked x
+            # at batch S·N
+            x5 = mc.stack_samples([_cl(torch.randn(
+                n, c, hw, hw, generator=gen).to(bf16).cuda())
+                for _ in range(SAMPLES)])
+            xq5 = mc.stack_samples([_cl(torch.randint(
+                -128, 128, (n, c, hw, hw), generator=gen,
+                dtype=torch.int8).cuda()) for _ in range(SAMPLES)])
+            xm5 = _cl(torch.cat([mc._hash_masked(x5[s], seeds[s], RATE)
+                                 for s in range(SAMPLES)]))
+            runs.update({
+                "dropout_conv_xs": (
+                    lambda: mc.dropout_conv_inference(
+                        x5, w, seeds, RATE, bias=b, act="relu",
+                        out_dtype=bf16),
+                    lambda: mc.stack_samples([mc.dropout_conv_plain(
+                        x5[s], w, seeds[s], RATE, "SAME", 1, b, "relu",
+                        bf16) for s in range(SAMPLES)]),
+                    lambda: F.conv2d(xm5, w, padding=1), SAMPLES, 2,
+                    8 * SAMPLES),
+                "dropout_conv_int8_xs": (
+                    lambda: mc.dropout_conv_int8_inference(
+                        xq5, wq, seeds, RATE, *steps, bias=aff, act="relu",
+                        out_step=steps[0]),
+                    lambda: mc.stack_samples([mc.dropout_conv_int8_plain(
+                        xq5[s], wq, seeds[s], RATE, *steps, "SAME", 1, aff,
+                        "relu", steps[0]) for s in range(SAMPLES)]),
+                    None, SAMPLES, 1, 8 * SAMPLES),
+            })
+            singles = {
+                "dropout_conv_xs": lambda s: mc.dropout_conv_inference(
+                    x5[s], w, seeds[s].contiguous(), RATE, bias=b,
+                    act="relu", out_dtype=bf16),
+                "dropout_conv_int8_xs": lambda s: mc.dropout_conv_int8(
+                    xq5[s], wq, seeds[s].contiguous(), RATE, *steps,
+                    bias=aff, act="relu", out_step=steps[0])}
+            bound_x = {"dropout_conv_xs": x5, "dropout_conv_int8_xs": xq5}
         line = {"phase": "kernels", "kernel": "masked_conv",
                 "shape": f"site{si + 1}", "x_nhwc": [n, hw, hw, c], "F": f,
                 "k": 3, "padding": "SAME", "stride": 1}
+        if si > 0:
+            for name, one in singles.items():
+                got = runs[name][0]()
+                same = all(torch.equal(got[s], one(s))
+                           for s in range(SAMPLES))
+                check(same, f"{name} site{si + 1}: sample s differs from "
+                      "the single launch on x[s]")
+                line[f"{name}_equals_single_bitwise"] = same
         checks = [(name, run[0], run[1]) for name, run in runs.items()]
         checks.append(("dropout_conv", lambda: mc.dropout_conv_inference(
             x, w, s0, RATE, bias=b, act="relu"), lambda: mc.dropout_conv_plain(
@@ -1058,7 +1212,8 @@ def _conv_times(gen, summary: dict) -> None:
             line[f"{name}_{tag}_err"] = err
         for name, (kern, plain, lib, s, out_bytes, mask_bytes) in \
                 runs.items():
-            xx = xq if "int8" in name else x
+            xx = (bound_x[name] if name.endswith("_xs") else
+                  xq if "int8" in name else x)
             ww = wq if "int8" in name else (wf if "bank" in name else w)
             t = {"ms": device_ms(kern, 20), "plain_ms": device_ms(plain, 3),
                  "library_ms": (device_ms(lib, 20) if lib is not None
@@ -1206,7 +1361,7 @@ def _by_group(rows: list) -> dict:
     for ms, calls, key in rows:
         k = key.lower()
         port = ("dropout_" in k or "bank_matmul" in k
-                or "::conv_kernel<" in k)
+                or "::conv_kernel<" in k or "::conv_mma_kernel<" in k)
         group = ("port kernels" if port else
                  "convolutions" if any(w in k for w in (
                      "fprop", "dgrad", "wgrad", "conv")) else
@@ -2066,9 +2221,10 @@ def phase_block(tr: dict) -> dict:
 
     (a) MC, rate 0.25, S = 10, seeded weights: per spatial predict one
         ``dropout_conv_samples`` launch (block 1's site, where x is shared),
-        30 ``dropout_conv`` (blocks 2-4: the activations carry the sample
-        axis, one launch a sample) and 10 ``dropout_matmul``; per temporal
-        predict 40 and 10; spatial against temporal; card against CPU.
+        3 ``dropout_conv_xs`` (blocks 2-4: the activations carry the sample
+        axis, one launch for all S) and 10 ``dropout_matmul``; per temporal
+        predict 40 ``dropout_conv`` and 10; spatial against temporal; card
+        against CPU.
     (b) MC training: the train phase's vgg11_me weights (vgg11 shares every
         name but ``exit*``) fine-tuned BLOCK_EPOCHS epochs; a step launches
         4 ``dropout_conv``, 1 ``dropout_matmul`` and 10 ``dropout_apply``;
@@ -2082,9 +2238,10 @@ def phase_block(tr: dict) -> dict:
     (d) The int8 models on (b)'s and (c)'s weights under INT8_Q, no QAT:
         block 1's site runs the float kernel with an int8 store (64 input
         channels at 16x16 are not int8-executed), blocks 2-4 and the head
-        the int8 kernels; with ``int8_conv_min_ch=32`` block 1's site
-        int8-executes too, through the int8 samples kernels. Card against
-        CPU within a few grid steps; acc and ECE."""
+        the int8 kernels (3 ``dropout_conv_int8_xs`` a spatial predict);
+        with ``int8_conv_min_ch=32`` block 1's site int8-executes too,
+        through the int8 samples kernels. Card against CPU within a few
+        grid steps; acc and ECE."""
     import numpy as np
     import torch
     from bayestpu_torch.core.config import (BayesConfig, DropoutKind,
@@ -2124,7 +2281,7 @@ def phase_block(tr: dict) -> dict:
     s_mc, s_mask = SAMPLES, NUM_MASKS
     check(model_fn(cfg_mc)().num_sites == 5 and
           model_fn(cfg_mask)().num_sites == 0, "block-site vgg11 sites")
-    mc_sp = dict(dropout_conv_samples=1, dropout_conv=3 * s_mc,
+    mc_sp = dict(dropout_conv_samples=1, dropout_conv_xs=3,
                  dropout_matmul=s_mc)
     mc_tm = dict(dropout_conv=4 * s_mc, dropout_matmul=s_mc)
     mask_sp = dict(bank_conv_samples=1, bank_conv=3 * s_mask,
@@ -2191,7 +2348,7 @@ def phase_block(tr: dict) -> dict:
     # (d) the int8 models, no QAT
     for name, cfg, variables, quant, samples, want_sp, want_tm, rescale in (
             ("mc_int8", cfg_mc, v_mc, int8_q, s_mc,
-             dict(dropout_conv_samples=1, dropout_conv_int8=3 * s_mc,
+             dict(dropout_conv_samples=1, dropout_conv_int8_xs=3,
                   dropout_matmul_int8=s_mc),
              dict(dropout_conv=s_mc, dropout_conv_int8=3 * s_mc,
                   dropout_matmul_int8=s_mc), 1.0 / (1.0 - RATE)),
@@ -2201,7 +2358,7 @@ def phase_block(tr: dict) -> dict:
              dict(bank_conv=s_mask, bank_conv_int8=3 * s_mask,
                   bank_matmul_int8=s_mask), 1.0),
             ("mc_int8_min_ch32", cfg_mc, v_mc, int8_q32, s_mc,
-             dict(dropout_conv_int8_samples=1, dropout_conv_int8=3 * s_mc,
+             dict(dropout_conv_int8_samples=1, dropout_conv_int8_xs=3,
                   dropout_matmul_int8=s_mc),
              dict(dropout_conv_int8=4 * s_mc, dropout_matmul_int8=s_mc),
              1.0 / (1.0 - RATE)),
@@ -2286,7 +2443,7 @@ def phase_step_vs_cpu() -> None:
               "worst_any_update_rel": max(upd.values()), "tol": tol})
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2294,10 +2451,23 @@ def main() -> int:
         return 1
     import bayestpu_torch  # noqa: F401  (fails outside a checkout)
 
+    partial = {"kernels": phase_kernels, "conv": phase_conv_kernels}
+    only = None
+    if argv:
+        check(len(argv) == 2 and argv[0] == "--only"
+              and set(argv[1].split(",")) <= set(partial),
+              f"usage: chip_smoke.py [--only {','.join(partial)}]; got "
+              f"{argv}")
+        only = argv[1].split(",")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_card()
     phase_build()
+    if only is not None:
+        for name in only:
+            partial[name]()
+        emit({"partial": only})
+        return 0
     summary = phase_kernels()
     summary.update(phase_conv_kernels())
     phase_backward()
@@ -2332,4 +2502,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

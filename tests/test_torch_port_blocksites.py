@@ -477,8 +477,9 @@ def test_block_banks_load_from_flax_and_round_trip(block_vars):
 
 def test_block_sites_guard_the_mask_rows():
     """A site never takes S folded into its batch: x (S, N, C, H, W)
-    with (S, 2) seeds gives one single call per sample, which differs from
-    folding (the mask rows would shift)."""
+    with (S, 2) seeds gives sample s the single call's mask on x[s] (one
+    _xs launch on the card), which differs from folding (the mask rows
+    would shift)."""
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.normal(size=(2, 2, 40, 4, 4)).astype(
         np.float32))

@@ -415,9 +415,11 @@ def test_bank_row_select_clips_negative_entries():
 
 def test_inference_dispatch_follows_the_vmap_rules():
     """seeds (S, 2) with a shared x: one samples call, equal to JAX's vmap
-    over the seeds; x carrying the sample axis (S, N, C, H, W): one single
-    call per sample, equal to JAX's vmap over (x, seeds) (its ``lax.map``
-    fallback); the Masksembles entries alike over indices."""
+    over the seeds; x carrying the sample axis (S, N, C, H, W): sample s of
+    x under seeds[s], equal to JAX's vmap over (x, seeds) (its ``lax.map``
+    fallback) and to the single call on x[s] (on the card one _xs launch
+    for the S samples, here the single plain version per sample); the
+    Masksembles entries alike over indices (one single call per sample)."""
     x, w, affine = _data("same_s1", seed=3)
     x5 = np.stack([x, 2.0 * x, -x])
     jw, tw = jnp.asarray(w), _w(w)
