@@ -5,21 +5,26 @@
 //                                         called by dropout_matmul (:211-249)
 //   dropout_matmul_samples_kernel<float|bf16>
 //                                      <- _dropout_matmul_samples_kernel
-//                                         (:286-311), dropout_matmul_samples
+//                                         (:286-311), dropout_matmul_samples;
+//                                         with x carrying the sample axis,
+//                                         the lax.map fallback of
+//                                         dropout_matmul_inference (:407-411)
 //   dropout_apply_kernel               <- _dropout_mask_kernel (:135-148),
 //                                         called by _dropout_apply (:151-176)
 //                                         in the backward of dropout_matmul
 //   dropout_matmul_kernel<int8_t>      <- _dropout_matmul_int8_kernel
 //                                         (:444-465), dropout_matmul_int8
 //                                         (:468-516)
-//   dropout_matmul_int8_samples_mma_kernel
-//                                      <- _dropout_matmul_int8_samples_kernel
+//   int8_samples_mma_kernel<HashStage> <- _dropout_matmul_int8_samples_kernel
 //                                         (:519-546),
 //                                         dropout_matmul_int8_samples (:549)
-//   bank_matmul_samples_kernel<int8_t, int8_t>
-//                                      <- _bank_matmul_int8_samples_kernel
+//   int8_samples_mma_kernel<BankStage> <- _bank_matmul_int8_samples_kernel
 //                                         (:640-666),
-//                                         bank_matmul_int8_samples (:669)
+//                                         bank_matmul_int8_samples (:669);
+//                                         with x carrying the sample axis,
+//                                         the lax.map fallback of
+//                                         bank_matmul_int8_inference
+//                                         (:742-747)
 //   bank_matmul_kernel<int8_t, int8_t> <- _bank_matmul_int8_kernel
 //                                         (:763-785), bank_matmul_int8 (:788)
 //   bank_matmul_samples_kernel<float|bf16, float>
@@ -55,19 +60,21 @@
 // f32 outside the tensor cores (its products are f32, which TF32 would
 // round): operations bound; its int8 twin moves 97 KiB (0.030 us) for 0.003
 // us of int8 operations, bytes bound. Every one is well under a launch, so
-// the launch itself and the serial K loop of a few blocks set the pace. The
-// design is the simple one, right first: one block per (16-row, 16-col)
-// output tile loops over K in 32-deep tiles; each x tile is staged in
-// shared memory ONCE and masked from there for every sample the block owns
-// (up to 16, one accumulator each in registers), so x is read from device
-// memory once for all samples. The mask is a policy of the one tile
-// routine: the counter hash, or a bank row staged per k tile in shared
-// memory. Ragged M, N and K edges are masked in the kernel, not padded in
-// memory. Every kernel runs the same tile routine, so sample s of a samples
-// kernel is bit-identical to the single kernel with seeds[s] or idxs[s].
-// wgmma, TMA and pipelining are later work, but for the int8 MC samples
-// head, which has a kernel of its own on the s8 tensor cores (below,
-// before its entry point).
+// the launch itself and the serial K loop of a few blocks set the pace.
+// The single kernels and the float bank samples kernel run one simple tile
+// routine: one block per (16-row, 16-col) output tile loops over K in
+// 32-deep tiles; each x tile is staged in shared memory ONCE and masked
+// from there for every sample the block owns (up to 16, one accumulator
+// each in registers). The mask is a policy of the tile routine: the
+// counter hash, or a bank row staged per k tile in shared memory. Ragged
+// M, N and K edges are masked in the kernel, not padded in memory. The
+// MC float samples head (row 3) and the int8 samples heads (rows 5 and 6)
+// have kernels of their own, one block per sample (below, before the entry
+// points): row 3 keeps row 2's summation chain on the CUDA cores, rows 5
+// and 6 run on the s8 tensor cores. Sample s of every samples kernel is
+// bit-identical to its single kernel with seeds[s] or idxs[s]: row 3
+// because it runs row 2's chain, the int8 ones because int32 sums are
+// exact in any order.
 #include <cstddef>
 #include <cstdint>
 #include <type_traits>
@@ -317,18 +324,6 @@ __global__ void __launch_bounds__(THREADS)
                               out, M, K, N, 1, scale);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    dropout_matmul_samples_kernel(const T* __restrict__ x,
-                                  const T* __restrict__ w,
-                                  const int32_t* __restrict__ seeds,
-                                  float* __restrict__ out, int M, int K, int N,
-                                  int S, uint32_t thresh, float scale) {
-  masked_tile_matmul<T, T, SAMPLES_PER_BLOCK>(
-      x, w, HashMask<T, SAMPLES_PER_BLOCK>{seeds, thresh, scale}, out, M, K,
-      N, S, scale);
-}
-
 // Masksembles heads (rows 6-9 of the kernel table). One bank row per
 // sample; sample s of the samples kernel runs the tile routine exactly as
 // the single kernel does at idxs[s], so the two agree bit for bit.
@@ -388,40 +383,388 @@ __global__ void __launch_bounds__(APPLY_THREADS)
 }
 
 
-// The int8 MC samples head (row 5) on the s8 tensor cores:
-// out[s] = f32((x_q * keep_s) @ w_q) * out_scale, with keep_s the counter
-// hash of HashMask on the global coordinates of x. A block owns 16 rows of
-// x, 8 output columns and ONE sample (grid (ceil(M/16), ceil(N/8), S): 160
-// blocks at the vgg11_me head, x 128x512, w 512x10, S = 10, where the
-// shared routine above launched 8). Per K chunk of 512 it stages the x
-// tile as int8, 16 bytes a thread, masked once per element as it is
-// staged, and the w tile transposed to K-contiguous columns (B fragments),
-// N padded with zeros to 8 in shared memory; its 4 warps split the chunk's
-// k steps of mma.sync.m16n8k32 s8 -> s32 and the 4 partial sums are added
-// in shared memory. The int32 sums are exact in any order, so the result
-// equals the plain version and, per sample, the single kernel (row 4) bit
-// for bit; the epilogue f32(acc) * out_scale runs once.
+// The MC samples head (row 3), f32 or bf16, and its launch on an x that
+// carries the sample axis (dropout_matmul_xs). Sample s must equal the
+// single kernel (row 2) with seeds[s] bit for bit, and row 2 sums each
+// output as ONE chain: acc = 0, then acc = fma(xm_k, w_k, acc) for k
+// ascending. So this kernel keeps that chain, one __fmaf_rn per k in order,
+// with no split over K and no tree sum; the tensor cores would sum in
+// another order, and TF32 would round an f32 x. What bounds it at the
+// vgg11_me head (x 128x512, w 512x10, S = 10) is latency, not the 6.5 M
+// multiply-adds: the chain of 512 dependent FMAs, and the loads, w
+// transposes and hashing in front of it. The design: a block owns 8 rows, 16 columns and ONE sample (grid
+// (ceil(M/8), ceil(N/16), S): 160 blocks at the head, where the shared
+// tile routine launched 8) and is warp-specialised, so that the staging
+// runs beside the chains and not before them. Its 4 consumer warps own one
+// output and its chain a thread. Its 4 producer warps stage a window of K
+// (1 KiB a row) in shared memory and hand it over in 4 chunks: at the
+// start they issue every load of the window (x rows by 16-byte cp.async
+// in x's own type; w into registers, each producer one column at every
+// 8th row, one pointer step a load), then per chunk they mask their x
+// piece in place once per element for the block's one sample (the counter
+// hash on the row and column within x, with seeds[s]), store their w
+// transposed to K-contiguous columns padded by 16 bytes, and signal the
+// chunk on a named barrier. The consumers run a chunk's FMAs as soon as
+// it is signalled, reading 4 (f32) or 8 (bf16) k of a row and of a column
+// per 16-byte load, conflict-free, and holding the next 4 loads in
+// registers while the current ones' FMAs run, so that neither the global
+// nor the shared-memory latency sits inside the chain. A longer K takes
+// further windows, each after a block barrier. With x_stride > 0, sample
+// s reads x + s * x_stride: exactly what S single launches on x[s]
+// compute. Ragged M, N and K are masked here; an x whose rows are not
+// 16-byte aligned is staged by plain loads instead of cp.async.
+constexpr int CH_BM = 8;                        // rows of x and out a block
+constexpr int CH_BN = 16;                       // columns of w and out
+constexpr int CH_CONSUMERS = CH_BM * CH_BN;     // one output, one chain each
+constexpr int CH_PRODUCERS = 128;               // stage, mask, signal
+constexpr int CH_THREADS = CH_CONSUMERS + CH_PRODUCERS;
+constexpr int CH_WINDOW_BYTES = 1024;           // of a row, staged at once
+constexpr int CH_CHUNK_BYTES = 256;             // of a row, signalled at once
+constexpr int CH_CHUNKS = CH_WINDOW_BYTES / CH_CHUNK_BYTES;
+static_assert(CH_BM * CH_CHUNK_BYTES / 16 == CH_PRODUCERS,
+              "one 16-byte x piece a producer and chunk");
+static_assert(CH_CHUNKS < 16, "a named barrier a chunk");
+
+template <typename T>
+struct Chain {
+  static constexpr int KW = CH_WINDOW_BYTES / sizeof(T);   // k of a window
+  static constexpr int KCH = CH_CHUNK_BYTES / sizeof(T);   // k of a chunk
+  static constexpr int VEC = 16 / sizeof(T);               // k in 16 bytes
+  static constexpr int PITCH = KW + VEC;                   // a w column
+  static constexpr int ROW_PIECES = KCH / VEC;             // of a chunk row
+  static constexpr int W_PER_CHUNK = KCH * CH_BN / CH_PRODUCERS;
+};
+
+template <typename T>
+__device__ __forceinline__ T zero_of();
+template <>
+__device__ __forceinline__ float zero_of<float>() {
+  return 0.f;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
+  return __float2bfloat16_rn(0.f);
+}
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// Row 2's masked value in x's type: x * scale rounded once to f32, or to
+// bf16 (the f32 product of two bf16 values is exact), or 0 if dropped.
+__device__ __forceinline__ float masked(float v, bool keep, float scale) {
+  return keep ? __fmul_rn(v, scale) : 0.f;
+}
+__device__ __forceinline__ __nv_bfloat16 masked(__nv_bfloat16 v, bool keep,
+                                                float scale) {
+  return __float2bfloat16_rn(keep ? __fmul_rn(__bfloat162float(v), scale)
+                                  : 0.f);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, or 16 zero bytes if !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most `pending` of this thread's cp.async groups are in
+// flight (an immediate in PTX: after unrolling, `pending` is a constant)
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
+static_assert(CH_CHUNKS <= 4, "cp_async_wait covers 4 chunks in flight");
+
+// Named barrier `id` of `count` threads: the producers arrive, the
+// consumers wait; the barrier orders the producers' shared-memory writes
+// before the consumers' reads.
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// 16 bytes of x and of w: their 4 (f32) or 8 (bf16) terms of a chain, in
+// ascending k. A bf16 value widens exactly to the f32 with its bits on top.
+__device__ __forceinline__ float fma16(uint4 xv, uint4 wv, float acc, float) {
+  const float* xe = reinterpret_cast<const float*>(&xv);
+  const float* we = reinterpret_cast<const float*>(&wv);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) acc = __fmaf_rn(xe[j], we[j], acc);
+  return acc;
+}
+__device__ __forceinline__ float fma16(uint4 xv, uint4 wv, float acc,
+                                       __nv_bfloat16) {
+  const uint32_t* xe = reinterpret_cast<const uint32_t*>(&xv);
+  const uint32_t* we = reinterpret_cast<const uint32_t*>(&wv);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    acc = __fmaf_rn(__uint_as_float(xe[j] << 16), __uint_as_float(we[j] << 16),
+                    acc);
+    acc = __fmaf_rn(__uint_as_float(xe[j] & 0xFFFF0000u),
+                    __uint_as_float(we[j] & 0xFFFF0000u), acc);
+  }
+  return acc;
+}
+
+// One chunk of a chain: kn (rounded up to VEC, the rest of the chunk is
+// zeros in both x and w) terms in ascending k. A whole chunk is read into
+// registers in groups of 4 16-byte loads, the next group's loads in flight
+// while the current group's FMAs run, so the shared-memory latency stays
+// off the chain.
+constexpr int CH_GROUP = 4;
+
+template <typename T>
+__device__ __forceinline__ float chain_chunk(const T* xr, const T* wc, int kn,
+                                             float acc) {
+  constexpr int VEC = Chain<T>::VEC;
+  constexpr int GROUPS = Chain<T>::KCH / VEC / CH_GROUP;
+  const auto* xq = reinterpret_cast<const uint4*>(xr);
+  const auto* wq = reinterpret_cast<const uint4*>(wc);
+  if (kn == Chain<T>::KCH) {
+    uint4 xv[2][CH_GROUP], wv[2][CH_GROUP];
+#pragma unroll
+    for (int j = 0; j < CH_GROUP; ++j) {
+      xv[0][j] = xq[j];
+      wv[0][j] = wq[j];
+    }
+#pragma unroll
+    for (int g = 0; g < GROUPS; ++g) {
+      if (g + 1 < GROUPS) {
+#pragma unroll
+        for (int j = 0; j < CH_GROUP; ++j) {
+          xv[(g + 1) & 1][j] = xq[(g + 1) * CH_GROUP + j];
+          wv[(g + 1) & 1][j] = wq[(g + 1) * CH_GROUP + j];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < CH_GROUP; ++j)
+        acc = fma16(xv[g & 1][j], wv[g & 1][j], acc, T());
+    }
+    return acc;
+  }
+  for (int q = 0; q * VEC < kn; ++q) acc = fma16(xq[q], wq[q], acc, T());
+  return acc;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(CH_THREADS)
+    dropout_matmul_samples_kernel(const T* __restrict__ x,
+                                  const T* __restrict__ w,
+                                  const int32_t* __restrict__ seeds,
+                                  float* __restrict__ out, int M, int K, int N,
+                                  int x_stride, uint32_t thresh, float scale) {
+  using C = Chain<T>;
+  __shared__ __align__(16) T xs[CH_BM][C::KW];
+  __shared__ __align__(16) T wt[CH_BN][C::PITCH];
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * CH_BM, col0 = blockIdx.y * CH_BN;
+  const int s = blockIdx.z;
+
+  if (tid < CH_CONSUMERS) {
+    const int tr = tid / CH_BN, tc = tid % CH_BN;
+    float acc = 0.f;
+    for (int k0 = 0; k0 < K; k0 += C::KW) {
+#pragma unroll
+      for (int c = 0; c < CH_CHUNKS; ++c) {
+        const int kc = k0 + c * C::KCH;
+        if (kc < K) {
+          bar_sync(1 + c, CH_THREADS);
+          acc = chain_chunk(&xs[tr][c * C::KCH], &wt[tc][c * C::KCH],
+                            min(C::KCH, K - kc), acc);
+        }
+      }
+      __syncthreads();   // the window read before the producers refill it
+    }
+    const int gr = row0 + tr, gc = col0 + tc;
+    if (gr < M && gc < N)
+      out[(static_cast<size_t>(s) * M + gr) * N + gc] = acc;
+    return;
+  }
+
+  const int p = tid - CH_CONSUMERS;
+  const T* xb = x + static_cast<size_t>(s) * x_stride;
+  const uint32_t stream =
+      bayestpu::seed_stream(seeds[2 * s], seeds[2 * s + 1]);
+  const bool vec = (static_cast<size_t>(K) * sizeof(T)) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(xb) % 16 == 0;
+  const T zero = zero_of<T>();
+  // this producer's x piece of every chunk: row pr, columns pc .. pc + VEC
+  const int pr = p / C::ROW_PIECES, pc = (p % C::ROW_PIECES) * C::VEC;
+  const int gr = row0 + pr;
+  // and its w: column wn, rows wk + 8 j of every chunk (8 = CH_PRODUCERS /
+  // CH_BN), read by one pointer step a load
+  constexpr int W_ROWS = CH_PRODUCERS / CH_BN;
+  const int wn = p % CH_BN, wk = p / CH_BN;
+  const bool w_col = col0 + wn < N;
+  const size_t w_step = static_cast<size_t>(W_ROWS) * N;
+  for (int k0 = 0; k0 < K; k0 += C::KW) {
+    T wr[CH_CHUNKS][C::W_PER_CHUNK];
+#pragma unroll
+    for (int c = 0; c < CH_CHUNKS; ++c) {
+      const int gc = k0 + c * C::KCH + pc;
+      T* dst = &xs[pr][c * C::KCH + pc];
+      if (vec) {
+        const bool ok = gr < M && gc < K;
+        cp_async16(dst, ok ? xb + static_cast<size_t>(gr) * K + gc : xb, ok);
+      } else {
+        alignas(16) T e[C::VEC];
+#pragma unroll
+        for (int j = 0; j < C::VEC; ++j)
+          e[j] = gr < M && gc + j < K
+                     ? xb[static_cast<size_t>(gr) * K + gc + j]
+                     : zero;
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<uint4*>(e);
+      }
+      cp_async_commit();
+    }
+    const T* wq = w + static_cast<size_t>(k0 + wk) * N + col0 + wn;
+    const int w_rows = K - (k0 + wk);   // rows of w left below this one
+#pragma unroll
+    for (int c = 0; c < CH_CHUNKS; ++c) {
+#pragma unroll
+      for (int j = 0; j < C::W_PER_CHUNK; ++j) {
+        wr[c][j] = w_col && c * C::KCH + j * W_ROWS < w_rows ? *wq : zero;
+        wq += w_step;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < CH_CHUNKS; ++c) {
+      if (k0 + c * C::KCH < K) {
+        cp_async_wait(CH_CHUNKS - 1 - c);   // this thread's piece landed
+        const uint32_t gc = k0 + c * C::KCH + pc;
+        T* piece = &xs[pr][c * C::KCH + pc];
+        alignas(16) T e[C::VEC];
+        *reinterpret_cast<uint4*>(e) = *reinterpret_cast<const uint4*>(piece);
+#pragma unroll
+        for (int j = 0; j < C::VEC; ++j)
+          e[j] = masked(e[j],
+                        bayestpu::coord_bits(static_cast<uint32_t>(gr),
+                                             gc + j, stream) < thresh,
+                        scale);
+        *reinterpret_cast<uint4*>(piece) = *reinterpret_cast<uint4*>(e);
+#pragma unroll
+        for (int j = 0; j < C::W_PER_CHUNK; ++j)
+          wt[wn][c * C::KCH + wk + j * W_ROWS] = wr[c][j];
+        bar_arrive(1 + c, CH_THREADS);
+      }
+    }
+    cp_async_wait(0);    // the zero fills of chunks past K, too
+    __syncthreads();     // the consumers are done with the window
+  }
+}
+
+// The int8 samples heads on the s8 tensor cores, one template over a
+// staging mask policy: the counter hash (row 5, dropout_matmul_int8_samples)
+// or a bank row (row 6, bank_matmul_int8_samples, and its launch on an x
+// that carries the sample axis). out[s] = f32((x_q * keep_s) @ w_q) *
+// out_scale. A block owns 16 rows of x, 8 output columns and ONE sample
+// (grid (ceil(M/16), ceil(N/8), S): 160 blocks at the vgg11_me MC head, x
+// 128x512, w 512x10, S = 10; 64 at the Masksembles head, S = 4, where the
+// shared tile routine launched 8). Per K chunk of 512 it stages the x tile
+// as int8, 16 bytes a thread, masked once per element as it is staged, and
+// the w tile transposed to K-contiguous columns (B fragments), N padded
+// with zeros to 8 in shared memory; its 4 warps split the chunk's k steps
+// of mma.sync.m16n8k32 s8 -> s32 and the 4 partial sums are added in
+// shared memory. The int32 sums are exact in any order, so the result
+// equals the plain version and, per sample, the single kernel (rows 4 and
+// 7) bit for bit; the epilogue f32(acc) * out_scale runs once. Sample s
+// reads x + s * x_stride (0: x is shared).
 constexpr int I8_THREADS = 128;
 constexpr int I8_BM = 16;                 // rows of x: one m16 tile
 constexpr int I8_BN = 8;                  // columns of w: one n8 tile
 constexpr int I8_KC = 512;                // bytes of K staged at a time
 constexpr int I8_PITCH = I8_KC + 16;      // conflict-free 4-byte reads
 
+// A staging policy: `begin` takes the block's sample, `apply` zeroes the
+// dropped bytes among 16 staged x bytes at row gr, columns gc .. gc + 15.
+// MC dropout: keep iff coord_bits(gr, gc + j, stream_s) < thresh.
+struct HashStage {
+  const int32_t* seeds;  // (S, 2)
+  uint32_t thresh;
+  uint32_t stream;
+  __device__ __forceinline__ void begin(int s) {
+    stream = bayestpu::seed_stream(seeds[2 * s], seeds[2 * s + 1]);
+  }
+  __device__ __forceinline__ void apply(int8_t (&e)[16], int gr,
+                                        int gc) const {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const uint32_t bits = bayestpu::coord_bits(
+          static_cast<uint32_t>(gr), static_cast<uint32_t>(gc + j), stream);
+      if (bits >= thresh) e[j] = 0;
+    }
+  }
+};
+
+// Masksembles: keep iff bank[r][k] > 0.5 with r = idxs[s] mod n, floored as
+// BankMask::begin and JAX's idx % n take it (-1 -> n - 1); k >= K reads as
+// dropped. The 16 floats of the row are read beside the 16 x bytes.
+struct BankStage {
+  const float* bank;     // (n, K) f32
+  const int32_t* idxs;   // (S,)
+  int n;
+  int K;
+  const float* row;
+  __device__ __forceinline__ void begin(int s) {
+    const int r = idxs[s] % n;
+    row = bank + static_cast<size_t>(r < 0 ? r + n : r) * K;
+  }
+  __device__ __forceinline__ void apply(int8_t (&e)[16], int, int gc) const {
+    float b[16];
+    if (gc + 16 <= K && K % 4 == 0 &&
+        reinterpret_cast<uintptr_t>(bank) % 16 == 0) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(row + gc) + q);
+        b[4 * q] = v.x;
+        b[4 * q + 1] = v.y;
+        b[4 * q + 2] = v.z;
+        b[4 * q + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) b[j] = gc + j < K ? __ldg(row + gc + j) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      if (!(b[j] > 0.5f)) e[j] = 0;
+  }
+};
+
+template <typename Stage>
 __global__ void __launch_bounds__(I8_THREADS)
-    dropout_matmul_int8_samples_mma_kernel(
-        const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-        const int32_t* __restrict__ seeds, float* __restrict__ out, int M,
-        int K, int N, uint32_t thresh, float out_scale) {
+    int8_samples_mma_kernel(const int8_t* __restrict__ x,
+                            const int8_t* __restrict__ w, Stage stage,
+                            float* __restrict__ out, int M, int K, int N,
+                            int x_stride, float out_scale) {
   __shared__ __align__(16) int8_t xs[I8_BM][I8_PITCH];
   __shared__ __align__(16) int8_t wt[I8_BN][I8_PITCH];
   __shared__ int32_t red[I8_THREADS / 32][I8_BM * I8_BN];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row0 = blockIdx.x * I8_BM, col0 = blockIdx.y * I8_BN;
   const int s = blockIdx.z;
-  const uint32_t stream =
-      bayestpu::seed_stream(seeds[2 * s], seeds[2 * s + 1]);
+  stage.begin(s);
+  const int8_t* xb = x + static_cast<size_t>(s) * x_stride;
   const bool vec =
-      K % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+      K % 16 == 0 && reinterpret_cast<uintptr_t>(xb) % 16 == 0;
   const int g = lane >> 2, t4 = lane & 3;
   int32_t acc[4] = {0, 0, 0, 0};
   for (int k0 = 0; k0 < K; k0 += I8_KC) {
@@ -431,19 +774,15 @@ __global__ void __launch_bounds__(I8_THREADS)
       alignas(16) int8_t e[16];
       if (gr < M && gc < K && vec) {
         *reinterpret_cast<uint4*>(e) = __ldg(reinterpret_cast<const uint4*>(
-            x + static_cast<size_t>(gr) * K + gc));
+            xb + static_cast<size_t>(gr) * K + gc));
       } else {
 #pragma unroll
         for (int j = 0; j < 16; ++j)
-          e[j] = gr < M && gc + j < K ? x[static_cast<size_t>(gr) * K + gc + j]
-                                      : int8_t(0);
+          e[j] = gr < M && gc + j < K
+                     ? xb[static_cast<size_t>(gr) * K + gc + j]
+                     : int8_t(0);
       }
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const uint32_t bits = bayestpu::coord_bits(
-            static_cast<uint32_t>(gr), static_cast<uint32_t>(gc + j), stream);
-        if (bits >= thresh) e[j] = 0;
-      }
+      stage.apply(e, gr, gc);
       *reinterpret_cast<uint4*>(&xs[r][c]) = *reinterpret_cast<uint4*>(e);
     }
     for (int i = tid; i < I8_BN * I8_KC; i += I8_THREADS) {
@@ -509,25 +848,26 @@ extern "C" int bt_dropout_matmul(const void* x, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
+// x_stride: elements between samples' x, 0 when x is shared (row 3), M * K
+// when x carries the sample axis (dropout_matmul_xs)
 extern "C" int bt_dropout_matmul_samples(const void* x, const void* w,
                                          const void* seeds, void* out, int M,
-                                         int K, int N, int S, uint32_t thresh,
-                                         float scale, int is_bf16,
-                                         void* stream) {
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN,
-                  (S + SAMPLES_PER_BLOCK - 1) / SAMPLES_PER_BLOCK);
+                                         int K, int N, int S, int x_stride,
+                                         uint32_t thresh, float scale,
+                                         int is_bf16, void* stream) {
+  const dim3 grid((M + CH_BM - 1) / CH_BM, (N + CH_BN - 1) / CH_BN, S);
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* sd = static_cast<const int32_t*>(seeds);
   auto* o = static_cast<float*>(out);
   if (is_bf16) {
-    dropout_matmul_samples_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
+    dropout_matmul_samples_kernel<__nv_bfloat16><<<grid, CH_THREADS, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w), sd, o, M, K, N, S, thresh,
-        scale);
+        static_cast<const __nv_bfloat16*>(w), sd, o, M, K, N, x_stride,
+        thresh, scale);
   } else {
-    dropout_matmul_samples_kernel<float><<<grid, THREADS, 0, st>>>(
+    dropout_matmul_samples_kernel<float><<<grid, CH_THREADS, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), sd, o, M,
-        K, N, S, thresh, scale);
+        K, N, x_stride, thresh, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -571,12 +911,11 @@ extern "C" int bt_dropout_matmul_int8_samples(const void* x, const void* w,
                                               uint32_t thresh,
                                               float out_scale, void* stream) {
   const dim3 grid((M + I8_BM - 1) / I8_BM, (N + I8_BN - 1) / I8_BN, S);
-  dropout_matmul_int8_samples_mma_kernel<<<grid, I8_THREADS, 0,
-                                           static_cast<cudaStream_t>(
-                                               stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<const int32_t*>(seeds), static_cast<float*>(out), M, K, N,
-      thresh, out_scale);
+  int8_samples_mma_kernel<HashStage>
+      <<<grid, I8_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
+          HashStage{static_cast<const int32_t*>(seeds), thresh, 0u},
+          static_cast<float*>(out), M, K, N, 0, out_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -634,17 +973,19 @@ extern "C" int bt_bank_matmul_int8(const void* x, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
+// x_stride: elements between samples' x, 0 when x is shared (row 6), M * K
+// when x carries the sample axis (bank_matmul_int8_xs)
 extern "C" int bt_bank_matmul_int8_samples(const void* x, const void* w,
                                            const void* bank, const void* idxs,
                                            void* out, int M, int K, int N,
-                                           int S, int n, float out_scale,
-                                           void* stream) {
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN,
-                  (S + SAMPLES_PER_BLOCK - 1) / SAMPLES_PER_BLOCK);
-  bank_matmul_samples_kernel<int8_t, int8_t>
-      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+                                           int S, int x_stride, int n,
+                                           float out_scale, void* stream) {
+  const dim3 grid((M + I8_BM - 1) / I8_BM, (N + I8_BN - 1) / I8_BN, S);
+  int8_samples_mma_kernel<BankStage>
+      <<<grid, I8_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-          static_cast<const float*>(bank), static_cast<const int32_t*>(idxs),
-          static_cast<float*>(out), M, K, N, S, n, out_scale);
+          BankStage{static_cast<const float*>(bank),
+                    static_cast<const int32_t*>(idxs), n, K, nullptr},
+          static_cast<float*>(out), M, K, N, x_stride, out_scale);
   return static_cast<int>(cudaGetLastError());
 }

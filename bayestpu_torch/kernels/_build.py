@@ -37,9 +37,10 @@ _SIGNATURES: dict[str, dict[str, list]] = {
     "masked_matmul": {
         # x, w, seeds, out, M, K, N, thresh, scale, is_bf16, stream
         "bt_dropout_matmul": [_P, _P, _P, _P, _I, _I, _I, _U32, _F, _I, _P],
-        # x, w, seeds, out, M, K, N, S, thresh, scale, is_bf16, stream
-        "bt_dropout_matmul_samples": [_P, _P, _P, _P, _I, _I, _I, _I, _U32,
-                                      _F, _I, _P],
+        # x, w, seeds, out, M, K, N, S, x_stride (0: x shared), thresh,
+        # scale, is_bf16, stream
+        "bt_dropout_matmul_samples": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _U32, _F, _I, _P],
         # x, seeds, out, M, K, thresh, scale, is_bf16, stream
         "bt_dropout_apply": [_P, _P, _P, _I, _I, _U32, _F, _I, _P],
         # x_q, w_q, seeds, out, M, K, N, thresh, out_scale, stream
@@ -54,9 +55,10 @@ _SIGNATURES: dict[str, dict[str, list]] = {
                                    _I, _P],
         # x_q, w_q, bank, out, M, K, N, idx, num_masks, out_scale, stream
         "bt_bank_matmul_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-        # x_q, w_q, bank, idxs, out, M, K, N, S, num_masks, out_scale, stream
+        # x_q, w_q, bank, idxs, out, M, K, N, S, x_stride (0: x shared),
+        # num_masks, out_scale, stream
         "bt_bank_matmul_int8_samples": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                        _I, _F, _P],
+                                        _I, _I, _F, _P],
     },
     # every masked_conv entry ends in the same arguments (masked_conv.cu)
     "masked_conv": {name: head + _CONV_TAIL for name, head in {

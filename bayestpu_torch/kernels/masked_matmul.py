@@ -40,6 +40,14 @@ out_scale`` with ``out_scale`` the f32 nearest to ``x_step * w_step`` (no
 dropout rescale). ``*_inference`` takes an int index (one sample, (M, N))
 or a 1-D tensor of S indices (every sample in one launch, (S, M, N)).
 
+An x of (S, M, K) carries the sample axis: sample s of x is masked with
+seeds[s] or index s on its own coordinates, as the JAX vmap rules' ``lax.map``
+fallback runs the single kernel per sample. On the card
+``dropout_matmul_inference`` and ``bank_matmul_int8_inference`` then make
+one launch of their samples kernel with a per-sample x stride (counted as
+``dropout_matmul_xs`` and ``bank_matmul_int8_xs``); the other two heads
+make one single launch per sample (``map_samples``).
+
 Dispatch is by the tensors' device: CPU tensors take the plain version, CUDA
 tensors launch the kernel (or raise), and any other device raises. There is
 no fallback from the kernel to the plain version.
@@ -60,13 +68,15 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # Launches of each CUDA kernel since the last reset; CPU calls do not count.
 launch_counts: dict[str, int] = {"dropout_matmul": 0,
                                  "dropout_matmul_samples": 0,
+                                 "dropout_matmul_xs": 0,
                                  "dropout_apply": 0,
                                  "dropout_matmul_int8": 0,
                                  "dropout_matmul_int8_samples": 0,
                                  "bank_matmul": 0,
                                  "bank_matmul_samples": 0,
                                  "bank_matmul_int8": 0,
-                                 "bank_matmul_int8_samples": 0}
+                                 "bank_matmul_int8_samples": 0,
+                                 "bank_matmul_int8_xs": 0}
 
 
 def reset_launch_counts() -> None:
@@ -226,10 +236,11 @@ def _check_rate_seeds(x: torch.Tensor, seeds: torch.Tensor, seeds_ndim: int,
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, seeds: torch.Tensor,
-           seeds_ndim: int, rate: float) -> None:
-    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
-        raise ValueError(f"need x (M, K) and w (K, N); got {tuple(x.shape)} "
-                         f"and {tuple(w.shape)}")
+           seeds_ndim: int, rate: float, x_ndim: int = 2) -> None:
+    if x.dim() != x_ndim or w.dim() != 2 or x.shape[-1] != w.shape[0]:
+        want = "(M, K)" if x_ndim == 2 else "(S, M, K)"
+        raise ValueError(f"need x {want} and w (K, N); got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
         raise TypeError(f"x and w must both be float32 or bfloat16; got "
                         f"{x.dtype} and {w.dtype}")
@@ -239,11 +250,12 @@ def _check(x: torch.Tensor, w: torch.Tensor, seeds: torch.Tensor,
     _check_rate_seeds(x, seeds, seeds_ndim, rate)
 
 
-def _call(name: str, device: torch.device, tensors: dict, args: list
-          ) -> None:
+def _call(name: str, device: torch.device, tensors: dict, args: list,
+          count: str | None = None) -> None:
     """Call the C entry ``bt_<name>`` of ``masked_matmul.cu`` with the
     pointers of ``tensors`` (each must be contiguous), then ``args``, then
-    PyTorch's current stream; count the launch."""
+    PyTorch's current stream; count the launch under ``count`` (default
+    ``name``)."""
     from bayestpu_torch.kernels import _build
 
     for what, t in tensors.items():
@@ -257,16 +269,17 @@ def _call(name: str, device: torch.device, tensors: dict, args: list
     if rc != 0:
         raise RuntimeError(f"{name} kernel failed to launch: cudaError_t "
                            f"{rc}")
-    launch_counts[name] += 1
+    launch_counts[count or name] += 1
 
 
 def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
-            seeds: torch.Tensor, args: list) -> torch.Tensor:
+            seeds: torch.Tensor, args: list, count: str | None = None
+            ) -> torch.Tensor:
     """Launch one of the matmul kernels on PyTorch's current stream with
     the trailing C arguments ``args``. ``seeds`` is (S, 2); a single-sample
     kernel is called with S == 1 and returns (M, N), a samples kernel
-    (S, M, N)."""
-    m, k = x.shape
+    (S, M, N). x is (M, K), or (S, M, K) when it carries the sample axis."""
+    m, k = x.shape[-2:]
     n = w.shape[1]
     s = seeds.shape[0]
     single = not name.endswith("_samples")
@@ -275,8 +288,27 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
     if out.numel() == 0:
         return out
     _call(name, x.device, {"x": x, "w": w, "seeds": seeds, "out": out},
-          [m, k, n] + ([] if single else [s]) + args)
+          [m, k, n] + ([] if single else [s]) + args, count)
     return out
+
+
+def _x_stride(x: torch.Tensor) -> int:
+    """Elements between the samples of an x (S, M, K) that carries the
+    sample axis: the C entries take it as an int."""
+    stride = x.shape[-2] * x.shape[-1]
+    if stride > 2 ** 31 - 1:
+        raise ValueError(f"x of {tuple(x.shape)}: M·K={stride} does not fit "
+                         "the kernels' int32 sample stride")
+    return stride
+
+
+def _check_carried(x: torch.Tensor, keys) -> None:
+    """x (S, M, K) carries the sample axis: one seed pair or index a
+    sample."""
+    if len(keys) != x.shape[0]:
+        raise ValueError(f"x {tuple(x.shape)} carries {x.shape[0]} samples "
+                         f"but {len(keys)} seed pairs or indices came with "
+                         "it")
 
 
 def _float_args(x: torch.Tensor, rate: float) -> list:
@@ -362,14 +394,14 @@ def dropout_matmul_samples(x: torch.Tensor, w: torch.Tensor,
     """All-samples fused MC head: ``stack([dropout_s(x) @ w for s in S])``.
 
     seeds: (S, 2) int32. Returns (S, M, N) f32 with sample s bit-identical to
-    ``dropout_matmul(x, w, seeds[s], rate)`` on the same device. The kernel
-    stages each x tile once for all samples of a block.
+    ``dropout_matmul(x, w, seeds[s], rate)`` on the same device: the kernel
+    runs one block per sample and keeps the single kernel's summation chain.
     """
     _check(x, w, seeds, 2, rate)
     if x.device.type == "cpu" or rate == 0.0:
         return dropout_matmul_samples_plain(x, w, seeds, rate)
     return _launch("dropout_matmul_samples", x, w, seeds,
-                   _float_args(x, rate))
+                   [0] + _float_args(x, rate))
 
 
 def map_samples(fn, x: torch.Tensor, keys, stack=torch.stack
@@ -377,9 +409,7 @@ def map_samples(fn, x: torch.Tensor, keys, stack=torch.stack
     """JAX's ``lax.map`` fallback of the vmap rules (``:407-411``): x (S,
     ...) carries the sample axis, and sample s runs ``fn(x[s], keys[s])``,
     one single-sample launch each; the S results joined by ``stack``."""
-    if len(keys) != x.shape[0]:
-        raise ValueError(f"x carries {x.shape[0]} samples but {len(keys)} "
-                         "seed pairs or indices came with it")
+    _check_carried(x, keys)
     return stack([fn(x[s], keys[s]) for s in range(x.shape[0])])
 
 
@@ -390,11 +420,20 @@ def dropout_matmul_inference(x: torch.Tensor, w: torch.Tensor,
     (M, N); ``seeds`` (S, 2) gives every sample in one launch, (S, M, N) —
     what the JAX package's vmap rule does. The CUDA samples kernel splits S
     over blocks itself, so no sample chunking happens here. An x of (S, M,
-    K) with seeds (S, 2) carries the sample axis: one single launch per
-    sample (``map_samples``)."""
+    K) with seeds (S, 2) carries the sample axis: sample s of x under
+    seeds[s], on its own coordinates, as JAX's ``lax.map`` fallback runs
+    the single kernel per sample (``:407-411``) — one ``dropout_matmul_xs``
+    launch of the samples kernel on the card, the single plain version per
+    sample on the CPU (and at rate 0, a plain matmul)."""
     if x.dim() == 3:
-        return map_samples(lambda xs, sd: dropout_matmul(xs, w, sd, rate),
-                           x, seeds)
+        if x.device.type == "cpu" or rate == 0.0:
+            return map_samples(lambda xs, sd: dropout_matmul(xs, w, sd, rate),
+                               x, seeds)
+        _check(x, w, seeds, 2, rate, x_ndim=3)
+        _check_carried(x, seeds)
+        return _launch("dropout_matmul_samples", x, w, seeds,
+                       [_x_stride(x)] + _float_args(x, rate),
+                       "dropout_matmul_xs")
     if seeds.dim() == 1:
         return dropout_matmul(x, w, seeds, rate)
     return dropout_matmul_samples(x, w, seeds, rate)
@@ -529,6 +568,17 @@ def host_indices(sample_idx) -> list[int]:
     return bank_indices(sample_idx).tolist()
 
 
+def device_indices(sample_idx, device: torch.device) -> torch.Tensor:
+    """S sample indices as contiguous int32 on ``device`` for one launch: a
+    1-D integer tensor as ``bank_indices`` makes it; a list or tuple of ints
+    (the host copy a caller that maps several sites made once) copied from
+    pinned memory without waiting for the stream."""
+    if isinstance(sample_idx, (list, tuple)):
+        return torch.tensor(sample_idx, dtype=torch.int32).pin_memory().to(
+            device, non_blocking=True)
+    return bank_indices(sample_idx)
+
+
 def bank_indices(idxs: torch.Tensor) -> torch.Tensor:
     """1-D integer sample indices as contiguous int32 on their device (no
     copy for int32). Any value in int32's range: the kernels take each
@@ -592,12 +642,13 @@ def bank_out_scale(x_step: float, w_step: float) -> float:
 
 
 def _check_bank(x: torch.Tensor, w: torch.Tensor, bank: torch.Tensor,
-                int8: bool) -> None:
-    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
-        raise ValueError(f"need x (M, K) and w (K, N); got {tuple(x.shape)} "
-                         f"and {tuple(w.shape)}")
-    if bank.dim() != 2 or bank.shape[1] != x.shape[1] or bank.shape[0] < 1:
-        raise ValueError(f"need bank (num_masks, K) with K={x.shape[1]}; "
+                int8: bool, x_ndim: int = 2) -> None:
+    if x.dim() != x_ndim or w.dim() != 2 or x.shape[-1] != w.shape[0]:
+        want = "(M, K)" if x_ndim == 2 else "(S, M, K)"
+        raise ValueError(f"need x {want} and w (K, N); got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if bank.dim() != 2 or bank.shape[1] != x.shape[-1] or bank.shape[0] < 1:
+        raise ValueError(f"need bank (num_masks, K) with K={x.shape[-1]}; "
                          f"got {tuple(bank.shape)}")
     if int8 and (x.dtype != torch.int8 or w.dtype != torch.int8):
         raise TypeError(f"x_q and w_q must both be int8; got {x.dtype} and "
@@ -617,11 +668,15 @@ def _check_bank(x: torch.Tensor, w: torch.Tensor, bank: torch.Tensor,
 
 
 def _launch_bank(name: str, x: torch.Tensor, w: torch.Tensor,
-                 bank: torch.Tensor, index, args: list) -> torch.Tensor:
+                 bank: torch.Tensor, index, args: list,
+                 x_stride: int | None = None, count: str | None = None
+                 ) -> torch.Tensor:
     """Launch a bank kernel: ``index`` is the int row of a single kernel,
     (M, N) out, or the int32 index tensor (S,) of a samples kernel, (S, M,
-    N) out; ``args`` are the trailing C arguments."""
-    m, k = x.shape
+    N) out; ``x_stride`` the samples' x stride of the int8 samples entry
+    (0: x shared, M·K: x (S, M, K) carries the sample axis); ``args`` are
+    the trailing C arguments."""
+    m, k = x.shape[-2:]
     n = w.shape[1]
     tensors = {"x": x, "w": w, "bank": bank}
     if isinstance(index, int):
@@ -632,12 +687,14 @@ def _launch_bank(name: str, x: torch.Tensor, w: torch.Tensor,
                              f"{x.device}; got {index.device}")
         tensors["idxs"] = index
         shape, dims = (index.shape[0], m, n), [m, k, n, index.shape[0]]
+    if x_stride is not None:
+        dims.append(x_stride)
     dims.append(bank.shape[0])
     out = torch.empty(shape, dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
     tensors["out"] = out
-    _call(name, x.device, tensors, dims + args)
+    _call(name, x.device, tensors, dims + args, count)
     return out
 
 
@@ -702,14 +759,15 @@ def bank_matmul_int8_samples(x_q: torch.Tensor, w_q: torch.Tensor,
                              x_step: float, w_step: float) -> torch.Tensor:
     """Every mask index of the int8 head in one launch: (S, M, N) f32 with
     sample s bit-identical to ``bank_matmul_int8(x_q, w_q, bank, idxs[s],
-    ...)``."""
+    ...)``; the kernel runs on the s8 tensor cores, one block per (16 rows,
+    8 columns, sample)."""
     _check_bank(x_q, w_q, bank, True)
     idxs = bank_indices(idxs)
     if x_q.device.type == "cpu":
         return bank_matmul_int8_samples_plain(x_q, w_q, bank, idxs, x_step,
                                               w_step)
     return _launch_bank("bank_matmul_int8_samples", x_q, w_q, bank, idxs,
-                        [bank_out_scale(x_step, w_step)])
+                        [bank_out_scale(x_step, w_step)], x_stride=0)
 
 
 def bank_matmul_int8_inference(x_q: torch.Tensor, w_q: torch.Tensor,
@@ -717,11 +775,22 @@ def bank_matmul_int8_inference(x_q: torch.Tensor, w_q: torch.Tensor,
                                x_step: float, w_step: float) -> torch.Tensor:
     """Inference entry of the int8 Masksembles heads: an int index → one
     sample (M, N); a 1-D tensor of S indices → every sample in one launch,
-    (S, M, N); an x of (S, M, K) → one single launch per sample."""
+    (S, M, N); an x of (S, M, K) with S indices (a tensor, or a list of
+    ints) → sample s of x under index s, as JAX's ``lax.map`` fallback
+    (``:742-747``): one ``bank_matmul_int8_xs`` launch of the samples
+    kernel on the card, the single plain version per sample on the CPU."""
     if x_q.dim() == 3:
-        return map_samples(lambda xs, i: bank_matmul_int8(
-            xs, w_q, bank, i, x_step, w_step), x_q,
-            host_indices(sample_idx))
+        if x_q.device.type == "cpu":
+            return map_samples(lambda xs, i: bank_matmul_int8(
+                xs, w_q, bank, i, x_step, w_step), x_q,
+                host_indices(sample_idx))
+        _check_bank(x_q, w_q, bank, True, x_ndim=3)
+        idxs = device_indices(sample_idx, x_q.device)
+        _check_carried(x_q, idxs)
+        return _launch_bank("bank_matmul_int8_samples", x_q, w_q, bank, idxs,
+                            [bank_out_scale(x_step, w_step)],
+                            x_stride=_x_stride(x_q),
+                            count="bank_matmul_int8_xs")
     if is_index_vector(sample_idx):
         return bank_matmul_int8_samples(x_q, w_q, bank, sample_idx, x_step,
                                         w_step)

@@ -35,9 +35,12 @@ launch for S samples), every Masksembles head
 (``fused.py:524-540,560-563,573-580,595-613``).
 
 x of shape (S, B, in) carries the sample axis (the activations after a
-spatial conv site, one row of x per sample): every Bayesian head then runs
-one single-sample launch per sample, seeds[s] or index s — JAX's
-``lax.map`` fallback (``masked_matmul.py:407-411``).
+spatial conv site, one row of x per sample): sample s of x runs under
+seeds[s] or index s, as JAX's ``lax.map`` fallback
+(``masked_matmul.py:407-411``) runs one single kernel per sample. On the
+card the float MC head and the int8 Masksembles head make one ``_xs``
+launch for the S samples; the int8 MC head and the float Masksembles head
+still make one single launch per sample.
 """
 
 from __future__ import annotations
@@ -79,7 +82,7 @@ class BayesDense(nn.Module):
         if self.stochastic and not fused:
             raise NotImplementedError(
                 "the unfused MC head (BayesianDropout + dense) is not ported "
-                "yet: ROADMAP Queue 1 item 3")
+                "yet: ROADMAP Queue 1 item 11")
         self.kernel = nn.Parameter(torch.empty(in_features, features))
         self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
                      else None)

@@ -15,10 +15,13 @@ ends the run with a nonzero exit and no result line.
    card: the vgg11_me head shape and a ragged one, bf16 and f32 (int8 for
    the int8 kernels, bit for bit); exact mask readouts (the backward's mask
    and the int8 kernels' mask are the forward's); per-sample bit identity;
-   negative seeds; times. The four Masksembles bank kernels at the
+   negative seeds; times. The MC head on an x that carries the sample
+   axis (one ``dropout_matmul_xs`` launch, sample s bit-equal to the single
+   launch on x[s]). The four Masksembles bank kernels at the
    Masksembles head shape (S = 4) and a ragged one whose indices wrap and
    include a negative one: float rows on a {0, 1} bank and on one with 2.0
-   entries, int8 rows bit for bit, per-sample bit identity, times. The
+   entries, int8 rows bit for bit, per-sample bit identity, the int8 head
+   on an x that carries the sample axis (``bank_matmul_int8_xs``), times. The
    masked convs of ``masked_conv.cu`` (rows 10-11) at the block-1 site
    shape and ragged geometries (stride 2 with asymmetric SAME, VALID,
    explicit padding, 1x1 stride 2, F not a multiple of 8): bf16 and f32
@@ -68,7 +71,7 @@ ends the run with a nonzero exit and no result line.
    spatial p50 in turns.
 10. block   — ``vgg11`` with fused block sites (``dropout="block"``), bf16,
    batch 128: seeded MC serving (S = 10) with exact launch counts (1
-   ``dropout_conv_samples``, 3 ``dropout_conv_xs``, 10 ``dropout_matmul``
+   ``dropout_conv_samples``, 3 ``dropout_conv_xs``, 1 ``dropout_matmul_xs``
    a spatial predict), a
    3-epoch MC fine-tune of the train phase's weights served on 2,000 test
    images, its Masksembles twin (S = 4) fine-tuned under the batch split
@@ -106,8 +109,10 @@ REPLACES = {"dropout_matmul": "bayestpu/kernels/masked_matmul.py:113",
             "dropout_matmul_int8": "bayestpu/kernels/masked_matmul.py:444",
             "dropout_matmul_int8_samples":
                 "bayestpu/kernels/masked_matmul.py:519",
+            "dropout_matmul_xs": "bayestpu/kernels/masked_matmul.py:113",
             "bank_matmul_int8_samples":
                 "bayestpu/kernels/masked_matmul.py:640",
+            "bank_matmul_int8_xs": "bayestpu/kernels/masked_matmul.py:763",
             "bank_matmul_int8": "bayestpu/kernels/masked_matmul.py:763",
             "bank_matmul_samples": "bayestpu/kernels/masked_matmul.py:863",
             "bank_matmul": "bayestpu/kernels/masked_matmul.py:843"}
@@ -188,8 +193,12 @@ CONV_SITES = [(16, 64, 128), (8, 128, 256), (4, 256, 512), (2, 512, 512)]
 CONV_SUMMARY_SITE = {"dropout_conv_int8": 1, "bank_conv_int8": 1,
                      "dropout_conv_xs": 1, "dropout_conv_int8_xs": 1}
 # the kernels redesigned for the tensor cores, whose registers, spills and
-# SASS tensor-core instructions the build phase reports
-MMA_KERNELS = ("conv_mma_kernel", "dropout_matmul_int8_samples_mma_kernel")
+# SASS tensor-core instructions the build phase reports (the int8 samples
+# template once for each mask policy: rows 5 and 6)
+MMA_KERNELS = ("conv_mma_kernel", "int8_samples_mma_kernel")
+# kernels redesigned on the CUDA cores, whose registers and spills the
+# build phase reports beside them (row 3 keeps row 2's FMA chain)
+FMA_KERNELS = ("dropout_matmul_samples_kernel",)
 # ragged geometries: x NHWC, kernel size, F (not a multiple of 8), padding,
 # stride. SAME at stride 2 is asymmetric (16 -> 8 pads (0, 1)).
 CONV_RAGGED = {"same_s2": ((3, 15, 16, 40), 3, 20, "SAME", 2),
@@ -317,10 +326,11 @@ def phase_card() -> str:
 
 
 def _mma_report(rep: dict) -> dict:
-    """For each tensor-core kernel (MMA_KERNELS), by mangled name: its
-    registers and spill bytes from ``-Xptxas -v``, and the tensor-core
-    instructions (HMMA, IMMA, HGMMA, IGMMA) that ``cuobjdump -sass`` of the
-    built library shows in it, where ``cuobjdump`` is on the machine."""
+    """For each redesigned kernel (MMA_KERNELS and FMA_KERNELS), by mangled
+    name: its registers and spill bytes from ``-Xptxas -v``, and the
+    tensor-core instructions (HMMA, IMMA, HGMMA, IGMMA) that ``cuobjdump
+    -sass`` of the built library shows in it, where ``cuobjdump`` is on the
+    machine."""
     import re
     import shutil
     from bayestpu_torch.kernels import _build
@@ -333,7 +343,8 @@ def _mma_report(rep: dict) -> dict:
             if m:
                 cur = m.group(1)
                 continue
-            if cur is None or not any(k in cur for k in MMA_KERNELS):
+            if cur is None or not any(k in cur for k in
+                                      MMA_KERNELS + FMA_KERNELS):
                 continue
             d = fns.setdefault(cur, {})
             m = re.search(r"Used (\d+) registers", ln)
@@ -355,7 +366,7 @@ def _mma_report(rep: dict) -> dict:
         sass_seen = True
         for part in sass.split("Function : ")[1:]:
             fn = part.split(None, 1)[0]
-            if not any(k in fn for k in MMA_KERNELS):
+            if not any(k in fn for k in MMA_KERNELS + FMA_KERNELS):
                 continue
             fns.setdefault(fn, {})["sass_tensor_core_ops"] = {
                 op: len(re.findall(rf"\b{op}\b", part))
@@ -374,7 +385,8 @@ def phase_build() -> None:
     report = _mma_report(rep)
     for name, d in report["kernels"].items():
         ops = d.get("sass_tensor_core_ops")
-        check(ops is None or sum(ops.values()) > 0,
+        check(ops is None or sum(ops.values()) > 0
+              or not any(k in name for k in MMA_KERNELS),
               f"{name}: no tensor-core instruction in its SASS")
     emit({"phase": "tensor_cores", **report})
 
@@ -394,9 +406,9 @@ def _bound(name: str, shape: dict, dtype) -> tuple[float, str]:
     """Least time for the kernel's work on an H100: each input byte read
     once and each output byte written once over the HBM rate, or the
     operations over the peak for their type, whichever is larger. The
-    matmuls do 2·S·M·N·K operations in the dtype (int8 for the int8 rows);
-    dropout_apply reads x and the seeds, writes (M, K) f32 and does M·K
-    f32 multiplies."""
+    matmuls do 2·S·M·N·K operations in the dtype (int8 for the int8 rows),
+    an _xs launch reading S·M·K elements of x; dropout_apply reads x and
+    the seeds, writes (M, K) f32 and does M·K f32 multiplies."""
     m, k, n = shape["M"], shape["K"], shape["N"]
     esize = {"bfloat16": 2, "float32": 4, "int8": 1}[
         str(dtype).split(".")[-1]]
@@ -405,8 +417,9 @@ def _bound(name: str, shape: dict, dtype) -> tuple[float, str]:
         t_ops = m * k / PEAK_FLOPS["float32"]
         return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                            else "operations")
-    s = shape["S"] if name.endswith("_samples") else 1
-    nbytes = esize * (m * k + k * n) + 4 * 2 * s + 4 * s * m * n
+    s = shape["S"] if name.endswith(("_samples", "_xs")) else 1
+    xs = s if name.endswith("_xs") else 1
+    nbytes = esize * (xs * m * k + k * n) + 4 * 2 * s + 4 * s * m * n
     t_bytes = nbytes / MEM_BYTES_PER_S
     t_ops = 2 * s * m * n * k / PEAK_FLOPS[str(dtype).split(".")[-1]]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -415,17 +428,19 @@ def _bound(name: str, shape: dict, dtype) -> tuple[float, str]:
 
 def _bank_bound(name: str, shape: dict, esize: int, rows: int
                 ) -> tuple[float, str]:
-    """The bank kernels read x (esize bytes an element), w (f32, or int8 for
-    the int8 rows), the ``rows`` distinct f32 bank rows this run's indices
-    need and, in a samples kernel, S int32 indices; they write S·M·N f32.
+    """The bank kernels read x (esize bytes an element; S·M·K of them in an
+    _xs launch), w (f32, or int8 for the int8 rows), the ``rows`` distinct
+    f32 bank rows this run's indices need and, in a samples kernel, S int32
+    indices; they write S·M·N f32.
     Their 2·S·M·N·K operations are f32 for the float rows (the product of
     x and the bank's value is f32, which TF32 would round: the 67 TFLOP/s
     outside the tensor cores) and int8 for the int8 rows."""
     m, k, n = shape["M"], shape["K"], shape["N"]
-    samples = name.endswith("_samples")
+    samples = name.endswith(("_samples", "_xs"))
     s = shape["S"] if samples else 1
     int8 = "int8" in name
-    nbytes = (esize * m * k + (1 if int8 else 4) * k * n + 4 * k * rows
+    xs = s if name.endswith("_xs") else 1
+    nbytes = (esize * xs * m * k + (1 if int8 else 4) * k * n + 4 * k * rows
               + (4 * s if samples else 0) + 4 * s * m * n)
     t_bytes = nbytes / MEM_BYTES_PER_S
     t_ops = 2 * s * m * n * k / PEAK_FLOPS["int8" if int8 else "float32"]
@@ -440,8 +455,12 @@ def _check_bank(mm, shape: dict, label: str, gen, summary: dict) -> None:
     multiply by the value, the int8 ones keep where it exceeds 0.5), to
     KERNEL_RTOL of max|ref|; the int8 rows bit for bit; sample s of each
     samples kernel bit-equal to its single kernel at idxs[s]; the int8
-    readout (ones @ eye) exactly out_scale where the row keeps. At the head
-    shape, their times."""
+    head on an x (S, M, K) that carries the sample axis (one
+    ``bank_matmul_int8_xs`` launch, the indices as a tensor and as the host
+    list the model passes) bit-equal to the plain version and, sample s, to
+    the single launch on x[s] at idxs[s]; the int8 readout (ones @ eye)
+    exactly out_scale where the row keeps. At the head shape, their
+    times."""
     import torch
     from bayestpu_torch.kernels.mask_bank import generation_wrapper
     m, k, n, s = shape["M"], shape["K"], shape["N"], shape["S"]
@@ -480,19 +499,33 @@ def _check_bank(mm, shape: dict, label: str, gen, summary: dict) -> None:
                        dtype=torch.int8).cuda()
     wq = torch.randint(-128, 128, (k, n), generator=gen,
                        dtype=torch.int8).cuda()
+    xq3 = torch.randint(-128, 128, (s, m, k), generator=gen,
+                        dtype=torch.int8).cuda()
     int8_equal = True
     for b in (bank, odd):
         ys = mm.bank_matmul_int8_samples(xq, wq, b, idxs, xs_, ws_)
         singles = [mm.bank_matmul_int8(xq, wq, b, i, xs_, ws_)
                    for i in idx_list]
+        yx = mm.bank_matmul_int8_inference(xq3, wq, b, idxs, xs_, ws_)
+        yl = mm.bank_matmul_int8_inference(xq3, wq, b, idx_list, xs_, ws_)
+        singles_x = [mm.bank_matmul_int8(xq3[i], wq, b, idx_list[i], xs_, ws_)
+                     for i in range(s)]
         torch.cuda.synchronize()
         rs = mm.bank_matmul_int8_samples_plain(xq, wq, b, idxs, xs_, ws_)
-        for name, got in (("bank_matmul_int8_samples", ys),
-                          ("bank_matmul_int8", torch.stack(singles))):
+        rx = torch.stack([mm.bank_matmul_int8_plain(
+            xq3[i], wq, b, idx_list[i], xs_, ws_) for i in range(s)])
+        for name, got, want in (
+                ("bank_matmul_int8_samples", ys, rs),
+                ("bank_matmul_int8", torch.stack(singles), rs),
+                ("bank_matmul_int8_xs", yx, rx),
+                ("bank_matmul_int8_xs", yl, rx)):
             summary[name]["max_abs_err"] = max(
-                summary[name]["max_abs_err"], (got - rs).abs().max().item())
-            int8_equal &= torch.equal(got, rs)
+                summary[name]["max_abs_err"],
+                (got - want).abs().max().item())
+            int8_equal &= torch.equal(got, want)
         same_per_sample &= all(torch.equal(ys[i], singles[i])
+                               for i in range(s))
+        same_per_sample &= all(torch.equal(yx[i], singles_x[i])
                                for i in range(s))
     ones = torch.ones(m, k, dtype=torch.int8, device="cuda")
     eye = torch.eye(k, dtype=torch.int8, device="cuda")
@@ -508,18 +541,20 @@ def _check_bank(mm, shape: dict, label: str, gen, summary: dict) -> None:
                  "int8_readout_exact": exact,
                  "out_scale": mm.bank_out_scale(xs_, ws_)})
     if label == "head":
-        _time_bank(mm, shape, idxs, bank, xq, wq, gen, line, summary)
+        _time_bank(mm, shape, idxs, bank, xq, wq, xq3, gen, line, summary)
     emit(line)
 
 
-def _time_bank(mm, shape, idxs, bank, xq, wq, gen, line, summary) -> None:
+def _time_bank(mm, shape, idxs, bank, xq, wq, xq3, gen, line, summary
+               ) -> None:
     """Times of the bank kernels at the Masksembles head shape: bf16 x (the
     main path's dtype) for the float rows, int8 for the int8 rows. ``ms``
     counts every kernel the wrapper launches, as for rows 1-5; that is the
     bank kernel alone, which takes the index remainder itself. The library
     call is one PyTorch product on a pre-masked x that the port never
     calls: ``torch.matmul`` of the (S, M, K) masked f32 x, or
-    ``torch._int_mm`` with N padded to 16."""
+    ``torch._int_mm`` with N padded to 16 (for the _xs launch, of the
+    masked x3 that carries S samples)."""
     import torch
     m, k, n, s = shape["M"], shape["K"], shape["N"], shape["S"]
     xs_ = ws_ = 2.0 ** -7
@@ -529,6 +564,9 @@ def _time_bank(mm, shape, idxs, bank, xq, wq, gen, line, summary) -> None:
     xm = x.float()[None] * rows[:, None, :]
     xm8 = torch.where(rows[:, None, :] > 0.5, xq[None],
                       torch.zeros((), dtype=torch.int8, device="cuda"))
+    xm83 = torch.where(rows[:, None, :] > 0.5, xq3,
+                       torch.zeros((), dtype=torch.int8, device="cuda"))
+    idx_list = idxs.tolist()
     wpad = torch.nn.functional.pad(wq, (0, (-n) % 8)).t().contiguous().t()
     timings = {
         "bank_matmul": (
@@ -549,6 +587,13 @@ def _time_bank(mm, shape, idxs, bank, xq, wq, gen, line, summary) -> None:
             lambda: mm.bank_matmul_int8_samples_plain(xq, wq, bank, idxs,
                                                       xs_, ws_),
             lambda: torch._int_mm(xm8.reshape(s * m, k), wpad), torch.int8,
+            s),
+        "bank_matmul_int8_xs": (
+            lambda: mm.bank_matmul_int8_inference(xq3, wq, bank, idxs, xs_,
+                                                  ws_),
+            lambda: torch.stack([mm.bank_matmul_int8_plain(
+                xq3[i], wq, bank, idx_list[i], xs_, ws_) for i in range(s)]),
+            lambda: torch._int_mm(xm83.reshape(s * m, k), wpad), torch.int8,
             s),
     }
     for name, (kern, plain, lib, dtype, nrows) in timings.items():
@@ -595,15 +640,40 @@ def phase_kernels() -> dict:
             check(same, f"samples vs single bit identity {label} {dtype}")
             line["samples_equal_single_bitwise"] = same
             line["negative_seed_sample0"] = seeds[0].tolist()
+            # x carrying the sample axis: one _xs launch, sample s of x3
+            # under seeds[s] (on its own coordinates) equal to the plain
+            # version and, bit for bit, to the single launch on x3[s]
+            x3 = torch.randn(shape["S"], shape["M"], shape["K"],
+                             generator=gen).to(dtype).cuda()
+            yx = mm.dropout_matmul_inference(x3, w, seeds, RATE)
+            torch.cuda.synchronize()
+            rx = torch.stack([mm.dropout_matmul_plain(x3[s], w, seeds[s],
+                                                      RATE)
+                              for s in range(shape["S"])])
+            err = (yx - rx).abs().max().item()
+            tol = KERNEL_RTOL * max(1.0, rx.abs().max().item())
+            check(err <= tol, f"dropout_matmul_xs {label} {dtype}: {err} > "
+                  f"{tol}")
+            summary["dropout_matmul_xs"]["max_abs_err"] = max(
+                summary["dropout_matmul_xs"]["max_abs_err"], err)
+            line["dropout_matmul_xs_max_abs_err"] = err
+            same_xs = all(torch.equal(yx[s], mm.dropout_matmul(
+                x3[s], w, seeds[s].contiguous(), RATE))
+                for s in range(shape["S"]))
+            check(same_xs, f"_xs vs single bit identity {label} {dtype}")
+            line["xs_equal_single_bitwise"] = same_xs
             # exact mask readout: ones @ eye(K) gives 0 or the dtype's 1/keep
             ones = torch.ones(shape["M"], shape["K"], dtype=dtype,
                               device="cuda")
             eye = torch.eye(shape["K"], dtype=dtype, device="cuda")
             a1 = mm.dropout_matmul(ones, eye, seeds[0], RATE)
             as_ = mm.dropout_matmul_samples(ones, eye, seeds, RATE)
+            ax = mm.dropout_matmul_inference(
+                ones.expand(shape["S"], -1, -1).contiguous(), eye, seeds, RATE)
             exact = (torch.equal(a1, mm.dropout_matmul_plain(
                 ones, eye, seeds[0], RATE)) and torch.equal(
-                as_, mm.dropout_matmul_samples_plain(ones, eye, seeds, RATE)))
+                as_, mm.dropout_matmul_samples_plain(ones, eye, seeds, RATE))
+                and torch.equal(ax, as_))
             vals = sorted(set(as_.unique().tolist()))
             check(exact and vals == [0.0, mm.scale_of(RATE, dtype)],
                   f"mask readout {label} {dtype}: exact={exact} values={vals}")
@@ -611,7 +681,8 @@ def phase_kernels() -> dict:
             line["readout_keep_fraction"] = (as_ != 0).float().mean().item()
             _check_apply(mm, x, seeds, ones, a1, dtype, label, line, summary)
             if label == "head":
-                _time_kernels(mm, x, w, seeds, shape, dtype, line, summary)
+                _time_kernels(mm, x, x3, w, seeds, shape, dtype, line,
+                              summary)
             emit(line)
     for label, shape in (("head", HEAD), ("ragged", RAGGED)):
         _check_int8(mm, shape, label, gen, summary)
@@ -725,9 +796,10 @@ def _check_apply(mm, x, seeds, ones, fwd_readout, dtype, label, line,
         summary["dropout_apply"]["max_abs_err"], err)
 
 
-def _time_kernels(mm, x, w, seeds, shape, dtype, line, summary) -> None:
+def _time_kernels(mm, x, x3, w, seeds, shape, dtype, line, summary
+                  ) -> None:
     """Times at the head shape; the bf16 ones (the main path's dtype) go
-    into the summary."""
+    into the summary. x3 carries the sample axis (the _xs launch)."""
     import torch
     s0 = seeds[0].contiguous()
     keep = mm.keep_mask(s0, shape["M"], shape["K"], RATE)
@@ -735,6 +807,10 @@ def _time_kernels(mm, x, w, seeds, shape, dtype, line, summary) -> None:
     xm1 = torch.where(keep, x * scale, torch.zeros((), dtype=dtype,
                                                    device="cuda"))
     xms = torch.stack([xm1] * shape["S"])
+    xm3 = torch.stack([torch.where(
+        mm.keep_mask(seeds[s], shape["M"], shape["K"], RATE), x3[s] * scale,
+        torch.zeros((), dtype=dtype, device="cuda"))
+        for s in range(shape["S"])])
     # the yardstick of dropout_apply: one elementwise product with a
     # pre-made f32 mask (bf16 x promotes to f32 inside the one kernel)
     mask_scaled = keep.float() * mm.apply_scale(RATE)
@@ -747,6 +823,11 @@ def _time_kernels(mm, x, w, seeds, shape, dtype, line, summary) -> None:
             lambda: mm.dropout_matmul_samples(x, w, seeds, RATE),
             lambda: mm.dropout_matmul_samples_plain(x, w, seeds, RATE),
             lambda: torch.matmul(xms, w)),
+        "dropout_matmul_xs": (
+            lambda: mm.dropout_matmul_inference(x3, w, seeds, RATE),
+            lambda: torch.stack([mm.dropout_matmul_plain(
+                x3[s], w, seeds[s], RATE) for s in range(shape["S"])]),
+            lambda: torch.matmul(xm3, w)),
         "dropout_apply": (
             lambda: mm.dropout_apply(x, s0, RATE),
             lambda: mm.dropout_apply_plain(x, s0, RATE),
@@ -2222,9 +2303,9 @@ def phase_block(tr: dict) -> dict:
     (a) MC, rate 0.25, S = 10, seeded weights: per spatial predict one
         ``dropout_conv_samples`` launch (block 1's site, where x is shared),
         3 ``dropout_conv_xs`` (blocks 2-4: the activations carry the sample
-        axis, one launch for all S) and 10 ``dropout_matmul``; per temporal
-        predict 40 ``dropout_conv`` and 10; spatial against temporal; card
-        against CPU.
+        axis, one launch for all S) and 1 ``dropout_matmul_xs`` (the head,
+        likewise); per temporal predict 40 ``dropout_conv`` and 10
+        ``dropout_matmul``; spatial against temporal; card against CPU.
     (b) MC training: the train phase's vgg11_me weights (vgg11 shares every
         name but ``exit*``) fine-tuned BLOCK_EPOCHS epochs; a step launches
         4 ``dropout_conv``, 1 ``dropout_matmul`` and 10 ``dropout_apply``;
@@ -2238,10 +2319,12 @@ def phase_block(tr: dict) -> dict:
     (d) The int8 models on (b)'s and (c)'s weights under INT8_Q, no QAT:
         block 1's site runs the float kernel with an int8 store (64 input
         channels at 16x16 are not int8-executed), blocks 2-4 and the head
-        the int8 kernels (3 ``dropout_conv_int8_xs`` a spatial predict);
-        with ``int8_conv_min_ch=32`` block 1's site int8-executes too,
-        through the int8 samples kernels. Card against CPU within a few
-        grid steps; acc and ECE."""
+        the int8 kernels (3 ``dropout_conv_int8_xs`` and 10
+        ``dropout_matmul_int8`` a spatial MC predict; 12 ``bank_conv_int8``
+        and 1 ``bank_matmul_int8_xs`` a Masksembles one); with
+        ``int8_conv_min_ch=32`` block 1's site int8-executes too, through
+        the int8 samples kernels. Card against CPU within a few grid steps;
+        acc and ECE."""
     import numpy as np
     import torch
     from bayestpu_torch.core.config import (BayesConfig, DropoutKind,
@@ -2282,7 +2365,7 @@ def phase_block(tr: dict) -> dict:
     check(model_fn(cfg_mc)().num_sites == 5 and
           model_fn(cfg_mask)().num_sites == 0, "block-site vgg11 sites")
     mc_sp = dict(dropout_conv_samples=1, dropout_conv_xs=3,
-                 dropout_matmul=s_mc)
+                 dropout_matmul_xs=1)
     mc_tm = dict(dropout_conv=4 * s_mc, dropout_matmul=s_mc)
     mask_sp = dict(bank_conv_samples=1, bank_conv=3 * s_mask,
                    bank_matmul=s_mask)
@@ -2354,7 +2437,7 @@ def phase_block(tr: dict) -> dict:
                   dropout_matmul_int8=s_mc), 1.0 / (1.0 - RATE)),
             ("mask_int8", cfg_mask, v_mask, int8_q, s_mask,
              dict(bank_conv_samples=1, bank_conv_int8=3 * s_mask,
-                  bank_matmul_int8=s_mask),
+                  bank_matmul_int8_xs=1),
              dict(bank_conv=s_mask, bank_conv_int8=3 * s_mask,
                   bank_matmul_int8=s_mask), 1.0),
             ("mc_int8_min_ch32", cfg_mc, v_mc, int8_q32, s_mc,
@@ -2364,7 +2447,7 @@ def phase_block(tr: dict) -> dict:
              1.0 / (1.0 - RATE)),
             ("mask_int8_min_ch32", cfg_mask, v_mask, int8_q32, s_mask,
              dict(bank_conv_int8_samples=1, bank_conv_int8=3 * s_mask,
-                  bank_matmul_int8=s_mask),
+                  bank_matmul_int8_xs=1),
              dict(bank_conv_int8=4 * s_mask, bank_matmul_int8=s_mask), 1.0)):
         t0 = time.perf_counter()
         d = _block_serve(name, model_fn(cfg, quant), variables, want_sp,

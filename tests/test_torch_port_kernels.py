@@ -192,13 +192,15 @@ def test_cpu_calls_launch_nothing():
                                       0.5, 1.0, 1.0)
     assert tmm.launch_counts == {"dropout_matmul": 0,
                                  "dropout_matmul_samples": 0,
+                                 "dropout_matmul_xs": 0,
                                  "dropout_apply": 0,
                                  "dropout_matmul_int8": 0,
                                  "dropout_matmul_int8_samples": 0,
                                  "bank_matmul": 0,
                                  "bank_matmul_samples": 0,
                                  "bank_matmul_int8": 0,
-                                 "bank_matmul_int8_samples": 0}
+                                 "bank_matmul_int8_samples": 0,
+                                 "bank_matmul_int8_xs": 0}
 
 
 # ---------------------------------------------------------------- guards
