@@ -3,7 +3,7 @@
 // Replaces nine Pallas TPU kernels of bayestpu/kernels/masked_matmul.py:
 //   dropout_matmul_kernel<float|bf16>  <- _dropout_matmul_kernel (:113-132),
 //                                         called by dropout_matmul (:211-249)
-//   dropout_matmul_samples_kernel<float|bf16>
+//   chain_samples_kernel<HashChain<float|bf16>>
 //                                      <- _dropout_matmul_samples_kernel
 //                                         (:286-311), dropout_matmul_samples;
 //                                         with x carrying the sample axis,
@@ -15,24 +15,32 @@
 //   dropout_matmul_kernel<int8_t>      <- _dropout_matmul_int8_kernel
 //                                         (:444-465), dropout_matmul_int8
 //                                         (:468-516)
-//   int8_samples_mma_kernel<HashStage> <- _dropout_matmul_int8_samples_kernel
+//   int8_samples_mma_kernel<HashStage, 1>
+//                                      <- _dropout_matmul_int8_samples_kernel
 //                                         (:519-546),
-//                                         dropout_matmul_int8_samples (:549)
-//   int8_samples_mma_kernel<BankStage> <- _bank_matmul_int8_samples_kernel
+//                                         dropout_matmul_int8_samples (:549);
+//                                         with x carrying the sample axis,
+//                                         the lax.map fallback of
+//                                         dropout_matmul_int8_inference
+//                                         (:618-622)
+//   int8_samples_mma_kernel<BankStage, 1>
+//                                      <- _bank_matmul_int8_samples_kernel
 //                                         (:640-666),
 //                                         bank_matmul_int8_samples (:669);
 //                                         with x carrying the sample axis,
 //                                         the lax.map fallback of
 //                                         bank_matmul_int8_inference
 //                                         (:742-747)
-//   bank_matmul_kernel<int8_t, int8_t> <- _bank_matmul_int8_kernel
+//   int8_samples_mma_kernel<BankStage, I8_SPLIT>
+//                                      <- _bank_matmul_int8_kernel
 //                                         (:763-785), bank_matmul_int8 (:788)
-//   bank_matmul_samples_kernel<float|bf16, float>
+//   chain_samples_kernel<BankChain<float|bf16>>
 //                                      <- _bank_matmul_samples_kernel
 //                                         (:863-885), bank_matmul_samples
-//                                         (:888)
-//   bank_matmul_kernel<float|bf16, float>
-//                                      <- _bank_matmul_kernel (:843-860),
+//                                         (:888); with x carrying the sample
+//                                         axis, the lax.map fallback of
+//                                         bank_matmul_inference (:957-960)
+//   bank_matmul_kernel<float|bf16>     <- _bank_matmul_kernel (:843-860),
 //                                         bank_matmul (:976)
 // The MC-dropout float kernels compute out[s] = (x * keep_s(row, col) *
 // scale) @ w in f32, where keep_s is the counter hash of prng.cuh on the
@@ -60,25 +68,27 @@
 // f32 outside the tensor cores (its products are f32, which TF32 would
 // round): operations bound; its int8 twin moves 97 KiB (0.030 us) for 0.003
 // us of int8 operations, bytes bound. Every one is well under a launch, so
-// the launch itself and the serial K loop of a few blocks set the pace.
-// The single kernels and the float bank samples kernel run one simple tile
-// routine: one block per (16-row, 16-col) output tile loops over K in
-// 32-deep tiles; each x tile is staged in shared memory ONCE and masked
-// from there for every sample the block owns (up to 16, one accumulator
-// each in registers). The mask is a policy of the tile routine: the
-// counter hash, or a bank row staged per k tile in shared memory. Ragged
-// M, N and K edges are masked in the kernel, not padded in memory. The
-// MC float samples head (row 3) and the int8 samples heads (rows 5 and 6)
-// have kernels of their own, one block per sample (below, before the entry
-// points): row 3 keeps row 2's summation chain on the CUDA cores, rows 5
-// and 6 run on the s8 tensor cores. Sample s of every samples kernel is
-// bit-identical to its single kernel with seeds[s] or idxs[s]: row 3
-// because it runs row 2's chain, the int8 ones because int32 sums are
-// exact in any order.
+// the launch itself, the number of blocks in flight and the serial chains
+// inside them set the pace.
+// The single float kernels (rows 2 and 9) and the int8 MC single kernel
+// (row 4) run one simple tile routine: one block per (16-row, 16-col)
+// output tile loops over K in 32-deep tiles; each x tile is staged in
+// shared memory and masked from there, and each output is ONE f32 (or
+// int32) chain over k ascending. The mask is a policy of the tile routine:
+// the counter hash, or a bank row staged per k tile in shared memory.
+// Ragged M, N and K edges are masked in the kernel, not padded in memory.
+// The float samples heads (rows 3 and 8) and the int8 heads on the tensor
+// cores (rows 5-7) have kernels of their own (below, before the entry
+// points): rows 3 and 8 keep the chain of rows 2 and 9 on the CUDA cores,
+// one block per sample; rows 5-7 run on the s8 tensor cores. Sample s of
+// every samples kernel is bit-identical to its single kernel with seeds[s]
+// or idxs[s]: rows 3 and 8 because they run the single kernels' chain, the
+// int8 ones because int32 sums are exact in any order.
 #include <cstddef>
 #include <cstdint>
 #include <type_traits>
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -86,11 +96,12 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int BM = 16;                  // rows of x and out per block
 constexpr int BN = 16;                  // columns of w and out per block
 constexpr int BK = 32;                  // depth of one staged k tile
 constexpr int THREADS = BM * BN;        // one output element per thread
-constexpr int SAMPLES_PER_BLOCK = 16;   // samples kernel: grid.z splits S
 constexpr int APPLY_THREADS = 256;      // dropout_apply: threads per block
 constexpr int APPLY_MAX_BLOCKS = 132 * 16;  // grid-stride beyond this
 
@@ -152,119 +163,96 @@ struct Elem<int8_t> {
   }
 };
 
-// Mask policies of the tile routine. A policy masks one staged x value
-// for one sample: `begin` loads what a block needs once (its samples' seed
-// streams or bank row indices), `stage` what one k tile needs, and `apply`
-// masks. Each keeps its own shared memory (`Smem`). The tile routine and
-// its summation order are the same for every policy.
+// Mask policies of the tile routine. A policy masks one staged x value:
+// `begin` loads what a block needs once (its seed stream or bank row
+// index), `stage` what one k tile needs, and `apply` masks. Each keeps its
+// own shared memory (`Smem`). The tile routine and its summation order are
+// the same for every policy.
 
 // MC dropout: the counter hash of prng.cuh on the GLOBAL coordinates of x;
-// keep iff coord_bits(row, col, stream_s) < thresh, the kept value
-// Elem::scaled by the dropout scale (the int8 kernels do not scale).
-template <typename T, int NS>
+// keep iff coord_bits(row, col, stream) < thresh, the kept value
+// Elem::scaled by the dropout scale (the int8 kernel does not scale).
+template <typename T>
 struct HashMask {
   using V = typename Elem<T>::V;
-  const int32_t* seeds;  // (S, 2)
+  const int32_t* seeds;  // (2,)
   uint32_t thresh;
   float scale;
   struct Smem {
-    uint32_t stream[NS];
+    uint32_t stream;
   };
-  __device__ __forceinline__ void begin(Smem& sm, int s0, int ns,
-                                        int tid) const {
-    if (tid < ns) {
-      sm.stream[tid] = bayestpu::seed_stream(seeds[2 * (s0 + tid)],
-                                             seeds[2 * (s0 + tid) + 1]);
-    }
+  __device__ __forceinline__ void begin(Smem& sm, int tid) const {
+    if (tid == 0) sm.stream = bayestpu::seed_stream(seeds[0], seeds[1]);
   }
-  __device__ __forceinline__ void stage(Smem&, int, int, int) const {}
-  __device__ __forceinline__ V apply(const Smem& sm, int s, int gr, int gc,
-                                     int, V v) const {
+  __device__ __forceinline__ void stage(Smem&, int, int) const {}
+  __device__ __forceinline__ V apply(const Smem& sm, int gr, int gc, int,
+                                     V v) const {
     const uint32_t bits = bayestpu::coord_bits(
-        static_cast<uint32_t>(gr), static_cast<uint32_t>(gc), sm.stream[s]);
+        static_cast<uint32_t>(gr), static_cast<uint32_t>(gc), sm.stream);
     return bits < thresh ? Elem<T>::scaled(v, scale) : V(0);
   }
 };
 
-// Masksembles: sample s multiplies x by row idxs[s] of the f32 bank (n, K).
-// The float kernels multiply by the bank's VALUE (x * row, rounded once to
-// f32; a bf16 x widens exactly first); the int8 kernels binarize the row
-// as bank > 0.5 and keep or zero the int8 x. `begin` takes every index
-// modulo n with floor semantics (JAX's idx % n: -1 -> n - 1), so a row read
-// stays in bounds whatever the caller passed, at no extra launch. The rows
-// of a k tile are staged in shared memory once for the block's samples;
-// columns beyond K read as 0.
-template <typename T, int NS>
+// Masksembles, float: x times the VALUE of row idx of the f32 bank (n, K)
+// (x * row, rounded once to f32; a bf16 x widens exactly first). `begin`
+// takes the index modulo n with floor semantics (JAX's idx % n: -1 -> n -
+// 1), so a row read stays in bounds whatever the caller passed. The row's
+// values of a k tile are staged in shared memory; columns beyond K read as
+// 0.
+template <typename T>
 struct BankMask {
-  using V = typename Elem<T>::V;
+  static_assert(std::is_same<typename Elem<T>::V, float>::value,
+                "the bank tile routine is float");
   const float* bank;     // (n, K) f32
-  const int32_t* idxs;   // (S,) any int32; nullptr: every sample is idx0
-  int idx0;
+  int idx;
   int n;
   int K;
   struct Smem {
-    int idx[NS];
-    V row[NS][BK];
+    int idx;
+    float row[BK];
   };
-  __device__ __forceinline__ void begin(Smem& sm, int s0, int ns,
-                                        int tid) const {
-    if (tid < ns) {
-      const int r = (idxs != nullptr ? idxs[s0 + tid] : idx0) % n;
-      sm.idx[tid] = r < 0 ? r + n : r;
+  __device__ __forceinline__ void begin(Smem& sm, int tid) const {
+    if (tid == 0) {
+      const int r = idx % n;
+      sm.idx = r < 0 ? r + n : r;
     }
   }
-  __device__ __forceinline__ void stage(Smem& sm, int k0, int ns,
-                                        int tid) const {
-    for (int i = tid; i < ns * BK; i += THREADS) {
-      const int s = i / BK, c = i % BK, gc = k0 + c;
-      const float b =
-          gc < K ? bank[static_cast<size_t>(sm.idx[s]) * K + gc] : 0.f;
-      if constexpr (std::is_same<V, float>::value) {
-        sm.row[s][c] = b;
-      } else {
-        sm.row[s][c] = b > 0.5f ? V(1) : V(0);
-      }
+  __device__ __forceinline__ void stage(Smem& sm, int k0, int tid) const {
+    for (int c = tid; c < BK; c += THREADS) {
+      const int gc = k0 + c;
+      sm.row[c] = gc < K ? bank[static_cast<size_t>(sm.idx) * K + gc] : 0.f;
     }
   }
-  __device__ __forceinline__ V apply(const Smem& sm, int s, int, int, int c,
-                                     V v) const {
-    if constexpr (std::is_same<V, float>::value) {
-      return __fmul_rn(v, sm.row[s][c]);
-    } else {
-      return sm.row[s][c] != V(0) ? v : V(0);
-    }
+  __device__ __forceinline__ float apply(const Smem& sm, int, int, int c,
+                                         float v) const {
+    return __fmul_rn(v, sm.row[c]);
   }
 };
 
-// One (BM x BN) output tile for up to NS samples, samples
-// [blockIdx.z * NS, blockIdx.z * NS + ns), x of element type TX masked by
+// One (BM x BN) output tile of one sample, x of element type TX masked by
 // `mask`, w of type TW (the same staged type V), out f32:
-// Elem<TX>::out(acc, out_scale).
-template <typename TX, typename TW, int NS, typename Mask>
+// Elem<TX>::out(acc, out_scale), where acc is one chain over k ascending.
+template <typename TX, typename TW, typename Mask>
 __device__ __forceinline__ void masked_tile_matmul(
     const TX* __restrict__ x, const TW* __restrict__ w, const Mask& mask,
-    float* __restrict__ out, int M, int K, int N, int S, float out_scale) {
+    float* __restrict__ out, int M, int K, int N, float out_scale) {
   using V = typename Elem<TX>::V;
   static_assert(std::is_same<V, typename Elem<TW>::V>::value,
                 "x and w must stage as one type");
   __shared__ V xs[BM][BK];   // x tile as loaded
-  __shared__ V xm[BM][BK];   // x tile under one sample's mask
+  __shared__ V xm[BM][BK];   // x tile under the mask
   __shared__ V ws[BK][BN];
   __shared__ typename Mask::Smem msm;
 
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * BM;
   const int col0 = blockIdx.y * BN;
-  const int s0 = blockIdx.z * NS;
-  const int ns = min(NS, S - s0);
   const int tr = tid / BN;
   const int tc = tid % BN;
 
-  mask.begin(msm, s0, ns, tid);
+  mask.begin(msm, tid);
   __syncthreads();
-  V acc[NS];
-#pragma unroll
-  for (int s = 0; s < NS; ++s) acc[s] = V(0);
+  V acc = V(0);
 
   for (int k0 = 0; k0 < K; k0 += BK) {
     for (int i = tid; i < BM * BK; i += THREADS) {
@@ -281,36 +269,23 @@ __device__ __forceinline__ void masked_tile_matmul(
                      ? Elem<TW>::load(w + static_cast<size_t>(gr) * N + gc)
                      : V(0);
     }
-    mask.stage(msm, k0, ns, tid);
+    mask.stage(msm, k0, tid);
+    __syncthreads();
+    for (int i = tid; i < BM * BK; i += THREADS) {
+      const int r = i / BK, c = i % BK;
+      xm[r][c] = mask.apply(msm, row0 + r, k0 + c, c, xs[r][c]);
+    }
     __syncthreads();
 #pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      if (s < ns) {  // uniform over the block
-        for (int i = tid; i < BM * BK; i += THREADS) {
-          const int r = i / BK, c = i % BK;
-          xm[r][c] = mask.apply(msm, s, row0 + r, k0 + c, c, xs[r][c]);
-        }
-        __syncthreads();
-        V a = acc[s];
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk) {
-          a = Elem<TX>::madd(xm[tr][kk], ws[kk][tc], a);
-        }
-        acc[s] = a;
-        __syncthreads();
-      }
+    for (int kk = 0; kk < BK; ++kk) {
+      acc = Elem<TX>::madd(xm[tr][kk], ws[kk][tc], acc);
     }
+    __syncthreads();
   }
 
   const int r = row0 + tr, c = col0 + tc;
   if (r < M && c < N) {
-#pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      if (s < ns) {
-        out[(static_cast<size_t>(s0 + s) * M + r) * N + c] =
-            Elem<TX>::out(acc[s], out_scale);
-      }
-    }
+    out[static_cast<size_t>(r) * N + c] = Elem<TX>::out(acc, out_scale);
   }
 }
 
@@ -320,35 +295,21 @@ __global__ void __launch_bounds__(THREADS)
                           const int32_t* __restrict__ seeds,
                           float* __restrict__ out, int M, int K, int N,
                           uint32_t thresh, float scale) {
-  masked_tile_matmul<T, T, 1>(x, w, HashMask<T, 1>{seeds, thresh, scale},
-                              out, M, K, N, 1, scale);
+  masked_tile_matmul<T, T>(x, w, HashMask<T>{seeds, thresh, scale}, out, M,
+                           K, N, scale);
 }
 
-// Masksembles heads (rows 6-9 of the kernel table). One bank row per
-// sample; sample s of the samples kernel runs the tile routine exactly as
-// the single kernel does at idxs[s], so the two agree bit for bit.
-template <typename TX, typename TW>
+// The float Masksembles single head (row 9). Row 8's samples kernel
+// (chain_samples_kernel<BankChain>, below) runs this kernel's chain, so
+// sample s of it equals this kernel at idxs[s] bit for bit.
+template <typename TX>
 __global__ void __launch_bounds__(THREADS)
-    bank_matmul_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+    bank_matmul_kernel(const TX* __restrict__ x, const float* __restrict__ w,
                        const float* __restrict__ bank,
                        float* __restrict__ out, int M, int K, int N, int idx,
-                       int n, float out_scale) {
-  masked_tile_matmul<TX, TW, 1>(
-      x, w, BankMask<TX, 1>{bank, nullptr, idx, n, K}, out, M, K, N, 1,
-      out_scale);
-}
-
-template <typename TX, typename TW>
-__global__ void __launch_bounds__(THREADS)
-    bank_matmul_samples_kernel(const TX* __restrict__ x,
-                               const TW* __restrict__ w,
-                               const float* __restrict__ bank,
-                               const int32_t* __restrict__ idxs,
-                               float* __restrict__ out, int M, int K, int N,
-                               int S, int n, float out_scale) {
-  masked_tile_matmul<TX, TW, SAMPLES_PER_BLOCK>(
-      x, w, BankMask<TX, SAMPLES_PER_BLOCK>{bank, idxs, 0, n, K}, out, M, K,
-      N, S, out_scale);
+                       int n) {
+  masked_tile_matmul<TX, float>(x, w, BankMask<TX>{bank, idx, n, K}, out, M,
+                                K, N, 1.f);
 }
 
 // dropout(x) alone: out[r, c] = keep(r, c) ? f32(x[r, c]) * scale : 0, with
@@ -383,36 +344,37 @@ __global__ void __launch_bounds__(APPLY_THREADS)
 }
 
 
-// The MC samples head (row 3), f32 or bf16, and its launch on an x that
-// carries the sample axis (dropout_matmul_xs). Sample s must equal the
-// single kernel (row 2) with seeds[s] bit for bit, and row 2 sums each
-// output as ONE chain: acc = 0, then acc = fma(xm_k, w_k, acc) for k
-// ascending. So this kernel keeps that chain, one __fmaf_rn per k in order,
-// with no split over K and no tree sum; the tensor cores would sum in
-// another order, and TF32 would round an f32 x. What bounds it at the
-// vgg11_me head (x 128x512, w 512x10, S = 10) is latency, not the 6.5 M
-// multiply-adds: the chain of 512 dependent FMAs, and the loads, w
-// transposes and hashing in front of it. The design: a block owns 8 rows, 16 columns and ONE sample (grid
-// (ceil(M/8), ceil(N/16), S): 160 blocks at the head, where the shared
-// tile routine launched 8) and is warp-specialised, so that the staging
-// runs beside the chains and not before them. Its 4 consumer warps own one
-// output and its chain a thread. Its 4 producer warps stage a window of K
-// (1 KiB a row) in shared memory and hand it over in 4 chunks: at the
-// start they issue every load of the window (x rows by 16-byte cp.async
-// in x's own type; w into registers, each producer one column at every
-// 8th row, one pointer step a load), then per chunk they mask their x
-// piece in place once per element for the block's one sample (the counter
-// hash on the row and column within x, with seeds[s]), store their w
-// transposed to K-contiguous columns padded by 16 bytes, and signal the
-// chunk on a named barrier. The consumers run a chunk's FMAs as soon as
-// it is signalled, reading 4 (f32) or 8 (bf16) k of a row and of a column
-// per 16-byte load, conflict-free, and holding the next 4 loads in
-// registers while the current ones' FMAs run, so that neither the global
-// nor the shared-memory latency sits inside the chain. A longer K takes
-// further windows, each after a block barrier. With x_stride > 0, sample
-// s reads x + s * x_stride: exactly what S single launches on x[s]
-// compute. Ragged M, N and K are masked here; an x whose rows are not
-// 16-byte aligned is staged by plain loads instead of cp.async.
+
+// The float samples heads on the CUDA cores: the MC head (row 3) and the
+// Masksembles head (row 8), and their launches on an x that carries the
+// sample axis (dropout_matmul_xs, bank_matmul_xs). Sample s must equal the
+// single kernel (row 2 with seeds[s], row 9 with idxs[s]) bit for bit, and
+// the tile routine sums each output as ONE chain: acc = 0, then acc =
+// fma(xm_k, w_k, acc) for k ascending. So this kernel keeps that chain, one
+// __fmaf_rn per k in order, with no split over K and no tree sum; the
+// tensor cores would sum in another order, and TF32 would round an f32 x
+// (and row 8's f32 products). What bounds it at the vgg11_me heads (x
+// 128x512, w 512x10; S = 10 MC, S = 4 Masksembles) is latency, not the 6.5
+// M (2.6 M) multiply-adds: the chain of 512 dependent FMAs, and the loads,
+// w transposes and masking in front of it. The design: a block owns 8 rows,
+// 16 columns and ONE sample (grid (ceil(M/8), ceil(N/16), S): 160 blocks at
+// the MC head and 64 at the Masksembles head, where the shared tile routine
+// launched 8) and is warp-specialised, so that the staging runs beside the
+// chains and not before them. Its 4 consumer warps own one output and its
+// chain a thread. Its 4 producer warps stage a window of K (1 KiB a row) in
+// shared memory and hand it over in 4 chunks: at the start they issue every
+// load of the window (x by the staging policy, below; w into registers,
+// each producer one column at every 8th row, one pointer step a load), then
+// per chunk they complete their x piece, masked, once per element for the
+// block's one sample, store their w transposed to K-contiguous columns
+// padded by 16 bytes, and signal the chunk on a named barrier. The
+// consumers run a chunk's FMAs as soon as it is signalled, reading 4 (f32)
+// or 8 (bf16) k of a row and of a column per 16-byte load, conflict-free,
+// and holding the next 4 loads in registers while the current ones' FMAs
+// run, so that neither the global nor the shared-memory latency sits
+// inside the chain. A longer K takes further windows, each after a block
+// barrier. With x_stride > 0, sample s reads x + s * x_stride: exactly what
+// S single launches on x[s] compute. Ragged M, N and K are masked here.
 constexpr int CH_BM = 8;                        // rows of x and out a block
 constexpr int CH_BN = 16;                       // columns of w and out
 constexpr int CH_CONSUMERS = CH_BM * CH_BN;     // one output, one chain each
@@ -564,13 +526,136 @@ __device__ __forceinline__ float chain_chunk(const T* xr, const T* wc, int kn,
   return acc;
 }
 
-template <typename T>
+// Staging policies of chain_samples_kernel. TX is x's type as given; T the
+// type x is staged in, w is read in and the chain's terms widen from (the
+// Chain<T> geometry). `begin(s, xb, K)` takes the block's sample and its x;
+// `issue(r, c, dst, xb, gr, gc, M, K)` starts loading the producer's x
+// piece of chunk c, Chain<T>::VEC values of row gr from column gc, into
+// shared memory at dst or into registers r; `finish(r, c, dst, gr, gc)`
+// leaves it at dst, masked, before the chunk is signalled; `drain` ends the
+// window.
+
+// MC dropout (row 3): x staged in its own type by 16-byte cp.async (plain
+// loads where its rows are not 16-byte aligned), then masked in place:
+// keep iff coord_bits(gr, gc + j, stream_s) < thresh, the kept value row
+// 2's x * scale in x's type.
+template <typename TT>
+struct HashChain {
+  using TX = TT;
+  using T = TT;
+  static constexpr int VEC = Chain<T>::VEC;
+  const int32_t* seeds;  // (S, 2)
+  uint32_t thresh;
+  float scale;
+  uint32_t stream;
+  bool vec;
+  struct Regs {};
+  __device__ __forceinline__ void begin(int s, const TX* xb, int K) {
+    stream = bayestpu::seed_stream(seeds[2 * s], seeds[2 * s + 1]);
+    vec = (static_cast<size_t>(K) * sizeof(T)) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(xb) % 16 == 0;
+  }
+  __device__ __forceinline__ void issue(Regs&, int, T* dst, const TX* xb,
+                                        int gr, int gc, int M, int K) const {
+    if (vec) {
+      const bool ok = gr < M && gc < K;
+      cp_async16(dst, ok ? xb + static_cast<size_t>(gr) * K + gc : xb, ok);
+    } else {
+      alignas(16) T e[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j)
+        e[j] = gr < M && gc + j < K ? xb[static_cast<size_t>(gr) * K + gc + j]
+                                    : zero_of<T>();
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<uint4*>(e);
+    }
+    cp_async_commit();
+  }
+  __device__ __forceinline__ void finish(Regs&, int c, T* piece, int gr,
+                                         uint32_t gc) const {
+    cp_async_wait(CH_CHUNKS - 1 - c);   // this thread's piece landed
+    alignas(16) T e[VEC];
+    *reinterpret_cast<uint4*>(e) = *reinterpret_cast<const uint4*>(piece);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+      e[j] = masked(e[j],
+                    bayestpu::coord_bits(static_cast<uint32_t>(gr), gc + j,
+                                         stream) < thresh,
+                    scale);
+    *reinterpret_cast<uint4*>(piece) = *reinterpret_cast<uint4*>(e);
+  }
+  __device__ __forceinline__ void drain() const {
+    cp_async_wait(0);   // the zero fills of chunks past K, too
+  }
+};
+
+// Masksembles (row 8): row r = idxs[s] mod n of the f32 bank (n, K),
+// floored as BankMask::begin takes it. x is loaded in its own type into
+// registers (4 values, 16 bytes of f32 or 8 of bf16, a load) beside the
+// row's 4 values, then widened and staged as __fmul_rn(f32(x), row[k]):
+// row 9's masked value, in f32 (Chain<float>); w is read as f32. Columns
+// beyond K read as 0 in both.
+template <typename TT>
+struct BankChain {
+  using TX = TT;
+  using T = float;
+  static constexpr int VEC = Chain<float>::VEC;
+  // VEC values of x in one load
+  using XV = typename std::conditional<sizeof(TX) == 4, uint4, uint2>::type;
+  const float* bank;     // (n, K) f32
+  const int32_t* idxs;   // (S,)
+  int n;
+  const float* row;
+  bool vec;   // K a multiple of VEC, x and the bank aligned: vector loads
+  struct Regs {
+    XV x[CH_CHUNKS];
+    float4 b[CH_CHUNKS];
+  };
+  __device__ __forceinline__ void begin(int s, const TX* xb, int K) {
+    const int r = idxs[s] % n;
+    row = bank + static_cast<size_t>(r < 0 ? r + n : r) * K;
+    vec = K % VEC == 0 && reinterpret_cast<uintptr_t>(xb) % sizeof(XV) == 0 &&
+          reinterpret_cast<uintptr_t>(bank) % 16 == 0;
+  }
+  __device__ __forceinline__ void issue(Regs& r, int c, float*, const TX* xb,
+                                        int gr, int gc, int M, int K) const {
+    if (vec && gc < K) {   // the whole piece lies inside the row
+      r.x[c] = gr < M ? __ldg(reinterpret_cast<const XV*>(
+                            xb + static_cast<size_t>(gr) * K + gc))
+                      : XV{};
+      r.b[c] = __ldg(reinterpret_cast<const float4*>(row + gc));
+    } else {
+      alignas(16) TX e[VEC];
+      alignas(16) float b[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        e[j] = gr < M && gc + j < K ? xb[static_cast<size_t>(gr) * K + gc + j]
+                                    : zero_of<TX>();
+        b[j] = gc + j < K ? __ldg(row + gc + j) : 0.f;
+      }
+      r.x[c] = *reinterpret_cast<const XV*>(e);
+      r.b[c] = *reinterpret_cast<const float4*>(b);
+    }
+  }
+  __device__ __forceinline__ void finish(Regs& r, int c, float* piece, int,
+                                         uint32_t) const {
+    alignas(16) TX e[VEC];
+    *reinterpret_cast<XV*>(e) = r.x[c];
+    const float b[VEC] = {r.b[c].x, r.b[c].y, r.b[c].z, r.b[c].w};
+    alignas(16) float v[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) v[j] = __fmul_rn(widen(e[j]), b[j]);
+    *reinterpret_cast<uint4*>(piece) = *reinterpret_cast<const uint4*>(v);
+  }
+  __device__ __forceinline__ void drain() const {}
+};
+
+template <typename Stage>
 __global__ void __launch_bounds__(CH_THREADS)
-    dropout_matmul_samples_kernel(const T* __restrict__ x,
-                                  const T* __restrict__ w,
-                                  const int32_t* __restrict__ seeds,
-                                  float* __restrict__ out, int M, int K, int N,
-                                  int x_stride, uint32_t thresh, float scale) {
+    chain_samples_kernel(const typename Stage::TX* __restrict__ x,
+                         const typename Stage::T* __restrict__ w,
+                         Stage stage, float* __restrict__ out, int M, int K,
+                         int N, int x_stride) {
+  using T = typename Stage::T;
   using C = Chain<T>;
   __shared__ __align__(16) T xs[CH_BM][C::KW];
   __shared__ __align__(16) T wt[CH_BN][C::PITCH];
@@ -600,11 +685,8 @@ __global__ void __launch_bounds__(CH_THREADS)
   }
 
   const int p = tid - CH_CONSUMERS;
-  const T* xb = x + static_cast<size_t>(s) * x_stride;
-  const uint32_t stream =
-      bayestpu::seed_stream(seeds[2 * s], seeds[2 * s + 1]);
-  const bool vec = (static_cast<size_t>(K) * sizeof(T)) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(xb) % 16 == 0;
+  const auto* xb = x + static_cast<size_t>(s) * x_stride;
+  stage.begin(s, xb, K);
   const T zero = zero_of<T>();
   // this producer's x piece of every chunk: row pr, columns pc .. pc + VEC
   const int pr = p / C::ROW_PIECES, pc = (p % C::ROW_PIECES) * C::VEC;
@@ -616,25 +698,12 @@ __global__ void __launch_bounds__(CH_THREADS)
   const bool w_col = col0 + wn < N;
   const size_t w_step = static_cast<size_t>(W_ROWS) * N;
   for (int k0 = 0; k0 < K; k0 += C::KW) {
+    typename Stage::Regs xr;
     T wr[CH_CHUNKS][C::W_PER_CHUNK];
 #pragma unroll
-    for (int c = 0; c < CH_CHUNKS; ++c) {
-      const int gc = k0 + c * C::KCH + pc;
-      T* dst = &xs[pr][c * C::KCH + pc];
-      if (vec) {
-        const bool ok = gr < M && gc < K;
-        cp_async16(dst, ok ? xb + static_cast<size_t>(gr) * K + gc : xb, ok);
-      } else {
-        alignas(16) T e[C::VEC];
-#pragma unroll
-        for (int j = 0; j < C::VEC; ++j)
-          e[j] = gr < M && gc + j < K
-                     ? xb[static_cast<size_t>(gr) * K + gc + j]
-                     : zero;
-        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<uint4*>(e);
-      }
-      cp_async_commit();
-    }
+    for (int c = 0; c < CH_CHUNKS; ++c)
+      stage.issue(xr, c, &xs[pr][c * C::KCH + pc], xb, gr,
+                  k0 + c * C::KCH + pc, M, K);
     const T* wq = w + static_cast<size_t>(k0 + wk) * N + col0 + wn;
     const int w_rows = K - (k0 + wk);   // rows of w left below this one
 #pragma unroll
@@ -648,50 +717,49 @@ __global__ void __launch_bounds__(CH_THREADS)
 #pragma unroll
     for (int c = 0; c < CH_CHUNKS; ++c) {
       if (k0 + c * C::KCH < K) {
-        cp_async_wait(CH_CHUNKS - 1 - c);   // this thread's piece landed
-        const uint32_t gc = k0 + c * C::KCH + pc;
-        T* piece = &xs[pr][c * C::KCH + pc];
-        alignas(16) T e[C::VEC];
-        *reinterpret_cast<uint4*>(e) = *reinterpret_cast<const uint4*>(piece);
-#pragma unroll
-        for (int j = 0; j < C::VEC; ++j)
-          e[j] = masked(e[j],
-                        bayestpu::coord_bits(static_cast<uint32_t>(gr),
-                                             gc + j, stream) < thresh,
-                        scale);
-        *reinterpret_cast<uint4*>(piece) = *reinterpret_cast<uint4*>(e);
+        stage.finish(xr, c, &xs[pr][c * C::KCH + pc], gr,
+                     k0 + c * C::KCH + pc);
 #pragma unroll
         for (int j = 0; j < C::W_PER_CHUNK; ++j)
           wt[wn][c * C::KCH + wk + j * W_ROWS] = wr[c][j];
         bar_arrive(1 + c, CH_THREADS);
       }
     }
-    cp_async_wait(0);    // the zero fills of chunks past K, too
+    stage.drain();
     __syncthreads();     // the consumers are done with the window
   }
 }
 
-// The int8 samples heads on the s8 tensor cores, one template over a
-// staging mask policy: the counter hash (row 5, dropout_matmul_int8_samples)
-// or a bank row (row 6, bank_matmul_int8_samples, and its launch on an x
-// that carries the sample axis). out[s] = f32((x_q * keep_s) @ w_q) *
-// out_scale. A block owns 16 rows of x, 8 output columns and ONE sample
-// (grid (ceil(M/16), ceil(N/8), S): 160 blocks at the vgg11_me MC head, x
-// 128x512, w 512x10, S = 10; 64 at the Masksembles head, S = 4, where the
-// shared tile routine launched 8). Per K chunk of 512 it stages the x tile
-// as int8, 16 bytes a thread, masked once per element as it is staged, and
-// the w tile transposed to K-contiguous columns (B fragments), N padded
-// with zeros to 8 in shared memory; its 4 warps split the chunk's k steps
-// of mma.sync.m16n8k32 s8 -> s32 and the 4 partial sums are added in
-// shared memory. The int32 sums are exact in any order, so the result
-// equals the plain version and, per sample, the single kernel (rows 4 and
-// 7) bit for bit; the epilogue f32(acc) * out_scale runs once. Sample s
-// reads x + s * x_stride (0: x is shared).
+// The int8 heads on the s8 tensor cores, one template over a staging mask
+// policy and a K split: the counter hash (row 5, dropout_matmul_int8_samples,
+// and its launch on an x that carries the sample axis) or a bank row (row 6,
+// bank_matmul_int8_samples, and its launch on an x that carries the sample
+// axis; row 7, bank_matmul_int8, one sample with K split over a cluster).
+// out[s] = f32((x_q * keep_s) @ w_q) * out_scale. A block owns 16 rows of
+// x, 8 output columns and ONE sample (grid (ceil(M/16), ceil(N/8), S): 160
+// blocks at the vgg11_me MC head, x 128x512, w 512x10, S = 10; 64 at the
+// Masksembles head, S = 4, where the shared tile routine launched 8). Per K
+// chunk of KC = 512 / SPLIT bytes it stages the x tile as int8, 16 bytes a
+// thread, masked once per element as it is staged, and the w tile
+// transposed to K-contiguous columns (B fragments), N padded with zeros to
+// 8 in shared memory; its 4 warps split the chunk's k steps of
+// mma.sync.m16n8k32 s8 -> s32 and the 4 partial sums are added in shared
+// memory. One sample alone (row 7) would launch only 16 blocks at the
+// head, each staging all 512 of K in series; so there the SPLIT blocks of
+// one output tile form a thread-block cluster along K (grid.z = S * SPLIT,
+// cluster (1, 1, SPLIT)): block rank q takes the chunks at q * KC, q * KC +
+// 512, ..., and rank 0 adds the others' partial tiles through distributed
+// shared memory and writes the epilogue once. The int32 sums are exact in
+// any order, so the result equals the plain version and, per sample, the
+// single kernels (rows 4 and 7) bit for bit; the epilogue f32(acc) *
+// out_scale runs once. Sample s reads x + s * x_stride (0: x is shared).
 constexpr int I8_THREADS = 128;
 constexpr int I8_BM = 16;                 // rows of x: one m16 tile
 constexpr int I8_BN = 8;                  // columns of w: one n8 tile
-constexpr int I8_KC = 512;                // bytes of K staged at a time
-constexpr int I8_PITCH = I8_KC + 16;      // conflict-free 4-byte reads
+constexpr int I8_KC = 512;                // bytes of K a split covers at once
+// row 7's K split: the fastest of 1, 2 and 4 at the Masksembles head, as
+// measured once (PERF.md's kernel table has all three times)
+constexpr int I8_SPLIT = 4;
 
 // A staging policy: `begin` takes the block's sample, `apply` zeroes the
 // dropped bytes among 16 staged x bytes at row gr, columns gc .. gc + 15.
@@ -714,17 +782,19 @@ struct HashStage {
   }
 };
 
-// Masksembles: keep iff bank[r][k] > 0.5 with r = idxs[s] mod n, floored as
-// BankMask::begin and JAX's idx % n take it (-1 -> n - 1); k >= K reads as
-// dropped. The 16 floats of the row are read beside the 16 x bytes.
+// Masksembles: keep iff bank[r][k] > 0.5 with r = idxs[s] mod n (idx0 when
+// idxs is null: one sample), floored as BankMask::begin and JAX's idx % n
+// take it (-1 -> n - 1); k >= K reads as dropped. The 16 floats of the row
+// are read beside the 16 x bytes.
 struct BankStage {
   const float* bank;     // (n, K) f32
-  const int32_t* idxs;   // (S,)
+  const int32_t* idxs;   // (S,), or nullptr
+  int idx0;
   int n;
   int K;
   const float* row;
   __device__ __forceinline__ void begin(int s) {
-    const int r = idxs[s] % n;
+    const int r = (idxs != nullptr ? idxs[s] : idx0) % n;
     row = bank + static_cast<size_t>(r < 0 ? r + n : r) * K;
   }
   __device__ __forceinline__ void apply(int8_t (&e)[16], int, int gc) const {
@@ -749,27 +819,33 @@ struct BankStage {
   }
 };
 
-template <typename Stage>
+template <typename Stage, int SPLIT>
 __global__ void __launch_bounds__(I8_THREADS)
     int8_samples_mma_kernel(const int8_t* __restrict__ x,
                             const int8_t* __restrict__ w, Stage stage,
                             float* __restrict__ out, int M, int K, int N,
                             int x_stride, float out_scale) {
-  __shared__ __align__(16) int8_t xs[I8_BM][I8_PITCH];
-  __shared__ __align__(16) int8_t wt[I8_BN][I8_PITCH];
+  constexpr int KC = I8_KC / SPLIT;       // bytes of K staged at a time
+  constexpr int PITCH = KC + 16;          // conflict-free 4-byte reads
+  static_assert(KC % 32 == 0, "whole m16n8k32 k steps");
+  __shared__ __align__(16) int8_t xs[I8_BM][PITCH];
+  __shared__ __align__(16) int8_t wt[I8_BN][PITCH];
   __shared__ int32_t red[I8_THREADS / 32][I8_BM * I8_BN];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row0 = blockIdx.x * I8_BM, col0 = blockIdx.y * I8_BN;
-  const int s = blockIdx.z;
+  const int s = blockIdx.z / SPLIT;
+  int rank = 0;                           // of the block in its cluster
+  if constexpr (SPLIT > 1)
+    rank = static_cast<int>(cg::this_cluster().block_rank());
   stage.begin(s);
   const int8_t* xb = x + static_cast<size_t>(s) * x_stride;
   const bool vec =
       K % 16 == 0 && reinterpret_cast<uintptr_t>(xb) % 16 == 0;
   const int g = lane >> 2, t4 = lane & 3;
   int32_t acc[4] = {0, 0, 0, 0};
-  for (int k0 = 0; k0 < K; k0 += I8_KC) {
-    for (int i = tid; i < I8_BM * (I8_KC / 16); i += I8_THREADS) {
-      const int r = i / (I8_KC / 16), c = (i % (I8_KC / 16)) * 16;
+  for (int k0 = rank * KC; k0 < K; k0 += SPLIT * KC) {
+    for (int i = tid; i < I8_BM * (KC / 16); i += I8_THREADS) {
+      const int r = i / (KC / 16), c = (i % (KC / 16)) * 16;
       const int gr = row0 + r, gc = k0 + c;
       alignas(16) int8_t e[16];
       if (gr < M && gc < K && vec) {
@@ -785,14 +861,14 @@ __global__ void __launch_bounds__(I8_THREADS)
       stage.apply(e, gr, gc);
       *reinterpret_cast<uint4*>(&xs[r][c]) = *reinterpret_cast<uint4*>(e);
     }
-    for (int i = tid; i < I8_BN * I8_KC; i += I8_THREADS) {
+    for (int i = tid; i < I8_BN * KC; i += I8_THREADS) {
       const int kk = i / I8_BN, n = i % I8_BN;
       const int gk = k0 + kk, gn = col0 + n;
       wt[n][kk] = gk < K && gn < N ? w[static_cast<size_t>(gk) * N + gn]
                                    : int8_t(0);
     }
     __syncthreads();
-    for (int kb = warp * 32; kb < I8_KC; kb += 32 * (I8_THREADS / 32)) {
+    for (int kb = warp * 32; kb < KC; kb += 32 * (I8_THREADS / 32)) {
       const uint32_t a[4] = {
           *reinterpret_cast<const uint32_t*>(&xs[g][kb + 4 * t4]),
           *reinterpret_cast<const uint32_t*>(&xs[g + 8][kb + 4 * t4]),
@@ -819,10 +895,58 @@ __global__ void __launch_bounds__(I8_THREADS)
   int32_t sum = 0;
 #pragma unroll
   for (int v = 0; v < I8_THREADS / 32; ++v) sum += red[v][tid];
+  if constexpr (SPLIT > 1) {
+    // the block's partial tile in red[0] (each thread rewrites the entry
+    // it alone read), then rank 0 adds the other ranks' tiles
+    cg::cluster_group cluster = cg::this_cluster();
+    red[0][tid] = sum;
+    cluster.sync();        // every rank's partial tile is written
+    if (rank == 0) {
+#pragma unroll
+      for (int q = 1; q < SPLIT; ++q)
+        sum += cluster.map_shared_rank(&red[0][0], q)[tid];
+    }
+    cluster.sync();        // rank 0 has read them before any rank exits
+    if (rank != 0) return;
+  }
   const int gr = row0 + r, gc = col0 + c;
   if (gr < M && gc < N)
     out[(static_cast<size_t>(s) * M + gr) * N + gc] =
         Elem<int8_t>::out(sum, out_scale);
+}
+
+// Launch int8_samples_mma_kernel<Stage, SPLIT> on grid (tiles of M, tiles
+// of N, S): with SPLIT > 1, SPLIT blocks a tile and sample, one cluster.
+template <int SPLIT, typename Stage>
+int launch_int8_mma(dim3 grid, cudaStream_t st, const void* x, const void* w,
+                    Stage stage, void* out, int M, int K, int N, int x_stride,
+                    float out_scale) {
+  const auto* xq = static_cast<const int8_t*>(x);
+  const auto* wq = static_cast<const int8_t*>(w);
+  auto* o = static_cast<float*>(out);
+  if constexpr (SPLIT == 1) {
+    int8_samples_mma_kernel<Stage, 1><<<grid, I8_THREADS, 0, st>>>(
+        xq, wq, stage, o, M, K, N, x_stride, out_scale);
+    return static_cast<int>(cudaGetLastError());
+  } else {
+    grid.z *= SPLIT;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = SPLIT;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(I8_THREADS);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = st;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e =
+        cudaLaunchKernelEx(&cfg, int8_samples_mma_kernel<Stage, SPLIT>, xq,
+                           wq, stage, o, M, K, N, x_stride, out_scale);
+    return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+  }
 }
 }  // namespace
 
@@ -860,14 +984,16 @@ extern "C" int bt_dropout_matmul_samples(const void* x, const void* w,
   const auto* sd = static_cast<const int32_t*>(seeds);
   auto* o = static_cast<float*>(out);
   if (is_bf16) {
-    dropout_matmul_samples_kernel<__nv_bfloat16><<<grid, CH_THREADS, 0, st>>>(
+    using Stage = HashChain<__nv_bfloat16>;
+    chain_samples_kernel<Stage><<<grid, CH_THREADS, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w), sd, o, M, K, N, x_stride,
-        thresh, scale);
+        static_cast<const __nv_bfloat16*>(w),
+        Stage{sd, thresh, scale, 0u, false}, o, M, K, N, x_stride);
   } else {
-    dropout_matmul_samples_kernel<float><<<grid, CH_THREADS, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), sd, o, M,
-        K, N, x_stride, thresh, scale);
+    using Stage = HashChain<float>;
+    chain_samples_kernel<Stage><<<grid, CH_THREADS, 0, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w),
+        Stage{sd, thresh, scale, 0u, false}, o, M, K, N, x_stride);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -905,18 +1031,18 @@ extern "C" int bt_dropout_matmul_int8(const void* x, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
+// x_stride: elements between samples' x, 0 when x is shared (row 5), M * K
+// when x carries the sample axis (dropout_matmul_int8_xs)
 extern "C" int bt_dropout_matmul_int8_samples(const void* x, const void* w,
                                               const void* seeds, void* out,
                                               int M, int K, int N, int S,
-                                              uint32_t thresh,
+                                              int x_stride, uint32_t thresh,
                                               float out_scale, void* stream) {
   const dim3 grid((M + I8_BM - 1) / I8_BM, (N + I8_BN - 1) / I8_BN, S);
-  int8_samples_mma_kernel<HashStage>
-      <<<grid, I8_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-          HashStage{static_cast<const int32_t*>(seeds), thresh, 0u},
-          static_cast<float*>(out), M, K, N, 0, out_scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch_int8_mma<1>(
+      grid, static_cast<cudaStream_t>(stream), x, w,
+      HashStage{static_cast<const int32_t*>(seeds), thresh, 0u}, out, M, K,
+      N, x_stride, out_scale);
 }
 
 extern "C" int bt_bank_matmul(const void* x, const void* w, const void* bank,
@@ -928,34 +1054,38 @@ extern "C" int bt_bank_matmul(const void* x, const void* w, const void* bank,
   const auto* wf = static_cast<const float*>(w);
   auto* o = static_cast<float*>(out);
   if (is_bf16) {
-    bank_matmul_kernel<__nv_bfloat16, float><<<grid, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), wf, b, o, M, K, N, idx, n,
-        1.f);
+    bank_matmul_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), wf, b, o, M, K, N, idx, n);
   } else {
-    bank_matmul_kernel<float, float><<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(x), wf, b, o, M, K, N, idx, n, 1.f);
+    bank_matmul_kernel<float><<<grid, THREADS, 0, st>>>(
+        static_cast<const float*>(x), wf, b, o, M, K, N, idx, n);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// x_stride: elements between samples' x, 0 when x is shared (row 8), M * K
+// when x carries the sample axis (bank_matmul_xs)
 extern "C" int bt_bank_matmul_samples(const void* x, const void* w,
                                       const void* bank, const void* idxs,
                                       void* out, int M, int K, int N, int S,
-                                      int n, int is_bf16, void* stream) {
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN,
-                  (S + SAMPLES_PER_BLOCK - 1) / SAMPLES_PER_BLOCK);
+                                      int x_stride, int n, int is_bf16,
+                                      void* stream) {
+  const dim3 grid((M + CH_BM - 1) / CH_BM, (N + CH_BN - 1) / CH_BN, S);
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* b = static_cast<const float*>(bank);
   const auto* ix = static_cast<const int32_t*>(idxs);
   const auto* wf = static_cast<const float*>(w);
   auto* o = static_cast<float*>(out);
   if (is_bf16) {
-    bank_matmul_samples_kernel<__nv_bfloat16, float>
-        <<<grid, THREADS, 0, st>>>(static_cast<const __nv_bfloat16*>(x), wf,
-                                   b, ix, o, M, K, N, S, n, 1.f);
+    using Stage = BankChain<__nv_bfloat16>;
+    chain_samples_kernel<Stage><<<grid, CH_THREADS, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), wf,
+        Stage{b, ix, n, nullptr, false}, o, M, K, N, x_stride);
   } else {
-    bank_matmul_samples_kernel<float, float><<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(x), wf, b, ix, o, M, K, N, S, n, 1.f);
+    using Stage = BankChain<float>;
+    chain_samples_kernel<Stage><<<grid, CH_THREADS, 0, st>>>(
+        static_cast<const float*>(x), wf, Stage{b, ix, n, nullptr, false}, o,
+        M, K, N, x_stride);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -964,13 +1094,11 @@ extern "C" int bt_bank_matmul_int8(const void* x, const void* w,
                                    const void* bank, void* out, int M, int K,
                                    int N, int idx, int n, float out_scale,
                                    void* stream) {
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, 1);
-  bank_matmul_kernel<int8_t, int8_t>
-      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-          static_cast<const float*>(bank), static_cast<float*>(out), M, K, N,
-          idx, n, out_scale);
-  return static_cast<int>(cudaGetLastError());
+  const dim3 grid((M + I8_BM - 1) / I8_BM, (N + I8_BN - 1) / I8_BN, 1);
+  return launch_int8_mma<I8_SPLIT>(
+      grid, static_cast<cudaStream_t>(stream), x, w,
+      BankStage{static_cast<const float*>(bank), nullptr, idx, n, K, nullptr},
+      out, M, K, N, 0, out_scale);
 }
 
 // x_stride: elements between samples' x, 0 when x is shared (row 6), M * K
@@ -981,11 +1109,9 @@ extern "C" int bt_bank_matmul_int8_samples(const void* x, const void* w,
                                            int S, int x_stride, int n,
                                            float out_scale, void* stream) {
   const dim3 grid((M + I8_BM - 1) / I8_BM, (N + I8_BN - 1) / I8_BN, S);
-  int8_samples_mma_kernel<BankStage>
-      <<<grid, I8_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-          BankStage{static_cast<const float*>(bank),
-                    static_cast<const int32_t*>(idxs), n, K, nullptr},
-          static_cast<float*>(out), M, K, N, x_stride, out_scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch_int8_mma<1>(
+      grid, static_cast<cudaStream_t>(stream), x, w,
+      BankStage{static_cast<const float*>(bank),
+                static_cast<const int32_t*>(idxs), 0, n, K, nullptr},
+      out, M, K, N, x_stride, out_scale);
 }

@@ -42,11 +42,11 @@ or a 1-D tensor of S indices (every sample in one launch, (S, M, N)).
 
 An x of (S, M, K) carries the sample axis: sample s of x is masked with
 seeds[s] or index s on its own coordinates, as the JAX vmap rules' ``lax.map``
-fallback runs the single kernel per sample. On the card
-``dropout_matmul_inference`` and ``bank_matmul_int8_inference`` then make
-one launch of their samples kernel with a per-sample x stride (counted as
-``dropout_matmul_xs`` and ``bank_matmul_int8_xs``); the other two heads
-make one single launch per sample (``map_samples``).
+fallback runs the single kernel per sample. On the card each of the four
+``*_inference`` heads then makes one launch of its samples kernel with a
+per-sample x stride (counted as ``dropout_matmul_xs``,
+``dropout_matmul_int8_xs``, ``bank_matmul_xs`` and ``bank_matmul_int8_xs``);
+on the CPU it runs the single plain version per sample (``map_samples``).
 
 Dispatch is by the tensors' device: CPU tensors take the plain version, CUDA
 tensors launch the kernel (or raise), and any other device raises. There is
@@ -72,8 +72,10 @@ launch_counts: dict[str, int] = {"dropout_matmul": 0,
                                  "dropout_apply": 0,
                                  "dropout_matmul_int8": 0,
                                  "dropout_matmul_int8_samples": 0,
+                                 "dropout_matmul_int8_xs": 0,
                                  "bank_matmul": 0,
                                  "bank_matmul_samples": 0,
+                                 "bank_matmul_xs": 0,
                                  "bank_matmul_int8": 0,
                                  "bank_matmul_int8_samples": 0,
                                  "bank_matmul_int8_xs": 0}
@@ -476,9 +478,11 @@ def dropout_matmul_int8_samples_plain(x_q: torch.Tensor, w_q: torch.Tensor,
 
 
 def _check_int8(x_q: torch.Tensor, w_q: torch.Tensor, seeds: torch.Tensor,
-                seeds_ndim: int, rate: float) -> None:
-    if x_q.dim() != 2 or w_q.dim() != 2 or x_q.shape[1] != w_q.shape[0]:
-        raise ValueError(f"need x_q (M, K) and w_q (K, N); got "
+                seeds_ndim: int, rate: float, x_ndim: int = 2) -> None:
+    if (x_q.dim() != x_ndim or w_q.dim() != 2
+            or x_q.shape[-1] != w_q.shape[0]):
+        want = "(M, K)" if x_ndim == 2 else "(S, M, K)"
+        raise ValueError(f"need x_q {want} and w_q (K, N); got "
                          f"{tuple(x_q.shape)} and {tuple(w_q.shape)}")
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
         raise TypeError(f"x_q and w_q must both be int8; got {x_q.dtype} and "
@@ -487,6 +491,10 @@ def _check_int8(x_q: torch.Tensor, w_q: torch.Tensor, seeds: torch.Tensor,
         raise ValueError(f"x_q and w_q must be on one device; got "
                          f"{x_q.device} and {w_q.device}")
     _check_rate_seeds(x_q, seeds, seeds_ndim, rate)
+
+
+def _int8_args(rate: float, x_step: float, w_step: float) -> list:
+    return [keep_threshold(rate), int8_out_scale(x_step, w_step, rate)]
 
 
 def dropout_matmul_int8(x_q: torch.Tensor, w_q: torch.Tensor,
@@ -501,8 +509,7 @@ def dropout_matmul_int8(x_q: torch.Tensor, w_q: torch.Tensor,
         return dropout_matmul_int8_plain(x_q, w_q, seeds, rate, x_step,
                                          w_step)
     return _launch("dropout_matmul_int8", x_q, w_q, seeds.reshape(1, 2),
-                   [keep_threshold(rate),
-                    int8_out_scale(x_step, w_step, rate)])
+                   _int8_args(rate, x_step, w_step))
 
 
 def dropout_matmul_int8_samples(x_q: torch.Tensor, w_q: torch.Tensor,
@@ -518,8 +525,7 @@ def dropout_matmul_int8_samples(x_q: torch.Tensor, w_q: torch.Tensor,
         return dropout_matmul_int8_samples_plain(x_q, w_q, seeds, rate,
                                                  x_step, w_step)
     return _launch("dropout_matmul_int8_samples", x_q, w_q, seeds,
-                   [keep_threshold(rate),
-                    int8_out_scale(x_step, w_step, rate)])
+                   [0] + _int8_args(rate, x_step, w_step))
 
 
 def dropout_matmul_int8_inference(x_q: torch.Tensor, w_q: torch.Tensor,
@@ -528,11 +534,19 @@ def dropout_matmul_int8_inference(x_q: torch.Tensor, w_q: torch.Tensor,
                                   ) -> torch.Tensor:
     """Inference entry of the int8 heads: seeds (2,) → one sample (M, N);
     seeds (S, 2) → every sample in one launch, (S, M, N), what the JAX
-    package's vmap rule does; x (S, M, K) → one single launch per
-    sample."""
+    package's vmap rule does; x (S, M, K) with seeds (S, 2) → sample s of
+    x under seeds[s], as JAX's ``lax.map`` fallback (``:618-622``): one
+    ``dropout_matmul_int8_xs`` launch of the samples kernel on the card,
+    the single plain version per sample on the CPU (and at rate 0)."""
     if x_q.dim() == 3:
-        return map_samples(lambda xs, sd: dropout_matmul_int8(
-            xs, w_q, sd, rate, x_step, w_step), x_q, seeds)
+        if x_q.device.type == "cpu" or rate == 0.0:
+            return map_samples(lambda xs, sd: dropout_matmul_int8(
+                xs, w_q, sd, rate, x_step, w_step), x_q, seeds)
+        _check_int8(x_q, w_q, seeds, 2, rate, x_ndim=3)
+        _check_carried(x_q, seeds)
+        return _launch("dropout_matmul_int8_samples", x_q, w_q, seeds,
+                       [_x_stride(x_q)] + _int8_args(rate, x_step, w_step),
+                       "dropout_matmul_int8_xs")
     if seeds.dim() == 1:
         return dropout_matmul_int8(x_q, w_q, seeds, rate, x_step, w_step)
     return dropout_matmul_int8_samples(x_q, w_q, seeds, rate, x_step,
@@ -673,9 +687,10 @@ def _launch_bank(name: str, x: torch.Tensor, w: torch.Tensor,
                  ) -> torch.Tensor:
     """Launch a bank kernel: ``index`` is the int row of a single kernel,
     (M, N) out, or the int32 index tensor (S,) of a samples kernel, (S, M,
-    N) out; ``x_stride`` the samples' x stride of the int8 samples entry
-    (0: x shared, M·K: x (S, M, K) carries the sample axis); ``args`` are
-    the trailing C arguments."""
+    N) out; ``x_stride`` the samples' x stride of a samples entry (0: x
+    shared, M·K: x (S, M, K) carries the sample axis); ``args`` are the
+    trailing C arguments; ``count`` the counter to bump (default
+    ``name``)."""
     m, k = x.shape[-2:]
     n = w.shape[1]
     tensors = {"x": x, "w": w, "bank": bank}
@@ -698,6 +713,19 @@ def _launch_bank(name: str, x: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def _launch_bank_xs(name: str, x: torch.Tensor, w: torch.Tensor,
+                    bank: torch.Tensor, sample_idx, args: list, count: str
+                    ) -> torch.Tensor:
+    """One launch of the samples kernel ``name`` on an x (S, M, K) that
+    carries the sample axis: sample s of x under index s, the S indices a
+    tensor or a list of ints; counted under ``count``."""
+    _check_bank(x, w, bank, x.dtype == torch.int8, x_ndim=3)
+    idxs = device_indices(sample_idx, x.device)
+    _check_carried(x, idxs)
+    return _launch_bank(name, x, w, bank, idxs, args, x_stride=_x_stride(x),
+                        count=count)
+
+
 def bank_matmul(x: torch.Tensor, w: torch.Tensor, bank: torch.Tensor,
                 sample_idx) -> torch.Tensor:
     """``(x · bank[sample_idx % num_masks]) @ w``, the Masksembles fused
@@ -715,14 +743,15 @@ def bank_matmul_samples(x: torch.Tensor, w: torch.Tensor, bank: torch.Tensor,
                         idxs: torch.Tensor) -> torch.Tensor:
     """Every mask index in one launch: idxs (S,) integer on x's device.
     Returns (S, M, N) f32 with sample s bit-identical to ``bank_matmul(x, w,
-    bank, idxs[s])`` on the same device; x tiles are staged once for all
-    samples of a block."""
+    bank, idxs[s])`` on the same device: the kernel runs one block per (8
+    rows, 16 columns, sample) and keeps the single kernel's summation
+    chain."""
     _check_bank(x, w, bank, False)
     idxs = bank_indices(idxs)
     if x.device.type == "cpu":
         return bank_matmul_samples_plain(x, w, bank, idxs)
     return _launch_bank("bank_matmul_samples", x, w, bank, idxs,
-                        [int(x.dtype == torch.bfloat16)])
+                        [int(x.dtype == torch.bfloat16)], x_stride=0)
 
 
 def bank_matmul_inference(x: torch.Tensor, w: torch.Tensor,
@@ -731,10 +760,17 @@ def bank_matmul_inference(x: torch.Tensor, w: torch.Tensor,
     one sample, (M, N); a 1-D tensor of S indices runs every sample in one
     launch, (S, M, N) — what the JAX package's vmap rule does (it chunks S
     by 32; per-sample results do not depend on the chunking). An x of (S,
-    M, K) with S indices runs one single launch per sample."""
+    M, K) with S indices (a tensor, or a list of ints) → sample s of x
+    under index s, as JAX's ``lax.map`` fallback (``:957-960``): one
+    ``bank_matmul_xs`` launch of the samples kernel on the card, the single
+    plain version per sample on the CPU."""
     if x.dim() == 3:
-        return map_samples(lambda xs, i: bank_matmul(xs, w, bank, i), x,
-                           host_indices(sample_idx))
+        if x.device.type == "cpu":
+            return map_samples(lambda xs, i: bank_matmul(xs, w, bank, i), x,
+                               host_indices(sample_idx))
+        return _launch_bank_xs("bank_matmul_samples", x, w, bank,
+                               sample_idx, [int(x.dtype == torch.bfloat16)],
+                               "bank_matmul_xs")
     if is_index_vector(sample_idx):
         return bank_matmul_samples(x, w, bank, sample_idx)
     return bank_matmul(x, w, bank, sample_idx)
@@ -745,7 +781,9 @@ def bank_matmul_int8(x_q: torch.Tensor, w_q: torch.Tensor,
                      w_step: float) -> torch.Tensor:
     """``dequant((x_q ⊙ (bank[sample_idx % num_masks] > 0.5)) @ w_q)``: x_q
     (M, K) and w_q (K, N) int8, bank (num_masks, K) f32, an int index.
-    Returns (M, N) f32 rescaled by ``x_step·w_step``."""
+    Returns (M, N) f32 rescaled by ``x_step·w_step``. The kernel is the int8
+    samples heads' s8 tensor-core kernel at one sample, the K of each
+    output tile split over a thread-block cluster."""
     _check_bank(x_q, w_q, bank, True)
     idx = bank_index(sample_idx, bank.shape[0])
     if x_q.device.type == "cpu":
@@ -784,13 +822,9 @@ def bank_matmul_int8_inference(x_q: torch.Tensor, w_q: torch.Tensor,
             return map_samples(lambda xs, i: bank_matmul_int8(
                 xs, w_q, bank, i, x_step, w_step), x_q,
                 host_indices(sample_idx))
-        _check_bank(x_q, w_q, bank, True, x_ndim=3)
-        idxs = device_indices(sample_idx, x_q.device)
-        _check_carried(x_q, idxs)
-        return _launch_bank("bank_matmul_int8_samples", x_q, w_q, bank, idxs,
-                            [bank_out_scale(x_step, w_step)],
-                            x_stride=_x_stride(x_q),
-                            count="bank_matmul_int8_xs")
+        return _launch_bank_xs("bank_matmul_int8_samples", x_q, w_q, bank,
+                               sample_idx, [bank_out_scale(x_step, w_step)],
+                               "bank_matmul_int8_xs")
     if is_index_vector(sample_idx):
         return bank_matmul_int8_samples(x_q, w_q, bank, sample_idx, x_step,
                                         w_step)

@@ -15,13 +15,16 @@ ends the run with a nonzero exit and no result line.
    card: the vgg11_me head shape and a ragged one, bf16 and f32 (int8 for
    the int8 kernels, bit for bit); exact mask readouts (the backward's mask
    and the int8 kernels' mask are the forward's); per-sample bit identity;
-   negative seeds; times. The MC head on an x that carries the sample
-   axis (one ``dropout_matmul_xs`` launch, sample s bit-equal to the single
-   launch on x[s]). The four Masksembles bank kernels at the
-   Masksembles head shape (S = 4) and a ragged one whose indices wrap and
-   include a negative one: float rows on a {0, 1} bank and on one with 2.0
-   entries, int8 rows bit for bit, per-sample bit identity, the int8 head
-   on an x that carries the sample axis (``bank_matmul_int8_xs``), times. The
+   negative seeds; times. The MC heads on an x that carries the sample
+   axis (one ``dropout_matmul_xs`` or ``dropout_matmul_int8_xs`` launch,
+   sample s bit-equal to the single launch on x[s]). The four Masksembles
+   bank kernels at the Masksembles head shape (S = 4), a ragged one and one
+   whose K is odd, their indices wrapping and including a negative one:
+   float rows on a {0, 1} bank and on one with 2.0 entries, int8 rows bit
+   for bit, per-sample bit identity, both heads on an x that carries the
+   sample axis (``bank_matmul_xs``, ``bank_matmul_int8_xs``), times (each
+   in three rounds that alternate it with its library call; row 8 with
+   bf16 and f32 x). The
    masked convs of ``masked_conv.cu`` (rows 10-11) at the block-1 site
    shape and ragged geometries (stride 2 with asymmetric SAME, VALID,
    explicit padding, 1x1 stride 2, F not a multiple of 8): bf16 and f32
@@ -109,12 +112,14 @@ REPLACES = {"dropout_matmul": "bayestpu/kernels/masked_matmul.py:113",
             "dropout_matmul_int8": "bayestpu/kernels/masked_matmul.py:444",
             "dropout_matmul_int8_samples":
                 "bayestpu/kernels/masked_matmul.py:519",
+            "dropout_matmul_int8_xs": "bayestpu/kernels/masked_matmul.py:444",
             "dropout_matmul_xs": "bayestpu/kernels/masked_matmul.py:113",
             "bank_matmul_int8_samples":
                 "bayestpu/kernels/masked_matmul.py:640",
             "bank_matmul_int8_xs": "bayestpu/kernels/masked_matmul.py:763",
             "bank_matmul_int8": "bayestpu/kernels/masked_matmul.py:763",
             "bank_matmul_samples": "bayestpu/kernels/masked_matmul.py:863",
+            "bank_matmul_xs": "bayestpu/kernels/masked_matmul.py:843",
             "bank_matmul": "bayestpu/kernels/masked_matmul.py:843"}
 HEAD = dict(M=128, K=512, N=10, S=10)     # each vgg11_me exit head
 RAGGED = dict(M=300, K=700, N=130, S=3)
@@ -167,9 +172,14 @@ INT8_CPU_STEPS = 4
 # num_masks=4, scale=2.0); S = num_masks. Its heads at batch 128, and a
 # ragged shape whose indices wrap and include a negative one.
 NUM_MASKS, MASK_SCALE = 4, 2.0
+# alternating rounds in which each bank kernel and its library call are
+# timed (their spread is the precision a ratio of the two can claim)
+TIMING_ROUNDS = 3
 MASK_HEAD = dict(M=128, K=512, N=10, S=NUM_MASKS)
 MASK_RAGGED = dict(M=300, K=700, N=130, S=6)
 MASK_RAGGED_IDXS = [2, -1, 5, 0, 7, 3]
+# K odd: no vector load of x or of a bank row anywhere (the same indices)
+MASK_ODD_K = dict(M=37, K=45, N=19, S=6)
 # the short fine-tune of the float-trained weights under the batch split
 MASK_EPOCHS, MASK_LR = 2, 0.01
 # rows 10 and 11 of the kernel table: the masked convs of masked_conv.cu
@@ -193,12 +203,19 @@ CONV_SITES = [(16, 64, 128), (8, 128, 256), (4, 256, 512), (2, 512, 512)]
 CONV_SUMMARY_SITE = {"dropout_conv_int8": 1, "bank_conv_int8": 1,
                      "dropout_conv_xs": 1, "dropout_conv_int8_xs": 1}
 # the kernels redesigned for the tensor cores, whose registers, spills and
-# SASS tensor-core instructions the build phase reports (the int8 samples
-# template once for each mask policy: rows 5 and 6)
+# SASS tensor-core instructions the build phase reports (the int8 template
+# once for each mask policy and K split: rows 5 and 6 at split 1, row 7
+# at 4)
 MMA_KERNELS = ("conv_mma_kernel", "int8_samples_mma_kernel")
 # kernels redesigned on the CUDA cores, whose registers and spills the
-# build phase reports beside them (row 3 keeps row 2's FMA chain)
-FMA_KERNELS = ("dropout_matmul_samples_kernel",)
+# build phase reports beside them (the chain template once for each
+# staging policy: row 3 keeps row 2's FMA chain, row 8 row 9's)
+FMA_KERNELS = ("chain_samples_kernel",)
+# every kernel of bayestpu_torch/csrc, as the profiler names it
+PORT_KERNELS = ("dropout_matmul_kernel", "dropout_apply_kernel",
+                "bank_matmul_kernel", "chain_samples_kernel",
+                "int8_samples_mma_kernel", "::conv_kernel<",
+                "::conv_mma_kernel<")
 # ragged geometries: x NHWC, kernel size, F (not a multiple of 8), padding,
 # stride. SAME at stride 2 is asymmetric (16 -> 8 pads (0, 1)).
 CONV_RAGGED = {"same_s2": ((3, 15, 16, 40), 3, 20, "SAME", 2),
@@ -271,14 +288,20 @@ def cuda_ms(fn, iters: int, windows: int = 5) -> float:
     return statistics.median(per)
 
 
-def device_ms(fn, iters: int, windows: int = 3) -> float:
+def device_ms(fn, iters: int, windows: int = 3, seen: list | None = None
+              ) -> float:
     """Device time per call of ``fn``: the summed time of the CUDA kernels
     it launches, from torch.profiler over ``iters`` calls after a warm-up.
     Unlike ``cuda_ms`` it does not count the host's dispatch between
-    launches. A profiler
-    window now and then records no device activity at all (seen once in
-    dozens of windows on the H100); such a window is reported and taken
-    again, up to ``windows`` in all."""
+    launches. A port wrapper launches one kernel of PORT_KERNELS a call;
+    its time is the window's over the calls whose port kernel the
+    profiler recorded: on the H100 it misses the first few launches of a
+    window as a rule (1-3 of 200, the same number window after window),
+    now and then a quarter (which, divided by all the calls, read 25-30%
+    low) or all of them. A window that records fewer than half of the
+    calls' port kernels is reported and taken again, up to ``windows`` in
+    all. A library or plain call is timed over ``iters``. ``seen``, if
+    given, gets the number of calls the time is over."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -290,12 +313,36 @@ def device_ms(fn, iters: int, windows: int = 3) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(ev.self_device_time_total for ev in prof.key_averages()
-                 if str(ev.device_type).endswith("CUDA"))
-        if us > 0:
-            return us / iters / 1e3
-        emit({"phase": "profiler", "empty_window": window + 1})
-    check(False, f"the profiler saw no device time in {windows} windows")
+        evs = [ev for ev in prof.key_averages()
+               if str(ev.device_type).endswith("CUDA")]
+        us = sum(ev.self_device_time_total for ev in evs)
+        records = sum(ev.count for ev in evs
+                      if any(k in ev.key for k in PORT_KERNELS))
+        calls = records or iters
+        if us > 0 and 2 * calls >= iters:
+            if seen is not None:
+                seen.append(calls)
+            return us / calls / 1e3
+        emit({"phase": "profiler", "window": window + 1, "iters": iters,
+              "records": records})
+    check(False, f"the profiler lost device records in {windows} windows")
+
+
+def _rounds(fns: dict, rounds: int, iters: int = 200) -> dict:
+    """``device_ms`` of each of ``fns`` (key -> fn) taken ``rounds`` times,
+    the functions in turn in every round, so that what drifts over a call
+    falls on all of them alike: ``key`` is the median, ``key_rounds`` the
+    readings in order (their spread is what a ratio of two of them can
+    claim) and ``key_calls`` the calls each reading is over."""
+    got = {key: ([], []) for key in fns}
+    for _ in range(rounds):
+        for key, fn in fns.items():
+            got[key][0].append(device_ms(fn, iters, seen=got[key][1]))
+    out = {}
+    for key, (readings, calls) in got.items():
+        out.update({key: statistics.median(readings),
+                    f"{key}_rounds": readings, f"{key}_calls": calls})
+    return out
 
 
 def host_ms(fn, reps: int) -> float:
@@ -454,13 +501,13 @@ def _check_bank(mm, shape: dict, label: str, gen, summary: dict) -> None:
     {0, 1} bank and on one with 2.0 and 0.25 entries (the float kernels
     multiply by the value, the int8 ones keep where it exceeds 0.5), to
     KERNEL_RTOL of max|ref|; the int8 rows bit for bit; sample s of each
-    samples kernel bit-equal to its single kernel at idxs[s]; the int8
-    head on an x (S, M, K) that carries the sample axis (one
-    ``bank_matmul_int8_xs`` launch, the indices as a tensor and as the host
-    list the model passes) bit-equal to the plain version and, sample s, to
-    the single launch on x[s] at idxs[s]; the int8 readout (ones @ eye)
-    exactly out_scale where the row keeps. At the head shape, their
-    times."""
+    samples kernel bit-equal to its single
+    kernel at idxs[s]; both heads on an x (S, M, K) that carries the
+    sample axis (one ``bank_matmul_xs`` or ``bank_matmul_int8_xs`` launch,
+    the indices as a tensor and as the host list the model passes) against
+    the plain version and, sample s, bit-equal to the single launch on x[s]
+    at idxs[s]; the int8 readout (ones @ eye) exactly out_scale where the
+    row keeps. At the head shape, their times."""
     import torch
     from bayestpu_torch.kernels.mask_bank import generation_wrapper
     m, k, n, s = shape["M"], shape["K"], shape["N"], shape["S"]
@@ -478,14 +525,22 @@ def _check_bank(mm, shape: dict, label: str, gen, summary: dict) -> None:
     for dtype in (torch.bfloat16, torch.float32):
         x = torch.randn(m, k, generator=gen).to(dtype).cuda()
         w = (torch.randn(k, n, generator=gen) / k ** 0.5).cuda()
+        x3 = torch.randn(s, m, k, generator=gen).to(dtype).cuda()
         for bname, b in (("bank", bank), ("bank_with_2.0", odd)):
             ys = mm.bank_matmul_samples(x, w, b, idxs)
             singles = [mm.bank_matmul(x, w, b, i) for i in idx_list]
+            yx = mm.bank_matmul_inference(x3, w, b, idxs)
+            yl = mm.bank_matmul_inference(x3, w, b, idx_list)
+            singles_x = [mm.bank_matmul(x3[i], w, b, idx_list[i])
+                         for i in range(s)]
             torch.cuda.synchronize()
             rs = mm.bank_matmul_samples_plain(x, w, b, idxs)
+            rx = torch.stack([mm.bank_matmul_plain(x3[i], w, b, idx_list[i])
+                              for i in range(s)])
             for name, got, want in (
                     ("bank_matmul_samples", ys, rs),
-                    ("bank_matmul", torch.stack(singles), rs)):
+                    ("bank_matmul", torch.stack(singles), rs),
+                    ("bank_matmul_xs", yx, rx), ("bank_matmul_xs", yl, rx)):
                 err = (got - want).abs().max().item()
                 tol = KERNEL_RTOL * max(1.0, want.abs().max().item())
                 check(err <= tol, f"{name} {label} {dtype} {bname}: {err} > "
@@ -495,6 +550,9 @@ def _check_bank(mm, shape: dict, label: str, gen, summary: dict) -> None:
                 line[f"{name}_{str(dtype).split('.')[-1]}_{bname}_err"] = err
             same_per_sample &= all(torch.equal(ys[i], singles[i])
                                    for i in range(s))
+            same_per_sample &= all(torch.equal(yx[i], singles_x[i])
+                                   and torch.equal(yl[i], singles_x[i])
+                                   for i in range(s))
     xq = torch.randint(-128, 128, (m, k), generator=gen,
                        dtype=torch.int8).cuda()
     wq = torch.randint(-128, 128, (k, n), generator=gen,
@@ -503,6 +561,10 @@ def _check_bank(mm, shape: dict, label: str, gen, summary: dict) -> None:
                         dtype=torch.int8).cuda()
     int8_equal = True
     for b in (bank, odd):
+        for i in idx_list:   # row 7 against its own plain version
+            int8_equal &= torch.equal(
+                mm.bank_matmul_int8(xq, wq, b, i, xs_, ws_),
+                mm.bank_matmul_int8_plain(xq, wq, b, i, xs_, ws_))
         ys = mm.bank_matmul_int8_samples(xq, wq, b, idxs, xs_, ws_)
         singles = [mm.bank_matmul_int8(xq, wq, b, i, xs_, ws_)
                    for i in idx_list]
@@ -548,20 +610,29 @@ def _check_bank(mm, shape: dict, label: str, gen, summary: dict) -> None:
 def _time_bank(mm, shape, idxs, bank, xq, wq, xq3, gen, line, summary
                ) -> None:
     """Times of the bank kernels at the Masksembles head shape: bf16 x (the
-    main path's dtype) for the float rows, int8 for the int8 rows. ``ms``
-    counts every kernel the wrapper launches, as for rows 1-5; that is the
-    bank kernel alone, which takes the index remainder itself. The library
-    call is one PyTorch product on a pre-masked x that the port never
-    calls: ``torch.matmul`` of the (S, M, K) masked f32 x, or
-    ``torch._int_mm`` with N padded to 16 (for the _xs launch, of the
-    masked x3 that carries S samples)."""
+    main path's dtype) for the float rows, int8 for the int8 rows, and row
+    8 also with f32 x (``bank_matmul_samples_float32``, in the line only:
+    one of the five row-8 launches of a vgg11_me spatial predict takes f32
+    x). ``ms`` counts every kernel the wrapper launches, as for rows 1-5;
+    that is the bank kernel alone, which takes the index remainder itself.
+    The library call is one PyTorch product on a pre-masked x that the
+    port never calls: ``torch.matmul`` of the (S, M, K) masked f32 x, or
+    ``torch._int_mm`` with N padded to 16 (for the _xs launches, of the
+    masked x3 that carries S samples). Each kernel and its library call
+    are timed in TIMING_ROUNDS alternating rounds (``_rounds``): ``ms``
+    and ``library_ms`` are the medians, their readings listed beside
+    them."""
     import torch
     m, k, n, s = shape["M"], shape["K"], shape["N"], shape["S"]
     xs_ = ws_ = 2.0 ** -7
     x = torch.randn(m, k, generator=gen).to(torch.bfloat16).cuda()
     w = (torch.randn(k, n, generator=gen) / k ** 0.5).cuda()
+    x3 = torch.randn(s, m, k, generator=gen).to(torch.bfloat16).cuda()
+    xf = torch.randn(m, k, generator=gen).cuda()
     rows = bank[idxs.long()]
     xm = x.float()[None] * rows[:, None, :]
+    xmf = xf[None] * rows[:, None, :]
+    xm3 = x3.float() * rows[:, None, :]
     xm8 = torch.where(rows[:, None, :] > 0.5, xq[None],
                       torch.zeros((), dtype=torch.int8, device="cuda"))
     xm83 = torch.where(rows[:, None, :] > 0.5, xq3,
@@ -577,6 +648,15 @@ def _time_bank(mm, shape, idxs, bank, xq, wq, xq3, gen, line, summary
             lambda: mm.bank_matmul_samples(x, w, bank, idxs),
             lambda: mm.bank_matmul_samples_plain(x, w, bank, idxs),
             lambda: torch.matmul(xm, w), torch.bfloat16, s),
+        "bank_matmul_samples_float32": (
+            lambda: mm.bank_matmul_samples(xf, w, bank, idxs),
+            lambda: mm.bank_matmul_samples_plain(xf, w, bank, idxs),
+            lambda: torch.matmul(xmf, w), torch.float32, s),
+        "bank_matmul_xs": (
+            lambda: mm.bank_matmul_inference(x3, w, bank, idxs),
+            lambda: torch.stack([mm.bank_matmul_plain(
+                x3[i], w, bank, idx_list[i]) for i in range(s)]),
+            lambda: torch.matmul(xm3, w), torch.bfloat16, s),
         "bank_matmul_int8": (
             lambda: mm.bank_matmul_int8(xq, wq, bank, 0, xs_, ws_),
             lambda: mm.bank_matmul_int8_plain(xq, wq, bank, 0, xs_, ws_),
@@ -597,14 +677,15 @@ def _time_bank(mm, shape, idxs, bank, xq, wq, xq3, gen, line, summary
             s),
     }
     for name, (kern, plain, lib, dtype, nrows) in timings.items():
-        t = {"ms": device_ms(kern, 200),
+        t = {**_rounds({"ms": kern, "library_ms": lib}, TIMING_ROUNDS),
              "plain_ms": device_ms(plain, 20),
-             "library_ms": device_ms(lib, 200),
              "events_ms": cuda_ms(kern, 200)}
-        esize = {torch.bfloat16: 2, torch.int8: 1}[dtype]
-        t["bound_ms"], t["bound_by"] = _bank_bound(name, shape, esize, nrows)
+        esize = {torch.bfloat16: 2, torch.int8: 1, torch.float32: 4}[dtype]
+        t["bound_ms"], t["bound_by"] = _bank_bound(
+            name.removesuffix("_float32"), shape, esize, nrows)
         line[name] = t
-        summary[name].update(t)
+        if name in summary:
+            summary[name].update(t)
 
 
 def phase_kernels() -> dict:
@@ -686,7 +767,8 @@ def phase_kernels() -> dict:
             emit(line)
     for label, shape in (("head", HEAD), ("ragged", RAGGED)):
         _check_int8(mm, shape, label, gen, summary)
-    for label, shape in (("head", MASK_HEAD), ("ragged", MASK_RAGGED)):
+    for label, shape in (("head", MASK_HEAD), ("ragged", MASK_RAGGED),
+                         ("odd_k", MASK_ODD_K)):
         _check_bank(mm, shape, label, gen, summary)
     return summary
 
@@ -695,8 +777,11 @@ def _check_int8(mm, shape: dict, label: str, gen, summary: dict) -> None:
     """The int8 kernels (rows 4 and 5) on the card: bit-equal to their plain
     versions (the int32 sums are exact, then one f32 multiply), sample s
     bit-equal to the single kernel with seeds[s], the first seed pair
-    negative, and the mask readout (x_q = ones, w_q = eye) nonzero exactly
-    where the float kernel's is; at the head shape, their times."""
+    negative, the launch on an x (S, M, K) that carries the sample axis
+    (one ``dropout_matmul_int8_xs``) bit-equal to the plain version and,
+    sample s, to the single launch on x[s] with seeds[s], and the mask
+    readout (x_q = ones, w_q = eye) nonzero exactly where the float
+    kernel's is; at the head shape, their times."""
     import torch
     m, k, n, s = shape["M"], shape["K"], shape["N"], shape["S"]
     xs = ws = 2.0 ** -7                          # the flagship's int8 steps
@@ -704,23 +789,34 @@ def _check_int8(mm, shape: dict, label: str, gen, summary: dict) -> None:
                        dtype=torch.int8).cuda()
     wq = torch.randint(-128, 128, (k, n), generator=gen,
                        dtype=torch.int8).cuda()
+    xq3 = torch.randint(-128, 128, (s, m, k), generator=gen,
+                        dtype=torch.int8).cuda()
     _, _, seeds = _inputs(shape, torch.float32, gen)
     s0 = seeds[0].contiguous()
     y1 = mm.dropout_matmul_int8(xq, wq, s0, RATE, xs, ws)
     ys = mm.dropout_matmul_int8_samples(xq, wq, seeds, RATE, xs, ws)
+    yx = mm.dropout_matmul_int8_inference(xq3, wq, seeds, RATE, xs, ws)
     torch.cuda.synchronize()
     p1 = mm.dropout_matmul_int8_plain(xq, wq, s0, RATE, xs, ws)
     ps = mm.dropout_matmul_int8_samples_plain(xq, wq, seeds, RATE, xs, ws)
+    px = torch.stack([mm.dropout_matmul_int8_plain(xq3[i], wq, seeds[i],
+                                                   RATE, xs, ws)
+                      for i in range(s)])
     same1, sames = torch.equal(y1, p1), torch.equal(ys, ps)
+    samex = torch.equal(yx, px)
     for name, got, want in (("dropout_matmul_int8", y1, p1),
-                            ("dropout_matmul_int8_samples", ys, ps)):
+                            ("dropout_matmul_int8_samples", ys, ps),
+                            ("dropout_matmul_int8_xs", yx, px)):
         summary[name]["max_abs_err"] = max(
             summary[name]["max_abs_err"], (got - want).abs().max().item())
     per_sample = all(torch.equal(ys[i], mm.dropout_matmul_int8(
         xq, wq, seeds[i].contiguous(), RATE, xs, ws)) for i in range(s))
-    check(same1 and sames and per_sample,
-          f"int8 kernels {label}: single {same1}, samples {sames}, "
-          f"per sample {per_sample}")
+    per_sample_x = all(torch.equal(yx[i], mm.dropout_matmul_int8(
+        xq3[i], wq, seeds[i].contiguous(), RATE, xs, ws)) for i in range(s))
+    check(same1 and sames and samex and per_sample and per_sample_x,
+          f"int8 kernels {label}: single {same1}, samples {sames}, _xs "
+          f"{samex}, per sample {per_sample}, _xs per sample "
+          f"{per_sample_x}")
     ones = torch.ones(m, k, dtype=torch.int8, device="cuda")
     eye = torch.eye(k, dtype=torch.int8, device="cuda")
     r8 = mm.dropout_matmul_int8_samples(ones, eye, seeds, RATE, xs, ws)
@@ -732,8 +828,9 @@ def _check_int8(mm, shape: dict, label: str, gen, summary: dict) -> None:
     line = {"phase": "kernels", "shape": label, **shape, "dtype": "int8",
             "rate": RATE, "x_step": xs, "w_step": ws,
             "out_scale": mm.int8_out_scale(xs, ws, RATE),
-            "int8_bit_equal_plain": same1 and sames,
+            "int8_bit_equal_plain": same1 and sames and samex,
             "int8_samples_equal_single_bitwise": per_sample,
+            "int8_xs_equal_single_bitwise": per_sample_x,
             "int8_mask_equals_float_kernel": same_mask,
             "int8_readout_values": vals,
             "negative_seed_sample0": seeds[0].tolist()}
@@ -742,6 +839,8 @@ def _check_int8(mm, shape: dict, label: str, gen, summary: dict) -> None:
                             for i in range(s)])
         xm = torch.where(keep, xq, torch.zeros((), dtype=torch.int8,
                                                device="cuda"))
+        xm3 = torch.where(keep, xq3, torch.zeros((), dtype=torch.int8,
+                                                 device="cuda"))
         wpad = torch.nn.functional.pad(wq, (0, (-n) % 8)).t().contiguous().t()
         timings = {
             "dropout_matmul_int8": (
@@ -755,6 +854,12 @@ def _check_int8(mm, shape: dict, label: str, gen, summary: dict) -> None:
                 lambda: mm.dropout_matmul_int8_samples_plain(
                     xq, wq, seeds, RATE, xs, ws),
                 lambda: torch._int_mm(xm.reshape(s * m, k), wpad)),
+            "dropout_matmul_int8_xs": (
+                lambda: mm.dropout_matmul_int8_inference(xq3, wq, seeds,
+                                                         RATE, xs, ws),
+                lambda: torch.stack([mm.dropout_matmul_int8_plain(
+                    xq3[i], wq, seeds[i], RATE, xs, ws) for i in range(s)]),
+                lambda: torch._int_mm(xm3.reshape(s * m, k), wpad)),
         }
         for name, (kern, plain, lib) in timings.items():
             # library: one cuBLASLt s8 GEMM on the pre-masked x, N padded
@@ -1441,8 +1546,7 @@ def _by_group(rows: list) -> dict:
     groups: dict[str, dict] = {}
     for ms, calls, key in rows:
         k = key.lower()
-        port = ("dropout_" in k or "bank_matmul" in k
-                or "::conv_kernel<" in k or "::conv_mma_kernel<" in k)
+        port = any(name in k for name in PORT_KERNELS)
         group = ("port kernels" if port else
                  "convolutions" if any(w in k for w in (
                      "fprop", "dgrad", "wgrad", "conv")) else
@@ -2313,15 +2417,18 @@ def phase_block(tr: dict) -> dict:
     (c) Masksembles (num_masks 4, scale 2.0, S = 4): (b)'s weights with the
         model's own banks, BLOCK_MASK_EPOCHS epochs under the batch split
         (no port kernel), served: 1 ``bank_conv_samples``, 12 ``bank_conv``
-        and 4 ``bank_matmul`` a spatial predict, 16 and 4 a temporal one,
+        and 1 ``bank_matmul_xs`` a spatial predict (the head's x carries
+        the sample axis), 16 ``bank_conv`` and 4 ``bank_matmul`` a temporal
+        one,
         ``predict(sample_idx=i)`` equal to sample i, card against CPU,
         quality.
     (d) The int8 models on (b)'s and (c)'s weights under INT8_Q, no QAT:
         block 1's site runs the float kernel with an int8 store (64 input
         channels at 16x16 are not int8-executed), blocks 2-4 and the head
-        the int8 kernels (3 ``dropout_conv_int8_xs`` and 10
-        ``dropout_matmul_int8`` a spatial MC predict; 12 ``bank_conv_int8``
-        and 1 ``bank_matmul_int8_xs`` a Masksembles one); with
+        the int8 kernels (3 ``dropout_conv_int8_xs`` and 1
+        ``dropout_matmul_int8_xs`` a spatial MC predict; 12
+        ``bank_conv_int8`` and 1 ``bank_matmul_int8_xs`` a Masksembles
+        one); with
         ``int8_conv_min_ch=32`` block 1's site int8-executes too, through
         the int8 samples kernels. Card against CPU within a few grid steps;
         acc and ECE."""
@@ -2368,7 +2475,7 @@ def phase_block(tr: dict) -> dict:
                  dropout_matmul_xs=1)
     mc_tm = dict(dropout_conv=4 * s_mc, dropout_matmul=s_mc)
     mask_sp = dict(bank_conv_samples=1, bank_conv=3 * s_mask,
-                   bank_matmul=s_mask)
+                   bank_matmul_xs=1)
     mask_tm = dict(bank_conv=4 * s_mask, bank_matmul=s_mask)
     # ---- the main path, counted: (a)-(d)
     reset_counts()
@@ -2432,7 +2539,7 @@ def phase_block(tr: dict) -> dict:
     for name, cfg, variables, quant, samples, want_sp, want_tm, rescale in (
             ("mc_int8", cfg_mc, v_mc, int8_q, s_mc,
              dict(dropout_conv_samples=1, dropout_conv_int8_xs=3,
-                  dropout_matmul_int8=s_mc),
+                  dropout_matmul_int8_xs=1),
              dict(dropout_conv=s_mc, dropout_conv_int8=3 * s_mc,
                   dropout_matmul_int8=s_mc), 1.0 / (1.0 - RATE)),
             ("mask_int8", cfg_mask, v_mask, int8_q, s_mask,
@@ -2442,7 +2549,7 @@ def phase_block(tr: dict) -> dict:
                   bank_matmul_int8=s_mask), 1.0),
             ("mc_int8_min_ch32", cfg_mc, v_mc, int8_q32, s_mc,
              dict(dropout_conv_int8_samples=1, dropout_conv_int8_xs=3,
-                  dropout_matmul_int8=s_mc),
+                  dropout_matmul_int8_xs=1),
              dict(dropout_conv_int8=4 * s_mc, dropout_matmul_int8=s_mc),
              1.0 / (1.0 - RATE)),
             ("mask_int8_min_ch32", cfg_mask, v_mask, int8_q32, s_mask,

@@ -196,8 +196,10 @@ def test_cpu_calls_launch_nothing():
                                  "dropout_apply": 0,
                                  "dropout_matmul_int8": 0,
                                  "dropout_matmul_int8_samples": 0,
+                                 "dropout_matmul_int8_xs": 0,
                                  "bank_matmul": 0,
                                  "bank_matmul_samples": 0,
+                                 "bank_matmul_xs": 0,
                                  "bank_matmul_int8": 0,
                                  "bank_matmul_int8_samples": 0,
                                  "bank_matmul_int8_xs": 0}
