@@ -1,10 +1,11 @@
 // Fused masked-matmul kernels for Hopper (sm_90a), plain C interface.
 //
 // Replaces nine Pallas TPU kernels of bayestpu/kernels/masked_matmul.py:
-//   dropout_matmul_kernel<float|bf16>  <- _dropout_matmul_kernel (:113-132),
-//                                         called by dropout_matmul (:211-249)
 //   chain_samples_kernel<HashChain<float|bf16>>
-//                                      <- _dropout_matmul_samples_kernel
+//                                      <- _dropout_matmul_kernel (:113-132),
+//                                         called by dropout_matmul (:211-249),
+//                                         at one sample; and
+//                                         _dropout_matmul_samples_kernel
 //                                         (:286-311), dropout_matmul_samples;
 //                                         with x carrying the sample axis,
 //                                         the lax.map fallback of
@@ -12,7 +13,8 @@
 //   dropout_apply_kernel               <- _dropout_mask_kernel (:135-148),
 //                                         called by _dropout_apply (:151-176)
 //                                         in the backward of dropout_matmul
-//   dropout_matmul_kernel<int8_t>      <- _dropout_matmul_int8_kernel
+//   int8_samples_mma_kernel<HashStage, I8_SPLIT>
+//                                      <- _dropout_matmul_int8_kernel
 //                                         (:444-465), dropout_matmul_int8
 //                                         (:468-516)
 //   int8_samples_mma_kernel<HashStage, 1>
@@ -70,20 +72,19 @@
 // us of int8 operations, bytes bound. Every one is well under a launch, so
 // the launch itself, the number of blocks in flight and the serial chains
 // inside them set the pace.
-// The single float kernels (rows 2 and 9) and the int8 MC single kernel
-// (row 4) run one simple tile routine: one block per (16-row, 16-col)
-// output tile loops over K in 32-deep tiles; each x tile is staged in
-// shared memory and masked from there, and each output is ONE f32 (or
-// int32) chain over k ascending. The mask is a policy of the tile routine:
-// the counter hash, or a bank row staged per k tile in shared memory.
-// Ragged M, N and K edges are masked in the kernel, not padded in memory.
-// The float samples heads (rows 3 and 8) and the int8 heads on the tensor
-// cores (rows 5-7) have kernels of their own (below, before the entry
-// points): rows 3 and 8 keep the chain of rows 2 and 9 on the CUDA cores,
-// one block per sample; rows 5-7 run on the s8 tensor cores. Sample s of
-// every samples kernel is bit-identical to its single kernel with seeds[s]
-// or idxs[s]: rows 3 and 8 because they run the single kernels' chain, the
-// int8 ones because int32 sums are exact in any order.
+// The float Masksembles single kernel (row 9) runs one simple tile
+// routine: one block per (16-row, 16-col) output tile loops over K in
+// 32-deep tiles; each x tile is staged in shared memory and multiplied by
+// the bank row's values staged beside it, and each output is ONE f32 chain
+// over k ascending. Ragged M, N and K edges are masked in the kernel, not
+// padded in memory. Every other kernel has a design of its own (below,
+// before the entry points): the float MC heads (rows 2 and 3) and the float
+// Masksembles samples head (row 8) on the CUDA cores, warp-specialised, one
+// block per (8 rows, 16 columns, sample); the int8 heads (rows 4-7) on the
+// s8 tensor cores. Sample s of every samples kernel is bit-identical to its
+// single kernel with seeds[s] or idxs[s]: rows 2 and 3 because they are one
+// kernel, row 8 because it runs row 9's chain, the int8 ones because int32
+// sums are exact in any order.
 #include <cstddef>
 #include <cstdint>
 #include <type_traits>
@@ -106,10 +107,9 @@ constexpr int APPLY_THREADS = 256;      // dropout_apply: threads per block
 constexpr int APPLY_MAX_BLOCKS = 132 * 16;  // grid-stride beyond this
 
 // What the tile routine needs of an element type: V, the type a staged
-// value and an accumulator have; load; scaled, the masked value before the
-// dot; madd, one multiply-add; and out, the stored f32 result. For the
-// float types `scale` is the dropout scale applied by `scaled`; for int8 it
-// is out_scale, applied once by `out`.
+// value and an accumulator have; load; madd, one multiply-add; and out, the
+// stored f32 result, scaled by `s` (1 for the float bank kernel). The int8
+// tensor-core kernels use Elem<int8_t>::out alone, for their epilogue.
 template <typename T>
 struct Elem;
 
@@ -117,10 +117,6 @@ template <>
 struct Elem<float> {
   using V = float;
   static __device__ __forceinline__ float load(const float* p) { return *p; }
-  // x * scale, rounded once to f32
-  static __device__ __forceinline__ float scaled(float v, float s) {
-    return __fmul_rn(v, s);
-  }
   static __device__ __forceinline__ float madd(float a, float b, float acc) {
     return __fmaf_rn(a, b, acc);
   }
@@ -133,10 +129,6 @@ struct Elem<__nv_bfloat16> {
   static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
     return __bfloat162float(*p);
   }
-  // x * scale, rounded to bf16 (the f32 product of two bf16 values is exact)
-  static __device__ __forceinline__ float scaled(float v, float s) {
-    return __bfloat162float(__float2bfloat16_rn(__fmul_rn(v, s)));
-  }
   static __device__ __forceinline__ float madd(float a, float b, float acc) {
     return __fmaf_rn(a, b, acc);
   }
@@ -145,53 +137,15 @@ struct Elem<__nv_bfloat16> {
 
 template <>
 struct Elem<int8_t> {
-  using V = int32_t;
-  static __device__ __forceinline__ int32_t load(const int8_t* p) {
-    return *p;
-  }
-  // the int8 kernels mask without scaling; the scale comes once, in out()
-  static __device__ __forceinline__ int32_t scaled(int32_t v, float) {
-    return v;
-  }
-  static __device__ __forceinline__ int32_t madd(int32_t a, int32_t b,
-                                                 int32_t acc) {
-    return acc + a * b;
-  }
   // f32(acc), rounded to nearest even, times the f32 out_scale
   static __device__ __forceinline__ float out(int32_t acc, float s) {
     return __fmul_rn(__int2float_rn(acc), s);
   }
 };
 
-// Mask policies of the tile routine. A policy masks one staged x value:
-// `begin` loads what a block needs once (its seed stream or bank row
-// index), `stage` what one k tile needs, and `apply` masks. Each keeps its
-// own shared memory (`Smem`). The tile routine and its summation order are
-// the same for every policy.
-
-// MC dropout: the counter hash of prng.cuh on the GLOBAL coordinates of x;
-// keep iff coord_bits(row, col, stream) < thresh, the kept value
-// Elem::scaled by the dropout scale (the int8 kernel does not scale).
-template <typename T>
-struct HashMask {
-  using V = typename Elem<T>::V;
-  const int32_t* seeds;  // (2,)
-  uint32_t thresh;
-  float scale;
-  struct Smem {
-    uint32_t stream;
-  };
-  __device__ __forceinline__ void begin(Smem& sm, int tid) const {
-    if (tid == 0) sm.stream = bayestpu::seed_stream(seeds[0], seeds[1]);
-  }
-  __device__ __forceinline__ void stage(Smem&, int, int) const {}
-  __device__ __forceinline__ V apply(const Smem& sm, int gr, int gc, int,
-                                     V v) const {
-    const uint32_t bits = bayestpu::coord_bits(
-        static_cast<uint32_t>(gr), static_cast<uint32_t>(gc), sm.stream);
-    return bits < thresh ? Elem<T>::scaled(v, scale) : V(0);
-  }
-};
+// The mask policy of the tile routine: `begin` loads what a block needs
+// once (its bank row index), `stage` what one k tile needs, and `apply`
+// masks one staged x value; it keeps its own shared memory (`Smem`).
 
 // Masksembles, float: x times the VALUE of row idx of the f32 bank (n, K)
 // (x * row, rounded once to f32; a bf16 x widens exactly first). `begin`
@@ -289,16 +243,6 @@ __device__ __forceinline__ void masked_tile_matmul(
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    dropout_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                          const int32_t* __restrict__ seeds,
-                          float* __restrict__ out, int M, int K, int N,
-                          uint32_t thresh, float scale) {
-  masked_tile_matmul<T, T>(x, w, HashMask<T>{seeds, thresh, scale}, out, M,
-                           K, N, scale);
-}
-
 // The float Masksembles single head (row 9). Row 8's samples kernel
 // (chain_samples_kernel<BankChain>, below) runs this kernel's chain, so
 // sample s of it equals this kernel at idxs[s] bit for bit.
@@ -344,37 +288,40 @@ __global__ void __launch_bounds__(APPLY_THREADS)
 }
 
 
-
-// The float samples heads on the CUDA cores: the MC head (row 3) and the
-// Masksembles head (row 8), and their launches on an x that carries the
-// sample axis (dropout_matmul_xs, bank_matmul_xs). Sample s must equal the
-// single kernel (row 2 with seeds[s], row 9 with idxs[s]) bit for bit, and
-// the tile routine sums each output as ONE chain: acc = 0, then acc =
-// fma(xm_k, w_k, acc) for k ascending. So this kernel keeps that chain, one
-// __fmaf_rn per k in order, with no split over K and no tree sum; the
-// tensor cores would sum in another order, and TF32 would round an f32 x
-// (and row 8's f32 products). What bounds it at the vgg11_me heads (x
-// 128x512, w 512x10; S = 10 MC, S = 4 Masksembles) is latency, not the 6.5
-// M (2.6 M) multiply-adds: the chain of 512 dependent FMAs, and the loads,
-// w transposes and masking in front of it. The design: a block owns 8 rows,
-// 16 columns and ONE sample (grid (ceil(M/8), ceil(N/16), S): 160 blocks at
-// the MC head and 64 at the Masksembles head, where the shared tile routine
-// launched 8) and is warp-specialised, so that the staging runs beside the
-// chains and not before them. Its 4 consumer warps own one output and its
-// chain a thread. Its 4 producer warps stage a window of K (1 KiB a row) in
-// shared memory and hand it over in 4 chunks: at the start they issue every
-// load of the window (x by the staging policy, below; w into registers,
-// each producer one column at every 8th row, one pointer step a load), then
-// per chunk they complete their x piece, masked, once per element for the
-// block's one sample, store their w transposed to K-contiguous columns
-// padded by 16 bytes, and signal the chunk on a named barrier. The
-// consumers run a chunk's FMAs as soon as it is signalled, reading 4 (f32)
-// or 8 (bf16) k of a row and of a column per 16-byte load, conflict-free,
-// and holding the next 4 loads in registers while the current ones' FMAs
-// run, so that neither the global nor the shared-memory latency sits
-// inside the chain. A longer K takes further windows, each after a block
-// barrier. With x_stride > 0, sample s reads x + s * x_stride: exactly what
-// S single launches on x[s] compute. Ragged M, N and K are masked here.
+// The float heads on the CUDA cores: the MC heads (row 2, dropout_matmul,
+// at one sample; row 3, dropout_matmul_samples) and the Masksembles samples
+// head (row 8), and their launches on an x that carries the sample axis
+// (dropout_matmul_xs, bank_matmul_xs). Sample s must equal the single
+// kernel (row 2 with seeds[s], row 9 with idxs[s]) bit for bit: rows 2 and
+// 3 are this one kernel, and row 8 keeps row 9's order. Each output is
+// ONE chain: acc = 0, then acc = fma(xm_k, w_k, acc) for k ascending. No
+// split over blocks, no tensor cores: those would sum in an order that
+// depends on the tiling, and TF32 would round an f32 x (and row 8's f32
+// products). What bounds it at the vgg11_me heads (x 128x512, w 512x10;
+// S = 10 MC, S = 4 Masksembles, S = 1 row 2) is latency, not the 6.5 M
+// (2.6 M, 0.65 M) multiply-adds: the loads, w transposes and masking of
+// the staging, and the chain of 512 dependent FMAs behind them (4
+// interleaved partial chains took at most 2% off when measured, so the
+// chain is mostly hidden and stays serial). The design: a block owns 8
+// rows, 16 columns and ONE sample (grid (ceil(M/8), ceil(N/16), S): 160
+// blocks at the MC head, 64 at the Masksembles head and 16 for row 2, where
+// the tile routine launched 8) and is warp-specialised, so that the staging
+// runs beside the chains and not before them. Its 4 consumer warps own one
+// output a thread. Its 4 producer warps stage a window of K (1 KiB a row)
+// in shared memory and hand it over in 4 chunks: at the start they issue
+// every load of the window (x by the staging policy, below; w into
+// registers, each producer one column at every 8th row, one pointer step a
+// load), then per chunk they complete their x piece, masked, once per
+// element for the block's one sample, store their w transposed to
+// K-contiguous columns padded by 16 bytes, and signal the chunk on a named
+// barrier. The consumers run a chunk's FMAs as soon as it is signalled,
+// reading 4 (f32) or 8 (bf16) k of a row and of a column per 16-byte load,
+// conflict-free, and holding the next 4 loads in registers while the
+// current ones' FMAs run, so that neither the global nor the shared-memory
+// latency sits inside the chain. A longer K takes further windows, each
+// after a block barrier. With x_stride > 0, sample s reads x + s *
+// x_stride: exactly what S single launches on x[s] compute. Ragged M, N and
+// K are masked here.
 constexpr int CH_BM = 8;                        // rows of x and out a block
 constexpr int CH_BN = 16;                       // columns of w and out
 constexpr int CH_CONSUMERS = CH_BM * CH_BN;     // one output, one chain each
@@ -535,10 +482,10 @@ __device__ __forceinline__ float chain_chunk(const T* xr, const T* wc, int kn,
 // leaves it at dst, masked, before the chunk is signalled; `drain` ends the
 // window.
 
-// MC dropout (row 3): x staged in its own type by 16-byte cp.async (plain
-// loads where its rows are not 16-byte aligned), then masked in place:
-// keep iff coord_bits(gr, gc + j, stream_s) < thresh, the kept value row
-// 2's x * scale in x's type.
+// MC dropout (rows 2 and 3): x staged in its own type by 16-byte cp.async
+// (plain loads where its rows are not 16-byte aligned), then masked in
+// place: keep iff coord_bits(gr, gc + j, stream_s) < thresh, the kept
+// value x * scale in x's type.
 template <typename TT>
 struct HashChain {
   using TX = TT;
@@ -731,34 +678,37 @@ __global__ void __launch_bounds__(CH_THREADS)
 }
 
 // The int8 heads on the s8 tensor cores, one template over a staging mask
-// policy and a K split: the counter hash (row 5, dropout_matmul_int8_samples,
-// and its launch on an x that carries the sample axis) or a bank row (row 6,
-// bank_matmul_int8_samples, and its launch on an x that carries the sample
-// axis; row 7, bank_matmul_int8, one sample with K split over a cluster).
-// out[s] = f32((x_q * keep_s) @ w_q) * out_scale. A block owns 16 rows of
-// x, 8 output columns and ONE sample (grid (ceil(M/16), ceil(N/8), S): 160
-// blocks at the vgg11_me MC head, x 128x512, w 512x10, S = 10; 64 at the
-// Masksembles head, S = 4, where the shared tile routine launched 8). Per K
+// policy and a K split: the counter hash (row 4, dropout_matmul_int8, one
+// sample with K split over a cluster; row 5, dropout_matmul_int8_samples,
+// and its launch on an x that carries the sample axis) or a bank row (row
+// 6, bank_matmul_int8_samples, and its launch on an x that carries the
+// sample axis; row 7, bank_matmul_int8, one sample with K split over a
+// cluster). out[s] = f32((x_q * keep_s) @ w_q) * out_scale. A block owns 16
+// rows of x, 8 output columns and ONE sample (grid (ceil(M/16), ceil(N/8),
+// S): 160 blocks at the vgg11_me MC head, x 128x512, w 512x10, S = 10; 64
+// at the Masksembles head, S = 4, where the tile routine launched 8). Per K
 // chunk of KC = 512 / SPLIT bytes it stages the x tile as int8, 16 bytes a
 // thread, masked once per element as it is staged, and the w tile
 // transposed to K-contiguous columns (B fragments), N padded with zeros to
 // 8 in shared memory; its 4 warps split the chunk's k steps of
 // mma.sync.m16n8k32 s8 -> s32 and the 4 partial sums are added in shared
-// memory. One sample alone (row 7) would launch only 16 blocks at the
-// head, each staging all 512 of K in series; so there the SPLIT blocks of
-// one output tile form a thread-block cluster along K (grid.z = S * SPLIT,
-// cluster (1, 1, SPLIT)): block rank q takes the chunks at q * KC, q * KC +
-// 512, ..., and rank 0 adds the others' partial tiles through distributed
-// shared memory and writes the epilogue once. The int32 sums are exact in
-// any order, so the result equals the plain version and, per sample, the
-// single kernels (rows 4 and 7) bit for bit; the epilogue f32(acc) *
-// out_scale runs once. Sample s reads x + s * x_stride (0: x is shared).
+// memory. One sample alone (rows 4 and 7) would launch only 16 blocks at
+// the head, each staging all 512 of K in series; so there the SPLIT blocks
+// of one output tile form a thread-block cluster along K (grid.z = S *
+// SPLIT, cluster (1, 1, SPLIT)): block rank q takes the chunks at q * KC, q
+// * KC + 512, ..., and rank 0 adds the others' partial tiles through
+// distributed shared memory and writes the epilogue once. The int32 sums
+// are exact in any order, so the result equals the plain version and, per
+// sample, the single kernels (rows 4 and 7) bit for bit; the epilogue
+// f32(acc) * out_scale runs once. Sample s reads x + s * x_stride (0: x is
+// shared).
 constexpr int I8_THREADS = 128;
 constexpr int I8_BM = 16;                 // rows of x: one m16 tile
 constexpr int I8_BN = 8;                  // columns of w: one n8 tile
 constexpr int I8_KC = 512;                // bytes of K a split covers at once
-// row 7's K split: the fastest of 1, 2 and 4 at the Masksembles head, as
-// measured once (PERF.md's kernel table has all three times)
+// the K split of rows 4 and 7: the fastest of 1, 2 and 4 for row 7 at the
+// Masksembles head, as measured once (PERF.md's kernel table has all three
+// times)
 constexpr int I8_SPLIT = 4;
 
 // A staging policy: `begin` takes the block's sample, `apply` zeroes the
@@ -948,39 +898,14 @@ int launch_int8_mma(dim3 grid, cudaStream_t st, const void* x, const void* w,
     return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
   }
 }
-}  // namespace
 
-// Each entry point launches on `stream` and returns cudaGetLastError()
-// (0 on success); it neither allocates nor synchronises.
-extern "C" int bt_dropout_matmul(const void* x, const void* w,
-                                 const void* seeds, void* out, int M, int K,
-                                 int N, uint32_t thresh, float scale,
-                                 int is_bf16, void* stream) {
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, 1);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto* sd = static_cast<const int32_t*>(seeds);
-  auto* o = static_cast<float*>(out);
-  if (is_bf16) {
-    dropout_matmul_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w), sd, o, M, K, N, thresh, scale);
-  } else {
-    dropout_matmul_kernel<float><<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), sd, o, M,
-        K, N, thresh, scale);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// x_stride: elements between samples' x, 0 when x is shared (row 3), M * K
-// when x carries the sample axis (dropout_matmul_xs)
-extern "C" int bt_dropout_matmul_samples(const void* x, const void* w,
-                                         const void* seeds, void* out, int M,
-                                         int K, int N, int S, int x_stride,
-                                         uint32_t thresh, float scale,
-                                         int is_bf16, void* stream) {
+// Launch chain_samples_kernel<HashChain<T>> (T from is_bf16) on grid
+// (tiles of M, tiles of N, S): rows 2 (S = 1), 3 and 3x.
+int launch_hash_chain(const void* x, const void* w, const void* seeds,
+                      void* out, int M, int K, int N, int S, int x_stride,
+                      uint32_t thresh, float scale, int is_bf16,
+                      cudaStream_t st) {
   const dim3 grid((M + CH_BM - 1) / CH_BM, (N + CH_BN - 1) / CH_BN, S);
-  const auto st = static_cast<cudaStream_t>(stream);
   const auto* sd = static_cast<const int32_t*>(seeds);
   auto* o = static_cast<float*>(out);
   if (is_bf16) {
@@ -996,6 +921,29 @@ extern "C" int bt_dropout_matmul_samples(const void* x, const void* w,
         Stage{sd, thresh, scale, 0u, false}, o, M, K, N, x_stride);
   }
   return static_cast<int>(cudaGetLastError());
+}
+}  // namespace
+
+// Each entry point launches on `stream` and returns cudaGetLastError()
+// (0 on success); it neither allocates nor synchronises.
+// seeds: one (1, 2) pair; row 3's kernel at one sample
+extern "C" int bt_dropout_matmul(const void* x, const void* w,
+                                 const void* seeds, void* out, int M, int K,
+                                 int N, uint32_t thresh, float scale,
+                                 int is_bf16, void* stream) {
+  return launch_hash_chain(x, w, seeds, out, M, K, N, 1, 0, thresh, scale,
+                           is_bf16, static_cast<cudaStream_t>(stream));
+}
+
+// x_stride: elements between samples' x, 0 when x is shared (row 3), M * K
+// when x carries the sample axis (dropout_matmul_xs)
+extern "C" int bt_dropout_matmul_samples(const void* x, const void* w,
+                                         const void* seeds, void* out, int M,
+                                         int K, int N, int S, int x_stride,
+                                         uint32_t thresh, float scale,
+                                         int is_bf16, void* stream) {
+  return launch_hash_chain(x, w, seeds, out, M, K, N, S, x_stride, thresh,
+                           scale, is_bf16, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int bt_dropout_apply(const void* x, const void* seeds, void* out,
@@ -1018,17 +966,17 @@ extern "C" int bt_dropout_apply(const void* x, const void* seeds, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// seeds: one (1, 2) pair; row 5's kernel at one sample, K split over a
+// cluster of I8_SPLIT blocks
 extern "C" int bt_dropout_matmul_int8(const void* x, const void* w,
                                       const void* seeds, void* out, int M,
                                       int K, int N, uint32_t thresh,
                                       float out_scale, void* stream) {
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, 1);
-  dropout_matmul_kernel<int8_t>
-      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-          static_cast<const int32_t*>(seeds), static_cast<float*>(out), M, K,
-          N, thresh, out_scale);
-  return static_cast<int>(cudaGetLastError());
+  const dim3 grid((M + I8_BM - 1) / I8_BM, (N + I8_BN - 1) / I8_BN, 1);
+  return launch_int8_mma<I8_SPLIT>(
+      grid, static_cast<cudaStream_t>(stream), x, w,
+      HashStage{static_cast<const int32_t*>(seeds), thresh, 0u}, out, M, K,
+      N, 0, out_scale);
 }
 
 // x_stride: elements between samples' x, 0 when x is shared (row 5), M * K

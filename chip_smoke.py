@@ -8,16 +8,19 @@ ends the run with a nonzero exit and no result line.
 
 1. card    — ``nvidia-smi`` name and power limit, torch and CUDA versions.
 2. build   — compiles every kernel of ``bayestpu_torch/csrc`` with nvcc;
-   then the ``tensor_cores`` line: registers and spills (``-Xptxas -v``)
-   of the tensor-core kernels and the HMMA/IMMA instructions that
-   ``cuobjdump -sass`` shows in them (fails if a kernel has none).
+   then the ``tensor_cores`` line: registers, stack frame and spills
+   (``-Xptxas -v``) of the redesigned kernels and the HMMA/IMMA
+   instructions that ``cuobjdump -sass`` shows in them (fails if a
+   tensor-core kernel has none, or if any of them spills).
 3. kernels — each CUDA kernel against its plain PyTorch version on the
    card: the vgg11_me head shape and a ragged one, bf16 and f32 (int8 for
    the int8 kernels, bit for bit); exact mask readouts (the backward's mask
    and the int8 kernels' mask are the forward's); per-sample bit identity;
-   negative seeds; times. The MC heads on an x that carries the sample
-   axis (one ``dropout_matmul_xs`` or ``dropout_matmul_int8_xs`` launch,
-   sample s bit-equal to the single launch on x[s]). The four Masksembles
+   negative seeds; times (each kernel in three rounds that alternate it
+   with its library call; rows 2 and 3 in bf16 and f32). The MC heads on
+   an x that carries the sample axis (one ``dropout_matmul_xs`` or
+   ``dropout_matmul_int8_xs`` launch, sample s bit-equal to the single
+   launch on x[s]). The four Masksembles
    bank kernels at the Masksembles head shape (S = 4), a ragged one and one
    whose K is odd, their indices wrapping and including a negative one:
    float rows on a {0, 1} bank and on one with 2.0 entries, int8 rows bit
@@ -172,7 +175,7 @@ INT8_CPU_STEPS = 4
 # num_masks=4, scale=2.0); S = num_masks. Its heads at batch 128, and a
 # ragged shape whose indices wrap and include a negative one.
 NUM_MASKS, MASK_SCALE = 4, 2.0
-# alternating rounds in which each bank kernel and its library call are
+# alternating rounds in which each head kernel and its library call are
 # timed (their spread is the precision a ratio of the two can claim)
 TIMING_ROUNDS = 3
 MASK_HEAD = dict(M=128, K=512, N=10, S=NUM_MASKS)
@@ -204,16 +207,17 @@ CONV_SUMMARY_SITE = {"dropout_conv_int8": 1, "bank_conv_int8": 1,
                      "dropout_conv_xs": 1, "dropout_conv_int8_xs": 1}
 # the kernels redesigned for the tensor cores, whose registers, spills and
 # SASS tensor-core instructions the build phase reports (the int8 template
-# once for each mask policy and K split: rows 5 and 6 at split 1, row 7
-# at 4)
+# once for each mask policy and K split: rows 5 and 6 at split 1, rows 4
+# and 7 at 4)
 MMA_KERNELS = ("conv_mma_kernel", "int8_samples_mma_kernel")
 # kernels redesigned on the CUDA cores, whose registers and spills the
 # build phase reports beside them (the chain template once for each
-# staging policy: row 3 keeps row 2's FMA chain, row 8 row 9's)
+# staging policy: rows 2 and 3 share one kernel and its chain, row 8 keeps
+# row 9's)
 FMA_KERNELS = ("chain_samples_kernel",)
 # every kernel of bayestpu_torch/csrc, as the profiler names it
-PORT_KERNELS = ("dropout_matmul_kernel", "dropout_apply_kernel",
-                "bank_matmul_kernel", "chain_samples_kernel",
+PORT_KERNELS = ("dropout_apply_kernel", "bank_matmul_kernel",
+                "chain_samples_kernel",
                 "int8_samples_mma_kernel", "::conv_kernel<",
                 "::conv_mma_kernel<")
 # ragged geometries: x NHWC, kernel size, F (not a multiple of 8), padding,
@@ -397,10 +401,11 @@ def _mma_report(rep: dict) -> dict:
             m = re.search(r"Used (\d+) registers", ln)
             if m:
                 d["registers"] = int(m.group(1))
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", ln)
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", ln)
             if m:
-                d["spill_stores"], d["spill_loads"] = map(int, m.groups())
+                (d["stack_frame"], d["spill_stores"],
+                 d["spill_loads"]) = map(int, m.groups())
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass_seen = False
     for name in _build.sources():
@@ -430,11 +435,18 @@ def phase_build() -> None:
     emit({"phase": "build", "seconds": rep["seconds"], "built": rep["built"],
           "ptxas": regs})
     report = _mma_report(rep)
+    for k in MMA_KERNELS + FMA_KERNELS:
+        check(any(k in name for name in report["kernels"]),
+              f"{k}: not in the ptxas report")
     for name, d in report["kernels"].items():
         ops = d.get("sass_tensor_core_ops")
         check(ops is None or sum(ops.values()) > 0
               or not any(k in name for k in MMA_KERNELS),
               f"{name}: no tensor-core instruction in its SASS")
+        check("spill_stores" in d and "spill_loads" in d,
+              f"{name}: ptxas gave no spill counts ({d})")
+        check(d.get("spill_stores") == 0 and d.get("spill_loads") == 0,
+              f"{name}: spills registers ({d})")
     emit({"phase": "tensor_cores", **report})
 
 
@@ -863,9 +875,10 @@ def _check_int8(mm, shape: dict, label: str, gen, summary: dict) -> None:
         }
         for name, (kern, plain, lib) in timings.items():
             # library: one cuBLASLt s8 GEMM on the pre-masked x, N padded
-            # to 16 as torch._int_mm needs (all S samples in one call)
-            t = {"ms": device_ms(kern, 200), "plain_ms": device_ms(plain, 20),
-                 "library_ms": device_ms(lib, 200),
+            # to 16 as torch._int_mm needs (all S samples in one call);
+            # the kernel and it in TIMING_ROUNDS alternating rounds
+            t = {**_rounds({"ms": kern, "library_ms": lib}, TIMING_ROUNDS),
+                 "plain_ms": device_ms(plain, 20),
                  "events_ms": cuda_ms(kern, 200)}
             t["bound_ms"], t["bound_by"] = _bound(name, shape, torch.int8)
             line[name] = t
@@ -904,7 +917,10 @@ def _check_apply(mm, x, seeds, ones, fwd_readout, dtype, label, line,
 def _time_kernels(mm, x, x3, w, seeds, shape, dtype, line, summary
                   ) -> None:
     """Times at the head shape; the bf16 ones (the main path's dtype) go
-    into the summary. x3 carries the sample axis (the _xs launch)."""
+    into the summary. x3 carries the sample axis (the _xs launch). Each
+    kernel and its library call are timed in TIMING_ROUNDS alternating
+    rounds (``_rounds``): ``ms`` and ``library_ms`` are the medians, their
+    readings listed beside them."""
     import torch
     s0 = seeds[0].contiguous()
     keep = mm.keep_mask(s0, shape["M"], shape["K"], RATE)
@@ -941,8 +957,8 @@ def _time_kernels(mm, x, x3, w, seeds, shape, dtype, line, summary
     for name, (kern, plain, lib) in timings.items():
         # ms, plain_ms, library_ms: device time per call; events_ms: CUDA
         # events over back-to-back wrapper calls, host dispatch included
-        t = {"ms": device_ms(kern, 200), "plain_ms": device_ms(plain, 20),
-             "library_ms": device_ms(lib, 200),
+        t = {**_rounds({"ms": kern, "library_ms": lib}, TIMING_ROUNDS),
+             "plain_ms": device_ms(plain, 20),
              "events_ms": cuda_ms(kern, 200)}
         t["bound_ms"], t["bound_by"] = _bound(name, shape, dtype)
         line[name] = t
