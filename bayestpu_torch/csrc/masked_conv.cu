@@ -3,18 +3,21 @@
 //
 // Replaces the two Pallas TPU kernels of bayestpu/kernels/masked_conv.py
 // with two routines:
-//   conv_mma_kernel<T, HashMask|NoMask>   <- _masked_conv_kernel (:371-417),
-//        launched by _launch_masked (:473-510), for bf16 x with bf16 w and
-//        int8 x with int8 w: dropout_conv, dropout_conv_samples,
+//   conv_mma_kernel<T, T, HashMask|NoMask>  <- _masked_conv_kernel
+//        (:371-417), launched by _launch_masked (:473-510), for bf16 x with
+//        bf16 w and int8 x with int8 w: dropout_conv, dropout_conv_samples,
 //        dropout_conv_inference (x carrying the sample axis included),
 //        conv_fused and the int8 twins dropout_conv_int8{,_samples},
 //        conv_int8_fused. An implicit GEMM on the tensor cores.
-//   conv_kernel<TX, TW, HashMask|NoMask>  <- the same, for an f32 x or an
-//        f32 w (TF32 would round their products), on the CUDA cores;
-//   conv_kernel<TX, TW, BankMask>         <- _bank_conv_kernel (:430-467),
-//        launched by _launch_bank (:513-560): bank_conv{,_samples} and
-//        bank_conv_int8{,_samples}, on the CUDA cores (the float bank
-//        products are f32).
+//   conv_mma_kernel<TX, float, BankMask>    <- _bank_conv_kernel (:430-467),
+//   conv_mma_kernel<int8_t, int8_t, BankMask>  launched by _launch_bank
+//        (:513-560): bank_conv{,_samples} (TX bf16 or f32; f32 products
+//        as three TF32 ones) and bank_conv_int8{,_samples}, and both on an
+//        x that carries the sample axis (the _xs entries; JAX's lax.map of
+//        the single kernel, :845-851 and :1070-1076). The same routine.
+//   conv_kernel<TX, TW, HashMask|NoMask>    <- _masked_conv_kernel, for an
+//        f32 x or an f32 w in the MC convs (bf16 products would round
+//        them), on the CUDA cores.
 // Each computes, for every sample s, out[s] = epilogue(conv(x_s ⊙ mask_s,
 // w)) with x NHWC (N, H, W, C), out (S, N, Ho, Wo, F), stride 1 or 2 and
 // any zero padding (the caller resolves XLA's SAME, VALID or explicit pairs
@@ -33,58 +36,71 @@
 //     when n > 1 (JAX selects the row as a max over a where, which clips a
 //     negative entry to 0); the int8 kernels keep x where the value > 0.5;
 //   - NoMask: x as it is (conv_fused, conv_int8_fused).
-// Products accumulate in f32 (float kernels; bf16 products are exact) or
-// int32 (int8 x int8, exact). The epilogue (affine_of, epi_y, store_y), in
-// f32 and in _epi_apply's order, with the roundings that the JAX kernel has
-// on XLA's CPU backend (the reference the tests hold the port to; measured
-// there on every
-// element): with the (2, F) affine, y = fma(acc, scale[f], bias[f]) for the
-// float kernels and y = fma(f32(acc), f32(out_scale * scale[f]), bias[f])
-// for the int8 ones (XLA contracts JAX's y * scale + bias into one fused
-// multiply-add and folds the constant out_scale, the f32 of x_step·w_step
-// [/(1 - rate)], into the scale row); without it, y = acc or f32(acc) *
-// out_scale; relu when asked; then store f32, bf16 (round to nearest even)
-// or int8 = clip(trunc(s ± 0.5), -128, 127) with s = y * inv_step. Every
-// other multiply and add is written __fmul_rn / __fadd_rn, so nvcc
-// contracts nothing else and an int8 output equals JAX's bit for bit.
+// Products accumulate in f32 (float kernels; bf16 products are exact, the
+// bank kernels' f32 products come to about 2^-22 of each from three TF32
+// ones) or int32 (int8 x int8, exact). The epilogue (affine_of, epi_y,
+// store_y), in f32 and in _epi_apply's order, with the roundings that the
+// JAX kernel has on XLA's CPU backend (the reference the tests hold the
+// port to; measured there on every element): with the (2, F) affine, y =
+// fma(acc, scale[f], bias[f]) for the float kernels and y = fma(f32(acc),
+// f32(out_scale * scale[f]), bias[f]) for the int8 ones (XLA contracts
+// JAX's y * scale + bias into one fused multiply-add and folds the constant
+// out_scale, the f32 of x_step·w_step [/(1 - rate)], into the scale row);
+// without it, y = acc or f32(acc) * out_scale; relu when asked; then store
+// f32, bf16 (round to nearest even) or int8 = clip(trunc(s ± 0.5), -128,
+// 127) with s = y * inv_step. Every other multiply and add is written
+// __fmul_rn / __fadd_rn, so nvcc contracts nothing else and an int8 output
+// equals JAX's bit for bit.
 //
 // What bounds it on an H100: at the block-site vgg11 shapes (x 128x16x16x64
 // -> 128, 128x8x8x128 -> 256, 128x4x4x256 -> 512, 128x2x2x512 -> 512, 3x3)
 // one sample at site 1 is 4.44 GFLOP of products that read an input element
 // against 2-5 MB of bf16 traffic: operations bound, 0.0045 ms at the 989
-// TFLOP/s of bf16 tensor cores (half that at the 1,979 TOP/s of int8),
-// 0.066 ms at the 67 TFLOP/s of f32 for the bank kernels, whose products
-// are f32.
+// TFLOP/s of bf16 tensor cores (half that at the 1,979 TOP/s of int8); the
+// float bank kernels' three TF32 products 0.027 ms at 495 TFLOP/s, where
+// f32 multiply-adds outside the tensor cores would take 0.066 ms at 67.
 //
 // The tensor-core routine (conv_mma_kernel) is an implicit GEMM: M = output
-// pixels, N = F, K = KH·KW·C, in the order (channel chunk, tap, channel).
-// A block owns 64 output pixels (NB images x TH rows x TW columns) by 128
-// output channels of ONE sample (grid.z is the sample); its eight warps
-// each own 32 x 32 of that tile as 2 x 4 mma.sync tiles (m16n8k16 bf16 ->
-// f32, m16n8k32 s8 -> s32). K walks C in chunks of 32 bytes (16 bf16 or 32
-// int8 channels, one mma k step per tap). Per chunk the block stages, in
-// x's own type, the input patch its pixels read (halo included), masked
-// ONCE per element as it is staged, so every tap reads the masked value
-// from there and the hash runs once per staged element; the raw x of the
-// next chunk is loaded into registers while this chunk's products run.
-// The weights come from the (KH·KW, F, Cp) copy the wrapper builds (K
-// contiguous, C zero-padded to Cp, a multiple of 32 bytes) by cp.async,
+// pixels, N = F, K = KH·KW·C, in the order (channel chunk, tap, channel). A
+// block owns 64 output pixels (NB images x TH rows x TW columns) by 128
+// output channels of ONE sample (grid.z is the sample); its eight warps each
+// own 32 x 32 of that tile as 2 x 4 mma.sync tiles (m16n8k16 bf16 -> f32,
+// m16n8k32 s8 -> s32, three m16n8k8 tf32 -> f32). K walks C in chunks of 32
+// bytes of the staged type (16 bf16, 32 int8 or 8 f32 channels, one mma k
+// step per tap). Per chunk the block stages the input patch its pixels read
+// (halo included), masked ONCE per element as it is staged, so every tap
+// reads the masked value from there and the mask runs once per staged
+// element; the raw x of the next chunk is loaded into registers, in x's own
+// type, while this chunk's products run. The staged type is x's for the MC
+// and int8 convs, and f32 for the float bank convs: the masked value
+// __fmul_rn(f32(x), b) exactly as JAX forms it. The weights come from the
+// (KH·KW, F, Cp) copy the wrapper builds (K contiguous, C zero-padded to Cp,
+// a multiple of 32 bytes; f32 for the float bank convs) by cp.async,
 // double-buffered over the chunks (in groups of up to 9 taps, so a larger
 // window streams too). Fragments come from shared memory by ldmatrix; the
-// 32-byte rows are XOR-swizzled, conflict-free. bf16 sums run in two
-// levels: each chunk's taps on the tensor core from zero, then that
-// partial added to the f32 total with one rounding, so a sum of K terms
-// rounds like an f32 sum and not like a long tensor-core chain. Every
-// launch kind of one shape runs this routine with one tile and one K
-// order, so sample s of a samples or _xs launch equals the single launch
-// with seeds[s] bit for bit. 128 channels a block, not 64, halve the
-// hashing, which every channel tile repeats for its pixels.
+// 32-byte rows are XOR-swizzled, conflict-free. ldmatrix's b16 matrices hand
+// a lane the 32-bit word (row lane/4, word lane%4) of an 8 x 4-word matrix,
+// which is also the tf32 A and B fragment, so one addressing serves every
+// type. A tf32 fragment is split in registers into big = tf32(v) and small =
+// tf32(v - big), and the tensor core runs small·big, big·small and big·big:
+// about 22 bits of each f32 product (CUTLASS's 3xTF32), where one TF32
+// product keeps 11. Float sums run in two levels: each chunk's taps on the
+// tensor core from zero, then that partial added to the f32 total with one
+// rounding, so a sum of K terms rounds like an f32 sum and not like a long
+// tensor-core chain. On the f32 route that total lives in shared memory (32
+// KiB a block), since the split fragments leave it no room in the 128
+// registers of two blocks an SM, and a thread reads the bank row of its
+// channels once a chunk. Every launch kind of one shape runs this routine
+// with one tile and one K order, so sample s of a samples or _xs launch
+// equals the single launch with seeds[s] or idxs[s] bit for bit. 128 channels
+// a block, not 64, halve the masking, which every channel tile repeats for
+// its pixels.
 //
 // The CUDA-core routine (conv_kernel) is the first port's: a block owns up
 // to 64 pixels by 64 channels of one sample, stages the masked patch widened
-// to f32 (int32 for int8) and the chunk's weights, and each of 256 threads
-// accumulates a 4 x 4 register tile with scalar multiply-adds. It serves
-// f32 and mixed-type float convs and the bank convs.
+// to f32 and the chunk's weights, and each of 256 threads accumulates a 4 x
+// 4 register tile with scalar multiply-adds. It serves the f32 and
+// mixed-type MC convs alone.
 #include <cstddef>
 #include <cstdint>
 #include <type_traits>
@@ -112,12 +128,15 @@ constexpr int KB = 32;            // bytes of one mma k step, of a chunk and
                                   // of a staged row
 constexpr int TAP_GROUP = 9;      // taps of weights staged at a time
 constexpr int MAXV = 3;           // patch vectors of a thread, at most
+// the f32 total of a thread's 2 x 4 tiles, in shared memory on the f32
+// (three-pass TF32) route: 32 KiB a block
+constexpr int TOTAL_BYTES = 2 * 4 * 4 * MMA_THREADS * 4;
 
 enum OutKind { OUT_F32 = 0, OUT_BF16 = 1, OUT_INT8 = 2 };
 
-// V: the staged type of an element (f32 for the float types, int32 for
-// int8); load widens exactly, narrow rounds a V that holds a value of T
-// back to T exactly.
+// V: the type an element is masked in (f32 for the float types, int32 for
+// int8); load and widen widen exactly, narrow rounds a V to T (exactly
+// when it holds a value of T).
 template <typename T>
 struct Ld;
 template <>
@@ -126,6 +145,8 @@ struct Ld<float> {
   static __device__ __forceinline__ float load(const float* p) {
     return __ldg(p);
   }
+  static __device__ __forceinline__ float widen(float v) { return v; }
+  static __device__ __forceinline__ float narrow(float v) { return v; }
 };
 template <>
 struct Ld<__nv_bfloat16> {
@@ -169,11 +190,30 @@ __device__ __forceinline__ typename Ld<T>::V keep_scaled(
 
 // Mask policies: `begin` sets a block up for its sample, `apply` masks one
 // staged x value given its row in the sample (n·H·W + h·W + w) and channel.
+// The tensor-core routine masks through `channels<VE>(c, C)`, the policy's
+// view of VE channels c .. c + VE - 1 (all of one thread's patch vectors
+// of a chunk share them): its apply(row, j, v) masks channel c + j. The
+// per-element policies forward to their own apply (PerElement); a bank row
+// is read there once a chunk (BankChannels).
+template <typename Mask>
+struct PerElement {
+  Mask m;
+  int c;
+  __device__ __forceinline__ typename Mask::V apply(
+      uint32_t row, int j, typename Mask::V v) const {
+    return m.apply(row, c + j, v);
+  }
+};
+
 template <typename TX>
 struct NoMask {
   using V = typename Ld<TX>::V;
   __device__ __forceinline__ void begin(int) {}
   __device__ __forceinline__ V apply(uint32_t, int, V v) const { return v; }
+  template <int VE>
+  __device__ __forceinline__ PerElement<NoMask> channels(int c, int) const {
+    return {*this, c};
+  }
 };
 
 template <typename TX>
@@ -191,6 +231,28 @@ struct HashMask {
         bayestpu::coord_bits(row, static_cast<uint32_t>(c), stream);
     return bits < thresh ? keep_scaled<TX>(v, scale) : V(0);
   }
+  template <int VE>
+  __device__ __forceinline__ PerElement<HashMask> channels(int c,
+                                                           int) const {
+    return {*this, c};
+  }
+};
+
+// VE channels of a bank row: the float kernels' multipliers (the row's
+// values, a negative one clipped to 0 when n > 1), or the int8 kernels'
+// keep bits (value > 0.5); channels at or past C read as 0 (dropped).
+template <typename TX, int VE>
+struct BankChannels {
+  using V = typename Ld<TX>::V;
+  float b[VE];
+  uint32_t keep;
+  __device__ __forceinline__ V apply(uint32_t, int j, V v) const {
+    if constexpr (std::is_same<V, float>::value) {
+      return __fmul_rn(v, b[j]);
+    } else {
+      return (keep >> j) & 1u ? v : V(0);
+    }
+  }
 };
 
 template <typename TX>
@@ -207,13 +269,17 @@ struct BankMask {
     if (r < 0) r += n;
     row = bank + static_cast<size_t>(r) * C;
   }
-  __device__ __forceinline__ V apply(uint32_t, int c, V v) const {
-    const float b = __ldg(row + c);
-    if constexpr (std::is_same<V, float>::value) {
-      return __fmul_rn(v, (n > 1 && !(b > 0.f)) ? 0.f : b);
-    } else {
-      return b > 0.5f ? v : V(0);
+  template <int VE>
+  __device__ __forceinline__ BankChannels<TX, VE> channels(int c,
+                                                           int C) const {
+    BankChannels<TX, VE> m{};
+#pragma unroll
+    for (int j = 0; j < VE; ++j) {
+      const float b = c + j < C ? __ldg(row + c + j) : 0.f;
+      m.b[j] = (n > 1 && !(b > 0.f)) ? 0.f : b;
+      if (b > 0.5f) m.keep |= 1u << j;
     }
+    return m;
   }
 };
 
@@ -297,24 +363,16 @@ __device__ __forceinline__ void store_y2(const Epi& e, float y0, float y1,
   }
 }
 
-template <typename V>
-__device__ __forceinline__ V madd(V a, V b, V acc) {
-  if constexpr (std::is_same<V, float>::value) {
-    return __fmaf_rn(a, b, acc);
-  } else {
-    return acc + a * b;
-  }
-}
-
 // ------------------------------------------------ the CUDA-core routine
 
 template <typename TX, typename TW, typename Mask>
 __global__ void __launch_bounds__(THREADS)
     conv_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
                 Mask mask, void* __restrict__ out, Geom g, Epi e) {
-  using V = typename Ld<TX>::V;
-  static_assert(std::is_same<V, typename Ld<TW>::V>::value,
-                "x and w must stage as one type");
+  using V = float;
+  static_assert(std::is_same<V, typename Ld<TX>::V>::value &&
+                    std::is_same<V, typename Ld<TW>::V>::value,
+                "the CUDA-core routine is float");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   V* patch = reinterpret_cast<V*>(smem_raw);               // NB*PH*PW*BC
   V* ws = patch + g.NB * g.PH * g.PW * g.BC;               // KH*KW*BC*BN
@@ -400,7 +458,8 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int i = 0; i < RM; ++i)
 #pragma unroll
-          for (int j = 0; j < RN; ++j) acc[i][j] = madd(a[i], b[j], acc[i][j]);
+          for (int j = 0; j < RN; ++j)
+            acc[i][j] = __fmaf_rn(a[i], b[j], acc[i][j]);
       }
     }
     __syncthreads();
@@ -462,6 +521,76 @@ struct Mma<int8_t> {
     return a + b;
   }
 };
+// f32 operands: m16n8k8 tf32, run three times a k step on the two halves of
+// each operand (mma_step)
+template <>
+struct Mma<float> {
+  using Acc = float;
+  static __device__ __forceinline__ void run(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  static __device__ __forceinline__ float add(float a, float b) {
+    return __fadd_rn(a, b);
+  }
+};
+
+// v rounded to tf32 (10 stored mantissa bits, to nearest, ties away from
+// zero), as an f32 whose low 13 bits are zero
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r & 0xFFFFE000u;
+}
+
+// The f32 in v (its bits) becomes big = tf32(v); returns small = tf32(v -
+// big). v - big is exact in f32, so big + small is v to about 2^-22 of it.
+__device__ __forceinline__ uint32_t split_tf32(uint32_t& v) {
+  const float f = __uint_as_float(v);
+  v = tf32_rna(f);
+  return tf32_rna(__fsub_rn(f, __uint_as_float(v)));
+}
+
+// One k step of a warp's 2 x 4 tiles into d: A fragments a[mi], B fragments
+// b[nj]. For f32 operands the products small·big, big·small and big·big,
+// in that order, small terms first (small·small, about 2^-22 of a product,
+// is dropped); the fragments are split in place and a and b hold the big
+// halves afterwards.
+template <typename T>
+__device__ __forceinline__ void mma_step(typename Mma<T>::Acc (*d)[4][4],
+                                         uint32_t (&a)[2][4],
+                                         uint32_t (&b)[4][2]) {
+  if constexpr (std::is_same<T, float>::value) {
+    uint32_t bs[4][2];
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) bs[nj][j] = split_tf32(b[nj][j]);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      uint32_t as[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) as[r] = split_tf32(a[mi][r]);
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        Mma<float>::run(d[mi][nj], as, b[nj][0], b[nj][1]);
+        Mma<float>::run(d[mi][nj], a[mi], bs[nj][0], bs[nj][1]);
+        Mma<float>::run(d[mi][nj], a[mi], b[nj][0], b[nj][1]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+        Mma<T>::run(d[mi][nj], a[mi], b[nj][0], b[nj][1]);
+  }
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -503,17 +632,20 @@ __device__ __forceinline__ int swz(int row, int half) {
 // The block's input patch, chunk by chunk: vector k of this thread is
 // 16-byte half (i & 1) of patch row i >> 1, i = tid + k * MMA_THREADS, at
 // sample-local pixel pix[k] (n·H·W + h·W + w; bit k of `inside` clear: a
-// zero-padding position). `load` reads one chunk's raw vectors into
-// registers; `store` masks them, each element once, and writes them to
-// shared memory in x's own type. `vec`: C is a multiple of 16 bytes and x
-// 16-byte aligned, so a vector is one load.
-template <typename T>
+// zero-padding position). A vector holds VE elements of the staged type TS;
+// `load` reads one chunk's VE raw elements of x's type TX into registers
+// (16 bytes, or 8 for bf16 x staged as f32); `store` masks them, each
+// element once, and writes them to shared memory in TS. `vec`: C is a
+// multiple of 16 bytes of TX and x 16-byte aligned, so a vector is one load.
+template <typename TX, typename TS>
 struct Patch {
-  static constexpr int VE = 16 / static_cast<int>(sizeof(T));
+  static constexpr int VE = 16 / static_cast<int>(sizeof(TS));
+  using Raw = typename std::conditional<VE * sizeof(TX) == 16, uint4,
+                                        uint2>::type;
   uint32_t pix[MAXV];
   unsigned inside;
   int n;                      // vectors of the whole patch (2 per row)
-  uint4 raw[MAXV];
+  Raw raw[MAXV];
 
   __device__ __forceinline__ void init(const Geom& g, int n0, int ih0,
                                        int iw0, int tid) {
@@ -532,23 +664,23 @@ struct Patch {
     }
   }
 
-  __device__ __forceinline__ void load(const T* __restrict__ x,
+  __device__ __forceinline__ void load(const TX* __restrict__ x,
                                        const Geom& g, int c0, bool vec,
                                        int tid) {
 #pragma unroll
     for (int k = 0; k < MAXV; ++k) {
       const int c = c0 + ((tid + k * MMA_THREADS) & 1) * VE;
-      raw[k] = make_uint4(0u, 0u, 0u, 0u);
+      raw[k] = Raw{};
       if (!((inside >> k) & 1) || c >= g.C) continue;
-      const T* src = x + static_cast<size_t>(pix[k]) * g.C + c;
+      const TX* src = x + static_cast<size_t>(pix[k]) * g.C + c;
       if (vec) {
-        raw[k] = __ldg(reinterpret_cast<const uint4*>(src));
+        raw[k] = __ldg(reinterpret_cast<const Raw*>(src));
       } else {
-        alignas(16) T e[VE];
+        alignas(16) TX e[VE];
 #pragma unroll
         for (int j = 0; j < VE; ++j)
-          e[j] = c + j < g.C ? src[j] : Ld<T>::narrow(0);
-        raw[k] = *reinterpret_cast<const uint4*>(e);
+          e[j] = c + j < g.C ? src[j] : Ld<TX>::narrow(0);
+        raw[k] = *reinterpret_cast<const Raw*>(e);
       }
     }
   }
@@ -557,23 +689,35 @@ struct Patch {
   __device__ __forceinline__ void store(unsigned char* patch,
                                         const Mask& mask, const Geom& g,
                                         int c0, int tid) const {
+    static_assert(MMA_THREADS % 2 == 0, "one half of a row a thread");
+    const int c = c0 + (tid & 1) * VE;   // every vector's channels
+    const auto m = mask.template channels<VE>(c, g.C);
 #pragma unroll
     for (int k = 0; k < MAXV; ++k) {
       const int i = tid + k * MMA_THREADS;
       if (i >= n) break;
-      alignas(16) T e[VE];
-      *reinterpret_cast<uint4*>(e) = raw[k];
-      if ((inside >> k) & 1) {
-        const int c = c0 + (i & 1) * VE;
+      alignas(16) TX e[VE];
+      *reinterpret_cast<Raw*>(e) = raw[k];
+      unsigned char* dst = patch + swz(i >> 1, i & 1);
+      if constexpr (std::is_same<TX, TS>::value) {   // masked in place
+        if ((inside >> k) & 1) {
 #pragma unroll
-        for (int j = 0; j < VE; ++j) {
-          if (c + j < g.C)
-            e[j] = Ld<T>::narrow(
-                mask.apply(pix[k], c + j, Ld<T>::widen(e[j])));
+          for (int j = 0; j < VE; ++j) {
+            if (c + j < g.C)
+              e[j] = Ld<TS>::narrow(
+                  m.apply(pix[k], j, Ld<TX>::widen(e[j])));
+          }
         }
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(e);
+      } else {
+        alignas(16) TS o[VE];
+#pragma unroll
+        for (int j = 0; j < VE; ++j)
+          o[j] = ((inside >> k) & 1) && c + j < g.C
+                     ? Ld<TS>::narrow(m.apply(pix[k], j, Ld<TX>::widen(e[j])))
+                     : Ld<TS>::narrow(0);
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
       }
-      *reinterpret_cast<uint4*>(patch + swz(i >> 1, i & 1)) =
-          *reinterpret_cast<const uint4*>(e);
     }
   }
 };
@@ -601,13 +745,14 @@ __device__ __forceinline__ void stage_weights(unsigned char* ws,
     cp_async16(dst + t * MMA_BN * KB, src + t * step, ok);
 }
 
-template <typename T, typename Mask>
+// x of type TX, staged (masked) and multiplied as TS, the type of wk
+template <typename TX, typename TS, typename Mask>
 __global__ void __launch_bounds__(MMA_THREADS, 2)
-    conv_mma_kernel(const T* __restrict__ x, const T* __restrict__ wk,
+    conv_mma_kernel(const TX* __restrict__ x, const TS* __restrict__ wk,
                     Mask mask, void* __restrict__ out, Geom g, Epi e,
                     int Cp, int vec) {
-  using Acc = typename Mma<T>::Acc;
-  constexpr int CE = KB / static_cast<int>(sizeof(T));  // channels a chunk
+  using Acc = typename Mma<TS>::Acc;
+  constexpr int CE = KB / static_cast<int>(sizeof(TS));  // channels a chunk
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int taps = g.KH * g.KW;
   const int tg = taps < TAP_GROUP ? taps : TAP_GROUP;
@@ -646,13 +791,19 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
   const int boff =
       swz(wn * 32 + (lane >> 4) * 8 + (lane & 7), (lane >> 3) & 1);
 
-  Patch<T> pt;
+  Patch<TX, TS> pt;
   pt.init(g, n0, ih0, iw0, tid);
   pt.load(x, g, 0, vec != 0, tid);
 
-  // bf16 sums a chunk in `part`, then adds it to `acc`; int8's int32 sums
-  // are exact in any order and go straight to `acc`
+  // float sums a chunk in `part`, then adds it to `acc`; int8's int32 sums
+  // are exact in any order and go straight to `acc`. On the f32 route the
+  // total lives in shared memory instead (`tot`, after the patch; each
+  // thread its own 32 words, word q at q * MMA_THREADS + tid,
+  // conflict-free): the split fragments of three TF32 products leave no
+  // room for it in the 128 registers that two blocks an SM allow.
   constexpr bool two_level = std::is_same<Acc, float>::value;
+  constexpr bool tot_smem = std::is_same<TS, float>::value;
+  float* tot = reinterpret_cast<float*>(patch + g.NB * g.PH * g.PW * KB);
   Acc acc[2][4][4], part[2][4][4];
   Acc(*sum)[4][4] = two_level ? part : acc;
 #pragma unroll
@@ -660,7 +811,17 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
 #pragma unroll
     for (int nj = 0; nj < 4; ++nj)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][nj][r] = part[mi][nj][r] = Acc(0);
+      for (int r = 0; r < 4; ++r) {
+        acc[mi][nj][r] = part[mi][nj][r] = Acc(0);
+        if constexpr (tot_smem)
+          tot[((mi * 4 + nj) * 4 + r) * MMA_THREADS + tid] = 0.f;
+      }
+  auto total = [&](int mi, int nj, int r) -> Acc& {
+    if constexpr (tot_smem)
+      return tot[((mi * 4 + nj) * 4 + r) * MMA_THREADS + tid];
+    else
+      return acc[mi][nj][r];
+  };
 
   // the pipeline's units: chunk ci, taps t0 .. t0 + nt (every tap when
   // KH·KW <= TAP_GROUP); the K order is (chunk, tap, channel) whatever
@@ -707,11 +868,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
         b[2 * nj + 1][0] = r[2];
         b[2 * nj + 1][1] = r[3];
       }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj)
-          Mma<T>::run(sum[mi][nj], a[mi], b[nj][0], b[nj][1]);
+      mma_step<TS>(sum, a, b);
     }
     if (two_level && t0 + nt == taps) {
 #pragma unroll
@@ -720,7 +877,8 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
         for (int nj = 0; nj < 4; ++nj)
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
-            acc[mi][nj][r] = Mma<T>::add(acc[mi][nj][r], part[mi][nj][r]);
+            total(mi, nj, r) = Mma<TS>::add(total(mi, nj, r),
+                                            part[mi][nj][r]);
             part[mi][nj][r] = Acc(0);
           }
     }
@@ -757,9 +915,9 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
         // channels f, f + 1 (f even): one store when both exist and F is
         // even (then obase + f is even too)
         const int f = f0 + wn * 32 + nj * 8 + (lane & 3) * 2;
-        const float y0 = epi_y(e, acc[mi][nj][half * 2], sc[nj][0],
+        const float y0 = epi_y(e, total(mi, nj, half * 2), sc[nj][0],
                                bi[nj][0]);
-        const float y1 = epi_y(e, acc[mi][nj][half * 2 + 1], sc[nj][1],
+        const float y1 = epi_y(e, total(mi, nj, half * 2 + 1), sc[nj][1],
                                bi[nj][1]);
         if (f + 1 < g.F && g.F % 2 == 0) {
           store_y2(e, y0, y1, obase + f, out);
@@ -823,12 +981,13 @@ int make_geom(const int* dims, int x_carries, size_t elem, Geom* g,
 }
 
 // Shared memory of the tensor-core routine: two stages of weights (up to
-// TAP_GROUP taps of one chunk, 36 KiB) and one patch of at most MAXV
-// vectors a thread (384 rows, 12 KiB); NB shrinks until the patch fits. A
-// patch row count past that even at NB = 1 (a kernel window and stride
-// over 8 x 8 outputs beyond 19 x 19 inputs, e.g. 7 x 7 at stride 2) is
-// refused.
-int make_mma_geom(const int* dims, int x_carries, Geom* g, size_t* smem) {
+// TAP_GROUP taps of one chunk, 36 KiB each), one patch of at most MAXV
+// vectors a thread (384 rows, 12 KiB) and `extra` bytes (the f32 route's
+// total); NB shrinks until the patch fits. A patch row count past that
+// even at NB = 1 (a kernel window and stride over 8 x 8 outputs beyond 19
+// x 19 inputs, e.g. 7 x 7 at stride 2) is refused.
+int make_mma_geom(const int* dims, int x_carries, size_t extra, Geom* g,
+                  size_t* smem) {
   const int rc = read_dims(dims, x_carries, g);
   if (rc != 0) return rc;
   Geom& q = *g;
@@ -841,7 +1000,7 @@ int make_mma_geom(const int* dims, int x_carries, Geom* g, size_t* smem) {
     q.NB = (q.NB + 1) / 2;
   if (2 * q.NB * q.PH * q.PW > MAXV * MMA_THREADS)
     return static_cast<int>(cudaErrorInvalidValue);
-  *smem = wbytes + static_cast<size_t>(q.NB) * q.PH * q.PW * KB;
+  *smem = wbytes + static_cast<size_t>(q.NB) * q.PH * q.PW * KB + extra;
   set_tiles(g);
   return 0;
 }
@@ -881,45 +1040,43 @@ int launch(const void* x, const void* w, const Mask& mask, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// wk: (KH·KW, F, Cp) with Cp = C rounded up to 32 bytes of T, zero-padded.
-template <typename T, typename Mask>
+// x of type TX, wk (KH·KW, F, Cp) of the staged type TS with Cp = C
+// rounded up to 32 bytes of TS, zero-padded.
+template <typename TX, typename TS, typename Mask>
 int launch_mma(const void* x, const void* wk, const Mask& mask, void* out,
                const int* dims, int x_carries, const Epi& e, void* stream) {
   Geom g;
   size_t smem = 0;
-  const int rc = make_mma_geom(dims, x_carries, &g, &smem);
+  const int rc = make_mma_geom(
+      dims, x_carries, std::is_same<TS, float>::value ? TOTAL_BYTES : 0, &g,
+      &smem);
   if (rc == 1) return 0;
   if (rc != 0) return rc;
-  constexpr int CE = KB / static_cast<int>(sizeof(T));
+  constexpr int CE = KB / static_cast<int>(sizeof(TS));
   const int Cp = (g.C + CE - 1) / CE * CE;
-  const int vec = (g.C * static_cast<int>(sizeof(T))) % 16 == 0 &&
+  const int vec = (g.C * static_cast<int>(sizeof(TX))) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  auto* kern = conv_mma_kernel<T, Mask>;
+  auto* kern = conv_mma_kernel<TX, TS, Mask>;
   static bool smem_set = false;
   const int err = allow_smem(kern, &smem_set);
   if (err != 0) return err;
   kern<<<grid_of(g, MMA_BN), MMA_THREADS, smem,
          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(wk), mask, out, g, e,
-      Cp, vec);
+      static_cast<const TX*>(x), static_cast<const TS*>(wk), mask, out, g,
+      e, Cp, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The float kernels: x and w each f32 or bf16; the MC ones (`mma`) with
-// bf16 x and w on the tensor cores, the rest on the CUDA cores.
-template <template <typename> class MaskT, bool mma, typename Make>
+// The float MC kernels: x and w each f32 or bf16; bf16 x with bf16 w on
+// the tensor cores, the rest on the CUDA cores.
+template <template <typename> class MaskT, typename Make>
 int launch_float(const void* x, const void* w, void* out, const int* dims,
                  int x_carries, const Epi& e, int x_bf16, int w_bf16,
                  void* stream, Make make) {
   using B = __nv_bfloat16;
-  if constexpr (mma) {
-    if (x_bf16 && w_bf16)
-      return launch_mma<B>(x, w, make(MaskT<B>{}), out, dims, x_carries, e,
-                           stream);
-  }
   if (x_bf16 && w_bf16)
-    return launch<B, B>(x, w, make(MaskT<B>{}), out, dims, x_carries, e,
-                        stream);
+    return launch_mma<B, B>(x, w, make(MaskT<B>{}), out, dims, x_carries, e,
+                            stream);
   if (x_bf16)
     return launch<B, float>(x, w, make(MaskT<B>{}), out, dims, x_carries, e,
                             stream);
@@ -935,12 +1092,11 @@ int masked_conv(const void* x, const void* w, const void* seeds,
                 int x_carries, float scale, int x_bf16, int w_bf16,
                 void* stream) {
   if (seeds == nullptr) {
-    return launch_float<NoMask, true>(x, w, out, dims, x_carries, e,
-                                      x_bf16, w_bf16, stream,
-                                      [](auto m) { return m; });
+    return launch_float<NoMask>(x, w, out, dims, x_carries, e, x_bf16,
+                                w_bf16, stream, [](auto m) { return m; });
   }
   const auto* sd = static_cast<const int32_t*>(seeds);
-  return launch_float<HashMask, true>(
+  return launch_float<HashMask>(
       x, w, out, dims, x_carries, e, x_bf16, w_bf16, stream, [&](auto m) {
         m.seeds = sd;
         m.thresh = thresh;
@@ -953,42 +1109,50 @@ int masked_conv_int8(const void* x, const void* w, const void* seeds,
                      uint32_t thresh, const Epi& e, void* out,
                      const int* dims, int x_carries, void* stream) {
   if (seeds == nullptr) {
-    return launch_mma<int8_t>(x, w, NoMask<int8_t>{}, out, dims, x_carries,
-                              e, stream);
+    return launch_mma<int8_t, int8_t>(x, w, NoMask<int8_t>{}, out, dims,
+                                      x_carries, e, stream);
   }
   HashMask<int8_t> m{};
   m.seeds = static_cast<const int32_t*>(seeds);
   m.thresh = thresh;
-  return launch_mma<int8_t>(x, w, m, out, dims, x_carries, e, stream);
+  return launch_mma<int8_t, int8_t>(x, w, m, out, dims, x_carries, e,
+                                    stream);
 }
 
-int bank_conv(const void* x, const void* w, const void* bank,
-              const void* idxs, int idx0, int num_masks, const Epi& e,
-              void* out, const int* dims, int x_bf16, int w_bf16,
-              void* stream) {
-  const auto* b = static_cast<const float*>(bank);
-  const auto* ix = static_cast<const int32_t*>(idxs);
-  return launch_float<BankMask, false>(
-      x, w, out, dims, 0, e, x_bf16, w_bf16, stream, [&](auto m) {
-        m.bank = b;
-        m.idxs = ix;
-        m.idx0 = idx0;
-        m.n = num_masks;
-        m.C = dims[3];
-        return m;
-      });
-}
-
-int bank_conv_int8(const void* x, const void* w, const void* bank,
-                   const void* idxs, int idx0, int num_masks, const Epi& e,
-                   void* out, const int* dims, void* stream) {
-  BankMask<int8_t> m{};
+template <typename TX>
+BankMask<TX> bank_mask(const void* bank, const void* idxs, int idx0,
+                       int num_masks, const int* dims) {
+  BankMask<TX> m{};
   m.bank = static_cast<const float*>(bank);
   m.idxs = static_cast<const int32_t*>(idxs);
   m.idx0 = idx0;
   m.n = num_masks;
   m.C = dims[3];
-  return launch<int8_t, int8_t>(x, w, m, out, dims, 0, e, stream);
+  return m;
+}
+
+// The float bank kernels: x bf16 or f32, w f32, f32 staged and multiplied
+// as three TF32 products; the int8 ones on the s8 tensor cores.
+int bank_conv(const void* x, const void* w, const void* bank,
+              const void* idxs, int idx0, int num_masks, const Epi& e,
+              void* out, const int* dims, int x_carries, int x_bf16,
+              void* stream) {
+  using B = __nv_bfloat16;
+  if (x_bf16)
+    return launch_mma<B, float>(
+        x, w, bank_mask<B>(bank, idxs, idx0, num_masks, dims), out, dims,
+        x_carries, e, stream);
+  return launch_mma<float, float>(
+      x, w, bank_mask<float>(bank, idxs, idx0, num_masks, dims), out, dims,
+      x_carries, e, stream);
+}
+
+int bank_conv_int8(const void* x, const void* w, const void* bank,
+                   const void* idxs, int idx0, int num_masks, const Epi& e,
+                   void* out, const int* dims, int x_carries, void* stream) {
+  return launch_mma<int8_t, int8_t>(
+      x, w, bank_mask<int8_t>(bank, idxs, idx0, num_masks, dims), out, dims,
+      x_carries, e, stream);
 }
 
 }  // namespace
@@ -1006,7 +1170,7 @@ int bank_conv_int8(const void* x, const void* w, const void* bank,
 //   out_kind 0 f32, 1 bf16, 2 int8, and inv_step the f32 of 1 / out_step;
 //   relu     nonzero for a relu after the affine;
 //   x_bf16, w_bf16  the float kernels' element types (0: f32); unused by
-//            the int8 kernels;
+//            the int8 kernels, w_bf16 also by the float bank ones;
 //   stream.
 // The MC entries, float and int8, serve one sample and S alike: they take
 // `seeds` ((2,) for S = 1, (S, 2); null: no mask, for conv_fused and
@@ -1015,8 +1179,10 @@ int bank_conv_int8(const void* x, const void* w, const void* bank,
 // under seeds[s]. Their w is (KH·KW, F, Cp), Cp = C rounded up to 32
 // bytes of the type and zero-padded, where the tensor-core routine runs
 // (bf16 x with bf16 w, int8), and (KH, KW, C, F) otherwise. The bank
-// entries take w (KH, KW, C, F), the f32 (num_masks, C) bank and an int
-// index (single) or S int32 indices (samples).
+// entries take w (KH·KW, F, Cp) (f32 for the float ones, whatever x's
+// type, Cp a multiple of 8; int8 for the int8 ones, Cp a multiple of 32),
+// the f32 (num_masks, C) bank and an int index (single) or S int32
+// indices (samples; _xs: x (S, N, H, W, C), sample s of x under idxs[s]).
 #define BT_TAIL                                                            \
   const void *affine, void *out, const int *dims, float fscale,           \
       int out_kind, int relu, float inv_step, int x_bf16, int w_bf16,      \
@@ -1057,26 +1223,40 @@ extern "C" int bt_masked_conv_int8_xs(const void* x, const void* w,
 extern "C" int bt_bank_conv(const void* x, const void* w, const void* bank,
                             int idx, int num_masks, BT_TAIL) {
   return bank_conv(x, w, bank, nullptr, idx, num_masks, BT_EPI(1.f), out,
-                   dims, x_bf16, w_bf16, stream);
+                   dims, 0, x_bf16, stream);
 }
 
 extern "C" int bt_bank_conv_samples(const void* x, const void* w,
                                     const void* bank, const void* idxs,
                                     int num_masks, BT_TAIL) {
   return bank_conv(x, w, bank, idxs, 0, num_masks, BT_EPI(1.f), out, dims,
-                   x_bf16, w_bf16, stream);
+                   0, x_bf16, stream);
+}
+
+extern "C" int bt_bank_conv_xs(const void* x, const void* w,
+                               const void* bank, const void* idxs,
+                               int num_masks, BT_TAIL) {
+  return bank_conv(x, w, bank, idxs, 0, num_masks, BT_EPI(1.f), out, dims,
+                   1, x_bf16, stream);
 }
 
 extern "C" int bt_bank_conv_int8(const void* x, const void* w,
                                  const void* bank, int idx, int num_masks,
                                  BT_TAIL) {
   return bank_conv_int8(x, w, bank, nullptr, idx, num_masks, BT_EPI(fscale),
-                        out, dims, stream);
+                        out, dims, 0, stream);
 }
 
 extern "C" int bt_bank_conv_int8_samples(const void* x, const void* w,
                                          const void* bank, const void* idxs,
                                          int num_masks, BT_TAIL) {
   return bank_conv_int8(x, w, bank, idxs, 0, num_masks, BT_EPI(fscale), out,
-                        dims, stream);
+                        dims, 0, stream);
+}
+
+extern "C" int bt_bank_conv_int8_xs(const void* x, const void* w,
+                                    const void* bank, const void* idxs,
+                                    int num_masks, BT_TAIL) {
+  return bank_conv_int8(x, w, bank, idxs, 0, num_masks, BT_EPI(fscale), out,
+                        dims, 1, stream);
 }

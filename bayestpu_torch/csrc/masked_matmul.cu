@@ -37,13 +37,13 @@
 //                                      <- _bank_matmul_int8_kernel
 //                                         (:763-785), bank_matmul_int8 (:788)
 //   chain_samples_kernel<BankChain<float|bf16>>
-//                                      <- _bank_matmul_samples_kernel
+//                                      <- _bank_matmul_kernel (:843-860),
+//                                         bank_matmul (:976), at one sample;
+//                                         and _bank_matmul_samples_kernel
 //                                         (:863-885), bank_matmul_samples
 //                                         (:888); with x carrying the sample
 //                                         axis, the lax.map fallback of
 //                                         bank_matmul_inference (:957-960)
-//   bank_matmul_kernel<float|bf16>     <- _bank_matmul_kernel (:843-860),
-//                                         bank_matmul (:976)
 // The MC-dropout float kernels compute out[s] = (x * keep_s(row, col) *
 // scale) @ w in f32, where keep_s is the counter hash of prng.cuh on the
 // GLOBAL, unpadded coordinates of x and seeds[s]. Under bf16 the product x *
@@ -72,19 +72,13 @@
 // us of int8 operations, bytes bound. Every one is well under a launch, so
 // the launch itself, the number of blocks in flight and the serial chains
 // inside them set the pace.
-// The float Masksembles single kernel (row 9) runs one simple tile
-// routine: one block per (16-row, 16-col) output tile loops over K in
-// 32-deep tiles; each x tile is staged in shared memory and multiplied by
-// the bank row's values staged beside it, and each output is ONE f32 chain
-// over k ascending. Ragged M, N and K edges are masked in the kernel, not
-// padded in memory. Every other kernel has a design of its own (below,
-// before the entry points): the float MC heads (rows 2 and 3) and the float
-// Masksembles samples head (row 8) on the CUDA cores, warp-specialised, one
-// block per (8 rows, 16 columns, sample); the int8 heads (rows 4-7) on the
-// s8 tensor cores. Sample s of every samples kernel is bit-identical to its
-// single kernel with seeds[s] or idxs[s]: rows 2 and 3 because they are one
-// kernel, row 8 because it runs row 9's chain, the int8 ones because int32
-// sums are exact in any order.
+// Each kernel has a design of its own (below, before the entry points):
+// the float heads (rows 2, 3, 8 and 9) on the CUDA cores, warp-specialised,
+// one block per (8 rows, 16 columns, sample); the int8 heads (rows 4-7) on
+// the s8 tensor cores. Sample s of every samples kernel is bit-identical to
+// its single kernel with seeds[s] or idxs[s]: rows 2 and 3, and rows 8 and
+// 9, because each pair is one kernel, the int8 ones because int32 sums are
+// exact in any order.
 #include <cstddef>
 #include <cstdint>
 #include <type_traits>
@@ -99,40 +93,24 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int BM = 16;                  // rows of x and out per block
-constexpr int BN = 16;                  // columns of w and out per block
-constexpr int BK = 32;                  // depth of one staged k tile
-constexpr int THREADS = BM * BN;        // one output element per thread
 constexpr int APPLY_THREADS = 256;      // dropout_apply: threads per block
 constexpr int APPLY_MAX_BLOCKS = 132 * 16;  // grid-stride beyond this
 
-// What the tile routine needs of an element type: V, the type a staged
-// value and an accumulator have; load; madd, one multiply-add; and out, the
-// stored f32 result, scaled by `s` (1 for the float bank kernel). The int8
-// tensor-core kernels use Elem<int8_t>::out alone, for their epilogue.
+// The element types: load widens a float x to f32 (dropout_apply); out
+// is the int8 heads' epilogue.
 template <typename T>
 struct Elem;
 
 template <>
 struct Elem<float> {
-  using V = float;
   static __device__ __forceinline__ float load(const float* p) { return *p; }
-  static __device__ __forceinline__ float madd(float a, float b, float acc) {
-    return __fmaf_rn(a, b, acc);
-  }
-  static __device__ __forceinline__ float out(float acc, float) { return acc; }
 };
 
 template <>
 struct Elem<__nv_bfloat16> {
-  using V = float;
   static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
     return __bfloat162float(*p);
   }
-  static __device__ __forceinline__ float madd(float a, float b, float acc) {
-    return __fmaf_rn(a, b, acc);
-  }
-  static __device__ __forceinline__ float out(float acc, float) { return acc; }
 };
 
 template <>
@@ -142,119 +120,6 @@ struct Elem<int8_t> {
     return __fmul_rn(__int2float_rn(acc), s);
   }
 };
-
-// The mask policy of the tile routine: `begin` loads what a block needs
-// once (its bank row index), `stage` what one k tile needs, and `apply`
-// masks one staged x value; it keeps its own shared memory (`Smem`).
-
-// Masksembles, float: x times the VALUE of row idx of the f32 bank (n, K)
-// (x * row, rounded once to f32; a bf16 x widens exactly first). `begin`
-// takes the index modulo n with floor semantics (JAX's idx % n: -1 -> n -
-// 1), so a row read stays in bounds whatever the caller passed. The row's
-// values of a k tile are staged in shared memory; columns beyond K read as
-// 0.
-template <typename T>
-struct BankMask {
-  static_assert(std::is_same<typename Elem<T>::V, float>::value,
-                "the bank tile routine is float");
-  const float* bank;     // (n, K) f32
-  int idx;
-  int n;
-  int K;
-  struct Smem {
-    int idx;
-    float row[BK];
-  };
-  __device__ __forceinline__ void begin(Smem& sm, int tid) const {
-    if (tid == 0) {
-      const int r = idx % n;
-      sm.idx = r < 0 ? r + n : r;
-    }
-  }
-  __device__ __forceinline__ void stage(Smem& sm, int k0, int tid) const {
-    for (int c = tid; c < BK; c += THREADS) {
-      const int gc = k0 + c;
-      sm.row[c] = gc < K ? bank[static_cast<size_t>(sm.idx) * K + gc] : 0.f;
-    }
-  }
-  __device__ __forceinline__ float apply(const Smem& sm, int, int, int c,
-                                         float v) const {
-    return __fmul_rn(v, sm.row[c]);
-  }
-};
-
-// One (BM x BN) output tile of one sample, x of element type TX masked by
-// `mask`, w of type TW (the same staged type V), out f32:
-// Elem<TX>::out(acc, out_scale), where acc is one chain over k ascending.
-template <typename TX, typename TW, typename Mask>
-__device__ __forceinline__ void masked_tile_matmul(
-    const TX* __restrict__ x, const TW* __restrict__ w, const Mask& mask,
-    float* __restrict__ out, int M, int K, int N, float out_scale) {
-  using V = typename Elem<TX>::V;
-  static_assert(std::is_same<V, typename Elem<TW>::V>::value,
-                "x and w must stage as one type");
-  __shared__ V xs[BM][BK];   // x tile as loaded
-  __shared__ V xm[BM][BK];   // x tile under the mask
-  __shared__ V ws[BK][BN];
-  __shared__ typename Mask::Smem msm;
-
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
-  const int tr = tid / BN;
-  const int tc = tid % BN;
-
-  mask.begin(msm, tid);
-  __syncthreads();
-  V acc = V(0);
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += THREADS) {
-      const int r = i / BK, c = i % BK;
-      const int gr = row0 + r, gc = k0 + c;
-      xs[r][c] = (gr < M && gc < K)
-                     ? Elem<TX>::load(x + static_cast<size_t>(gr) * K + gc)
-                     : V(0);
-    }
-    for (int i = tid; i < BK * BN; i += THREADS) {
-      const int r = i / BN, c = i % BN;
-      const int gr = k0 + r, gc = col0 + c;
-      ws[r][c] = (gr < K && gc < N)
-                     ? Elem<TW>::load(w + static_cast<size_t>(gr) * N + gc)
-                     : V(0);
-    }
-    mask.stage(msm, k0, tid);
-    __syncthreads();
-    for (int i = tid; i < BM * BK; i += THREADS) {
-      const int r = i / BK, c = i % BK;
-      xm[r][c] = mask.apply(msm, row0 + r, k0 + c, c, xs[r][c]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      acc = Elem<TX>::madd(xm[tr][kk], ws[kk][tc], acc);
-    }
-    __syncthreads();
-  }
-
-  const int r = row0 + tr, c = col0 + tc;
-  if (r < M && c < N) {
-    out[static_cast<size_t>(r) * N + c] = Elem<TX>::out(acc, out_scale);
-  }
-}
-
-// The float Masksembles single head (row 9). Row 8's samples kernel
-// (chain_samples_kernel<BankChain>, below) runs this kernel's chain, so
-// sample s of it equals this kernel at idxs[s] bit for bit.
-template <typename TX>
-__global__ void __launch_bounds__(THREADS)
-    bank_matmul_kernel(const TX* __restrict__ x, const float* __restrict__ w,
-                       const float* __restrict__ bank,
-                       float* __restrict__ out, int M, int K, int N, int idx,
-                       int n) {
-  masked_tile_matmul<TX, float>(x, w, BankMask<TX>{bank, idx, n, K}, out, M,
-                                K, N, 1.f);
-}
 
 // dropout(x) alone: out[r, c] = keep(r, c) ? f32(x[r, c]) * scale : 0, with
 // the mask bit for bit that of the forward kernels (same hash, same global
@@ -288,40 +153,39 @@ __global__ void __launch_bounds__(APPLY_THREADS)
 }
 
 
-// The float heads on the CUDA cores: the MC heads (row 2, dropout_matmul,
-// at one sample; row 3, dropout_matmul_samples) and the Masksembles samples
-// head (row 8), and their launches on an x that carries the sample axis
-// (dropout_matmul_xs, bank_matmul_xs). Sample s must equal the single
-// kernel (row 2 with seeds[s], row 9 with idxs[s]) bit for bit: rows 2 and
-// 3 are this one kernel, and row 8 keeps row 9's order. Each output is
-// ONE chain: acc = 0, then acc = fma(xm_k, w_k, acc) for k ascending. No
-// split over blocks, no tensor cores: those would sum in an order that
-// depends on the tiling, and TF32 would round an f32 x (and row 8's f32
-// products). What bounds it at the vgg11_me heads (x 128x512, w 512x10;
-// S = 10 MC, S = 4 Masksembles, S = 1 row 2) is latency, not the 6.5 M
-// (2.6 M, 0.65 M) multiply-adds: the loads, w transposes and masking of
-// the staging, and the chain of 512 dependent FMAs behind them (4
-// interleaved partial chains took at most 2% off when measured, so the
-// chain is mostly hidden and stays serial). The design: a block owns 8
-// rows, 16 columns and ONE sample (grid (ceil(M/8), ceil(N/16), S): 160
-// blocks at the MC head, 64 at the Masksembles head and 16 for row 2, where
-// the tile routine launched 8) and is warp-specialised, so that the staging
-// runs beside the chains and not before them. Its 4 consumer warps own one
-// output a thread. Its 4 producer warps stage a window of K (1 KiB a row)
-// in shared memory and hand it over in 4 chunks: at the start they issue
-// every load of the window (x by the staging policy, below; w into
-// registers, each producer one column at every 8th row, one pointer step a
-// load), then per chunk they complete their x piece, masked, once per
-// element for the block's one sample, store their w transposed to
-// K-contiguous columns padded by 16 bytes, and signal the chunk on a named
-// barrier. The consumers run a chunk's FMAs as soon as it is signalled,
-// reading 4 (f32) or 8 (bf16) k of a row and of a column per 16-byte load,
-// conflict-free, and holding the next 4 loads in registers while the
-// current ones' FMAs run, so that neither the global nor the shared-memory
-// latency sits inside the chain. A longer K takes further windows, each
-// after a block barrier. With x_stride > 0, sample s reads x + s *
-// x_stride: exactly what S single launches on x[s] compute. Ragged M, N and
-// K are masked here.
+// The float heads on the CUDA cores: the MC heads (row 2, dropout_matmul, at
+// one sample; row 3, dropout_matmul_samples) and the Masksembles heads (row
+// 9, bank_matmul, at one sample; row 8, bank_matmul_samples), and their
+// launches on an x that carries the sample axis (dropout_matmul_xs,
+// bank_matmul_xs). Sample s must equal the single kernel (row 2 with
+// seeds[s], row 9 with idxs[s]) bit for bit: each pair is this one kernel.
+// Each output is ONE chain: acc = 0, then acc = fma(xm_k, w_k, acc) for k
+// ascending. No split over blocks, no tensor cores: those would sum in an
+// order that depends on the tiling, and TF32 would round an f32 x (and row
+// 8's f32 products). What bounds it at the vgg11_me heads (x 128x512, w
+// 512x10; S = 10 MC, S = 4 Masksembles, S = 1 rows 2 and 9) is latency, not
+// the 6.5 M (2.6 M, 0.65 M) multiply-adds: the loads, w transposes and
+// masking of the staging, and the chain of 512 dependent FMAs behind them (4
+// interleaved partial chains took at most 2% off when measured, so the chain
+// is mostly hidden and stays serial). The design: a block owns 8 rows, 16
+// columns and ONE sample (grid (ceil(M/8), ceil(N/16), S): 160 blocks at the
+// MC head, 64 at the Masksembles head and 16 for rows 2 and 9, where the
+// first port's tile routine launched 8) and is warp-specialised, so that the
+// staging runs beside the chains and not before them. Its 4 consumer warps
+// own one output a thread. Its 4 producer warps stage a window of K (1 KiB a
+// row) in shared memory and hand it over in 4 chunks: at the start they issue
+// every load of the window (x by the staging policy, below; w into registers,
+// each producer one column at every 8th row, one pointer step a load), then
+// per chunk they complete their x piece, masked, once per element for the
+// block's one sample, store their w transposed to K-contiguous columns padded
+// by 16 bytes, and signal the chunk on a named barrier. The consumers run a
+// chunk's FMAs as soon as it is signalled, reading 4 (f32) or 8 (bf16) k of a
+// row and of a column per 16-byte load, conflict-free, and holding the next 4
+// loads in registers while the current ones' FMAs run, so that neither the
+// global nor the shared-memory latency sits inside the chain. A longer K
+// takes further windows, each after a block barrier. With x_stride > 0,
+// sample s reads x + s * x_stride: exactly what S single launches on x[s]
+// compute. Ragged M, N and K are masked here.
 constexpr int CH_BM = 8;                        // rows of x and out a block
 constexpr int CH_BN = 16;                       // columns of w and out
 constexpr int CH_CONSUMERS = CH_BM * CH_BN;     // one output, one chain each
@@ -535,11 +399,12 @@ struct HashChain {
   }
 };
 
-// Masksembles (row 8): row r = idxs[s] mod n of the f32 bank (n, K),
-// floored as BankMask::begin takes it. x is loaded in its own type into
-// registers (4 values, 16 bytes of f32 or 8 of bf16, a load) beside the
-// row's 4 values, then widened and staged as __fmul_rn(f32(x), row[k]):
-// row 9's masked value, in f32 (Chain<float>); w is read as f32. Columns
+// Masksembles (rows 8 and 9): row r = idxs[s] mod n of the f32 bank (n, K)
+// (idx0 when idxs is null: one sample), floored as JAX's idx % n takes it
+// (-1 -> n - 1). x is loaded in its own type into registers (4 values, 16
+// bytes of f32 or 8 of bf16, a load) beside the row's 4 values, then
+// widened and staged as __fmul_rn(f32(x), row[k]), the masked value of
+// JAX's x_ref * row, in f32 (Chain<float>); w is read as f32. Columns
 // beyond K read as 0 in both.
 template <typename TT>
 struct BankChain {
@@ -549,7 +414,8 @@ struct BankChain {
   // VEC values of x in one load
   using XV = typename std::conditional<sizeof(TX) == 4, uint4, uint2>::type;
   const float* bank;     // (n, K) f32
-  const int32_t* idxs;   // (S,)
+  const int32_t* idxs;   // (S,), or nullptr
+  int idx0;
   int n;
   const float* row;
   bool vec;   // K a multiple of VEC, x and the bank aligned: vector loads
@@ -558,7 +424,7 @@ struct BankChain {
     float4 b[CH_CHUNKS];
   };
   __device__ __forceinline__ void begin(int s, const TX* xb, int K) {
-    const int r = idxs[s] % n;
+    const int r = (idxs != nullptr ? idxs[s] : idx0) % n;
     row = bank + static_cast<size_t>(r < 0 ? r + n : r) * K;
     vec = K % VEC == 0 && reinterpret_cast<uintptr_t>(xb) % sizeof(XV) == 0 &&
           reinterpret_cast<uintptr_t>(bank) % 16 == 0;
@@ -679,29 +545,28 @@ __global__ void __launch_bounds__(CH_THREADS)
 
 // The int8 heads on the s8 tensor cores, one template over a staging mask
 // policy and a K split: the counter hash (row 4, dropout_matmul_int8, one
-// sample with K split over a cluster; row 5, dropout_matmul_int8_samples,
-// and its launch on an x that carries the sample axis) or a bank row (row
-// 6, bank_matmul_int8_samples, and its launch on an x that carries the
-// sample axis; row 7, bank_matmul_int8, one sample with K split over a
-// cluster). out[s] = f32((x_q * keep_s) @ w_q) * out_scale. A block owns 16
-// rows of x, 8 output columns and ONE sample (grid (ceil(M/16), ceil(N/8),
-// S): 160 blocks at the vgg11_me MC head, x 128x512, w 512x10, S = 10; 64
-// at the Masksembles head, S = 4, where the tile routine launched 8). Per K
-// chunk of KC = 512 / SPLIT bytes it stages the x tile as int8, 16 bytes a
-// thread, masked once per element as it is staged, and the w tile
-// transposed to K-contiguous columns (B fragments), N padded with zeros to
-// 8 in shared memory; its 4 warps split the chunk's k steps of
+// sample with K split over a cluster; row 5, dropout_matmul_int8_samples, and
+// its launch on an x that carries the sample axis) or a bank row (row 6,
+// bank_matmul_int8_samples, and its launch on an x that carries the sample
+// axis; row 7, bank_matmul_int8, one sample with K split over a cluster).
+// out[s] = f32((x_q * keep_s) @ w_q) * out_scale. A block owns 16 rows of x,
+// 8 output columns and ONE sample (grid (ceil(M/16), ceil(N/8), S): 160
+// blocks at the vgg11_me MC head, x 128x512, w 512x10, S = 10; 64 at the
+// Masksembles head, S = 4, where the first port's tile routine launched 8).
+// Per K chunk of KC = 512 / SPLIT bytes it stages the x tile as int8, 16
+// bytes a thread, masked once per element as it is staged, and the w tile
+// transposed to K-contiguous columns (B fragments), N padded with zeros to 8
+// in shared memory; its 4 warps split the chunk's k steps of
 // mma.sync.m16n8k32 s8 -> s32 and the 4 partial sums are added in shared
-// memory. One sample alone (rows 4 and 7) would launch only 16 blocks at
-// the head, each staging all 512 of K in series; so there the SPLIT blocks
-// of one output tile form a thread-block cluster along K (grid.z = S *
-// SPLIT, cluster (1, 1, SPLIT)): block rank q takes the chunks at q * KC, q
-// * KC + 512, ..., and rank 0 adds the others' partial tiles through
-// distributed shared memory and writes the epilogue once. The int32 sums
-// are exact in any order, so the result equals the plain version and, per
-// sample, the single kernels (rows 4 and 7) bit for bit; the epilogue
-// f32(acc) * out_scale runs once. Sample s reads x + s * x_stride (0: x is
-// shared).
+// memory. One sample alone (rows 4 and 7) would launch only 16 blocks at the
+// head, each staging all 512 of K in series; so there the SPLIT blocks of one
+// output tile form a thread-block cluster along K (grid.z = S * SPLIT,
+// cluster (1, 1, SPLIT)): block rank q takes the chunks at q * KC, q * KC +
+// 512, ..., and rank 0 adds the others' partial tiles through distributed
+// shared memory and writes the epilogue once. The int32 sums are exact in any
+// order, so the result equals the plain version and, per sample, the single
+// kernels (rows 4 and 7) bit for bit; the epilogue f32(acc) * out_scale runs
+// once. Sample s reads x + s * x_stride (0: x is shared).
 constexpr int I8_THREADS = 128;
 constexpr int I8_BM = 16;                 // rows of x: one m16 tile
 constexpr int I8_BN = 8;                  // columns of w: one n8 tile
@@ -733,7 +598,7 @@ struct HashStage {
 };
 
 // Masksembles: keep iff bank[r][k] > 0.5 with r = idxs[s] mod n (idx0 when
-// idxs is null: one sample), floored as BankMask::begin and JAX's idx % n
+// idxs is null: one sample), floored as BankChain::begin and JAX's idx % n
 // take it (-1 -> n - 1); k >= K reads as dropped. The 16 floats of the row
 // are read beside the 16 x bytes.
 struct BankStage {
@@ -899,6 +764,32 @@ int launch_int8_mma(dim3 grid, cudaStream_t st, const void* x, const void* w,
   }
 }
 
+// Launch chain_samples_kernel<BankChain<T>> (T from is_bf16) on grid
+// (tiles of M, tiles of N, S): rows 9 (S = 1, idxs null, row idx0), 8
+// and 8x.
+int launch_bank_chain(const void* x, const void* w, const void* bank,
+                      const void* idxs, int idx0, void* out, int M, int K,
+                      int N, int S, int x_stride, int n, int is_bf16,
+                      cudaStream_t st) {
+  const dim3 grid((M + CH_BM - 1) / CH_BM, (N + CH_BN - 1) / CH_BN, S);
+  const auto* b = static_cast<const float*>(bank);
+  const auto* ix = static_cast<const int32_t*>(idxs);
+  const auto* wf = static_cast<const float*>(w);
+  auto* o = static_cast<float*>(out);
+  if (is_bf16) {
+    using Stage = BankChain<__nv_bfloat16>;
+    chain_samples_kernel<Stage><<<grid, CH_THREADS, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), wf,
+        Stage{b, ix, idx0, n, nullptr, false}, o, M, K, N, x_stride);
+  } else {
+    using Stage = BankChain<float>;
+    chain_samples_kernel<Stage><<<grid, CH_THREADS, 0, st>>>(
+        static_cast<const float*>(x), wf,
+        Stage{b, ix, idx0, n, nullptr, false}, o, M, K, N, x_stride);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Launch chain_samples_kernel<HashChain<T>> (T from is_bf16) on grid
 // (tiles of M, tiles of N, S): rows 2 (S = 1), 3 and 3x.
 int launch_hash_chain(const void* x, const void* w, const void* seeds,
@@ -993,22 +884,12 @@ extern "C" int bt_dropout_matmul_int8_samples(const void* x, const void* w,
       N, x_stride, out_scale);
 }
 
+// row 8's kernel at one sample, bank row idx (no index copied to the card)
 extern "C" int bt_bank_matmul(const void* x, const void* w, const void* bank,
                               void* out, int M, int K, int N, int idx,
                               int n, int is_bf16, void* stream) {
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, 1);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto* b = static_cast<const float*>(bank);
-  const auto* wf = static_cast<const float*>(w);
-  auto* o = static_cast<float*>(out);
-  if (is_bf16) {
-    bank_matmul_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), wf, b, o, M, K, N, idx, n);
-  } else {
-    bank_matmul_kernel<float><<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(x), wf, b, o, M, K, N, idx, n);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_bank_chain(x, w, bank, nullptr, idx, out, M, K, N, 1, 0, n,
+                           is_bf16, static_cast<cudaStream_t>(stream));
 }
 
 // x_stride: elements between samples' x, 0 when x is shared (row 8), M * K
@@ -1018,24 +899,8 @@ extern "C" int bt_bank_matmul_samples(const void* x, const void* w,
                                       void* out, int M, int K, int N, int S,
                                       int x_stride, int n, int is_bf16,
                                       void* stream) {
-  const dim3 grid((M + CH_BM - 1) / CH_BM, (N + CH_BN - 1) / CH_BN, S);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto* b = static_cast<const float*>(bank);
-  const auto* ix = static_cast<const int32_t*>(idxs);
-  const auto* wf = static_cast<const float*>(w);
-  auto* o = static_cast<float*>(out);
-  if (is_bf16) {
-    using Stage = BankChain<__nv_bfloat16>;
-    chain_samples_kernel<Stage><<<grid, CH_THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), wf,
-        Stage{b, ix, n, nullptr, false}, o, M, K, N, x_stride);
-  } else {
-    using Stage = BankChain<float>;
-    chain_samples_kernel<Stage><<<grid, CH_THREADS, 0, st>>>(
-        static_cast<const float*>(x), wf, Stage{b, ix, n, nullptr, false}, o,
-        M, K, N, x_stride);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_bank_chain(x, w, bank, idxs, 0, out, M, K, N, S, x_stride, n,
+                           is_bf16, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int bt_bank_matmul_int8(const void* x, const void* w,

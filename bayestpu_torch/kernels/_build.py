@@ -73,9 +73,12 @@ _SIGNATURES: dict[str, dict[str, list]] = {
         # x, w, bank, idx, num_masks
         "bt_bank_conv": [_P, _P, _P, _I, _I],
         "bt_bank_conv_int8": [_P, _P, _P, _I, _I],
-        # x, w, bank, idxs, num_masks
+        # x, w, bank, idxs, num_masks; the _xs entries take x (S, N, H, W,
+        # C), sample s under idxs[s]
         "bt_bank_conv_samples": [_P, _P, _P, _P, _I],
+        "bt_bank_conv_xs": [_P, _P, _P, _P, _I],
         "bt_bank_conv_int8_samples": [_P, _P, _P, _P, _I],
+        "bt_bank_conv_int8_xs": [_P, _P, _P, _P, _I],
     }.items()},
 }
 

@@ -7,9 +7,9 @@ Counterpart of ``bayestpu/kernels/masked_conv.py``: ``dropout_conv``
 ``dropout_conv_samples``, ``dropout_conv_inference``, ``conv_fused`` and the
 int8 twins ``dropout_conv_int8{,_samples,_inference}`` and
 ``conv_int8_fused`` (row 10 of the kernel table, ``_masked_conv_kernel``);
-the Masksembles ``bank_conv{,_samples,_inference}`` and
-``bank_conv_int8{,_samples,_inference}`` (row 11, ``_bank_conv_kernel``);
-and ``mask_apply_nhwc``.
+the Masksembles ``bank_conv{,_samples,_xs,_inference}`` and
+``bank_conv_int8{,_samples,_xs,_inference}`` (row 11,
+``_bank_conv_kernel``); and ``mask_apply_nhwc``.
 
 Layouts are the port's: x is an NCHW tensor in ``channels_last`` memory
 (the JAX package's NHWC array), w an OIHW kernel, and the output (N, F, Ho,
@@ -51,9 +51,11 @@ without a mask, as JAX does.
 Dispatch is by the tensors' device: CPU tensors take the plain version, CUDA
 tensors launch the kernel (or raise), any other device raises. Each launch
 adds one to its entry of ``launch_counts``. On the card the routine follows
-the dtypes (``tensor_core``): row 10 with bf16 x and w, or int8, runs the
-tensor-core implicit GEMM of ``masked_conv.cu``; an f32 or mixed-type float
-conv and every bank conv run its CUDA-core routine.
+the dtypes (``tensor_core``): row 10 with bf16 x and w, or int8, and every
+bank conv run the tensor-core implicit GEMM of ``masked_conv.cu`` (the
+float bank convs stage the masked x and the weights in f32 and multiply
+them as three TF32 products); an f32 or mixed-type MC conv runs its
+CUDA-core routine.
 """
 
 from __future__ import annotations
@@ -66,15 +68,16 @@ import torch.nn.functional as F
 
 from bayestpu_torch.core.quant import _round_ap_rnd, int8_conv2d
 from bayestpu_torch.kernels.masked_matmul import (
-    _check_rate_seeds, bank_index, bank_indices, bank_out_scale,
-    dropout_apply, dropout_apply_plain, host_indices, int8_out_scale,
-    is_index_vector, keep_mask, keep_threshold, map_samples, scale_of)
+    _check_carried, _check_rate_seeds, bank_index, bank_indices,
+    bank_out_scale, device_indices, dropout_apply, dropout_apply_plain,
+    host_indices, int8_out_scale, is_index_vector, keep_mask,
+    keep_threshold, map_samples, scale_of)
 
 _FLOAT = (torch.float32, torch.bfloat16)
 
 # Launches of each CUDA kernel since the last reset; CPU calls do not count.
 # conv_fused / conv_int8_fused are row 10's kernels without a mask; the _xs
-# ones row 10's launches on an x that carries the sample axis.
+# ones rows 10's and 11's launches on an x that carries the sample axis.
 launch_counts: dict[str, int] = {"dropout_conv": 0,
                                  "dropout_conv_samples": 0,
                                  "dropout_conv_xs": 0,
@@ -83,8 +86,10 @@ launch_counts: dict[str, int] = {"dropout_conv": 0,
                                  "dropout_conv_int8_xs": 0,
                                  "bank_conv": 0,
                                  "bank_conv_samples": 0,
+                                 "bank_conv_xs": 0,
                                  "bank_conv_int8": 0,
                                  "bank_conv_int8_samples": 0,
+                                 "bank_conv_int8_xs": 0,
                                  "conv_fused": 0,
                                  "conv_int8_fused": 0}
 
@@ -404,21 +409,36 @@ def _check_bank(x: torch.Tensor, bank: torch.Tensor) -> None:
                          f"{x.device} and {bank.device}")
 
 
-def _check_xs(x: torch.Tensor, w: torch.Tensor, seeds: torch.Tensor,
-              rate: float, int8: bool) -> None:
+def _check_carries(x: torch.Tensor, w: torch.Tensor, int8: bool) -> None:
     """x (S, N, C, H, W) that carries the sample axis, each sample in
     channels_last memory and the samples outermost, as ``stack_samples``
-    leaves them (the _xs kernels read (S, N, H, W, C)); seeds (S, 2)."""
+    leaves them (the _xs kernels read (S, N, H, W, C))."""
     if x.dim() != 5:
         raise ValueError(f"need x (S, N, C, H, W); got {tuple(x.shape)}")
     _check(x[0], w, int8)
     if not x.permute(0, 1, 3, 4, 2).is_contiguous():
         raise ValueError("x (S, N, C, H, W) must hold each sample in "
                          "channels_last memory, the samples outermost")
+
+
+def _check_xs(x: torch.Tensor, w: torch.Tensor, seeds: torch.Tensor,
+              rate: float, int8: bool) -> None:
+    """x (S, N, C, H, W) as ``_check_carries`` takes it; seeds (S, 2)."""
+    _check_carries(x, w, int8)
     _check_rate_seeds(x, seeds, 2, rate)
     if seeds.shape[0] != x.shape[0]:
         raise ValueError(f"x carries {x.shape[0]} samples but "
                          f"{seeds.shape[0]} seed pairs came with it")
+
+
+def _carried_indices(x: torch.Tensor, sample_idxs) -> torch.Tensor:
+    """The S indices of an _xs launch (a 1-D integer tensor, or a list of
+    ints) as int32 on x's device, one for each sample x carries."""
+    idxs = device_indices(sample_idxs, x.device)
+    if idxs.device != x.device:
+        raise ValueError(f"sample indices must be on x's device {x.device}")
+    _check_carried(x, idxs)
+    return idxs
 
 
 def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
@@ -427,22 +447,35 @@ def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
 
 def tensor_core(entry: str, x: torch.Tensor, w: torch.Tensor) -> bool:
     """Whether ``bt_<entry>`` runs the tensor-core routine: the MC entries
-    (``masked_conv*``) with bf16 x and w, or int8. An f32 or mixed-type
-    float conv (TF32 would round its products) and the bank entries run
-    the CUDA-core routine."""
-    return (entry.startswith("masked_conv") and x.dtype == w.dtype
-            and x.dtype in (torch.bfloat16, torch.int8))
+    (``masked_conv*``) with bf16 x and w, or int8, and every bank entry
+    (``bank_conv*``: int8 on the s8 tensor cores; float whatever the
+    dtypes, as three TF32 products of f32 operands). An f32 or mixed-type
+    MC conv runs the CUDA-core routine (bf16 or one TF32 product would
+    round its products)."""
+    return entry.startswith("bank_conv") or (
+        x.dtype == w.dtype and x.dtype in (torch.bfloat16, torch.int8))
 
 
-def conv_weights(w: torch.Tensor, mma: bool) -> torch.Tensor:
-    """The OIHW w in the layout a routine reads: (KH·KW, F, Cp) for the
-    tensor-core one (K contiguous, C zero-padded to Cp, a multiple of 32
-    bytes of w's type), (KH, KW, C, F) for the CUDA-core one."""
+def staged_dtype(entry: str, w: torch.Tensor) -> torch.dtype:
+    """The type ``bt_<entry>`` reads w in: f32 for the float bank entries
+    (a bf16 w widens exactly), w's own for the others."""
+    if entry.startswith("bank_conv") and w.dtype != torch.int8:
+        return torch.float32
+    return w.dtype
+
+
+def conv_weights(w: torch.Tensor, mma: bool,
+                 dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The OIHW w in the layout a routine reads: (KH·KW, F, Cp) in
+    ``dtype`` (default w's own) for the tensor-core one (K contiguous, C
+    zero-padded to Cp, a multiple of 32 bytes of ``dtype``), (KH, KW, C,
+    F) in w's type for the CUDA-core one."""
     f, c, kh, kw = w.shape
     if not mma:
         return w.permute(2, 3, 1, 0).contiguous()
-    ce = 32 // w.element_size()
-    wk = torch.zeros((kh * kw, f, -(-c // ce) * ce), dtype=w.dtype,
+    dtype = w.dtype if dtype is None else dtype
+    ce = 32 // dtype.itemsize
+    wk = torch.zeros((kh * kw, f, -(-c // ce) * ce), dtype=dtype,
                      device=w.device)
     wk[:, :, :c] = w.permute(2, 3, 0, 1).reshape(kh * kw, f, c)
     return wk
@@ -454,7 +487,8 @@ def _launch(entry: str, counter: str, x: torch.Tensor, w: torch.Tensor,
             ) -> torch.Tensor:
     """Launch ``bt_<entry>`` of ``masked_conv.cu`` on PyTorch's current
     stream: x (NCHW, channels_last; (S, N, C, H, W) for an _xs entry), the
-    OIHW w in the layout of the entry's routine (``conv_weights``), the
+    OIHW w in the layout and type of the entry's routine (``conv_weights``,
+    ``staged_dtype``), the
     entry's own ``head`` arguments (the mask tensors, or None, held here
     while the kernel is launched, and ints), then the common tail. Returns
     (S, N, F, Ho, Wo), each sample in channels_last memory."""
@@ -470,7 +504,8 @@ def _launch(entry: str, counter: str, x: torch.Tensor, w: torch.Tensor,
         affine = affine_rows(bias, f)
         if affine is not None and affine.device != x.device:
             raise ValueError(f"bias must be on x's device {x.device}")
-        w_k = conv_weights(w, tensor_core(entry, x, w))
+        w_k = conv_weights(w, tensor_core(entry, x, w),
+                           staged_dtype(entry, w))
         head = [a.contiguous() if isinstance(a, torch.Tensor) else a
                 for a in head]
         dims = (ctypes.c_int * 13)(n, h, wd, c, f, kh, kw, stride, g.ph,
@@ -739,8 +774,12 @@ def bank_conv(x: torch.Tensor, w: torch.Tensor, bank: torch.Tensor,
               out_dtype=None, out_step=None, stride: int = 1
               ) -> torch.Tensor:
     """``conv(x · bank[sample_idx % n], w)`` in f32 plus the epilogue
-    (``:781-798``): x f32/bf16, w f32/bf16 (never cast; the Masksembles
-    branch passes the f32 folded kernel), bank (n, C) f32, an int index."""
+    (``:781-798``): x f32/bf16, w f32/bf16 (a bf16 w widened exactly; the
+    Masksembles branch passes the f32 folded kernel), bank (n, C) f32, an
+    int index. On the card the tensor-core routine stages the masked value
+    ``f32(x) · b`` and the f32 w and multiplies them as three TF32
+    products (about 22 bits of each f32 product), summed in f32 a chunk of
+    8 channels at a time."""
     _check(x, w, False)
     _check_bank(x, bank)
     idx = bank_index(sample_idx, bank.shape[0])
@@ -775,6 +814,30 @@ def bank_conv_samples(x: torch.Tensor, w: torch.Tensor, bank: torch.Tensor,
                    make_epi(bias, act, out_step, out_dtype), 1.0)
 
 
+def bank_conv_xs(x: torch.Tensor, w: torch.Tensor, bank: torch.Tensor,
+                 sample_idxs, padding="SAME", bias=None, act=None,
+                 out_dtype=None, out_step=None, stride: int = 1
+                 ) -> torch.Tensor:
+    """S samples of an x (S, N, C, H, W) that carries the sample axis
+    (``stack_samples``'s layout), sample s of x under index s, as JAX's
+    vmap rule maps the single kernel (``lax.map``, ``:845-851``): one
+    launch on the card, sample s bit-identical to ``bank_conv`` on x[s];
+    the single plain version per sample on the CPU. ``sample_idxs``: S
+    indices, a 1-D integer tensor or a list of ints (which a caller that
+    maps several sites copies to the host once)."""
+    _check_carries(x, w, False)
+    _check_bank(x[0], bank)
+    if x.device.type == "cpu":
+        return map_samples(
+            lambda xs, i: bank_conv(xs, w, bank, i, padding, bias, act,
+                                    out_dtype, out_step, stride),
+            x, host_indices(sample_idxs), stack_samples)
+    idxs = _carried_indices(x, sample_idxs)
+    return _launch("bank_conv_xs", "bank_conv_xs", x, w,
+                   [bank, idxs, bank.shape[0]], x.shape[0], padding, stride,
+                   bias, make_epi(bias, act, out_step, out_dtype), 1.0)
+
+
 def bank_conv_inference(x: torch.Tensor, w: torch.Tensor, bank: torch.Tensor,
                         sample_idx, padding="SAME", bias=None, act=None,
                         out_dtype=None, out_step=None, stride: int = 1
@@ -782,13 +845,11 @@ def bank_conv_inference(x: torch.Tensor, w: torch.Tensor, bank: torch.Tensor,
     """The inference entry of the Masksembles conv sites (``:856-872`` and
     the vmap rule ``:833-851``): an int index → one sample; S indices with x
     (N, C, H, W) → one samples launch; S indices (a tensor, or a list of
-    ints, which spares a copy to the host) with x (S, N, C, H, W) → S single
-    launches, sample s of x under index s."""
+    ints) with x (S, N, C, H, W) → ``bank_conv_xs``, sample s of x under
+    index s."""
     if x.dim() == 5:
-        return map_samples(
-            lambda xs, i: bank_conv(xs, w, bank, i, padding, bias, act,
-                                    out_dtype, out_step, stride),
-            x, host_indices(sample_idx), stack_samples)
+        return bank_conv_xs(x, w, bank, sample_idx, padding, bias, act,
+                            out_dtype, out_step, stride)
     if is_index_vector(sample_idx):
         return bank_conv_samples(x, w, bank, sample_idx, padding, bias, act,
                                  out_dtype, out_step, stride)
@@ -801,7 +862,8 @@ def bank_conv_int8(x_q: torch.Tensor, w_q: torch.Tensor, bank: torch.Tensor,
                    bias=None, act=None, out_step=None, stride: int = 1
                    ) -> torch.Tensor:
     """The int8 Masksembles conv (``:1001-1019``): x_q kept where
-    ``bank[idx % n] > 0.5``, exact int32 sums, ``f32(acc) ·
+    ``bank[idx % n] > 0.5``, exact int32 sums (on the card row 10's s8
+    tensor-core routine with a bank-row mask), ``f32(acc) ·
     f32(x_step·w_step)``, then the epilogue."""
     _check(x_q, w_q, True)
     _check_bank(x_q, bank)
@@ -839,18 +901,38 @@ def bank_conv_int8_samples(x_q: torch.Tensor, w_q: torch.Tensor,
                    bank_out_scale(x_step, w_step))
 
 
+def bank_conv_int8_xs(x_q: torch.Tensor, w_q: torch.Tensor,
+                      bank: torch.Tensor, sample_idxs, x_step: float,
+                      w_step: float, padding="SAME", bias=None, act=None,
+                      out_step=None, stride: int = 1) -> torch.Tensor:
+    """The int8 twin of ``bank_conv_xs`` (JAX's ``lax.map``,
+    ``:1070-1076``): one launch on the card, sample s bit-identical to
+    ``bank_conv_int8`` on x_q[s] at index s."""
+    _check_carries(x_q, w_q, True)
+    _check_bank(x_q[0], bank)
+    if x_q.device.type == "cpu":
+        return map_samples(
+            lambda xs, i: bank_conv_int8(xs, w_q, bank, i, x_step, w_step,
+                                         padding, bias, act, out_step,
+                                         stride),
+            x_q, host_indices(sample_idxs), stack_samples)
+    idxs = _carried_indices(x_q, sample_idxs)
+    return _launch("bank_conv_int8_xs", "bank_conv_int8_xs", x_q, w_q,
+                   [bank, idxs, bank.shape[0]], x_q.shape[0], padding,
+                   stride, bias, make_epi(bias, act, out_step, None),
+                   bank_out_scale(x_step, w_step))
+
+
 def bank_conv_int8_inference(x_q: torch.Tensor, w_q: torch.Tensor,
                              bank: torch.Tensor, sample_idx, x_step: float,
                              w_step: float, padding="SAME", bias=None,
                              act=None, out_step=None, stride: int = 1
                              ) -> torch.Tensor:
-    """The int8 twin of ``bank_conv_inference`` (``:1081-1097``)."""
+    """The int8 twin of ``bank_conv_inference`` (``:1081-1097``): an x
+    (S, N, C, H, W) goes to ``bank_conv_int8_xs``."""
     if x_q.dim() == 5:
-        return map_samples(
-            lambda xs, i: bank_conv_int8(xs, w_q, bank, i, x_step, w_step,
-                                         padding, bias, act, out_step,
-                                         stride),
-            x_q, host_indices(sample_idx), stack_samples)
+        return bank_conv_int8_xs(x_q, w_q, bank, sample_idx, x_step, w_step,
+                                 padding, bias, act, out_step, stride)
     if is_index_vector(sample_idx):
         return bank_conv_int8_samples(x_q, w_q, bank, sample_idx, x_step,
                                       w_step, padding, bias, act, out_step,

@@ -730,7 +730,10 @@ def bank_matmul(x: torch.Tensor, w: torch.Tensor, bank: torch.Tensor,
                 sample_idx) -> torch.Tensor:
     """``(x · bank[sample_idx % num_masks]) @ w``, the Masksembles fused
     head. x: (M, K) f32/bf16; w: (K, N) f32; bank: (num_masks, K) f32;
-    sample_idx: an int. Returns (M, N) f32. Inference only, as in JAX."""
+    sample_idx: an int. Returns (M, N) f32. Inference only, as in JAX. The
+    kernel is the samples head's warp-specialised kernel at one sample,
+    each output one serial f32 chain, so sample s of
+    ``bank_matmul_samples`` equals it bit for bit."""
     _check_bank(x, w, bank, False)
     idx = bank_index(sample_idx, bank.shape[0])
     if x.device.type == "cpu":

@@ -33,9 +33,10 @@ ends the run with a nonzero exit and no result line.
    explicit padding, 1x1 stride 2, F not a multiple of 8): bf16 and f32
    against the plain versions, every int8 epilogue bit for bit, the exact
    mask readout, per-sample identity, negative seeds, wrapping and
-   negative bank indices, x carrying the sample axis (one _xs launch,
-   sample s bit-equal to the single launch on x[s]); times at the four
-   block-site shapes.
+   negative bank indices, x carrying the sample axis (one _xs launch of
+   the MC and of the bank convs, sample s bit-equal to the single launch
+   on x[s]); times at the four block-site shapes (the bank convs in
+   three rounds that alternate them with cuDNN).
 4. backward — autograd through ``dropout_matmul`` against
    ``dropout_matmul_vjp_plain`` at the head shape, and through
    ``dropout_conv`` against ``dropout_conv_vjp_plain`` at the block-1 site
@@ -78,7 +79,8 @@ ends the run with a nonzero exit and no result line.
 10. block   — ``vgg11`` with fused block sites (``dropout="block"``), bf16,
    batch 128: seeded MC serving (S = 10) with exact launch counts (1
    ``dropout_conv_samples``, 3 ``dropout_conv_xs``, 1 ``dropout_matmul_xs``
-   a spatial predict), a
+   a spatial predict; its Masksembles twin 1 ``bank_conv_samples``, 3
+   ``bank_conv_xs``, 1 ``bank_matmul_xs``), a
    3-epoch MC fine-tune of the train phase's weights served on 2,000 test
    images, its Masksembles twin (S = 4) fine-tuned under the batch split
    and served, and the int8 models (also with ``int8_conv_min_ch=32``);
@@ -106,6 +108,7 @@ import time
 
 MEM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor-core bf16
+              "tfloat32": 495e12,   # dense tensor-core tf32
               "float32": 67e12,     # f32 outside the tensor cores
               "int8": 1979e12}      # dense tensor-core int8 (TOP/s)
 SOURCE = "bayestpu_torch/csrc/masked_matmul.cu"
@@ -193,8 +196,9 @@ CONV_REPLACES = {
         (("dropout_conv", "dropout_conv_samples", "dropout_conv_xs",
           "dropout_conv_int8", "dropout_conv_int8_samples",
           "dropout_conv_int8_xs"), 371),               # _masked_conv_kernel
-        (("bank_conv", "bank_conv_samples", "bank_conv_int8",
-          "bank_conv_int8_samples"), 430))             # _bank_conv_kernel
+        (("bank_conv", "bank_conv_samples", "bank_conv_xs",
+          "bank_conv_int8", "bank_conv_int8_samples",
+          "bank_conv_int8_xs"), 430))                  # _bank_conv_kernel
     for name in names}
 # the four fused block sites of vgg11 (dropout="block"), each the first conv
 # of blocks 1-4 at batch 128: (H = W, C, F), 3x3, SAME, stride 1
@@ -204,20 +208,21 @@ CONV_SITES = [(16, 64, 128), (8, 128, 256), (4, 256, 512), (2, 512, 512)]
 # kernel, so the int8 single kernels start at block 2; the _xs launches,
 # whose x carries the sample axis, start at block 2 too)
 CONV_SUMMARY_SITE = {"dropout_conv_int8": 1, "bank_conv_int8": 1,
-                     "dropout_conv_xs": 1, "dropout_conv_int8_xs": 1}
+                     "dropout_conv_xs": 1, "dropout_conv_int8_xs": 1,
+                     "bank_conv_xs": 1, "bank_conv_int8_xs": 1}
 # the kernels redesigned for the tensor cores, whose registers, spills and
 # SASS tensor-core instructions the build phase reports (the int8 template
 # once for each mask policy and K split: rows 5 and 6 at split 1, rows 4
-# and 7 at 4)
+# and 7 at 4; the conv template once for each staged type and mask policy,
+# the bank convs' three of them: bf16 and f32 x as tf32, int8)
 MMA_KERNELS = ("conv_mma_kernel", "int8_samples_mma_kernel")
 # kernels redesigned on the CUDA cores, whose registers and spills the
 # build phase reports beside them (the chain template once for each
-# staging policy: rows 2 and 3 share one kernel and its chain, row 8 keeps
-# row 9's)
+# staging policy: rows 2 and 3 share one kernel and its chain, and so do
+# rows 8 and 9)
 FMA_KERNELS = ("chain_samples_kernel",)
 # every kernel of bayestpu_torch/csrc, as the profiler names it
-PORT_KERNELS = ("dropout_apply_kernel", "bank_matmul_kernel",
-                "chain_samples_kernel",
+PORT_KERNELS = ("dropout_apply_kernel", "chain_samples_kernel",
                 "int8_samples_mma_kernel", "::conv_kernel<",
                 "::conv_mma_kernel<")
 # ragged geometries: x NHWC, kernel size, F (not a multiple of 8), padding,
@@ -229,7 +234,8 @@ CONV_RAGGED = {"same_s2": ((3, 15, 16, 40), 3, 20, "SAME", 2),
 CONV_S = 3                                  # samples of the checks
 CONV_RAGGED_IDXS = [2, -1, 5]               # bank indices: wrap, negative
 # the conv kernels' f32 sums against cuDNN's (TF32 off), relative to
-# max|ref|: the products are exact on both sides, the sums run in other
+# max|ref|: the products are exact on both sides (to about 2^-22 of each
+# in the float bank kernels, three TF32 products), the sums run in other
 # orders over up to 9 * 512 = 4,608 terms, 9x the head's K, and a sum's
 # rounding error grows as the square root of its length: 3x KERNEL_RTOL
 CONV_RTOL = 3 * KERNEL_RTOL
@@ -435,6 +441,7 @@ def phase_build() -> None:
     emit({"phase": "build", "seconds": rep["seconds"], "built": rep["built"],
           "ptxas": regs})
     report = _mma_report(rep)
+    emit({"phase": "tensor_cores", **report})
     for k in MMA_KERNELS + FMA_KERNELS:
         check(any(k in name for name in report["kernels"]),
               f"{k}: not in the ptxas report")
@@ -447,7 +454,19 @@ def phase_build() -> None:
               f"{name}: ptxas gave no spill counts ({d})")
         check(d.get("spill_stores") == 0 and d.get("spill_loads") == 0,
               f"{name}: spills registers ({d})")
-    emit({"phase": "tensor_cores", **report})
+    # the bank convs' three instantiations of the conv routine: bf16 and
+    # f32 x on the tf32 tensor cores (HMMA), int8 on the s8 ones (IMMA)
+    bank = {n: d for n, d in report["kernels"].items()
+            if "conv_mma_kernel" in n and "BankMask" in n}
+    check(len(bank) == 3 and all(d.get("stack_frame") == 0
+                                 for d in bank.values()),
+          f"bank conv_mma_kernel instantiations {bank}")
+    if report["cuobjdump"]:
+        kinds = sorted("IMMA" if d["sass_tensor_core_ops"]["IMMA"] else
+                       "HMMA" if d["sass_tensor_core_ops"]["HMMA"] else "none"
+                       for d in bank.values())
+        check(kinds == ["HMMA", "HMMA", "IMMA"],
+              f"bank conv_mma_kernel tensor-core instructions {kinds}")
 
 
 def _inputs(shape: dict, dtype, gen):
@@ -974,14 +993,16 @@ def _conv_taps(size: int, k: int, lo: int, stride: int, out: int) -> int:
 
 
 def _conv_bound(name: str, x, w, s: int, out_bytes: int, padding="SAME",
-                stride: int = 1, mask_bytes: int = 0) -> tuple[float, str]:
+                stride: int = 1, mask_bytes: int = 0, kind: str | None = None
+                ) -> tuple[float, str]:
     """Least time of a masked conv on an H100: x and w read once, the mask
     operands (seeds, or bank rows and indices) and the (2, F) affine read
     once, S outputs written once, against 2 operations for each product
     that reads an input element (taps on the zero padding excluded) per
-    sample, at the peak for the products' type: bf16 or int8 tensor cores
-    for the MC kernels, f32 outside them for the float bank kernels and an
-    f32 x."""
+    sample, at the peak for the products' type (or ``kind``): bf16 or int8
+    tensor cores for the MC kernels, f32 outside them for an f32 or mixed
+    MC conv; the float bank kernels' f32 products as the three TF32
+    products they run, at the tf32 tensor cores' peak."""
     import torch
     from bayestpu_torch.kernels import masked_conv as mc
     n, c, h, wd = x.shape[-4:]          # x (S, N, C, H, W) carries S
@@ -991,11 +1012,14 @@ def _conv_bound(name: str, x, w, s: int, out_bytes: int, padding="SAME",
             * _conv_taps(wd, kw, g.pw, stride, g.wo))
     nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
               + 2 * f * 4 + mask_bytes + s * n * g.ho * g.wo * f * out_bytes)
-    kind = ("int8" if x.dtype == torch.int8 else
-            "bfloat16" if x.dtype == w.dtype == torch.bfloat16
-            and "bank" not in name else "float32")
+    if kind is None:
+        kind = ("int8" if x.dtype == torch.int8 else
+                "tfloat32" if "bank" in name else
+                "bfloat16" if x.dtype == w.dtype == torch.bfloat16
+                else "float32")
+    passes = 3 if kind == "tfloat32" else 1
     t_bytes = nbytes / MEM_BYTES_PER_S
-    t_ops = 2 * s * macs / PEAK_FLOPS[kind]
+    t_ops = 2 * passes * s * macs / PEAK_FLOPS[kind]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1057,10 +1081,12 @@ def _conv_checks(label: str, xshape, k: int, f: int, padding, stride: int,
                  gen, summary: dict) -> None:
     """Rows 10 and 11 on the card against their plain versions at one
     geometry: every float entry in bf16 and f32 (the (2, F) affine and
-    relu, f32 and bf16 stores) to CONV_RTOL; every int8 entry with every
-    epilogue bit for bit; sample s of each samples kernel bit-equal to its
-    single kernel; the first seed pair negative; bank indices that wrap and
-    a negative one; the mask-free conv_fused and conv_int8_fused."""
+    relu, f32 and bf16 stores; the bank convs on both banks, with the f32
+    folded kernel and with w in x's dtype) to CONV_RTOL; every int8 entry
+    with every epilogue bit for bit; sample s of each samples and _xs
+    kernel bit-equal to its single kernel; the first seed pair negative;
+    bank indices that wrap and a negative one; the mask-free conv_fused and
+    conv_int8_fused."""
     import torch
     from bayestpu_torch.kernels import masked_conv as mc
     seeds = _inputs(dict(M=1, K=1, N=1, S=CONV_S), torch.float32, gen)[2]
@@ -1136,6 +1162,19 @@ def _conv_checks(label: str, xshape, k: int, f: int, padding, stride: int,
                   CONV_RTOL, f"{tag}_{bname}")
             per_sample &= all(torch.equal(yb[s], sb[s])
                               for s in range(len(sb)))
+            # x carrying the sample axis: one bank_conv_xs launch
+            yx = mc.bank_conv_inference(x5, wf, bank, idxs, padding, **epi_b)
+            rx = mc.stack_samples([mc.bank_conv_plain(
+                x5[s], wf, bank, i, padding, stride, aff[1], "relu")
+                for s, i in enumerate(CONV_RAGGED_IDXS)])
+            close("bank_conv_xs", yx, rx, CONV_RTOL, f"{tag}_{bname}")
+            per_sample &= all(torch.equal(yx[s], mc.bank_conv(
+                x5[s], wf, bank, i, padding, **epi_b))
+                for s, i in enumerate(CONV_RAGGED_IDXS))
+        # w in x's dtype (bf16 widened exactly by the wrapper)
+        close("bank_conv", mc.bank_conv(x, w, bank, 2, padding, **epi_b),
+              mc.bank_conv_plain(x, w, bank, 2, padding, stride, aff[1],
+                                 "relu"), CONV_RTOL, f"{tag}_w_{tag}")
     # int8, every epilogue, bit for bit
     _, _, aff, xq, wq = _conv_data(xshape, k, f, torch.float32, gen)
     xq5 = _x5(xshape, torch.int8, gen)
@@ -1163,6 +1202,14 @@ def _conv_checks(label: str, xshape, k: int, f: int, padding, stride: int,
         sb = [mc.bank_conv_int8(xq, wq, odd, i, *steps, padding,
                                 stride=stride, **epi)
               for i in CONV_RAGGED_IDXS]
+        yxb = mc.bank_conv_int8_inference(xq5, wq, odd, idxs, *steps,
+                                          padding, stride=stride, **epi)
+        rxb = mc.stack_samples([mc.bank_conv_int8_plain(
+            xq5[s], wq, odd, i, *steps, padding, stride, **epi)
+            for s, i in enumerate(CONV_RAGGED_IDXS)])
+        per_sample &= all(torch.equal(yxb[s], mc.bank_conv_int8(
+            xq5[s], wq, odd, i, *steps, padding, stride=stride, **epi))
+            for s, i in enumerate(CONV_RAGGED_IDXS))
         fused = mc.conv_int8_fused(xq, wq, *steps, padding=padding,
                                    stride=stride, **epi)
         rf = mc.dropout_conv_int8_plain(xq, wq, None, 0.0, *steps, padding,
@@ -1181,6 +1228,7 @@ def _conv_checks(label: str, xshape, k: int, f: int, padding, stride: int,
                 ("dropout_conv_int8_xs", yx, rx),
                 ("bank_conv_int8_samples", yb, rb),
                 ("bank_conv_int8", torch.stack(sb), rb),
+                ("bank_conv_int8_xs", yxb, rxb),
                 ("conv_int8_fused", fused, rf)):
             same = torch.equal(got, want)
             int8_equal &= same
@@ -1247,17 +1295,21 @@ def _conv_times(gen, summary: dict) -> None:
     bf16 x and the f32 folded kernel with an f32 store; the int8 kernels
     with the (2, F) BN affine, relu and an int8 store. The samples kernels
     at the first site (S = 10 MC, 4 Masksembles), where the spatial
-    mapping launches them; the _xs launches (x carrying S = 10 samples) at
-    sites 2-4, each sample also bit-equal to the single launch on its x,
-    with cuDNN at batch S·N beside them. At every site each kernel's
-    output is held against its plain version on the same inputs first:
-    int8 bit for bit, an f32 store to CONV_RTOL, a bf16 store to
-    BF16_OUT_RTOL, and the MC single kernel also with an f32 store. ``ms``
-    is the device time per call from the profiler, ``events_ms`` CUDA
-    events over back-to-back calls; ``library_ms`` one cuDNN ``F.conv2d``
-    of the pre-masked channels_last x (all samples in its batch), which the
-    port never calls; there is no PyTorch int8 conv, so none for the int8
-    rows."""
+    mapping launches them; the _xs launches (x carrying S = 10 MC or 4
+    Masksembles samples) at sites 2-4, each sample also bit-equal to the
+    single launch on its x, with cuDNN at batch S·N beside them. At every
+    site each kernel's output is held against its plain version on the
+    same inputs first: int8 bit for bit, an f32 store to CONV_RTOL, a bf16
+    store to BF16_OUT_RTOL, and the MC single kernel also with an f32
+    store. ``ms`` is the device time per call from the profiler (the bank
+    convs: the median of TIMING_ROUNDS rounds that alternate the kernel and
+    its library call, ``_rounds``), ``events_ms`` CUDA events over
+    back-to-back calls; ``library_ms`` one cuDNN ``F.conv2d`` of the
+    pre-masked channels_last x (all samples in its batch; f32 with TF32
+    off for the bank rows), which the port never calls; there is no
+    PyTorch int8 conv, so none for the int8 rows. The float bank rows also
+    give ``bound_f32_fma_ms``, their bound at the f32 peak outside the
+    tensor cores."""
     import torch
     import torch.nn.functional as F
     from bayestpu_torch.kernels import masked_conv as mc
@@ -1353,6 +1405,11 @@ def _conv_times(gen, summary: dict) -> None:
                 dtype=torch.int8).cuda()) for _ in range(SAMPLES)])
             xm5 = _cl(torch.cat([mc._hash_masked(x5[s], seeds[s], RATE)
                                  for s in range(SAMPLES)]))
+            # the Masksembles sites' x carries S = NUM_MASKS samples, sample
+            # s under index s
+            xb5, xqb5 = x5[:NUM_MASKS], xq5[:NUM_MASKS]
+            xbm5 = _cl(torch.cat([xb5[i].float() * bank[i].view(1, -1, 1, 1)
+                                  for i in range(NUM_MASKS)]))
             runs.update({
                 "dropout_conv_xs": (
                     lambda: mc.dropout_conv_inference(
@@ -1371,6 +1428,22 @@ def _conv_times(gen, summary: dict) -> None:
                         xq5[s], wq, seeds[s], RATE, *steps, "SAME", 1, aff,
                         "relu", steps[0]) for s in range(SAMPLES)]),
                     None, SAMPLES, 1, 8 * SAMPLES),
+                "bank_conv_xs": (
+                    lambda: mc.bank_conv_inference(xb5, wf, bank, idxs,
+                                                   bias=b, act="relu"),
+                    lambda: mc.stack_samples([mc.bank_conv_plain(
+                        xb5[i], wf, bank, i, "SAME", 1, b, "relu")
+                        for i in range(NUM_MASKS)]),
+                    lambda: F.conv2d(xbm5, wf, padding=1), NUM_MASKS, 4,
+                    4 * NUM_MASKS * (c + 1)),
+                "bank_conv_int8_xs": (
+                    lambda: mc.bank_conv_int8_inference(
+                        xqb5, wq, bank, idxs, *steps, bias=aff, act="relu",
+                        out_step=steps[0]),
+                    lambda: mc.stack_samples([mc.bank_conv_int8_plain(
+                        xqb5[i], wq, bank, i, *steps, "SAME", 1, aff,
+                        "relu", steps[0]) for i in range(NUM_MASKS)]),
+                    None, NUM_MASKS, 1, 4 * NUM_MASKS * (c + 1)),
             })
             singles = {
                 "dropout_conv_xs": lambda s: mc.dropout_conv_inference(
@@ -1378,8 +1451,14 @@ def _conv_times(gen, summary: dict) -> None:
                     act="relu", out_dtype=bf16),
                 "dropout_conv_int8_xs": lambda s: mc.dropout_conv_int8(
                     xq5[s], wq, seeds[s].contiguous(), RATE, *steps,
-                    bias=aff, act="relu", out_step=steps[0])}
-            bound_x = {"dropout_conv_xs": x5, "dropout_conv_int8_xs": xq5}
+                    bias=aff, act="relu", out_step=steps[0]),
+                "bank_conv_xs": lambda s: mc.bank_conv(
+                    xb5[s], wf, bank, s, bias=b, act="relu"),
+                "bank_conv_int8_xs": lambda s: mc.bank_conv_int8(
+                    xqb5[s], wq, bank, s, *steps, bias=aff, act="relu",
+                    out_step=steps[0])}
+            bound_x = {"dropout_conv_xs": x5, "dropout_conv_int8_xs": xq5,
+                       "bank_conv_xs": xb5, "bank_conv_int8_xs": xqb5}
         line = {"phase": "kernels", "kernel": "masked_conv",
                 "shape": f"site{si + 1}", "x_nhwc": [n, hw, hw, c], "F": f,
                 "k": 3, "padding": "SAME", "stride": 1}
@@ -1387,7 +1466,7 @@ def _conv_times(gen, summary: dict) -> None:
             for name, one in singles.items():
                 got = runs[name][0]()
                 same = all(torch.equal(got[s], one(s))
-                           for s in range(SAMPLES))
+                           for s in range(got.shape[0]))
                 check(same, f"{name} site{si + 1}: sample s differs from "
                       "the single launch on x[s]")
                 line[f"{name}_equals_single_bitwise"] = same
@@ -1417,12 +1496,23 @@ def _conv_times(gen, summary: dict) -> None:
             xx = (bound_x[name] if name.endswith("_xs") else
                   xq if "int8" in name else x)
             ww = wq if "int8" in name else (wf if "bank" in name else w)
-            t = {"ms": device_ms(kern, 20), "plain_ms": device_ms(plain, 3),
-                 "library_ms": (device_ms(lib, 20) if lib is not None
-                                else None),
-                 "events_ms": cuda_ms(kern, 20, 3)}
+            if name.startswith("bank"):
+                t = _rounds({"ms": kern} if lib is None else
+                            {"ms": kern, "library_ms": lib}, TIMING_ROUNDS,
+                            20)
+                t.setdefault("library_ms", None)
+            else:
+                t = {"ms": device_ms(kern, 20),
+                     "library_ms": (device_ms(lib, 20) if lib is not None
+                                    else None)}
+            t.update(plain_ms=device_ms(plain, 3),
+                     events_ms=cuda_ms(kern, 20, 3))
             t["bound_ms"], t["bound_by"] = _conv_bound(
                 name, xx, ww, s, out_bytes, mask_bytes=mask_bytes)
+            if name.startswith("bank") and "int8" not in name:
+                t["bound_f32_fma_ms"] = _conv_bound(
+                    name, xx, ww, s, out_bytes, mask_bytes=mask_bytes,
+                    kind="float32")[0]
             line[name] = t
             if si == CONV_SUMMARY_SITE.get(name, 0):
                 summary[name].update(t, shape=f"site{si + 1}")
@@ -1582,7 +1672,8 @@ def phase_profile(sl: dict) -> None:
           **_profile_predict(sl["engine"], sl["x"], sl["seed"])})
 
 
-def _profile_predict(eng, x, seed: int, reps: int = 10) -> dict:
+def _profile_predict(eng, x, seed: int, reps: int = 10,
+                     samples: int = SAMPLES) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1590,7 +1681,7 @@ def _profile_predict(eng, x, seed: int, reps: int = 10) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            eng.predict(x, seed, SAMPLES)
+            eng.predict(x, seed, samples)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     rows = _profile_rows(prof, reps)
@@ -2432,18 +2523,18 @@ def phase_block(tr: dict) -> dict:
         served on 2,000 test images (acc >= 0.5, ECE, NLL, aPE, aPE_ood).
     (c) Masksembles (num_masks 4, scale 2.0, S = 4): (b)'s weights with the
         model's own banks, BLOCK_MASK_EPOCHS epochs under the batch split
-        (no port kernel), served: 1 ``bank_conv_samples``, 12 ``bank_conv``
-        and 1 ``bank_matmul_xs`` a spatial predict (the head's x carries
-        the sample axis), 16 ``bank_conv`` and 4 ``bank_matmul`` a temporal
-        one,
+        (no port kernel), served: 1 ``bank_conv_samples``, 3
+        ``bank_conv_xs`` and 1 ``bank_matmul_xs`` a spatial predict (the
+        activations of blocks 2-4 and the head's x carry the sample axis),
+        16 ``bank_conv`` and 4 ``bank_matmul`` a temporal one,
         ``predict(sample_idx=i)`` equal to sample i, card against CPU,
         quality.
     (d) The int8 models on (b)'s and (c)'s weights under INT8_Q, no QAT:
         block 1's site runs the float kernel with an int8 store (64 input
         channels at 16x16 are not int8-executed), blocks 2-4 and the head
         the int8 kernels (3 ``dropout_conv_int8_xs`` and 1
-        ``dropout_matmul_int8_xs`` a spatial MC predict; 12
-        ``bank_conv_int8`` and 1 ``bank_matmul_int8_xs`` a Masksembles
+        ``dropout_matmul_int8_xs`` a spatial MC predict; 3
+        ``bank_conv_int8_xs`` and 1 ``bank_matmul_int8_xs`` a Masksembles
         one); with
         ``int8_conv_min_ch=32`` block 1's site int8-executes too, through
         the int8 samples kernels. Card against CPU within a few grid steps;
@@ -2490,8 +2581,7 @@ def phase_block(tr: dict) -> dict:
     mc_sp = dict(dropout_conv_samples=1, dropout_conv_xs=3,
                  dropout_matmul_xs=1)
     mc_tm = dict(dropout_conv=4 * s_mc, dropout_matmul=s_mc)
-    mask_sp = dict(bank_conv_samples=1, bank_conv=3 * s_mask,
-                   bank_matmul_xs=1)
+    mask_sp = dict(bank_conv_samples=1, bank_conv_xs=3, bank_matmul_xs=1)
     mask_tm = dict(bank_conv=4 * s_mask, bank_matmul=s_mask)
     # ---- the main path, counted: (a)-(d)
     reset_counts()
@@ -2539,7 +2629,9 @@ def phase_block(tr: dict) -> dict:
                                     BLOCK_MASK_EPOCHS, BLOCK_LR, {})
     c = _block_serve("mask", model_fn(cfg_mask), v_mask, mask_sp, mask_tm, x,
                      CPU_REF_RTOL, float_tol, s_mask, True)
-    mets_m, evm_launches = _launched(lambda: c.pop("engine").evaluate(
+    eng_m = c.pop("engine")
+    prof_m = _profile_predict(eng_m, x, 11, reps=5, samples=s_mask)
+    mets_m, evm_launches = _launched(lambda: eng_m.evaluate(
         x_te, y_te, seed=0, ood_check=True, dataset="cifar10"))
     check(evm_launches == counts(**{k: 2 * v for k, v in mask_sp.items()}),
           f"block Masksembles evaluate launches {evm_launches}")
@@ -2550,6 +2642,10 @@ def phase_block(tr: dict) -> dict:
           "dtype": "bfloat16", "batch": BATCH, "samples": s_mask,
           "finetune": fit_m, **c, "test_images": len(x_te), **mets_m,
           "seconds": time.perf_counter() - t0})
+    emit({"phase": "block_mask_profile",
+          "what": "block-site Masksembles bf16 spatial predict of the "
+                  "fine-tuned weights, profiled",
+          **prof_m})
 
     # (d) the int8 models, no QAT
     for name, cfg, variables, quant, samples, want_sp, want_tm, rescale in (
@@ -2559,7 +2655,7 @@ def phase_block(tr: dict) -> dict:
              dict(dropout_conv=s_mc, dropout_conv_int8=3 * s_mc,
                   dropout_matmul_int8=s_mc), 1.0 / (1.0 - RATE)),
             ("mask_int8", cfg_mask, v_mask, int8_q, s_mask,
-             dict(bank_conv_samples=1, bank_conv_int8=3 * s_mask,
+             dict(bank_conv_samples=1, bank_conv_int8_xs=3,
                   bank_matmul_int8_xs=1),
              dict(bank_conv=s_mask, bank_conv_int8=3 * s_mask,
                   bank_matmul_int8=s_mask), 1.0),
@@ -2569,15 +2665,17 @@ def phase_block(tr: dict) -> dict:
              dict(dropout_conv_int8=4 * s_mc, dropout_matmul_int8=s_mc),
              1.0 / (1.0 - RATE)),
             ("mask_int8_min_ch32", cfg_mask, v_mask, int8_q32, s_mask,
-             dict(bank_conv_int8_samples=1, bank_conv_int8=3 * s_mask,
+             dict(bank_conv_int8_samples=1, bank_conv_int8_xs=3,
                   bank_matmul_int8_xs=1),
              dict(bank_conv_int8=4 * s_mask, bank_matmul_int8=s_mask), 1.0)):
         t0 = time.perf_counter()
         d = _block_serve(name, model_fn(cfg, quant), variables, want_sp,
                          want_tm, x, CPU_REF_RTOL, int8_tol(rescale),
                          samples, False)
-        mets8 = d.pop("engine").evaluate(x_te, y_te, seed=0,
-                                         num_samples=samples)
+        eng8 = d.pop("engine")
+        prof8 = (_profile_predict(eng8, x, 11, reps=5, samples=samples)
+                 if name == "mask_int8" else None)
+        mets8 = eng8.evaluate(x_te, y_te, seed=0, num_samples=samples)
         check(all(np.isfinite(v) for v in mets8.values()),
               f"block {name} metrics {mets8}")
         emit({"phase": "block_int8", "model": "vgg11", "dropout": "block",
@@ -2586,6 +2684,10 @@ def phase_block(tr: dict) -> dict:
               "test_images": len(x_te), "acc": mets8["acc"],
               "ece_hist": mets8["ece_hist"], "nll": mets8["nll"],
               "seconds": time.perf_counter() - t0})
+        if prof8 is not None:
+            emit({"phase": "block_int8_profile", "config": name,
+                  "what": "block-site int8 Masksembles spatial predict, "
+                          "profiled", **prof8})
     return {"launches": launch_counts()}
 
 

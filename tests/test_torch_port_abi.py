@@ -103,24 +103,29 @@ def test_parser_reads_pointer_and_scalar_kinds():
     assert _kind("int idx") is ctypes.c_int
 
 
-@pytest.mark.parametrize("dtype,ce", [(torch.bfloat16, 16), (torch.int8, 32),
-                                      (torch.float32, None)])
-def test_conv_weight_layouts(dtype, ce):
+@pytest.mark.parametrize("dtype,staged,ce", [
+    (torch.bfloat16, None, 16), (torch.int8, None, 32),
+    (torch.float32, None, None), (torch.bfloat16, torch.float32, 8),
+    (torch.float32, torch.float32, 8)])
+def test_conv_weight_layouts(dtype, staged, ce):
     """The OIHW kernel as each routine reads it: (KH·KW, F, Cp) with C
-    zero-padded to 32 bytes for the tensor-core one, (KH, KW, C, F) for
-    the CUDA-core one."""
+    zero-padded to 32 bytes of the staged type for the tensor-core one (8
+    f32 channels for the float bank convs, a bf16 w widened exactly),
+    (KH, KW, C, F) for the CUDA-core one."""
     g = torch.Generator().manual_seed(0)
     w = torch.randint(-100, 100, (5, 35, 3, 2), generator=g).to(dtype)
     if ce is None:
         wk = tmc.conv_weights(w, False)
         assert torch.equal(wk, w.permute(2, 3, 1, 0))
         return
-    wk = tmc.conv_weights(w, True)
+    wk = tmc.conv_weights(w, True, staged)
+    assert wk.dtype == (staged or dtype)
     cp = -(-35 // ce) * ce
     assert wk.shape == (6, 5, cp) and wk.is_contiguous()
     for kh in range(3):
         for kw in range(2):
-            assert torch.equal(wk[kh * 2 + kw, :, :35], w[:, :, kh, kw])
+            assert torch.equal(wk[kh * 2 + kw, :, :35],
+                               w[:, :, kh, kw].to(wk.dtype))
     assert not wk[:, :, 35:].any()
 
 
@@ -134,5 +139,15 @@ def test_routine_follows_the_dtypes():
     assert not tmc.tensor_core("masked_conv", f32, f32)
     assert not tmc.tensor_core("masked_conv", bf, f32)
     assert not tmc.tensor_core("masked_conv", f32, bf)
-    assert not tmc.tensor_core("bank_conv", bf, bf)
-    assert not tmc.tensor_core("bank_conv_int8", i8, i8)
+    # every bank entry: int8 on the s8 tensor cores, float (whatever the
+    # dtypes) as three TF32 products of w in f32
+    for x, w in ((bf, f32), (f32, f32), (bf, bf), (f32, bf)):
+        for entry in ("bank_conv", "bank_conv_samples", "bank_conv_xs"):
+            assert tmc.tensor_core(entry, x, w)
+            assert tmc.staged_dtype(entry, w) == torch.float32
+    for entry in ("bank_conv_int8", "bank_conv_int8_samples",
+                  "bank_conv_int8_xs"):
+        assert tmc.tensor_core(entry, i8, i8)
+        assert tmc.staged_dtype(entry, i8) == torch.int8
+    for w in (bf, f32, i8):
+        assert tmc.staged_dtype("masked_conv", w) == w.dtype

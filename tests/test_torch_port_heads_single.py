@@ -1,6 +1,7 @@
 """The port's single-sample MC heads, ``dropout_matmul`` (row 2) and
-``dropout_matmul_int8`` (row 4), on the CPU: the summation order of the
-float kernel against the JAX package, and what both wrappers hand their C
+``dropout_matmul_int8`` (row 4), and the float Masksembles single head
+``bank_matmul`` (row 9), on the CPU: the summation order of the float
+kernels against the JAX package, and what the MC wrappers hand their C
 entries.
 
 On the card row 2 is the MC samples kernel (row 3) at one sample,
@@ -14,7 +15,10 @@ kernel in the interpreter (``interpret=True``, as
 version, to 1e-5 of max|ref|, the ``KERNEL_RTOL`` that ``chip_smoke.py``
 holds the card to. So the order the kernel keeps cannot leave that
 tolerance at the head shape, the ragged one, a single block with a tail
-of K shorter than a chunk, or an odd K. Row 4 sums exactly in int32 in any
+of K shorter than a chunk, or an odd K. Row 9 is the Masksembles samples
+kernel (row 8) at one sample, ``chain_samples_kernel<BankChain<T>>``: the
+same serial chain over the masked value ``f32(x) · bank[idx]``, held to
+JAX's ``bank_matmul`` the same way. Row 4 sums exactly in int32 in any
 order and is held bit for bit elsewhere (``test_torch_port_int8.py``,
 ``chip_smoke.py``).
 
@@ -31,6 +35,7 @@ import torch
 
 from bayestpu.kernels import masked_matmul as jmm
 from bayestpu_torch.kernels import masked_matmul as tmm
+from bayestpu_torch.kernels.mask_bank import generation_wrapper
 
 RATE = 0.25
 RTOL = 1e-5                     # of max|ref|: chip_smoke.py's KERNEL_RTOL
@@ -93,6 +98,41 @@ def test_chain_order_within_tolerance_of_jax_and_plain(data, bf16):
         ref = d[name]
         err = np.abs(got - ref).max()
         assert err <= RTOL * np.abs(ref).max(), (name, err)
+
+
+@pytest.mark.parametrize("odd", [False, True], ids=["bank", "bank_odd"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_bank_chain_order_within_tolerance_of_jax(shape, bf16, odd):
+    """Row 9's order, the serial chain over ``f32(x) · bank[idx % n]``
+    (one f32 multiply, then one fused multiply-add a term in ascending k),
+    within 1e-5 of max|ref| of JAX's ``bank_matmul`` (Pallas interpreter)
+    and of the port's plain version, at a wrapping and a negative index;
+    on the generated {0, 1} bank and on one with 2.0 and 0.25 entries."""
+    m, k, n = SHAPES[shape]
+    rng = np.random.default_rng(m + k * n)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w = (rng.normal(size=(k, n)) / np.sqrt(k)).astype(np.float32)
+    _, bank = generation_wrapper(k, 4, 2.0, rng=0)
+    bank = np.ascontiguousarray(bank, np.float32)
+    if odd:
+        bank[0, ::7] = 2.0
+        bank[1, 1::5] = 0.25
+    jx = jnp.asarray(x, jnp.bfloat16 if bf16 else jnp.float32)
+    xw = np.array(jx.astype(jnp.float32))          # x as the kernel widens it
+    tx = torch.from_numpy(xw).to(torch.bfloat16 if bf16 else torch.float32)
+    for idx in (5, -1):
+        row = bank[idx % 4]
+        xm = (xw.astype(np.float64) * row).astype(np.float32)
+        got = chain_order(xm, w)
+        for ref in (np.asarray(jmm.bank_matmul(jx, jnp.asarray(w),
+                                               jnp.asarray(bank), idx,
+                                               interpret=True)),
+                    tmm.bank_matmul_plain(tx, torch.from_numpy(w),
+                                          torch.from_numpy(bank),
+                                          idx).numpy()):
+            err = np.abs(got - ref).max()
+            assert err <= RTOL * np.abs(ref).max(), (idx, err)
 
 
 def _recorder(monkeypatch) -> list:

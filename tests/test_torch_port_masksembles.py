@@ -176,7 +176,7 @@ def test_bank_dense_eval_matches_flax(name, fused):
             one = head(tx, sample_idx=int(i))
             assert _rel(one, np.asarray(jl.apply(v, jx, sample_idx=int(i)))) \
                 <= 1e-6
-            if fused:      # one tile routine for both kernels
+            if fused:      # rows 8 and 9 are one kernel
                 assert torch.equal(one, got[s])
         assert torch.equal(head(tx), head(tx, sample_idx=0))
 
