@@ -94,7 +94,6 @@ namespace {
 namespace cg = cooperative_groups;
 
 constexpr int APPLY_THREADS = 256;      // dropout_apply: threads per block
-constexpr int APPLY_MAX_BLOCKS = 132 * 16;  // grid-stride beyond this
 
 // The element types: load widens a float x to f32 (dropout_apply); out
 // is the int8 heads' epilogue.
@@ -124,32 +123,167 @@ struct Elem<int8_t> {
 // dropout(x) alone: out[r, c] = keep(r, c) ? f32(x[r, c]) * scale : 0, with
 // the mask bit for bit that of the forward kernels (same hash, same global
 // coordinates). The backward of dropout_matmul applies it to g @ w^T (f32)
-// and to x (f32 or bf16) instead of storing the forward's mask. The scale
-// is f32(1 / (1 - rate)) whatever x's dtype, and the product is rounded
-// once to f32, as the JAX kernel casts to f32 before it multiplies.
+// and to x (f32 or bf16) instead of storing the forward's mask, and the
+// conv backward to the (N*H*W, C) view of a site's input and of its input
+// gradient. The scale is f32(1 / (1 - rate)) whatever x's dtype, and the
+// product is rounded once to f32, as the JAX kernel casts to f32 before it
+// multiplies.
 //
-// What bounds it on an H100: an elementwise pass, so memory. At the
-// vgg11_me head shape (128 x 512) it reads 128 KiB (bf16) or 256 KiB (f32)
-// and writes 256 KiB: 0.117 us or 0.156 us at 3.35 TB/s, far below a
-// launch. The design is the simple one: a grid-stride loop, one element per
-// thread per trip, neighbouring threads on neighbouring addresses so loads
-// and stores coalesce; the seed stream is hashed once per thread.
+// What bounds it on an H100: memory. It reads x (2 or 4 bytes an element)
+// and writes 4 bytes an element, against ~25 integer operations of the
+// hash an element: at the conv backward's views (vgg11's block site 1,
+// 32768 x 64; resnet18's stage-1 boundary, 131072 x 64) 5.0 us and 20 us
+// for f32 x at 3.35 TB/s (3.8 and 15 us bf16), while the hash needs about
+// half of that on the integer pipes; at the vgg11_me head (128 x 512)
+// 0.16 us, far below a launch, which sets its time. The design, so that
+// neither the address arithmetic nor the latency of one load sits in
+// front of the bytes: a 2-D mapping (threadIdx.x along a row's pieces, so
+// a warp's lanes run along columns, threadIdx.y and the blocks over rows),
+// row and column from 32-bit indices with no division, the row's half of
+// the hash (row_term) once a row; a piece is 4 consecutive columns, one
+// 16-byte (f32) or 8-byte (bf16) load and one 16-byte store, when K is a
+// multiple of 4 and both pointers are 16-byte aligned (else a piece is one
+// element: the scalar path of the same kernel); each thread loads its next
+// piece before it hashes the current one, the first before it reads the
+// seeds; and one wave of blocks (the SMs times the blocks an SM holds)
+// strides over the rows. Measured on the H100: 8 bf16 a piece (one
+// 16-byte load, two 16-byte stores 32 bytes apart) ran 1.4-1.8x slower
+// than 4 at every shape, and blocks of 128, 512 or 1024 threads were
+// slower at the head than 256, at the views the same.
+template <typename T>
+struct ApplyVec;
+
+template <>
+struct ApplyVec<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void load(const float* p, float (&v)[N]) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = a.z;
+    v[3] = a.w;
+  }
+};
+
+template <>
+struct ApplyVec<__nv_bfloat16> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float (&v)[N]) {
+    const uint2 a = *reinterpret_cast<const uint2*>(p);
+    v[0] = __uint_as_float(a.x << 16);
+    v[1] = __uint_as_float(a.x & 0xFFFF0000u);
+    v[2] = __uint_as_float(a.y << 16);
+    v[3] = __uint_as_float(a.y & 0xFFFF0000u);
+  }
+};
+
+// V consecutive elements of x from p as f32: a piece, or one element
+template <typename T, int V>
+__device__ __forceinline__ void apply_load(const T* p, float (&v)[V]) {
+  if constexpr (V == 1) {
+    v[0] = Elem<T>::load(p);
+  } else {
+    ApplyVec<T>::load(p, v);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void apply_store(float* p, const float (&o)[V]) {
+  if constexpr (V == 1) {
+    *p = o[0];
+  } else {
+    static_assert(V == 4, "a piece is one float4");
+    *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+// The rows of one thread: pieces of V columns (V divides K), piece c of
+// row r at threadIdx.x + j * blockDim.x, rows threadIdx.y of every block
+// in turn; the next piece's load in flight while the current one hashes.
+template <typename T, int V>
+__device__ __forceinline__ void apply_rows(const T* __restrict__ x,
+                                           const int32_t* __restrict__ seeds,
+                                           float* __restrict__ out,
+                                           uint32_t M, uint32_t K,
+                                           uint32_t thresh, float scale) {
+  const uint32_t pieces = K / V;
+  const uint32_t row_step = gridDim.x * blockDim.y;
+  uint32_t r = blockIdx.x * blockDim.y + threadIdx.y;
+  uint32_t c = threadIdx.x;
+  if (r >= M || c >= pieces) return;
+  float v[V];
+  apply_load<T, V>(x + static_cast<size_t>(r) * K + c * V, v);
+  const uint32_t stream = bayestpu::seed_stream(seeds[0], seeds[1]);
+  uint32_t rt = bayestpu::row_term(r, stream);
+  for (;;) {
+    uint32_t nr = r, nc = c + blockDim.x;
+    if (nc >= pieces) {
+      nc = threadIdx.x;
+      nr += row_step;
+    }
+    const bool more = nr < M;
+    float nv[V];
+    if (more) apply_load<T, V>(x + static_cast<size_t>(nr) * K + nc * V, nv);
+    float o[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const uint32_t bits = bayestpu::row_bits(rt, c * V + j);
+      o[j] = bits < thresh ? __fmul_rn(v[j], scale) : 0.f;
+    }
+    apply_store<V>(out + static_cast<size_t>(r) * K + c * V, o);
+    if (!more) break;
+    if (nr != r) rt = bayestpu::row_term(nr, stream);
+    r = nr;
+    c = nc;
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = nv[j];
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(APPLY_THREADS)
     dropout_apply_kernel(const T* __restrict__ x,
                          const int32_t* __restrict__ seeds,
                          float* __restrict__ out, int M, int K,
-                         uint32_t thresh, float scale) {
-  const uint32_t stream = bayestpu::seed_stream(seeds[0], seeds[1]);
-  const size_t n = static_cast<size_t>(M) * K;
-  const size_t step = static_cast<size_t>(gridDim.x) * blockDim.x;
-  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += step) {
-    const uint32_t r = static_cast<uint32_t>(i / K);
-    const uint32_t c = static_cast<uint32_t>(i % K);
-    const uint32_t bits = bayestpu::coord_bits(r, c, stream);
-    out[i] = bits < thresh ? __fmul_rn(Elem<T>::load(x + i), scale) : 0.f;
+                         uint32_t thresh, float scale, int vec) {
+  if (vec) {
+    apply_rows<T, ApplyVec<T>::N>(x, seeds, out, M, K, thresh, scale);
+  } else {
+    apply_rows<T, 1>(x, seeds, out, M, K, thresh, scale);
   }
+}
+
+// The launch: block (tx, APPLY_THREADS / tx), tx the least power of two
+// that covers a row's pieces (at most APPLY_THREADS); one wave of blocks,
+// or fewer when the rows run out first.
+template <typename T>
+int launch_apply(const void* x, const void* seeds, void* out, int M, int K,
+                 uint32_t thresh, float scale, cudaStream_t st) {
+  static const int per_sm = [] {
+    int b = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &b, dropout_apply_kernel<T>, APPLY_THREADS, 0);
+    return b > 0 ? b : 1;
+  }();
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  constexpr int V = ApplyVec<T>::N;
+  const bool vec = K % V == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int pieces = vec ? K / V : K;
+  int tx = 1;
+  while (tx < pieces && tx < APPLY_THREADS) tx *= 2;
+  const dim3 block(tx, APPLY_THREADS / tx);
+  const long long want = (static_cast<long long>(M) + block.y - 1) / block.y;
+  const long long wave = static_cast<long long>(sms) * per_sm;
+  const dim3 grid(static_cast<unsigned>(want < wave ? want : wave));
+  dropout_apply_kernel<T><<<grid, block, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const int32_t*>(seeds),
+      static_cast<float*>(out), M, K, thresh, scale, vec ? 1 : 0);
+  return static_cast<int>(cudaGetLastError());
 }
 
 
@@ -840,21 +974,11 @@ extern "C" int bt_dropout_matmul_samples(const void* x, const void* w,
 extern "C" int bt_dropout_apply(const void* x, const void* seeds, void* out,
                                 int M, int K, uint32_t thresh, float scale,
                                 int is_bf16, void* stream) {
-  const size_t n = static_cast<size_t>(M) * K;
-  const size_t want = (n + APPLY_THREADS - 1) / APPLY_THREADS;
-  const dim3 grid(static_cast<unsigned>(
-      want < APPLY_MAX_BLOCKS ? want : APPLY_MAX_BLOCKS));
   const auto st = static_cast<cudaStream_t>(stream);
-  const auto* sd = static_cast<const int32_t*>(seeds);
-  auto* o = static_cast<float*>(out);
-  if (is_bf16) {
-    dropout_apply_kernel<__nv_bfloat16><<<grid, APPLY_THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), sd, o, M, K, thresh, scale);
-  } else {
-    dropout_apply_kernel<float><<<grid, APPLY_THREADS, 0, st>>>(
-        static_cast<const float*>(x), sd, o, M, K, thresh, scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return is_bf16 ? launch_apply<__nv_bfloat16>(x, seeds, out, M, K, thresh,
+                                               scale, st)
+                 : launch_apply<float>(x, seeds, out, M, K, thresh, scale,
+                                       st);
 }
 
 // seeds: one (1, 2) pair; row 5's kernel at one sample, K split over a

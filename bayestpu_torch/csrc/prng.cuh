@@ -31,11 +31,23 @@ __host__ __device__ __forceinline__ uint32_t seed_stream(int32_t s0,
              static_cast<uint32_t>(s1) * 0x85EBCA77u ^ 0xC2B2AE35u);
 }
 
+// The row's part of coord_bits, computed once for a row's elements.
+__host__ __device__ __forceinline__ uint32_t row_term(uint32_t grow,
+                                                      uint32_t stream) {
+  return grow * 0x27D4EB2Fu ^ stream;
+}
+
+// coord_bits of column gcol of the row whose row_term is rterm
+__host__ __device__ __forceinline__ uint32_t row_bits(uint32_t rterm,
+                                                      uint32_t gcol) {
+  const uint32_t x = mix(rterm ^ gcol);
+  return mix(x ^ gcol * 0x165667B1u);
+}
+
 __host__ __device__ __forceinline__ uint32_t coord_bits(uint32_t grow,
                                                         uint32_t gcol,
                                                         uint32_t stream) {
-  const uint32_t x = mix(grow * 0x27D4EB2Fu ^ gcol ^ stream);
-  return mix(x ^ gcol * 0x165667B1u);
+  return row_bits(row_term(grow, stream), gcol);
 }
 
 }  // namespace bayestpu

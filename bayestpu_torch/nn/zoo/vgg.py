@@ -67,9 +67,10 @@ from bayestpu_torch.core.config import BayesConfig, DropoutKind, QuantConfig
 from bayestpu_torch.core.quant import dequantize_int8, quantize_int8
 from bayestpu_torch.nn.fused import BayesDense
 from bayestpu_torch.nn.layers import (BatchNorm, ConvBN, Dense, QuantAct,
-                                      _Conv, avg_pool, max_pool)
+                                      avg_pool, max_pool)
 from bayestpu_torch.nn.multiexit import ExitOutputs, stack_exits
 from bayestpu_torch.nn.zoo.registry import register_model
+from bayestpu_torch.nn.zoo.sites import SiteModel, flatten_nhwc
 
 CFGS: dict[str, list] = {
     "vgg11": [64, "M", 128, "M", 256, 256, "M", 512, 512, "M", 512, 512, "M"],
@@ -91,11 +92,6 @@ def _blocks_of(cfg: list) -> list[list[int]]:
     if cur:
         blocks.append(cur)
     return blocks
-
-
-def _flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
-    """(B, C, H, W) → (B, H·W·C) in the JAX package's NHWC order."""
-    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
 
 
 class _VGGBlock(nn.Module):
@@ -182,11 +178,11 @@ class _VGGExitHead(nn.Module):
             y = dequantize_int8(y, self.quant)   # avg_pool leaves the grid
         if self.pool:
             y = avg_pool(y, 2)
-        feat = _flatten_nhwc(y)
+        feat = flatten_nhwc(y)
         return self.linear(feat, seeds, sample_idx), feat
 
 
-class VGG(nn.Module):
+class VGG(SiteModel):
     """Multi-exit Bayesian VGG over a block config.
 
     ``dropout="block"`` is ported fused (``fused=True``, one exit); the
@@ -262,66 +258,15 @@ class VGG(nn.Module):
         self.classifier = BayesDense(width, num_classes, bayes=head_bayes,
                                      fused=fused, quant=quant, dtype=dtype)
         sites.append(self.classifier)
-        # MC site index of every site in JAX call order (None: no MC mask)
-        self.num_sites = 0
-        for site in sites:
-            site.site = self.num_sites if site.stochastic else None
-            self.num_sites += site.stochastic
-        self.masked = any(site.masked for site in sites)
+        self.number_sites(sites)
         # a block-input site that masks (dropout="block")
         self.conv_sites = any(getattr(self, name).has_site
                               for name, _ in self._exits)
         self.eval()
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        """Flax's initializers, drawn in module order from ``generator``."""
-        for m in self.modules():
-            if isinstance(m, (_Conv, BatchNorm, Dense, BayesDense)):
-                m.reset_parameters(generator)
-
-    @staticmethod
-    def _site_seeds(site: nn.Module, seeds: torch.Tensor
-                    ) -> torch.Tensor | None:
-        return (None if site.site is None
-                else seeds[..., site.site, :].contiguous())
-
-    def _sample_idx(self, seeds: torch.Tensor, sample_idx, device):
-        """The Masksembles index argument of the heads (see the module
-        docstring); None for a model without Masksembles heads."""
-        if not self.masked or self.training:
-            return None
-        if seeds.dim() == 3:
-            num = seeds.shape[0]
-            if sample_idx is None:
-                return torch.arange(num, dtype=torch.int32, device=device)
-            if (not isinstance(sample_idx, torch.Tensor)
-                    or tuple(sample_idx.shape) != (num,)):
-                raise ValueError(f"with (S, n_sites, 2) seeds sample_idx "
-                                 f"must be a tensor of S={num} indices")
-            return sample_idx
-        if isinstance(sample_idx, torch.Tensor) and sample_idx.dim() != 0:
-            raise ValueError("with (n_sites, 2) seeds sample_idx must be an "
-                             "int")
-        return 0 if sample_idx is None else sample_idx
-
     def forward(self, x: torch.Tensor, seeds: torch.Tensor,
                 sample_idx=None) -> ExitOutputs:
-        dims = (2,) if self.training else (2, 3)
-        if seeds.dim() not in dims or seeds.shape[-2:] != (self.num_sites,
-                                                           2):
-            want = ("(n_sites, 2) in train mode" if self.training
-                    else "(n_sites, 2) or (S, n_sites, 2)")
-            raise ValueError(f"seeds must be {want} with n_sites="
-                             f"{self.num_sites}; got {tuple(seeds.shape)}")
-        idx = self._sample_idx(seeds, sample_idx, x.device)
-        # once the activations carry S, each site launches one kernel per
-        # sample with a host index: copy the indices to the host once,
-        # before any launch, rather than at every later site
-        idx_host = idx
-        if isinstance(idx, torch.Tensor) and self.conv_sites:
-            idx_host = (list(range(idx.shape[0])) if sample_idx is None
-                        else idx.tolist())
-        sample_shape = tuple(seeds.shape[:-2])
+        idx, idx_host, sample_shape = self.prepare(x, seeds, sample_idx)
         exits, feats = [], []
 
         def head_out(y: torch.Tensor) -> torch.Tensor:
@@ -335,17 +280,17 @@ class VGG(nn.Module):
         carry = None    # S once the activations carry the sample axis
         for block_name, exit_name in self._exits:
             block = getattr(self, block_name)
-            out = block(out, self._site_seeds(block.conv_site, seeds),
+            out = block(out, self.site_seeds(block.conv_site, seeds),
                         idx_host if carry else idx, carry)
             if block.has_site and sample_shape:
                 carry = sample_shape[0]   # the site returned S samples
             if exit_name is not None:
                 head = getattr(self, exit_name)
-                logit, feat = head(out, self._site_seeds(head.linear, seeds),
+                logit, feat = head(out, self.site_seeds(head.linear, seeds),
                                    idx)
                 exits.append(head_out(logit))
                 feats.append(feat)
-        out = _flatten_nhwc(out)
+        out = flatten_nhwc(out)
         # the metrics take f32 features; fc_0 keeps the int8 view
         feats.append(unfold(dequantize_int8(out, self.quant)
                             if out.dtype == torch.int8 else out))
@@ -355,7 +300,7 @@ class VGG(nn.Module):
                 out = getattr(self, f"fc_bn_{j}")(out)
             out = getattr(self, f"fc_relu_{j}")(out)
         exits.append(head_out(self.classifier(
-            unfold(out), self._site_seeds(self.classifier, seeds),
+            unfold(out), self.site_seeds(self.classifier, seeds),
             idx_host if carry else idx)))
         return stack_exits(exits, feats)
 

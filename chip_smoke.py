@@ -36,7 +36,17 @@ ends the run with a nonzero exit and no result line.
    negative bank indices, x carrying the sample axis (one _xs launch of
    the MC and of the bank convs, sample s bit-equal to the single launch
    on x[s]); times at the four block-site shapes (the bank convs in
-   three rounds that alternate them with cuDNN).
+   three rounds that alternate them with cuDNN). The same checks at the
+   three deferred block sites of resnet18 at batch 128 (3x3 stride 2
+   padded ((1, 1), (1, 1)) and the 1x1 stride-2 projection), the readout
+   showing that the two convs of a block apply one mask, and the times of
+   the samples and _xs launches there. Every head check again at the
+   resnet18_me head (N = 100), where rows 3 and 5 are timed in bf16.
+   ``dropout_apply`` (row 1) at the head and at the conv backward's
+   (N·H·W, C) views of vgg11's block site 1 and resnet18's stage-1
+   boundary, in f32 and bf16 x, timed beside ``torch.mul``; bit-equal to
+   its plain version there, at the other block-site views, at a ragged K,
+   and on an x that is not 16-byte aligned.
 4. backward — autograd through ``dropout_matmul`` against
    ``dropout_matmul_vjp_plain`` at the head shape, and through
    ``dropout_conv`` against ``dropout_conv_vjp_plain`` at the block-1 site
@@ -85,16 +95,24 @@ ends the run with a nonzero exit and no result line.
    images, its Masksembles twin (S = 4) fine-tuned under the batch split
    and served, and the int8 models (also with ``int8_conv_min_ch=32``);
    spatial against temporal, the card against the CPU (``phase_block``).
-11. step_vs_cpu — one training step at batch 8 on the card and on the CPU
+11. resnet  — ResNet-18 on CIFAR-100 shapes (``phase_resnet``): the int8
+   resnet18_me of the JAX bench's BASELINE config 5 and its bf16 twin,
+   the block-site resnet18 (MC and Masksembles, bf16) served with exact
+   launch counts, spatial against temporal and the card against the CPU,
+   two profiled predicts, short bf16 fine-tunes of resnet18_me and the
+   block-site resnet18 (launches per step; the loss falls), and one
+   resnet18_me training step at batch 8 against the CPU.
+12. step_vs_cpu — one training step at batch 8 on the card and on the CPU
    from one seeded init and the same seeds, in f32 and bf16.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. ``--only kernels,conv`` runs the card
 and build phases and then only the named kernel checks (a quick check of
-a kernel change), and prints no result line. The kernels' launches are those of the
-five main paths: the slice's predicts, the 936 training steps, the int8
-phase (QAT, BN re-estimation and int8 serving), the mask phase
-(fine-tune and serving, bf16 and int8) and the block phases; the
+a kernel change), and prints no result line. The kernels' launches are
+those of the six main paths: the slice's predicts, the 936 training
+steps, the int8 phase
+(QAT, BN re-estimation and int8 serving), the mask phase (fine-tune and
+serving, bf16 and int8), the block phases and the resnet phase; the
 fake-quant evaluates are attribution and not counted.
 """
 
@@ -129,6 +147,27 @@ REPLACES = {"dropout_matmul": "bayestpu/kernels/masked_matmul.py:113",
             "bank_matmul": "bayestpu/kernels/masked_matmul.py:843"}
 HEAD = dict(M=128, K=512, N=10, S=10)     # each vgg11_me exit head
 RAGGED = dict(M=300, K=700, N=130, S=3)
+# each resnet18_me exit head on CIFAR-100: w 512x100, ragged against the
+# float heads' 16-column tiles (rows 2-5 at S = 10, rows 6-9 at NUM_MASKS)
+RESNET_HEAD = dict(M=128, K=512, N=100, S=10)
+HEAD_LABELS = ("head", "resnet_head")       # timed; indices 0 … S-1
+# the kernels timed at the resnet18_me head (bf16 x for the float one): the
+# samples heads that its spatial predict launches, rows 3 and 5
+RESNET_HEAD_TIMED = ("dropout_matmul_samples", "dropout_matmul_int8_samples")
+# dropout_apply (row 1) where the backward runs it: (M, K) of the vgg11_me
+# head, and the (N·H·W, C) view of a conv site's input at batch 128 at
+# vgg11's block site 1 (16x16x64) and resnet18's stage-1 boundary (32x32x64)
+APPLY_SHAPES = {"head": (128, 512), "vgg11_site1": (32768, 64),
+                "resnet18_stage1": (131072, 64)}
+# K a multiple of neither 4 nor 8, and K below a warp: its scalar path
+APPLY_RAGGED = {"ragged": (300, 70), "narrow": (97, 13)}
+# the other views of a block-site input that the backward masks at batch
+# 128, each with a block shape of its own (threads along a row: the least
+# power of two that covers K / 4): resnet18's sites 2 and 3 (16x16x128,
+# 8x8x256) and vgg11's block sites 2 and 3 (8x8x128, 4x4x256); checked,
+# not timed
+APPLY_VIEWS = {"resnet18_site2": (32768, 128), "resnet18_site3": (8192, 256),
+               "vgg11_site2": (8192, 128), "vgg11_site3": (2048, 256)}
 RATE = 0.25
 BATCH, SAMPLES = 128, 10
 # f32 accumulation runs in another order in the kernel and in torch.matmul;
@@ -203,6 +242,17 @@ CONV_REPLACES = {
 # the four fused block sites of vgg11 (dropout="block"), each the first conv
 # of blocks 1-4 at batch 128: (H = W, C, F), 3x3, SAME, stride 1
 CONV_SITES = [(16, 64, 128), (8, 128, 256), (4, 256, 512), (2, 512, 512)]
+# the deferred block sites of resnet18 (dropout="block", fused=True), each
+# the input of the first block of stages 2-4 at batch 128: (H = W, C, F);
+# its convbn1 (3x3, stride 2, padded ((1, 1), (1, 1)) as torch's padding=1)
+# and its downsample (1x1, stride 2) mask the input with one site's seeds
+RESNET_SITES = [(32, 64, 128), (16, 128, 256), (8, 256, 512)]
+RESNET_P3 = ((1, 1), (1, 1))
+# (kernel size, padding, epilogue activation) of a site's convs: vgg11's
+# 3x3 SAME conv with relu; resnet18's convbn1 with relu and its downsample
+# with none
+VGG_CONVS = {"3x3": (3, "SAME", "relu")}
+RESNET_CONVS = {"3x3": (3, RESNET_P3, "relu"), "1x1": (1, "SAME", None)}
 # the site whose time the kernels line reports: the first at which the main
 # path launches the kernel (on the int8 model block 1's site runs the float
 # kernel, so the int8 single kernels start at block 2; the _xs launches,
@@ -219,8 +269,8 @@ MMA_KERNELS = ("conv_mma_kernel", "int8_samples_mma_kernel")
 # kernels redesigned on the CUDA cores, whose registers and spills the
 # build phase reports beside them (the chain template once for each
 # staging policy: rows 2 and 3 share one kernel and its chain, and so do
-# rows 8 and 9)
-FMA_KERNELS = ("chain_samples_kernel",)
+# rows 8 and 9; row 1 once for each type of x)
+FMA_KERNELS = ("chain_samples_kernel", "dropout_apply_kernel")
 # every kernel of bayestpu_torch/csrc, as the profiler names it
 PORT_KERNELS = ("dropout_apply_kernel", "chain_samples_kernel",
                 "int8_samples_mma_kernel", "::conv_kernel<",
@@ -245,6 +295,11 @@ BF16_OUT_RTOL = 2.0 ** -7
 # the block-site vgg11: the MC fine-tune of the train phase's weights (SGD
 # 0.9, cosine LR from BLOCK_LR, clip 10), then the Masksembles one
 BLOCK_EPOCHS, BLOCK_MASK_EPOCHS, BLOCK_LR = 3, 2, 0.01
+# the resnet phase: CIFAR-100 shapes; its short fine-tunes from seeded
+# weights run RESNET_EPOCHS epochs over RESNET_BATCHES batches of synthetic
+# CIFAR-100 (SGD 0.9, cosine LR from RESNET_LR, clip 10)
+RESNET_CLASSES = 100
+RESNET_BATCHES, RESNET_EPOCHS, RESNET_LR = 4, 3, 0.05
 
 
 def emit(obj: dict) -> None:
@@ -542,7 +597,7 @@ def _check_bank(mm, shape: dict, label: str, gen, summary: dict) -> None:
     import torch
     from bayestpu_torch.kernels.mask_bank import generation_wrapper
     m, k, n, s = shape["M"], shape["K"], shape["N"], shape["S"]
-    idx_list = list(range(s)) if label == "head" else MASK_RAGGED_IDXS
+    idx_list = list(range(s)) if label in HEAD_LABELS else MASK_RAGGED_IDXS
     idxs = torch.tensor(idx_list, dtype=torch.int32, device="cuda")
     _, bank = generation_wrapper(k, NUM_MASKS, MASK_SCALE, rng=0)
     bank = torch.from_numpy(bank).cuda().contiguous()   # numpy's is F-order
@@ -726,7 +781,8 @@ def phase_kernels() -> dict:
     gen = torch.Generator().manual_seed(1234)
     summary = {name: {"max_abs_err": 0.0} for name in REPLACES}
     for dtype in (torch.bfloat16, torch.float32):
-        for label, shape in (("head", HEAD), ("ragged", RAGGED)):
+        for label, shape in (("head", HEAD), ("ragged", RAGGED),
+                             ("resnet_head", RESNET_HEAD)):
             x, w, seeds = _inputs(shape, dtype, gen)
             line = {"phase": "kernels", "shape": label, **shape,
                     "dtype": str(dtype).split(".")[-1], "rate": RATE}
@@ -795,12 +851,18 @@ def phase_kernels() -> dict:
             if label == "head":
                 _time_kernels(mm, x, x3, w, seeds, shape, dtype, line,
                               summary)
+            elif label in HEAD_LABELS and dtype == torch.bfloat16:
+                _time_kernels(mm, x, x3, w, seeds, shape, dtype, line, None,
+                              RESNET_HEAD_TIMED)
             emit(line)
-    for label, shape in (("head", HEAD), ("ragged", RAGGED)):
+    for label, shape in (("head", HEAD), ("ragged", RAGGED),
+                         ("resnet_head", RESNET_HEAD)):
         _check_int8(mm, shape, label, gen, summary)
     for label, shape in (("head", MASK_HEAD), ("ragged", MASK_RAGGED),
-                         ("odd_k", MASK_ODD_K)):
+                         ("odd_k", MASK_ODD_K),
+                         ("resnet_head", {**RESNET_HEAD, "S": NUM_MASKS})):
         _check_bank(mm, shape, label, gen, summary)
+    _apply_shapes(mm, gen)
     return summary
 
 
@@ -812,7 +874,8 @@ def _check_int8(mm, shape: dict, label: str, gen, summary: dict) -> None:
     (one ``dropout_matmul_int8_xs``) bit-equal to the plain version and,
     sample s, to the single launch on x[s] with seeds[s], and the mask
     readout (x_q = ones, w_q = eye) nonzero exactly where the float
-    kernel's is; at the head shape, their times."""
+    kernel's is; at the head shape, their times (at the resnet18_me
+    head, row 5's)."""
     import torch
     m, k, n, s = shape["M"], shape["K"], shape["N"], shape["S"]
     xs = ws = 2.0 ** -7                          # the flagship's int8 steps
@@ -865,7 +928,7 @@ def _check_int8(mm, shape: dict, label: str, gen, summary: dict) -> None:
             "int8_mask_equals_float_kernel": same_mask,
             "int8_readout_values": vals,
             "negative_seed_sample0": seeds[0].tolist()}
-    if label == "head":
+    if label in HEAD_LABELS:
         keep = torch.stack([mm.keep_mask(seeds[i], m, k, RATE)
                             for i in range(s)])
         xm = torch.where(keep, xq, torch.zeros((), dtype=torch.int8,
@@ -893,6 +956,8 @@ def _check_int8(mm, shape: dict, label: str, gen, summary: dict) -> None:
                 lambda: torch._int_mm(xm3.reshape(s * m, k), wpad)),
         }
         for name, (kern, plain, lib) in timings.items():
+            if label != "head" and name not in RESNET_HEAD_TIMED:
+                continue
             # library: one cuBLASLt s8 GEMM on the pre-masked x, N padded
             # to 16 as torch._int_mm needs (all S samples in one call);
             # the kernel and it in TIMING_ROUNDS alternating rounds
@@ -901,7 +966,8 @@ def _check_int8(mm, shape: dict, label: str, gen, summary: dict) -> None:
                  "events_ms": cuda_ms(kern, 200)}
             t["bound_ms"], t["bound_by"] = _bound(name, shape, torch.int8)
             line[name] = t
-            summary[name].update(t)
+            if label == "head":
+                summary[name].update(t)
     emit(line)
 
 
@@ -933,10 +999,54 @@ def _check_apply(mm, x, seeds, ones, fwd_readout, dtype, label, line,
         summary["dropout_apply"]["max_abs_err"], err)
 
 
-def _time_kernels(mm, x, x3, w, seeds, shape, dtype, line, summary
-                  ) -> None:
-    """Times at the head shape; the bf16 ones (the main path's dtype) go
-    into the summary. x3 carries the sample axis (the _xs launch). Each
+def _apply_shapes(mm, gen) -> None:
+    """dropout_apply (row 1) where the backward runs it, in f32 and bf16 x:
+    bit-equal to its plain version with each of three seed pairs (the
+    first negative) on a contiguous x and on an x whose first element sits
+    one element past a 16-byte boundary (the kernel's scalar path), at the
+    APPLY_SHAPES, where it is timed in TIMING_ROUNDS rounds that alternate
+    it with ``torch.mul`` of x by a pre-made f32 mask, and at the
+    APPLY_RAGGED and APPLY_VIEWS ones."""
+    import torch
+    seeds = _inputs(dict(M=1, K=1, N=1, S=3), torch.float32, gen)[2]
+    s0 = seeds[0].contiguous()
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, (m, k) in {**APPLY_SHAPES, **APPLY_RAGGED,
+                              **APPLY_VIEWS}.items():
+            buf = torch.randn(m * k + 1, generator=gen).to(dtype).cuda()
+            x, x_off = buf[:-1].view(m, k), buf[1:].view(m, k)
+            same = all(torch.equal(mm.dropout_apply(xx, sd, RATE),
+                                   mm.dropout_apply_plain(xx, sd, RATE))
+                       for xx in (x, x_off)
+                       for sd in (seeds[i].contiguous() for i in range(3)))
+            check(same, f"dropout_apply {label} {dtype}: not bit-equal to "
+                  "its plain version")
+            line = {"phase": "kernels", "kernel": "dropout_apply",
+                    "shape": label, "M": m, "K": k,
+                    "dtype": str(dtype).split(".")[-1], "rate": RATE,
+                    "bit_equal_plain": same, "offset_x_checked": True}
+            if label in APPLY_SHAPES:
+                mask_scaled = (mm.keep_mask(s0, m, k, RATE).float()
+                               * mm.apply_scale(RATE))
+                t = {**_rounds({"ms": lambda: mm.dropout_apply(x, s0, RATE),
+                                "library_ms": lambda: torch.mul(
+                                    x, mask_scaled)}, TIMING_ROUNDS),
+                     "plain_ms": device_ms(
+                         lambda: mm.dropout_apply_plain(x, s0, RATE), 20),
+                     "events_ms": cuda_ms(
+                         lambda: mm.dropout_apply(x, s0, RATE), 200)}
+                t["bound_ms"], t["bound_by"] = _bound(
+                    "dropout_apply", dict(M=m, K=k, N=0, S=1), dtype)
+                line.update(t, ms_over_library=t["ms"] / t["library_ms"],
+                            ms_over_bound=t["ms"] / t["bound_ms"])
+            emit(line)
+
+
+def _time_kernels(mm, x, x3, w, seeds, shape, dtype, line, summary,
+                  names=None) -> None:
+    """Times at a head shape, of every float MC kernel or of ``names``;
+    the bf16 ones (the main path's dtype) go into ``summary`` unless it is
+    None. x3 carries the sample axis (the _xs launch). Each
     kernel and its library call are timed in TIMING_ROUNDS alternating
     rounds (``_rounds``): ``ms`` and ``library_ms`` are the medians, their
     readings listed beside them."""
@@ -974,6 +1084,8 @@ def _time_kernels(mm, x, x3, w, seeds, shape, dtype, line, summary
             lambda: torch.mul(x, mask_scaled)),
     }
     for name, (kern, plain, lib) in timings.items():
+        if names is not None and name not in names:
+            continue
         # ms, plain_ms, library_ms: device time per call; events_ms: CUDA
         # events over back-to-back wrapper calls, host dispatch included
         t = {**_rounds({"ms": kern, "library_ms": lib}, TIMING_ROUNDS),
@@ -981,7 +1093,7 @@ def _time_kernels(mm, x, x3, w, seeds, shape, dtype, line, summary
              "events_ms": cuda_ms(kern, 200)}
         t["bound_ms"], t["bound_by"] = _bound(name, shape, dtype)
         line[name] = t
-        if dtype == torch.bfloat16:
+        if dtype == torch.bfloat16 and summary is not None:
             summary[name].update(t)
 
 
@@ -1287,16 +1399,20 @@ def _conv_readout(gen) -> None:
     emit(line)
 
 
-def _conv_times(gen, summary: dict) -> None:
-    """Times of rows 10 and 11 at the block-site shapes of the main path
-    (batch 128, 3x3, SAME, stride 1), in the dtypes and with the epilogues
-    the block-site vgg11 gives them: the MC float kernels on bf16 x and w
-    with the fold bias, relu and a bf16 store; the float bank kernels on
-    bf16 x and the f32 folded kernel with an f32 store; the int8 kernels
-    with the (2, F) BN affine, relu and an int8 store. The samples kernels
-    at the first site (S = 10 MC, 4 Masksembles), where the spatial
-    mapping launches them; the _xs launches (x carrying S = 10 MC or 4
-    Masksembles samples) at sites 2-4, each sample also bit-equal to the
+def _conv_times(gen, summary: dict | None, sites=CONV_SITES,
+                convs=VGG_CONVS, stride: int = 1, label: str = "site",
+                names=None) -> None:
+    """Times of rows 10 and 11 at the block-site shapes of a main path
+    (batch 128; vgg11's by default, 3x3, SAME, stride 1; each of
+    ``convs`` at each of ``sites``), in the dtypes and with the epilogues
+    the block-site models give them: the MC float kernels on bf16 x and w
+    with the fold bias, the conv's activation and a bf16 store; the float
+    bank kernels on bf16 x and the f32 folded kernel with an f32 store;
+    the int8 kernels with the (2, F) BN affine, the activation and an int8
+    store; of every kernel, or of ``names``. The samples kernels at the
+    first site (S = 10 MC, 4 Masksembles), where the spatial mapping
+    launches them; the _xs launches (x carrying S = 10 MC or 4
+    Masksembles samples) at the others, each sample also bit-equal to the
     single launch on its x, with cuDNN at batch S·N beside them. At every
     site each kernel's output is held against its plain version on the
     same inputs first: int8 bit for bit, an f32 store to CONV_RTOL, a bf16
@@ -1309,14 +1425,19 @@ def _conv_times(gen, summary: dict) -> None:
     off for the bank rows), which the port never calls; there is no
     PyTorch int8 conv, so none for the int8 rows. The float bank rows also
     give ``bound_f32_fma_ms``, their bound at the f32 peak outside the
-    tensor cores."""
+    tensor cores. The times at CONV_SUMMARY_SITE go into ``summary``
+    unless it is None."""
     import torch
     import torch.nn.functional as F
     from bayestpu_torch.kernels import masked_conv as mc
     n = BATCH
     steps = (2.0 ** -7, 2.0 ** -7)
-    for si, (hw, c, f) in enumerate(CONV_SITES):
-        x, w, aff, xq, wq = _conv_data((n, hw, hw, c), 3, f, torch.bfloat16,
+    for si, (hw, c, f), (kname, (k, padding, act)) in (
+            (si, site, conv) for si, site in enumerate(sites)
+            for conv in convs.items()):
+        pad = k // 2                       # torch's padding of the convs
+        geo = dict(padding=padding, stride=stride)
+        x, w, aff, xq, wq = _conv_data((n, hw, hw, c), k, f, torch.bfloat16,
                                        gen)
         wf = w.float()
         bank, _ = _conv_banks(c)
@@ -1333,63 +1454,64 @@ def _conv_times(gen, summary: dict) -> None:
         runs = {
             "dropout_conv": (
                 lambda: mc.dropout_conv_inference(
-                    x, w, s0, RATE, bias=b, act="relu", out_dtype=bf16),
-                lambda: mc.dropout_conv_plain(x, w, s0, RATE, "SAME", 1, b,
-                                              "relu", bf16),
-                lambda: F.conv2d(xm[:n], w, padding=1), 1, 2, 8),
+                    x, w, s0, RATE, bias=b, act=act, **geo, out_dtype=bf16),
+                lambda: mc.dropout_conv_plain(x, w, s0, RATE, padding,
+                                              stride, b, act, bf16),
+                lambda: F.conv2d(xm[:n], w, stride=stride, padding=pad), 1,
+                2, 8),
             "bank_conv": (
-                lambda: mc.bank_conv(x, wf, bank, 0, bias=b, act="relu"),
-                lambda: mc.bank_conv_plain(x, wf, bank, 0, "SAME", 1, b,
-                                           "relu"),
-                lambda: F.conv2d(xb[:n], wf, padding=1), 1, 4,
-                4 * c),
+                lambda: mc.bank_conv(x, wf, bank, 0, bias=b, act=act, **geo),
+                lambda: mc.bank_conv_plain(x, wf, bank, 0, padding, stride,
+                                           b, act),
+                lambda: F.conv2d(xb[:n], wf, stride=stride, padding=pad), 1,
+                4, 4 * c),
             "dropout_conv_int8": (
                 lambda: mc.dropout_conv_int8(xq, wq, s0, RATE, *steps,
-                                             bias=aff, act="relu",
+                                             bias=aff, act=act, **geo,
                                              out_step=steps[0]),
                 lambda: mc.dropout_conv_int8_plain(
-                    xq, wq, s0, RATE, *steps, "SAME", 1, aff, "relu",
+                    xq, wq, s0, RATE, *steps, padding, stride, aff, act,
                     steps[0]), None, 1, 1, 8),
             "bank_conv_int8": (
                 lambda: mc.bank_conv_int8(xq, wq, bank, 0, *steps, bias=aff,
-                                          act="relu", out_step=steps[0]),
+                                          act=act, **geo, out_step=steps[0]),
                 lambda: mc.bank_conv_int8_plain(
-                    xq, wq, bank, 0, *steps, "SAME", 1, aff, "relu",
+                    xq, wq, bank, 0, *steps, padding, stride, aff, act,
                     steps[0]), None, 1, 1, 4 * c),
         }
         if si == 0:
             runs.update({
                 "dropout_conv_samples": (
                     lambda: mc.dropout_conv_samples(
-                        x, w, seeds, RATE, bias=b, act="relu",
+                        x, w, seeds, RATE, bias=b, act=act, **geo,
                         out_dtype=bf16),
                     lambda: mc.stack_samples([mc.dropout_conv_plain(
-                        x, w, seeds[s], RATE, "SAME", 1, b, "relu", bf16)
+                        x, w, seeds[s], RATE, padding, stride, b, act, bf16)
                         for s in range(SAMPLES)]),
-                    lambda: F.conv2d(xm, w, padding=1), SAMPLES, 2,
-                    8 * SAMPLES),
+                    lambda: F.conv2d(xm, w, stride=stride, padding=pad),
+                    SAMPLES, 2, 8 * SAMPLES),
                 "bank_conv_samples": (
                     lambda: mc.bank_conv_samples(x, wf, bank, idxs, bias=b,
-                                                 act="relu"),
+                                                 act=act, **geo),
                     lambda: mc.stack_samples([mc.bank_conv_plain(
-                        x, wf, bank, i, "SAME", 1, b, "relu")
+                        x, wf, bank, i, padding, stride, b, act)
                         for i in range(NUM_MASKS)]),
-                    lambda: F.conv2d(xb, wf, padding=1), NUM_MASKS, 4,
-                    4 * NUM_MASKS * (c + 1)),
+                    lambda: F.conv2d(xb, wf, stride=stride, padding=pad),
+                    NUM_MASKS, 4, 4 * NUM_MASKS * (c + 1)),
                 "dropout_conv_int8_samples": (
                     lambda: mc.dropout_conv_int8_samples(
-                        xq, wq, seeds, RATE, *steps, bias=aff, act="relu",
+                        xq, wq, seeds, RATE, *steps, bias=aff, act=act, **geo,
                         out_step=steps[0]),
                     lambda: mc.stack_samples([mc.dropout_conv_int8_plain(
-                        xq, wq, seeds[s], RATE, *steps, "SAME", 1, aff,
-                        "relu", steps[0]) for s in range(SAMPLES)]),
+                        xq, wq, seeds[s], RATE, *steps, padding, stride, aff,
+                        act, steps[0]) for s in range(SAMPLES)]),
                     None, SAMPLES, 1, 8 * SAMPLES),
                 "bank_conv_int8_samples": (
                     lambda: mc.bank_conv_int8_samples(
-                        xq, wq, bank, idxs, *steps, bias=aff, act="relu",
+                        xq, wq, bank, idxs, *steps, bias=aff, act=act, **geo,
                         out_step=steps[0]),
                     lambda: mc.stack_samples([mc.bank_conv_int8_plain(
-                        xq, wq, bank, i, *steps, "SAME", 1, aff, "relu",
+                        xq, wq, bank, i, *steps, padding, stride, aff, act,
                         steps[0]) for i in range(NUM_MASKS)]),
                     None, NUM_MASKS, 1, 4 * NUM_MASKS * (c + 1)),
             })
@@ -1413,81 +1535,89 @@ def _conv_times(gen, summary: dict) -> None:
             runs.update({
                 "dropout_conv_xs": (
                     lambda: mc.dropout_conv_inference(
-                        x5, w, seeds, RATE, bias=b, act="relu",
+                        x5, w, seeds, RATE, bias=b, act=act, **geo,
                         out_dtype=bf16),
                     lambda: mc.stack_samples([mc.dropout_conv_plain(
-                        x5[s], w, seeds[s], RATE, "SAME", 1, b, "relu",
+                        x5[s], w, seeds[s], RATE, padding, stride, b, act,
                         bf16) for s in range(SAMPLES)]),
-                    lambda: F.conv2d(xm5, w, padding=1), SAMPLES, 2,
-                    8 * SAMPLES),
+                    lambda: F.conv2d(xm5, w, stride=stride, padding=pad),
+                    SAMPLES, 2, 8 * SAMPLES),
                 "dropout_conv_int8_xs": (
                     lambda: mc.dropout_conv_int8_inference(
-                        xq5, wq, seeds, RATE, *steps, bias=aff, act="relu",
+                        xq5, wq, seeds, RATE, *steps, bias=aff, act=act, **geo,
                         out_step=steps[0]),
                     lambda: mc.stack_samples([mc.dropout_conv_int8_plain(
-                        xq5[s], wq, seeds[s], RATE, *steps, "SAME", 1, aff,
-                        "relu", steps[0]) for s in range(SAMPLES)]),
+                        xq5[s], wq, seeds[s], RATE, *steps, padding, stride,
+                        aff, act, steps[0]) for s in range(SAMPLES)]),
                     None, SAMPLES, 1, 8 * SAMPLES),
                 "bank_conv_xs": (
                     lambda: mc.bank_conv_inference(xb5, wf, bank, idxs,
-                                                   bias=b, act="relu"),
+                                                   bias=b, act=act, **geo),
                     lambda: mc.stack_samples([mc.bank_conv_plain(
-                        xb5[i], wf, bank, i, "SAME", 1, b, "relu")
+                        xb5[i], wf, bank, i, padding, stride, b, act)
                         for i in range(NUM_MASKS)]),
-                    lambda: F.conv2d(xbm5, wf, padding=1), NUM_MASKS, 4,
-                    4 * NUM_MASKS * (c + 1)),
+                    lambda: F.conv2d(xbm5, wf, stride=stride, padding=pad),
+                    NUM_MASKS, 4, 4 * NUM_MASKS * (c + 1)),
                 "bank_conv_int8_xs": (
                     lambda: mc.bank_conv_int8_inference(
-                        xqb5, wq, bank, idxs, *steps, bias=aff, act="relu",
+                        xqb5, wq, bank, idxs, *steps, bias=aff, act=act, **geo,
                         out_step=steps[0]),
                     lambda: mc.stack_samples([mc.bank_conv_int8_plain(
-                        xqb5[i], wq, bank, i, *steps, "SAME", 1, aff,
-                        "relu", steps[0]) for i in range(NUM_MASKS)]),
+                        xqb5[i], wq, bank, i, *steps, padding, stride, aff,
+                        act, steps[0]) for i in range(NUM_MASKS)]),
                     None, NUM_MASKS, 1, 4 * NUM_MASKS * (c + 1)),
             })
             singles = {
                 "dropout_conv_xs": lambda s: mc.dropout_conv_inference(
                     x5[s], w, seeds[s].contiguous(), RATE, bias=b,
-                    act="relu", out_dtype=bf16),
+                    act=act, **geo, out_dtype=bf16),
                 "dropout_conv_int8_xs": lambda s: mc.dropout_conv_int8(
                     xq5[s], wq, seeds[s].contiguous(), RATE, *steps,
-                    bias=aff, act="relu", out_step=steps[0]),
+                    bias=aff, act=act, **geo, out_step=steps[0]),
                 "bank_conv_xs": lambda s: mc.bank_conv(
-                    xb5[s], wf, bank, s, bias=b, act="relu"),
+                    xb5[s], wf, bank, s, bias=b, act=act, **geo),
                 "bank_conv_int8_xs": lambda s: mc.bank_conv_int8(
-                    xqb5[s], wq, bank, s, *steps, bias=aff, act="relu",
+                    xqb5[s], wq, bank, s, *steps, bias=aff, act=act, **geo,
                     out_step=steps[0])}
             bound_x = {"dropout_conv_xs": x5, "dropout_conv_int8_xs": xq5,
                        "bank_conv_xs": xb5, "bank_conv_int8_xs": xqb5}
-        line = {"phase": "kernels", "kernel": "masked_conv",
-                "shape": f"site{si + 1}", "x_nhwc": [n, hw, hw, c], "F": f,
-                "k": 3, "padding": "SAME", "stride": 1}
-        if si > 0:
-            for name, one in singles.items():
-                got = runs[name][0]()
-                same = all(torch.equal(got[s], one(s))
-                           for s in range(got.shape[0]))
-                check(same, f"{name} site{si + 1}: sample s differs from "
-                      "the single launch on x[s]")
-                line[f"{name}_equals_single_bitwise"] = same
+        else:
+            singles = {}
+        if names is not None:
+            runs = {name: run for name, run in runs.items() if name in names}
+        where = f"{label}{si + 1}" + (f"_{kname}" if len(convs) > 1 else "")
+        line = {"phase": "kernels", "kernel": "masked_conv", "shape": where,
+                "x_nhwc": [n, hw, hw, c], "F": f, "k": k,
+                "padding": padding, "stride": stride}
+        for name, one in singles.items():
+            if name not in runs:
+                continue
+            got = runs[name][0]()
+            same = all(torch.equal(got[s], one(s))
+                       for s in range(got.shape[0]))
+            check(same, f"{name} {where}: sample s differs from the single "
+                  "launch on x[s]")
+            line[f"{name}_equals_single_bitwise"] = same
         checks = [(name, run[0], run[1]) for name, run in runs.items()]
-        checks.append(("dropout_conv", lambda: mc.dropout_conv_inference(
-            x, w, s0, RATE, bias=b, act="relu"), lambda: mc.dropout_conv_plain(
-                x, w, s0, RATE, "SAME", 1, b, "relu")))
+        if "dropout_conv" in runs:
+            checks.append(("dropout_conv", lambda: mc.dropout_conv_inference(
+                x, w, s0, RATE, bias=b, act=act, **geo),
+                lambda: mc.dropout_conv_plain(x, w, s0, RATE, padding,
+                                              stride, b, act)))
         for name, kern, plain in checks:
             got, want = kern(), plain()
             err = (got.float() - want.float()).abs().max().item()
             if got.dtype == torch.int8:
                 check(torch.equal(got, want),
-                      f"{name} site{si + 1}: int8 not bit-equal, {err}")
+                      f"{name} {where}: int8 not bit-equal, {err}")
                 tag = "int8"
             else:
                 bf16_out = got.dtype == torch.bfloat16
                 tol = ((BF16_OUT_RTOL if bf16_out else CONV_RTOL)
                        * max(1.0, want.float().abs().max().item()))
-                check(err <= tol, f"{name} site{si + 1}: {err} > {tol}")
+                check(err <= tol, f"{name} {where}: {err} > {tol}")
                 tag = "bf16out" if bf16_out else "f32"
-            if tag != "bf16out":
+            if tag != "bf16out" and summary is not None:
                 summary[name]["max_abs_err"] = max(
                     summary[name]["max_abs_err"], err)
             line[f"{name}_{tag}_err"] = err
@@ -1508,14 +1638,14 @@ def _conv_times(gen, summary: dict) -> None:
             t.update(plain_ms=device_ms(plain, 3),
                      events_ms=cuda_ms(kern, 20, 3))
             t["bound_ms"], t["bound_by"] = _conv_bound(
-                name, xx, ww, s, out_bytes, mask_bytes=mask_bytes)
+                name, xx, ww, s, out_bytes, padding, stride, mask_bytes)
             if name.startswith("bank") and "int8" not in name:
                 t["bound_f32_fma_ms"] = _conv_bound(
-                    name, xx, ww, s, out_bytes, mask_bytes=mask_bytes,
+                    name, xx, ww, s, out_bytes, padding, stride, mask_bytes,
                     kind="float32")[0]
             line[name] = t
-            if si == CONV_SUMMARY_SITE.get(name, 0):
-                summary[name].update(t, shape=f"site{si + 1}")
+            if summary is not None and si == CONV_SUMMARY_SITE.get(name, 0):
+                summary[name].update(t, shape=where)
         emit(line)
 
 
@@ -1523,7 +1653,10 @@ def phase_conv_kernels() -> dict:
     """Rows 10 and 11 (``csrc/masked_conv.cu``) on the card: the checks of
     ``_conv_checks`` at the block-1 site shape and the ragged geometries,
     the mask readout, and at the four site shapes the main path's epilogues
-    against the plain versions, then the times."""
+    against the plain versions, then the times; then the same checks at
+    resnet18's three deferred sites (both convs, batch 128), the readout
+    of their shared mask, and the times of the launches its block-site
+    spatial predict makes there."""
     import torch
     gen = torch.Generator().manual_seed(4321)
     summary = {name: {"max_abs_err": 0.0} for name in CONV_REPLACES}
@@ -1533,7 +1666,62 @@ def phase_conv_kernels() -> dict:
         _conv_checks(label, xshape, k, ff, padding, stride, gen, summary)
     _conv_readout(gen)
     _conv_times(gen, summary)
+    for hw, c, f in RESNET_SITES:
+        for kname, (k, padding, _) in RESNET_CONVS.items():
+            _conv_checks(f"resnet_{hw}x{hw}x{c}_{kname}_s2",
+                         (BATCH, hw, hw, c), k, f, padding, 2, gen, summary)
+    _resnet_readout(gen)
+    # as the block-site resnet18's spatial predict launches them
+    _conv_times(gen, None, RESNET_SITES, RESNET_CONVS, 2, "resnet_site",
+                ("dropout_conv_samples", "bank_conv_samples",
+                 "dropout_conv_xs", "bank_conv_xs"))
     return summary
+
+
+def _resnet_readout(gen) -> None:
+    """One site, two convs: a deferred block's convbn1 (3x3, stride 2,
+    RESNET_P3) and downsample (1x1, stride 2) read the same masked input.
+    x = ones, w = the identity at the 3x3 kernel's centre tap and the 1x1
+    identity: sample s of both is the mask at the even positions times the
+    scale, bit for bit equal, and its nonzero pattern that of
+    ``mask_apply_nhwc`` (the backward's mask) there; likewise the int8
+    kernels, and the bank kernels on one bank row."""
+    import torch
+    from bayestpu_torch.kernels import masked_conv as mc
+    n, h, wd, c = 2, 32, 32, 64
+    seeds = _inputs(dict(M=1, K=1, N=1, S=CONV_S), torch.float32, gen)[2]
+    idxs = torch.tensor(CONV_RAGGED_IDXS, dtype=torch.int32, device="cuda")
+    bank, _ = _conv_banks(c)
+    line = {"phase": "kernels", "kernel": "masked_conv",
+            "shape": "resnet_shared_mask_readout", "x_nhwc": [n, h, wd, c]}
+    for dtype in (torch.int8, torch.bfloat16, torch.float32):
+        ones = _cl(torch.ones(n, c, h, wd, dtype=dtype, device="cuda"))
+        eye1 = torch.eye(c, dtype=dtype, device="cuda")[:, :, None, None]
+        eye3 = torch.nn.functional.pad(eye1, (1, 1, 1, 1))
+        kw = dict(stride=2)
+        if dtype == torch.int8:
+            a, b = (mc.dropout_conv_int8_samples(ones, w, seeds, RATE, 1.0,
+                                                 1.0, pad, **kw)
+                    for w, pad in ((eye3, RESNET_P3), (eye1, "SAME")))
+        else:
+            a, b = (mc.dropout_conv_samples(ones, w, seeds, RATE, pad, **kw)
+                    for w, pad in ((eye3, RESNET_P3), (eye1, "SAME")))
+            ba, bb = (mc.bank_conv_samples(ones, w.float(), bank, idxs, pad,
+                                           **kw)
+                      for w, pad in ((eye3, RESNET_P3), (eye1, "SAME")))
+            check(torch.equal(ba, bb), f"bank convbn1 vs downsample {dtype}")
+        applied = torch.stack([mc.mask_apply_nhwc(
+            ones.float(), seeds[s].contiguous(), RATE)[..., ::2, ::2]
+            for s in range(CONV_S)])
+        vals = sorted(set(a.float().unique().tolist()))
+        ok = torch.equal(a, b) and torch.equal(a != 0, applied != 0)
+        check(ok and len(vals) == 2, f"resnet shared mask readout {dtype}: "
+              f"equal {torch.equal(a, b)}, values {vals}")
+        line[str(dtype).split(".")[-1]] = {
+            "convbn1_equals_downsample": True, "values": vals,
+            "equals_dropout_apply_mask": True,
+            "keep_fraction": (a != 0).float().mean().item()}
+    emit(line)
 
 
 def phase_slice() -> dict:
@@ -2375,13 +2563,15 @@ def phase_mask(tr: dict) -> dict:
 
 
 def _block_serve(name: str, build, variables, want_sp: dict, want_tm: dict,
-                 x, st_tol, cpu_tol_fn, samples: int, mask: bool) -> dict:
-    """Serve one block-site model through ``BayesEngine(device="cuda")``:
-    exact launch counts of a spatial and a temporal predict, every
-    probability finite and summing to 1, the per-sample logits of the two
-    mappings within ``st_tol``, for Masksembles ``predict(sample_idx=i)``
-    equal to sample i, and rows 0-7 against the same model on the CPU
-    within ``cpu_tol_fn(cpu_model, cpu_logits)``."""
+                 x, st_tol, cpu_tol_fn, samples: int, mask: bool,
+                 exits: int = 1, classes: int = 10) -> dict:
+    """Serve one model through ``BayesEngine(device="cuda")``: exact launch
+    counts of a spatial and a temporal predict, every probability (of
+    ``exits`` exits over ``classes`` classes) finite and summing to 1, the
+    per-sample logits of the two mappings within ``st_tol``, for
+    Masksembles ``predict(sample_idx=i)`` equal to sample i, and rows 0-7
+    against the same model on the CPU within ``cpu_tol_fn(cpu_model,
+    cpu_logits)``."""
     import torch
     from bayestpu_torch.core.config import EngineConfig, SamplingMode
     from bayestpu_torch.engine import sampler
@@ -2404,7 +2594,7 @@ def _block_serve(name: str, build, variables, want_sp: dict, want_tm: dict,
     check(tm_launches == counts(**want_tm),
           f"block {name} temporal predict launches {tm_launches}")
     for mode, p in (("spatial", p_sp.probs), ("temporal", p_tm.probs)):
-        check(p.shape == (1, x.shape[0], 10)
+        check(p.shape == (exits, x.shape[0], classes)
               and bool(torch.isfinite(p).all())
               and (p.sum(-1) - 1).abs().max().item() < 1e-5,
               f"block {name} {mode} probs")
@@ -2455,6 +2645,19 @@ def _block_serve(name: str, build, variables, want_sp: dict, want_tm: dict,
     return out
 
 
+def _int8_cpu_tol(quant, rescale: float):
+    """INT8_CPU_STEPS grid steps of a head's int8 input through the widest
+    column of its quantized kernel (times ``rescale``, the MC heads'
+    1/(1-rate)), as the int8 phase: card against CPU for an int8 model."""
+    import torch
+    from bayestpu_torch.core.quant import fake_quant
+    from bayestpu_torch.nn.fused import BayesDense
+    return lambda model, l_cpu: INT8_CPU_STEPS * 2.0 ** -7 * max(
+        torch.linalg.vector_norm(fake_quant(h.kernel, quant), dim=0)
+        .max().item() for h in model.modules()
+        if isinstance(h, BayesDense)) * rescale
+
+
 def _block_finetune(model, xs, ys, epochs: int, lr: float, want: dict
                     ) -> tuple[dict, dict]:
     """Fine-tune ``model`` (on the card, train mode) for ``epochs`` epochs
@@ -2489,10 +2692,9 @@ def _block_finetune(model, xs, ys, epochs: int, lr: float, want: dict
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t) * 1e3)
     torch.cuda.synchronize()
-    check(first == counts(**want), f"launches of one block-site training "
-          f"step {first}")
+    check(first == counts(**want), f"launches of one training step {first}")
     loss = torch.stack(losses).float().cpu().numpy()
-    check(bool(np.isfinite(loss).all()), "block-site training loss finite")
+    check(bool(np.isfinite(loss).all()), "training loss finite")
     p50 = statistics.median(step_ms)
     return state.variables(), {
         "epochs": epochs, "steps": steps, "lr": lr, "clip": TRAIN_CLIP,
@@ -2543,11 +2745,9 @@ def phase_block(tr: dict) -> dict:
     import torch
     from bayestpu_torch.core.config import (BayesConfig, DropoutKind,
                                             QuantConfig)
-    from bayestpu_torch.core.quant import fake_quant
     from bayestpu_torch.engine.engine import BayesEngine
     from bayestpu_torch.interop.from_flax import (load_flax_variables,
                                                   to_flax_variables)
-    from bayestpu_torch.nn.fused import BayesDense
     from bayestpu_torch.nn.zoo import get_model
 
     cfg_mc = BayesConfig(rate=RATE)
@@ -2565,12 +2765,7 @@ def phase_block(tr: dict) -> dict:
         return CPU_REF_RTOL * max(1.0, l_cpu.abs().max().item())
 
     def int8_tol(rescale):
-        # INT8_CPU_STEPS grid steps of a head's int8 input through the
-        # widest column of its quantized kernel, as the int8 phase
-        return lambda model, l_cpu: INT8_CPU_STEPS * 2.0 ** -7 * max(
-            torch.linalg.vector_norm(fake_quant(h.kernel, int8_q), dim=0)
-            .max().item() for h in model.modules()
-            if isinstance(h, BayesDense)) * rescale
+        return _int8_cpu_tol(int8_q, rescale)
 
     ds, xs, ys = tr["ds"], tr["xs"], tr["ys"]
     x = torch.from_numpy(ds.x_test[:BATCH]).cuda()
@@ -2691,9 +2886,134 @@ def phase_block(tr: dict) -> dict:
     return {"launches": launch_counts()}
 
 
+def phase_resnet(smi: str) -> dict:
+    """ResNet-18 at full width on CIFAR-100 shapes (100 classes), batch
+    128, through the entry points a user calls (``get_model``,
+    ``BayesEngine(device="cuda")``, ``make_train_step``), seeded weights:
+
+    (a) int8 ``resnet18_me``, the JAX bench's BASELINE config 5
+        (``bench.py:741-748``: fused, MC rate 0.25, S = 10, bf16 compute,
+        ``int8_infer``): 4 ``dropout_matmul_int8_samples`` launches a
+        spatial predict (the four exit heads; the backbone runs once), 40
+        ``dropout_matmul_int8`` a temporal one; spatial against temporal,
+        the card against the CPU on rows 0-7 within INT8_CPU_STEPS grid
+        steps; p50s and samples/s; a profiled predict by kernel group.
+    (b) its bf16 twin: 4 ``dropout_matmul_samples`` / 40
+        ``dropout_matmul``.
+    (c) ``resnet18(fused=True, dropout="block")``, MC bf16: the stage
+        boundary sites deferred into layer2_0, layer3_0 and layer4_0, whose
+        convbn1 (3x3, stride 2) and downsample (1x1, stride 2) share one
+        seed pair: 2 ``dropout_conv_samples`` (the first site, where x is
+        shared) and 4 ``dropout_conv_xs`` (the activations carry S) a
+        spatial predict, 60 ``dropout_conv`` a temporal one (the head is
+        deterministic: ``dropout_exit=False``); profiled.
+    (d) its Masksembles twin (num_masks 4, scale 2.0, S = 4): 2
+        ``bank_conv_samples`` + 4 ``bank_conv_xs``, 24 ``bank_conv``;
+        ``predict(sample_idx=i)`` equal to sample i.
+    (e) bf16 training from seeded weights, RESNET_EPOCHS epochs of
+        RESNET_BATCHES batches: ``resnet18_me`` (a step launches 4
+        ``dropout_matmul`` and 8 ``dropout_apply``) and the block-site
+        ``resnet18`` (6 ``dropout_conv`` and 12 ``dropout_apply``: row 1 on
+        the (N·H·W, C) views of the deferred sites, 131072 x 64 at the
+        stage-1 boundary); the loss falls in both.
+    (f) one ``resnet18_me`` training step at batch 8, card against CPU
+        (``_step_vs_cpu``), after the launches are read."""
+    import torch
+    from bayestpu_torch.core.config import (BayesConfig, DropoutKind,
+                                            QuantConfig)
+    from bayestpu_torch.data.datasets import get_dataset
+    from bayestpu_torch.nn.zoo import get_model
+
+    mc_cfg = BayesConfig(rate=RATE)
+    mask_cfg = BayesConfig(kind=DropoutKind.MASK, num_masks=NUM_MASKS,
+                           scale=MASK_SCALE)
+    int8_q = QuantConfig(8, 0, int8_infer=True)
+
+    def model_fn(name, bayes, quant=None, **kw):
+        return lambda: get_model(name, bayes=bayes, fused=True,
+                                 dtype=torch.bfloat16, quant=quant,
+                                 num_classes=RESNET_CLASSES, **kw)
+
+    def float_tol(model, l_cpu):
+        return CPU_REF_RTOL * max(1.0, l_cpu.abs().max().item())
+
+    ds = get_dataset("cifar100")
+    x = torch.from_numpy(ds.x_test[:BATCH]).cuda()
+    nb = RESNET_BATCHES
+    xs = torch.from_numpy(ds.x_train[:nb * BATCH]).cuda().reshape(
+        (nb, BATCH) + ds.x_train.shape[1:])
+    ys = torch.from_numpy(ds.y_train[:nb * BATCH]).long().cuda().reshape(
+        nb, BATCH)
+    s_mc, s_mask = SAMPLES, NUM_MASKS
+    block = dict(dropout="block")
+    serving = (
+        ("resnet18_me_int8", model_fn("resnet18_me", mc_cfg, int8_q),
+         dict(dropout_matmul_int8_samples=4),
+         dict(dropout_matmul_int8=4 * s_mc), _int8_cpu_tol(
+             int8_q, 1.0 / (1.0 - RATE)), s_mc, False, 4, True),
+        ("resnet18_me_bf16", model_fn("resnet18_me", mc_cfg),
+         dict(dropout_matmul_samples=4), dict(dropout_matmul=4 * s_mc),
+         float_tol, s_mc, False, 4, False),
+        ("resnet18_block_mc", model_fn("resnet18", mc_cfg, **block),
+         dict(dropout_conv_samples=2, dropout_conv_xs=4),
+         dict(dropout_conv=6 * s_mc), float_tol, s_mc, False, 1, True),
+        ("resnet18_block_mask", model_fn("resnet18", mask_cfg, **block),
+         dict(bank_conv_samples=2, bank_conv_xs=4),
+         dict(bank_conv=6 * s_mask), float_tol, s_mask, True, 1, False))
+    # ---- the main path, counted: (a)-(e)
+    reset_counts()
+    for (name, build, want_sp, want_tm, cpu_tol, samples, mask, exits,
+         profiled) in serving:
+        t0 = time.perf_counter()
+        out = _block_serve(name, build, None, want_sp, want_tm, x,
+                           CPU_REF_RTOL, cpu_tol, samples, mask, exits,
+                           RESNET_CLASSES)
+        eng = out.pop("engine")
+        emit({"phase": "resnet", "config": name, "card": smi,
+              "weights": "seeded init", "quant": repr(eng.model.quant),
+              "dtype": "bfloat16", "batch": BATCH, "classes":
+              RESNET_CLASSES, "samples": samples, **out,
+              "seconds": time.perf_counter() - t0})
+        if profiled:
+            emit({"phase": "resnet_profile", "config": name, "card": smi,
+                  "what": "spatial predict, profiled",
+                  **_profile_predict(eng, x, 11, reps=5, samples=samples)})
+    for name, build, want in (
+            ("resnet18_me", model_fn("resnet18_me", mc_cfg),
+             dict(dropout_matmul=4, dropout_apply=8)),
+            ("resnet18_block_mc", model_fn("resnet18", mc_cfg, **block),
+             dict(dropout_conv=6, dropout_apply=12))):
+        t0 = time.perf_counter()
+        model = build()
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        _, fit = _block_finetune(model.cuda().train(), xs, ys,
+                                 RESNET_EPOCHS, RESNET_LR, want)
+        losses = fit["epoch_mean_loss"]
+        check(losses[-1] < losses[0], f"{name} training loss does not "
+              f"fall: {losses}")
+        emit({"phase": "resnet_train", "config": name, "card": smi,
+              "dtype": "bfloat16", "batch": BATCH, "rate": RATE,
+              "data": "synthetic CIFAR-100", **fit,
+              "seconds": time.perf_counter() - t0})
+    launches = launch_counts()
+    _step_vs_cpu("resnet18_me", RESNET_CLASSES,
+                 ["exit1.linear.kernel", "exit2.linear.kernel",
+                  "exit3.linear.kernel", "linear.kernel"])
+    return {"launches": launches}
+
+
 def phase_step_vs_cpu() -> None:
+    """One training step of vgg11_me at batch 8 on the card and on the
+    CPU (``_step_vs_cpu``)."""
+    _step_vs_cpu("vgg11_me", 10, [f"exit{i}.linear.kernel"
+                                  for i in range(1, 5)]
+                 + ["classifier.kernel"])
+
+
+def _step_vs_cpu(model_name: str, classes: int, heads: list[str]) -> None:
     """One training step at batch 8 on the card and on the CPU, from one
-    seeded init and the same step seeds (STEP_TOL has the tolerances)."""
+    seeded init and the same step seeds, f32 and bf16 (STEP_TOL has the
+    tolerances; in bf16 only the ``heads`` updates are gated)."""
     import numpy as np
     import torch
     from bayestpu_torch.core.config import BayesConfig
@@ -2704,15 +3024,13 @@ def phase_step_vs_cpu() -> None:
 
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.random((8, 32, 32, 3), dtype=np.float32))
-    y = torch.from_numpy(rng.integers(0, 10, size=8))
-    heads = [f"exit{i}.linear.kernel" for i in range(1, 5)] + [
-        "classifier.kernel"]
+    y = torch.from_numpy(rng.integers(0, classes, size=8))
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         res = {}
         for dev in ("cuda", "cpu"):
-            model = get_model("vgg11_me", bayes=BayesConfig(rate=RATE),
-                              fused=True, dtype=dtype)
+            model = get_model(model_name, bayes=BayesConfig(rate=RATE),
+                              fused=True, dtype=dtype, num_classes=classes)
             tx = optim.chain(optim.clip_by_global_norm(TRAIN_CLIP), optim.sgd(
                 optim.cosine_decay_schedule(TRAIN_LR, 10), 0.9))
             state = create_state(model, tx, 3, x, device=dev)
@@ -2742,7 +3060,8 @@ def phase_step_vs_cpu() -> None:
               and gated[worst] <= tol["update"],
               f"card vs CPU step {name}: loss {loss_rel}, stats {stats_rel},"
               f" update {worst} {gated[worst]} (tolerances {tol})")
-        emit({"phase": "step_vs_cpu", "dtype": name, "batch": 8,
+        emit({"phase": "step_vs_cpu", "model": model_name, "dtype": name,
+              "batch": 8,
               "loss_card": lc, "loss_cpu": lr, "loss_rel": loss_rel,
               "grad_norm_card": nc, "grad_norm_cpu": nr,
               "bn_stats_max_rel": stats_rel,
@@ -2776,19 +3095,30 @@ def main(argv: list[str]) -> int:
             partial[name]()
         emit({"partial": only})
         return 0
-    summary = phase_kernels()
-    summary.update(phase_conv_kernels())
-    phase_backward()
-    sl = phase_slice()
-    phase_profile(sl)
-    tr = phase_train()
-    i8 = phase_int8(tr)
-    mk = phase_mask(tr)
-    bl = phase_block(tr)
-    phase_step_vs_cpu()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    summary = timed("kernels", phase_kernels)
+    summary.update(timed("conv", phase_conv_kernels))
+    timed("backward", phase_backward)
+    sl = timed("slice", phase_slice)
+    timed("profile", phase_profile, sl)
+    tr = timed("train", phase_train)
+    i8 = timed("int8", phase_int8, tr)
+    mk = timed("mask", phase_mask, tr)
+    bl = timed("block", phase_block, tr)
+    rn = timed("resnet", phase_resnet, smi)
+    timed("step_vs_cpu", phase_step_vs_cpu)
+    emit({"phase": "seconds", **seconds})
     kernels = []
     for name, stats in summary.items():
-        launches = sum(ph["launches"][name] for ph in (sl, tr, i8, mk, bl))
+        launches = sum(ph["launches"][name]
+                       for ph in (sl, tr, i8, mk, bl, rn))
         check(launches > 0, f"{name} was never launched on the main paths")
         conv = name in CONV_REPLACES
         kernels.append({"name": name, "route": "cuda",

@@ -91,6 +91,36 @@ def test_dropout_apply_bit_equal_jax(m, k, bf16):
         want)
 
 
+@pytest.mark.parametrize("shape", [(300, 70), (97, 13), (2, 9, 7, 64),
+                                   (3, 5, 6, 36)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_dropout_apply_plain_ragged_and_conv_view_bit_equal_jax(shape, bf16):
+    """``dropout_apply_plain`` at K a multiple of neither 4 nor 8 (the
+    CUDA kernel's scalar path) and on the conv backward's (N·H·W, C) view
+    of a small NHWC tensor (``mask_apply_nhwc``), against JAX's
+    ``_dropout_apply`` and ``mask_apply_nhwc`` in the interpreter, bit for
+    bit, with two seed pairs (the first negative)."""
+    from bayestpu.kernels import masked_conv as jmc
+    from bayestpu_torch.kernels import masked_conv as tmc
+    x = np.random.default_rng(sum(shape)).normal(size=shape).astype(
+        np.float32)
+    jx, tx = _pair(x, bf16)
+    for seeds in _seeds(2, seed=7):
+        ts = torch.from_numpy(seeds)
+        if len(shape) == 2:
+            want = np.asarray(jmm._dropout_apply(jx, jnp.asarray(seeds), RATE,
+                                                 256, 128, **I))
+            got = tmm.dropout_apply_plain(tx, ts, RATE)
+        else:
+            want = np.asarray(jmc.mask_apply_nhwc(jx, jnp.asarray(seeds),
+                                                  RATE, **I))
+            got = tmc.mask_apply_nhwc(
+                tx.permute(0, 3, 1, 2), ts, RATE,
+                tmm.dropout_apply_plain).permute(0, 2, 3, 1)
+        assert got.dtype == torch.float32 and tuple(got.shape) == shape
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("bf16", [False, True])
 def test_dropout_apply_readout_uses_f32_scale_and_forward_mask(bf16):
     """ones → exactly {0, f32(1/0.75) = 1.3333334} under f32 and bf16 input
