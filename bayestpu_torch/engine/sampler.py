@@ -10,16 +10,21 @@ a Masksembles model has no MC sites, so its seeds are (S, 0, 2).
 - temporal: the whole network runs once per sample; every Bayesian site
   launches the single-sample kernel.
 - spatial: the model runs once with all S seeds: the deterministic layers
-  before the first Bayesian site run once, and that site launches the
-  samples kernel once for all S. Without conv sites (``vgg11_me``) every
-  site is a head, so the backbone runs once and each head launches one
-  samples kernel. With conv sites (``vgg11`` with ``dropout="block"``) the
-  activations carry S after the first site: the later deterministic layers
-  run on S·N rows, and each later site launches the single kernel once per
-  sample (JAX's ``lax.map`` fallback).
+  before the first Bayesian site run once, and that site makes all S
+  samples at once (a fused site in one samples launch, a materialized one,
+  ``BayesianDropout`` on threefry masks or a Masksembles row, with S masks
+  drawn in one pass). When every site is a head (``vgg11_me``,
+  ``lenet_me``) the backbone runs once and each head launches one samples
+  kernel. After a site that is not a head (a fused conv site, as in
+  ``vgg11`` with ``dropout="block"``, or a materialized one, as in
+  ``lenet(num_bayes_layers=3)``) the activations carry S: the later
+  deterministic layers run on S·N rows, and each later site takes them as
+  (S, N, …), sample s under its own seeds (a fused one in one ``_xs``
+  launch, as JAX's ``lax.map`` fallback runs one single kernel per
+  sample).
 
 Sample *i* sees the same masks in both mappings, so their per-sample logits
-agree.
+agree bit for bit on the CPU.
 """
 
 from __future__ import annotations

@@ -118,9 +118,15 @@ def geometry(h: int, w: int, kh: int, kw: int, padding, stride: int
     """The padding and output size of ``_Geom`` (``masked_conv.py:
     175-189``): SAME is XLA's, lo = total // 2, so at stride 2 the extra
     row or column goes to the bottom or right (16 → 8 with k = 3 pads (0,
-    1))."""
+    1)). The masked convs take stride 1 or 2."""
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2; got {stride}")
+    return conv_geometry(h, w, kh, kw, padding, stride)
+
+
+def conv_geometry(h: int, w: int, kh: int, kw: int, padding, stride: int
+                  ) -> Geom:
+    """``geometry`` at any stride: XLA's padding of a plain conv."""
     if padding == "SAME":
         ho, wo = -(-h // stride), -(-w // stride)
         th = max((ho - 1) * stride + kh - h, 0)

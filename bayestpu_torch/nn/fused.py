@@ -6,13 +6,16 @@ MC-dropout, Masksembles and no-dropout branches, in training and at
 inference. ``BayesConv`` is below ``BayesDense``, which this part
 describes.
 
-MC dropout at rate > 0: the mask is generated inside the CUDA matmul
-kernel (``bayestpu_torch.kernels.masked_matmul``). At inference seeds of
+MC dropout at rate > 0, fused: the mask is generated inside the CUDA
+matmul kernel (``bayestpu_torch.kernels.masked_matmul``). At inference seeds of
 shape (2,) run one sample and seeds of shape (S, 2) run all S samples in
 one launch (the spatial mapping). In training (``self.training``) the seeds
 are (2,) and the head goes through the trainable ``dropout_matmul``, whose
 backward regenerates the mask (``fused.py:581-588``). Under bf16 both x and
 the kernel are cast to bf16 and the f32 bias is added to the f32 product.
+Unfused (``fused=False``, the JAX default; ``fused.py:589-594``) the head
+is the materialized ``BayesianDropout`` ``drop`` (threefry masks, on the
+same seed pair) and then the dense, in training too.
 
 Masksembles (``kind=MASK``, ``fused.py:541-571``): the head holds the
 (num_masks, in_features) f32 buffer ``bank``, generated from
@@ -38,9 +41,8 @@ x of shape (S, B, in) carries the sample axis (the activations after a
 spatial conv site, one row of x per sample): sample s of x runs under
 seeds[s] or index s, as JAX's ``lax.map`` fallback
 (``masked_matmul.py:407-411``) runs one single kernel per sample. On the
-card the float MC head and the int8 Masksembles head make one ``_xs``
-launch for the S samples; the int8 MC head and the float Masksembles head
-still make one single launch per sample.
+card every fused head makes one ``_xs`` launch for the S samples; an
+unfused one masks sample s of x under seeds[s] or row s.
 """
 
 from __future__ import annotations
@@ -54,16 +56,17 @@ from bayestpu_torch.core.config import BayesConfig, DropoutKind, QuantConfig
 from bayestpu_torch.core.quant import (dequantize_int8, fake_quant, int8_step,
                                        quantize_int8, unsigned)
 from bayestpu_torch.kernels.masked_conv import (
-    bank_conv_inference, bank_conv_int8_inference, conv2d_padded, conv_int8,
-    conv_int8_fused, dropout_conv, dropout_conv_inference,
-    dropout_conv_int8_inference, geometry, mask_apply_nhwc)
+    bank_conv_inference, bank_conv_int8_inference, conv_int8_fused,
+    dropout_conv, dropout_conv_inference, dropout_conv_int8_inference,
+    conv_geometry, mask_apply_nhwc)
 from bayestpu_torch.kernels.masked_matmul import (
     bank_matmul_inference, bank_matmul_int8_inference, dropout_matmul,
     dropout_matmul_inference, dropout_matmul_int8_inference, matmul_f32)
-from bayestpu_torch.nn.bayes import apply_row, batch_split, make_bank
-from bayestpu_torch.nn.layers import (_Conv, _int8_conv_on_mxu,
+from bayestpu_torch.nn.bayes import (BayesianDropout, apply_row, batch_split,
+                                     make_bank)
+from bayestpu_torch.nn.layers import (_Conv, _int8_conv_on_mxu, dot,
                                       lecun_normal_, maybe_quant, quant_dot,
-                                      quant_operands)
+                                      quant_operands, xla_conv, xla_conv_int8)
 
 
 class BayesDense(nn.Module):
@@ -79,10 +82,8 @@ class BayesDense(nn.Module):
         # a site draws masks only for MC at rate > 0 (as in the JAX layer)
         self.stochastic = bayes.kind is DropoutKind.MC and bayes.rate > 0.0
         self.masked = bayes.kind is DropoutKind.MASK
-        if self.stochastic and not fused:
-            raise NotImplementedError(
-                "the unfused MC head (BayesianDropout + dense) is not ported "
-                "yet: ROADMAP Queue 1 item 11")
+        self.drop = (BayesianDropout(bayes.rate)
+                     if self.stochastic and not fused else None)
         self.kernel = nn.Parameter(torch.empty(in_features, features))
         self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
                      else None)
@@ -109,6 +110,10 @@ class BayesDense(nn.Module):
             y = self._bank_head(x, sample_idx, int8)
         elif not self.stochastic:
             y = quant_dot(x, self.kernel, q, self.dtype, int8)
+        elif self.drop is not None:
+            x, kernel, _ = quant_operands(x, self.kernel, q, False)
+            y = dot(self.drop(x, seeds, carries_samples=x.dim() == 3),
+                    kernel, self.dtype)
         else:
             x, kernel, steps = quant_operands(x, self.kernel, q, int8)
             if steps:
@@ -152,34 +157,33 @@ def _masked_conv_fuse_worthwhile(in_ch: int) -> bool:
     return in_ch >= MASKED_CONV_FUSE_MIN_CH
 
 
-_NOT_PORTED = ("the unfused MC conv site (BayesianDropout, threefry masks, "
-               "then the conv) is not ported yet: ROADMAP Queue 1 item 11")
-
-
 class BayesConvInput(nn.Module):
     """Dropout on a conv input, generated and applied in one pass
     (``fused.py:123-151``): ``dropout_apply`` on the (N·H·W, C) view, in
-    x's dtype; rate 0 is the identity. The unfused site (``fused=False``,
-    ``BayesianDropout``) is not ported and raises."""
+    x's dtype; rate 0 is the identity. Unfused (``fused=False``) it is the
+    materialized ``BayesianDropout`` ``drop`` on the same seeds."""
 
     def __init__(self, rate: float = 0.25, fused: bool = True):
         super().__init__()
-        if rate > 0.0 and not fused:
-            raise NotImplementedError(_NOT_PORTED)
         self.rate = rate
+        self.drop = None if fused else BayesianDropout(rate)
 
     def forward(self, x: torch.Tensor, seeds: torch.Tensor | None = None
                 ) -> torch.Tensor:
         if self.rate == 0.0:
             return x
+        if self.drop is not None:
+            return self.drop(x, seeds)
         return mask_apply_nhwc(x, seeds, self.rate).to(x.dtype)
 
 
 class BayesConv(_Conv):
     """(Bayesian mask → conv) with the mask fused into the conv kernel
-    (``fused.py:154-496``): ``kernel`` (OIHW) and for Masksembles the bank
-    buffer ``bank``. It has no bias of its own (``ConvBN`` builds the JAX
-    one with ``use_bias=False``): ``fold_bias`` feeds the epilogue.
+    (``fused.py:154-496``): ``kernel`` (OIHW), for Masksembles the bank
+    buffer ``bank``, and with ``use_bias`` a ``bias`` (fake-quantized under
+    ``quant``, times the BN scale when one rides the epilogue, plus
+    ``fold_bias``; ``ConvBN`` builds the conv without one, and its
+    ``fold_bias`` feeds the epilogue).
 
     ``forward(x, seeds=, sample_idx=, fold_scale=, fold_bias=, act=,
     act_quant=, emit_int8=, defer_int8=)`` follows the JAX branches:
@@ -190,8 +194,11 @@ class BayesConv(_Conv):
       ``dropout_conv_inference`` with the BN fold and relu in the epilogue,
       bf16 out in a bf16 float model, or under ``quant.int8_infer`` int8
       out; an input wide enough for ``_int8_conv_on_mxu`` runs
-      ``dropout_conv_int8_inference`` instead. The unfused MC site raises
-      (``BayesianDropout``, threefry).
+      ``dropout_conv_int8_inference`` instead. Unfused (``fused=False``,
+      a stride other than 1 or 2, or fewer input channels than
+      ``MASKED_CONV_FUSE_MIN_CH``), the materialized ``BayesianDropout``
+      ``drop`` (threefry masks, on this conv's own seeds) and then the
+      conv, as JAX routes it.
     - Masksembles: training splits the batch (no kernel); inference runs
       ``bank_conv_inference`` (f32 out even in a bf16 model: the f32 folded
       kernel, never cast) or ``bank_conv_int8_inference``; unfused, ``x ·
@@ -205,7 +212,8 @@ class BayesConv(_Conv):
     bf16 conv to bf16 before the bias, as XLA does. ``seeds`` (2,) or (S,
     2) and ``sample_idx`` (an int or S indices) select one sample or S, as
     the kernels' ``_inference`` entries do; x of shape (S, N, C, H, W)
-    carries the sample axis and gets one single launch per sample.
+    carries the sample axis (one ``_xs`` launch; sample s of an unfused
+    site under seeds[s] or row s).
     """
 
     def __init__(self, in_ch: int, features: int,
@@ -214,7 +222,7 @@ class BayesConv(_Conv):
                  bayes: BayesConfig | None = None, fused: bool = True,
                  quant: QuantConfig | None = None,
                  dtype: torch.dtype = torch.float32,
-                 quant_input: bool = True):
+                 quant_input: bool = True, use_bias: bool = False):
         bayes = bayes if bayes is not None else BayesConfig(
             kind=DropoutKind.NONE)
         masked = bayes.kind is DropoutKind.MASK
@@ -225,28 +233,27 @@ class BayesConv(_Conv):
         self.masked = masked
         self.stochastic = bayes.kind is DropoutKind.MC and bayes.rate > 0.0
         self.site = None
-        if tuple(strides) not in ((1, 1), (2, 2)):
-            raise NotImplementedError(f"strides {tuple(strides)}: the port "
-                                      "convolves at stride 1 or 2")
         self.stride = int(strides[0])
+        if tuple(strides) != (self.stride, self.stride):
+            raise ValueError(f"strides {tuple(strides)}: the port takes "
+                             "equal strides")
         self.padding = padding
-        geometry(8, 8, *kernel_size, padding, self.stride)  # validates
-        self.fusable = fused and _masked_conv_fuse_worthwhile(in_ch)
-        if self.stochastic and not self.fusable:
-            raise NotImplementedError(_NOT_PORTED)
+        conv_geometry(8, 8, *kernel_size, padding, self.stride)  # validates
+        self.fusable = (fused and self.stride in (1, 2)
+                        and _masked_conv_fuse_worthwhile(in_ch))
+        self.drop = (BayesianDropout(bayes.rate)
+                     if self.stochastic and not self.fusable else None)
+        self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
+                     else None)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        super().reset_parameters(generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def _xla_conv(self, x: torch.Tensor, kernel: torch.Tensor
                   ) -> torch.Tensor:
-        """The JAX package's XLA conv (``_xla_conv``): operands cast to
-        ``dtype``, a bf16 conv rounded to bf16, f32 out; x of (S, N, ...)
-        folds its sample axis into the batch (no mask here)."""
-        lead = x.shape[:-3]
-        xb = x.reshape((-1,) + tuple(x.shape[-3:]))
-        g = geometry(xb.shape[2], xb.shape[3], kernel.shape[2],
-                     kernel.shape[3], self.padding, self.stride)
-        y = conv2d_padded(xb.to(self.dtype), kernel.to(self.dtype), g,
-                          self.stride).float()
-        return y.reshape(tuple(lead) + tuple(y.shape[1:]))
+        return xla_conv(x, kernel, self.padding, self.stride, self.dtype)
 
     def forward(self, x: torch.Tensor, *, seeds: torch.Tensor | None = None,
                 sample_idx=0, fold_scale: torch.Tensor | None = None,
@@ -273,7 +280,12 @@ class BayesConv(_Conv):
             raise ValueError("int8-residency input requires a quant config "
                              "on the consuming BayesConv")
         x_f = dequantize_int8(x, q) if x.dtype == torch.int8 else x
-        bias_vec = fold_bias
+        # conv bias (fake-quantized), times the BN scale, plus the BN shift
+        bias_vec = None if self.bias is None else maybe_quant(self.bias, q)
+        if epi_scale is not None and bias_vec is not None:
+            bias_vec = bias_vec * epi_scale
+        if fold_bias is not None:
+            bias_vec = fold_bias if bias_vec is None else bias_vec + fold_bias
         out_step = (int8_step(q) if int8_mode and act == "relu"
                     and (act_quant or emit_int8) else None)
         out_dtype = (torch.bfloat16 if self.dtype == torch.bfloat16
@@ -307,7 +319,10 @@ class BayesConv(_Conv):
         elif self.stochastic:
             if seeds is None:
                 raise ValueError("an MC conv site needs its seeds")
-            if int8_fused:
+            if self.drop is not None:
+                y = self._xla_conv(self.drop(
+                    x_f, seeds, carries_samples=x_f.dim() == 5), kernel)
+            elif int8_fused:
                 y = dropout_conv_int8_inference(
                     xq, wq, seeds, self.bayes.rate, xs, ws, self.padding,
                     **epi)
@@ -326,9 +341,8 @@ class BayesConv(_Conv):
             y = conv_int8_fused(xq, wq, xs, ws, padding=self.padding, **epi)
             done = True
         elif int8_exec:
-            g = geometry(x.shape[-2], x.shape[-1], kernel.shape[2],
-                         kernel.shape[3], self.padding, self.stride)
-            y = conv_int8(xq, wq, g, self.stride).float() * (xs * ws)
+            y = xla_conv_int8(xq, wq, self.padding, self.stride).float() * (
+                xs * ws)
         else:
             y = self._xla_conv(x_f, kernel)
         if not done:

@@ -1,5 +1,5 @@
-"""Building blocks: ``Dense``, ``BatchNorm``, ``ConvBN``, ``QuantAct``,
-``max_pool`` and ``avg_pool``.
+"""Building blocks: ``Dense``, ``Conv``, ``BatchNorm``, ``ConvBN``,
+``QuantAct``, ``max_pool`` and ``avg_pool``.
 
 Counterpart of ``bayestpu/nn/layers.py``: the float path (``quant=None``)
 and the quantized one (``QuantConfig``, see below). Parameters keep the
@@ -38,6 +38,11 @@ branches (``layers.py:58-83,163-178``, ``fused.py:269-496`` with no mask):
   (``clip(AP_RND(y / step), -128, 127)``), or with ``defer_int8`` the
   unsigned grid value in bf16, re-quantized by the caller after its pool.
   ``Dense`` runs ``int8_matmul``.
+
+``Conv`` is the JAX package's plain ``Conv`` (``layers.py:86-160``), an XLA
+conv there and ``F.conv2d`` (cuDNN) here: any stride, SAME (XLA's
+asymmetric padding), VALID or explicit padding, a bias, and the quantized
+branches above; its output is f32.
 """
 
 from __future__ import annotations
@@ -52,6 +57,8 @@ from torch import nn
 from bayestpu_torch.core.config import QuantConfig
 from bayestpu_torch.core.quant import (dequantize_int8, fake_quant,
                                        int8_matmul, quantize_int8, unsigned)
+from bayestpu_torch.kernels.masked_conv import (conv2d_padded, conv_geometry,
+                                                conv_int8)
 from bayestpu_torch.kernels.masked_matmul import matmul_f32
 
 
@@ -202,6 +209,36 @@ class _Conv(nn.Module):
         lecun_normal_(self.kernel, i * kh * kw, generator)
 
 
+def _folded(conv):
+    """``conv`` applied to an NCHW x, or to an x (S, N, C, H, W) that
+    carries the sample axis with S folded into the batch (no mask here)."""
+    def run(x: torch.Tensor, *args) -> torch.Tensor:
+        lead = x.shape[:-3]
+        y = conv(x.reshape((-1,) + tuple(x.shape[-3:])), *args)
+        return y.reshape(tuple(lead) + tuple(y.shape[1:]))
+    return run
+
+
+@_folded
+def xla_conv(x: torch.Tensor, kernel: torch.Tensor, padding, stride: int,
+             dtype: torch.dtype) -> torch.Tensor:
+    """The JAX package's XLA conv (``fused.py:223-241``, ``layers.py:
+    138-153``): operands cast to ``dtype``, a bf16 conv rounded to bf16, f32
+    out."""
+    g = conv_geometry(x.shape[2], x.shape[3], kernel.shape[2],
+                      kernel.shape[3], padding, stride)
+    return conv2d_padded(x.to(dtype), kernel.to(dtype), g, stride).float()
+
+
+@_folded
+def xla_conv_int8(x_q: torch.Tensor, w_q: torch.Tensor, padding,
+                  stride: int) -> torch.Tensor:
+    """int8 × int8 → int32 conv of the grid values, any stride."""
+    g = conv_geometry(x_q.shape[2], x_q.shape[3], w_q.shape[2],
+                      w_q.shape[3], padding, stride)
+    return conv_int8(x_q, w_q, g, stride)
+
+
 def _int8_conv_on_mxu(in_ch: int, q: QuantConfig, spatial: int) -> bool:
     """Which int8-inference convs run int8 × int8 (``fused.py:53-78``): in
     channels above ``q.int8_conv_min_ch``, or at least 32 at a spatial size
@@ -210,6 +247,63 @@ def _int8_conv_on_mxu(in_ch: int, q: QuantConfig, spatial: int) -> bool:
     speed (the float branch rounds its output to bf16, the int8 branch does
     not), so the port keeps it until a benchmark on the card retunes it."""
     return in_ch > q.int8_conv_min_ch or (in_ch >= 32 and spatial >= 32)
+
+
+class Conv(_Conv):
+    """The plain conv (``layers.py:86-160``): ``kernel`` (OIHW) and, with
+    ``use_bias``, ``bias``. Under ``quant`` it runs int8 × int8 → int32
+    times ``x_step · w_step`` when ``int8_infer`` is set on the layer, or
+    under ``quant.int8_infer`` when ``_int8_conv_on_mxu`` routes the input
+    there, provided the input is int8 or ``quant_input`` (False on a
+    model's entry conv, which takes the raw image); else the
+    fake-quantized kernel on the float (an int8 x dequantized) input in
+    ``dtype``. f32 out, the fake-quantized bias added."""
+
+    def __init__(self, in_ch: int, features: int,
+                 kernel_size: Sequence[int] = (3, 3),
+                 strides: Sequence[int] = (1, 1), padding="SAME",
+                 use_bias: bool = True, quant: QuantConfig | None = None,
+                 dtype: torch.dtype = torch.float32, int8_infer: bool = False,
+                 quant_input: bool = True):
+        super().__init__(in_ch, features, kernel_size)
+        self.stride = int(strides[0])
+        if tuple(strides) != (self.stride, self.stride):
+            raise ValueError(f"strides {tuple(strides)}: the port takes "
+                             "equal strides")
+        self.padding = padding
+        conv_geometry(8, 8, *kernel_size, padding, self.stride)  # validates
+        self.quant, self.dtype = quant, dtype
+        self.int8_infer, self.quant_input = int8_infer, quant_input
+        self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
+                     else None)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        super().reset_parameters(generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        q = self.quant
+        use_int8 = (q is not None
+                    and (self.int8_infer or (q.int8_infer and _int8_conv_on_mxu(
+                        x.shape[-3], q, x.shape[-2])))
+                    and (x.dtype == torch.int8 or self.quant_input))
+        if use_int8:
+            xq, xs = quantize_int8(x, q)
+            wq, ws = quantize_int8(self.kernel, q)
+            y = xla_conv_int8(xq, wq, self.padding, self.stride).float() * (
+                xs * ws)
+        else:
+            if x.dtype == torch.int8:
+                if q is None:
+                    raise ValueError("int8-residency input reached a Conv "
+                                     "with quant=None")
+                x = dequantize_int8(x, q)
+            y = xla_conv(x, maybe_quant(self.kernel, q), self.padding,
+                         self.stride, self.dtype)
+        if self.bias is None:
+            return y
+        return y + maybe_quant(self.bias, q)[:, None, None]
 
 
 class ConvBN(nn.Module):

@@ -20,21 +20,27 @@ model's call order.
   ``avg_pool(min(4, H))``, ``BayesDense``); then the final
   ``avg_pool(relu(out))`` and ``linear``. ``dropout_exit`` puts the site
   before each exit's and the final linear.
-- ``dropout="block"`` with ``fused=True`` and one exit (``can_defer``):
-  the site after stages 1 … n-1 is deferred into the next stage's first
-  block, whose ``convbn1`` (3×3 stride 2) and ``downsample`` (1×1 stride
-  2) both mask their input with the same seeds or the same bank, so the
-  site never reaches device memory. With S samples the first such block
-  runs one samples launch of each conv, and the activations carry S from
-  there (folded into the batch for the deterministic layers; each later
-  site takes x as (S, N, …) in one ``_xs`` launch, never S folded into
-  the batch, which would shift the rows of the mask).
+- ``dropout="block"`` puts a site after stages 1 … n-1,
+  ``dropout="layer"`` after every block but the very last
+  (``resnet.py:205-248``). With ``fused=True`` and one exit
+  (``can_defer``) a site at a stage boundary is deferred into the next
+  stage's first block, whose ``convbn1`` (3×3 stride 2) and ``downsample``
+  (1×1 stride 2) both mask their input with the same seeds or the same
+  bank, so the site never reaches device memory; below
+  ``MASKED_CONV_FUSE_MIN_CH`` input channels (resnet20's 16-channel
+  boundary) each conv routes unfused and draws its own threefry mask on a
+  seed pair of its own, as JAX's two ``BayesianDropout`` do. Every other
+  site is materialized (``BayesSite`` ``bayes_s{s}`` or ``bayes_l{s}_{b}``):
+  the in-stage ones of ``"layer"``, and all of them with exits or
+  ``fused=False``. With S samples the first site runs all S at once, and
+  the activations carry S from there (folded into the batch for the
+  deterministic layers; each later site takes x as (S, N, …), a masked
+  conv in one ``_xs`` launch, never S folded into the batch, which would
+  shift the rows of the mask). ``fused=False`` (the JAX default) makes the
+  MC heads unfused too (``BayesianDropout`` then the dense).
 
-Not ported, and raising with the ROADMAP Queue 1 item: the materialized
-sites (``dropout="layer"``, block sites with exits or ``fused=False``:
-item 11), a deferred MC site below ``MASKED_CONV_FUSE_MIN_CH`` input
-channels, which JAX runs unfused (``BayesConv``, item 11), the unfused MC
-head (``BayesDense``, item 11) and ``quant_overrides`` (item 8).
+Not ported, and raising with the ROADMAP Queue 1 item: ``quant_overrides``
+(item 8).
 
 Parameter names follow the Flax tree (``stem.conv.kernel``,
 ``layer2_0.convbn1.conv.kernel``, ``layer2_0.downsample.bn.scale``,
@@ -54,6 +60,7 @@ from torch import nn
 
 from bayestpu_torch.core.config import BayesConfig, DropoutKind, QuantConfig
 from bayestpu_torch.core.quant import dequantize_int8
+from bayestpu_torch.nn.bayes import BayesSite
 from bayestpu_torch.nn.fused import BayesDense
 from bayestpu_torch.nn.layers import ConvBN, avg_pool
 from bayestpu_torch.nn.multiexit import ExitOutputs, stack_exits
@@ -97,9 +104,12 @@ class _Block(nn.Module):
         self.has_site = site.masked or site.stochastic
 
     def forward(self, x: torch.Tensor, seeds: torch.Tensor | None = None,
-                sample_idx=0, carry: int | None = None) -> torch.Tensor:
+                sample_idx=0, carry: int | None = None,
+                proj_seeds: torch.Tensor | None = None) -> torch.Tensor:
         """x (B, C, H, W), B = S·N when ``carry`` = S. A site fed S seeds or
-        indices returns S samples from both convs, folded the same way."""
+        indices returns S samples from both convs, folded the same way;
+        ``proj_seeds`` are the downsample's when they are not ``seeds``
+        (an unfused site draws one mask a conv)."""
         convs = [m for name, m in self.named_children()
                  if name != "downsample"]
         if self.has_site:
@@ -107,9 +117,11 @@ class _Block(nn.Module):
             # sample's own rows
             x = x.contiguous(memory_format=torch.channels_last)
             xin = x.unflatten(0, (carry, -1)) if carry else x
-            kw = dict(seeds=seeds, sample_idx=sample_idx)
-            y = convs[0](xin, act="relu", **kw)
-            residual = self.downsample(xin, **kw)
+            y = convs[0](xin, act="relu", seeds=seeds,
+                         sample_idx=sample_idx)
+            residual = self.downsample(
+                xin, seeds=seeds if proj_seeds is None else proj_seeds,
+                sample_idx=sample_idx)
             if y.dim() == 5:
                 y, residual = y.flatten(0, 1), residual.flatten(0, 1)
         else:
@@ -171,7 +183,10 @@ class _ExitHead(nn.Module):
             quant=quant, dtype=dtype)
 
     def forward(self, x: torch.Tensor, seeds: torch.Tensor | None,
-                sample_idx=None) -> tuple[torch.Tensor, torch.Tensor]:
+                sample_idx=None, carry: int | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """x (B, C, H, W), B = S·N when ``carry`` = S: the features and
+        logits then come out as (S, N, …)."""
         y = torch.relu(x)
         for name, conv in self.named_children():
             if name != "linear":
@@ -179,6 +194,8 @@ class _ExitHead(nn.Module):
         if y.dtype == torch.int8:
             y = dequantize_int8(y, self.quant)   # avg_pool leaves the grid
         feat = flatten_nhwc(avg_pool(y, self.pool))
+        if carry:
+            feat = feat.unflatten(0, (carry, -1))
         return self.linear(feat, seeds, sample_idx), feat
 
 
@@ -204,16 +221,6 @@ class ResNet18(SiteModel):
             raise ValueError(f"block must be 'basic' or 'bottleneck'; got "
                              f"{block!r}")
         can_defer = fused and n_exits == 1
-        if dropout == "layer":
-            raise NotImplementedError(
-                "dropout='layer' (a site after every block; the in-stage "
-                "ones stay materialized in JAX too) is not ported yet: "
-                "ROADMAP Queue 1 item 11")
-        if dropout == "block" and not can_defer:
-            raise NotImplementedError(
-                "materialized block sites (BayesSite after each stage, for "
-                "fused=False or n_exits > 1) are not ported yet: ROADMAP "
-                "Queue 1 item 11")
         if quant_overrides:
             raise NotImplementedError(
                 "per-layer quant_overrides are not ported yet: ROADMAP "
@@ -227,24 +234,44 @@ class ResNet18(SiteModel):
                            dtype=dtype, quant=quant, quant_input=False)
         c = stage_planes[0]
         # the Bayesian sites in JAX call order: each deferred block site
-        # (both of its convs), each exit head, then the final linear
+        # (both of its convs: one site fused, one each unfused), each
+        # materialized site, each exit head, then the final linear
         sites: list = []
-        self._stages: list[tuple[list[str], str | None]] = []
+
+        def site_after(name: str) -> str:
+            self.add_module(name, BayesSite(bayes, c))
+            sites.append(getattr(self, name))
+            return name
+
+        # per stage: (block, materialized site after it), the stage's site,
+        # the exit head
+        self._stages: list[tuple[list, str | None, str | None]] = []
         n_stages = len(stage_blocks)
         for s in range(n_stages):
             names = []
             for b in range(stage_blocks[s]):
                 stride = 2 if (s > 0 and b == 0) else 1
-                site = bayes if dropout == "block" and s > 0 and b == 0 \
-                    else None
-                blk = make(c, stage_planes[s], stride, dtype, quant, site)
+                deferred = (can_defer and dropout is not None and s > 0
+                            and b == 0)
+                blk = make(c, stage_planes[s], stride, dtype, quant,
+                           bayes if deferred else None)
                 name = f"layer{s + 1}_{b}"
                 self.add_module(name, blk)
-                names.append(name)
-                if blk.has_site:     # one site, both convs
-                    sites.append([blk.convbn1.conv, blk.downsample.conv])
+                if blk.has_site:
+                    pair = [blk.convbn1.conv, blk.downsample.conv]
+                    sites.extend([pair] if pair[0].drop is None else pair)
                 c = stage_planes[s] * expansion
                 h = _down(h) if stride == 2 else h
+                last_in_stage = b == stage_blocks[s] - 1
+                after = None
+                if (dropout == "layer" and not (s == n_stages - 1
+                                                and last_in_stage)
+                        and not (can_defer and last_in_stage)):
+                    after = site_after(f"bayes_l{s + 1}_{b}")
+                names.append((name, after))
+            stage_site = None
+            if dropout == "block" and not can_defer and s < n_stages - 1:
+                stage_site = site_after(f"bayes_s{s + 1}")
             exit_name = None
             if n_exits > 1 and s < n_stages - 1:
                 exit_name = f"exit{s + 1}"
@@ -254,7 +281,7 @@ class ResNet18(SiteModel):
                                  fused, quant)
                 self.add_module(exit_name, head)
                 sites.append(head.linear)
-            self._stages.append((names, exit_name))
+            self._stages.append((names, stage_site, exit_name))
         self.pool = min(4, h)
         final_bayes = bayes if dropout_exit else dataclasses.replace(
             bayes, kind=DropoutKind.NONE)
@@ -262,13 +289,13 @@ class ResNet18(SiteModel):
                                  bayes=final_bayes, fused=fused, quant=quant,
                                  dtype=dtype)
         sites.append(self.linear)
-        self.number_sites(sites)
-        self.conv_sites = any(isinstance(site, list) for site in sites)
+        self.number_sites(sites, [s for s in sites
+                                  if isinstance(s, BayesDense)])
         self.eval()
 
     def forward(self, x: torch.Tensor, seeds: torch.Tensor,
                 sample_idx=None) -> ExitOutputs:
-        idx, idx_host, sample_shape = self.prepare(x, seeds, sample_idx)
+        idx, sample_shape = self.prepare(x, seeds, sample_idx)
         exits, feats = [], []
         carry = None    # S once the activations carry the sample axis
 
@@ -277,18 +304,26 @@ class ResNet18(SiteModel):
             return y.expand(sample_shape + tuple(y.shape[-2:]))
 
         out = self.stem(x.permute(0, 3, 1, 2))   # NHWC → NCHW
-        for names, exit_name in self._stages:
-            for name in names:
+        for names, stage_site, exit_name in self._stages:
+            for name, after in names:
                 blk = getattr(self, name)
-                site_seeds = (self.site_seeds(blk.convbn1.conv, seeds)
-                              if blk.has_site else None)
-                out = blk(out, site_seeds, idx_host if carry else idx, carry)
+                s1 = s2 = None
+                if blk.has_site:
+                    s1 = self.site_seeds(blk.convbn1.conv, seeds)
+                    s2 = self.site_seeds(blk.downsample.conv, seeds)
+                out = blk(out, s1, idx.at(carry), carry, s2)
                 if blk.has_site and sample_shape:
                     carry = sample_shape[0]   # the site returned S samples
+                if after is not None:
+                    out, carry = self.run_site(getattr(self, after), out,
+                                               carry, seeds, idx)
+            if stage_site is not None:
+                out, carry = self.run_site(getattr(self, stage_site), out,
+                                           carry, seeds, idx)
             if exit_name is not None:
                 head = getattr(self, exit_name)
                 logit, feat = head(out, self.site_seeds(head.linear, seeds),
-                                   idx)
+                                   idx.at(carry), carry)
                 exits.append(head_out(logit))
                 feats.append(feat)
         feat = flatten_nhwc(avg_pool(torch.relu(out), self.pool))
@@ -296,8 +331,7 @@ class ResNet18(SiteModel):
             feat = feat.unflatten(0, (carry, -1))
         feats.append(feat)
         exits.append(head_out(self.linear(
-            feat, self.site_seeds(self.linear, seeds),
-            idx_host if carry else idx)))
+            feat, self.site_seeds(self.linear, seeds), idx.at(carry))))
         return stack_exits(exits, feats)
 
 

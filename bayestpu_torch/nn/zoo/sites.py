@@ -11,26 +11,45 @@ the seeds and turns ``sample_idx`` into what the heads and conv sites take
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Iterable, NamedTuple
 
 import torch
 from torch import nn
 
+from bayestpu_torch.nn.bayes import BayesSite
 from bayestpu_torch.nn.fused import BayesDense
 from bayestpu_torch.nn.layers import BatchNorm, Dense, _Conv
+
+
+class SampleIdx(NamedTuple):
+    """The index argument of the sites (``SiteModel.prepare``): ``dev``
+    before the activations carry the sample axis, ``host`` (the same as
+    host ints, copied once before any launch) after."""
+    dev: object
+    host: object
+
+    def at(self, carry: int | None):
+        return self.host if carry else self.dev
 
 
 class SiteModel(nn.Module):
     num_sites: int = 0
     masked: bool = False
-    conv_sites: bool = False     # a conv input site that masks
+    # a site that masks before a head (``number_sites``): the activations
+    # after it carry the sample axis
+    conv_sites: bool = False
 
-    def number_sites(self, sites: Iterable[nn.Module]) -> None:
+    def number_sites(self, sites: Iterable, heads: Iterable[nn.Module]
+                     ) -> None:
         """``site.site`` = the MC seed index of each site in JAX call order
         (None: no MC mask); sites that share one index (a block's conv and
-        its projection) are given once, as a list."""
+        its projection) are given once, as a list. ``heads`` are the sites
+        whose output is logits (each exit head and the last one): any other
+        site that masks makes the activations after it carry the sample
+        axis (``conv_sites``)."""
+        heads = list(heads)
         self.num_sites = 0
-        masked = False
+        masked = carries = False
         for group in sites:
             group = group if isinstance(group, list) else [group]
             stochastic = group[0].stochastic
@@ -38,7 +57,9 @@ class SiteModel(nn.Module):
                 site.site = self.num_sites if stochastic else None
                 masked |= site.masked
             self.num_sites += stochastic
-        self.masked = masked
+            if not any(group[0] is h for h in heads):
+                carries |= stochastic or group[0].masked
+        self.masked, self.conv_sites = masked, carries
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Flax's initializers, drawn in module order from ``generator``."""
@@ -71,11 +92,33 @@ class SiteModel(nn.Module):
                              "int")
         return 0 if sample_idx is None else sample_idx
 
+    def run_site(self, site: nn.Module, y: torch.Tensor, carry: int | None,
+                 seeds: torch.Tensor, idx: SampleIdx
+                 ) -> tuple[torch.Tensor, int | None]:
+        """Run a site (a materialized ``BayesSite``, or a fused
+        ``BayesConv`` or ``BayesDense`` that is the site) on y, whose
+        leading axis holds S·N rows when ``carry`` = S (the activations
+        carry the sample axis): the site gets them as (S, N, …), never S
+        folded into the batch, which would shift the rows of its mask. A
+        site that returns S samples of an x without them starts the carry.
+        Returns the output with S folded into the batch, and the carry."""
+        y_in = y.unflatten(0, (carry, -1)) if carry else y
+        kw = dict(seeds=self.site_seeds(site, seeds),
+                  sample_idx=idx.at(carry))
+        if isinstance(site, BayesSite):
+            kw["carries_samples"] = carry is not None
+        out = site(y_in, **kw)
+        if out.dim() > y_in.dim():
+            carry = out.shape[0]
+        elif carry is None:
+            return out, None
+        return out.flatten(0, 1), carry
+
     def prepare(self, x: torch.Tensor, seeds: torch.Tensor, sample_idx):
-        """Check ``seeds``; return ``(idx, idx_host, sample_shape)``: the
-        index argument of the sites, the same as host ints for the sites
-        after the activations carry the sample axis (copied once, before
-        any launch, rather than at every later site), and () or (S,)."""
+        """Check ``seeds``; return ``(idx, sample_shape)``: the index
+        argument of the sites (``SampleIdx``; its host ints are copied once,
+        before any launch, rather than at every site after the activations
+        carry the sample axis) and () or (S,)."""
         dims = (2,) if self.training else (2, 3)
         if seeds.dim() not in dims or seeds.shape[-2:] != (self.num_sites,
                                                            2):
@@ -88,7 +131,7 @@ class SiteModel(nn.Module):
         if isinstance(idx, torch.Tensor) and self.conv_sites:
             idx_host = (list(range(idx.shape[0])) if sample_idx is None
                         else idx.tolist())
-        return idx, idx_host, tuple(seeds.shape[:-2])
+        return SampleIdx(idx, idx_host), tuple(seeds.shape[:-2])
 
 
 def flatten_nhwc(x: torch.Tensor) -> torch.Tensor:

@@ -29,8 +29,13 @@ model ignores ``sample_idx``, as the JAX layers do.
 ``dropout="block"`` (``vgg.py:215-238``) puts a Bayesian site after each
 block but the last. With ``fused=True`` and one exit the site fuses into
 the next block's first conv (``ConvBN(bayes=…)`` → ``BayesConv``, the
-masked-conv kernels), as in JAX; the materialized sites of ``fused=False``
-or of a multi-exit model (``BayesSite``) are not ported and raise.
+masked-conv kernels), as in JAX; with ``fused=False`` or exits it stays
+materialized (``BayesSite`` ``bayes_b{i}`` after block i, which the exit
+head reads too; the int8 model dequantizes before it, as its 1/keep
+leaves the grid). ``head_sites`` puts a ``BayesSite`` ``bayes_fc_{j}``
+after each hidden dense (``vgg.py:278-280``). After a materialized site
+the activations carry S as after a fused conv site, and every later site
+and head takes x as (S, N, …).
 
 A model is built in eval mode, as the JAX model's ``train=False`` default.
 In train mode (``model.train()``, the JAX ``train=True``) seeds are
@@ -65,6 +70,7 @@ from torch import nn
 
 from bayestpu_torch.core.config import BayesConfig, DropoutKind, QuantConfig
 from bayestpu_torch.core.quant import dequantize_int8, quantize_int8
+from bayestpu_torch.nn.bayes import BayesSite
 from bayestpu_torch.nn.fused import BayesDense
 from bayestpu_torch.nn.layers import (BatchNorm, ConvBN, Dense, QuantAct,
                                       avg_pool, max_pool)
@@ -169,7 +175,10 @@ class _VGGExitHead(nn.Module):
                                  dtype=dtype)
 
     def forward(self, x: torch.Tensor, seeds: torch.Tensor | None,
-                sample_idx=None) -> tuple[torch.Tensor, torch.Tensor]:
+                sample_idx=None, carry: int | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """x (B, C, H, W), B = S·N when ``carry`` = S: the features and
+        logits then come out as (S, N, …)."""
         y = torch.relu(x)
         for name, conv in self.named_children():
             if name != "linear":
@@ -179,15 +188,15 @@ class _VGGExitHead(nn.Module):
         if self.pool:
             y = avg_pool(y, 2)
         feat = flatten_nhwc(y)
+        if carry:
+            feat = feat.unflatten(0, (carry, -1))
         return self.linear(feat, seeds, sample_idx), feat
 
 
 class VGG(SiteModel):
     """Multi-exit Bayesian VGG over a block config.
 
-    ``dropout="block"`` is ported fused (``fused=True``, one exit); the
-    materialized block sites, hidden-layer sites (``head_sites``) and
-    per-layer ``quant_overrides`` are not ported yet and raise.
+    Per-layer ``quant_overrides`` are not ported yet and raise.
     ``input_shape`` (H, W, C) fixes the dense widths, which Flax infers from
     the first input.
     """
@@ -204,15 +213,6 @@ class VGG(SiteModel):
         if dropout not in (None, "block"):
             raise ValueError(f"dropout must be None or 'block'; got "
                              f"{dropout!r}")
-        if dropout == "block" and not (fused and n_exits == 1):
-            raise NotImplementedError(
-                "materialized block sites (BayesSite after each block, for "
-                "fused=False or n_exits > 1) are not ported yet: ROADMAP "
-                "Queue 1 item 11")
-        if head_sites:
-            raise NotImplementedError(
-                "hidden-layer Bayesian sites (head_sites) are not ported "
-                "yet: ROADMAP Queue 1 item 11")
         if quant_overrides:
             raise NotImplementedError(
                 "per-layer quant_overrides (and mixed_head) are not ported "
@@ -222,18 +222,28 @@ class VGG(SiteModel):
         self.input_shape = tuple(input_shape)
         head_bayes = bayes if dropout_exit else dataclasses.replace(
             bayes, kind=DropoutKind.NONE)
+        # a block site fuses into the next block's first conv only when
+        # that conv is its sole consumer
+        fuse_block = dropout == "block" and fused and n_exits == 1
         blocks = _blocks_of(CFGS[cfg_name])
         h, _, c = input_shape
         # the Bayesian sites in JAX call order: each block's input site,
         # then its exit head, …, then the classifier
         sites: list[nn.Module] = []
-        self._exits: list[tuple[str, str | None]] = []  # (block, exit head)
+        # (block, materialized site after it, exit head)
+        self._exits: list[tuple[str, str | None, str | None]] = []
         for i, chans in enumerate(blocks):
             block = _VGGBlock(c, chans, dtype, quant, quant_input=i != 0,
-                              bayes_in=bayes if dropout and i > 0 else None)
+                              bayes_in=bayes if fuse_block and i > 0
+                              else None)
             self.add_module(f"block{i}", block)
             sites.append(block.conv_site)
             c, h = chans[-1], h // 2
+            site_name = None
+            if dropout and not fuse_block and i < len(blocks) - 1:
+                site_name = f"bayes_b{i}"
+                self.add_module(site_name, BayesSite(bayes, c))
+                sites.append(getattr(self, site_name))
             exit_name = None
             if n_exits > 1 and i < len(blocks) - 1:
                 chain, w = [], c
@@ -245,28 +255,30 @@ class VGG(SiteModel):
                                     dtype, fused, quant)
                 self.add_module(exit_name, head)
                 sites.append(head.linear)
-            self._exits.append((f"block{i}", exit_name))
+            self._exits.append((f"block{i}", site_name, exit_name))
         width = c * h * h
         self.n_fc = len(head_dims)
+        self.head_sites = head_sites
         for j, d in enumerate(head_dims):
             self.add_module(f"fc_{j}", Dense(width, d, quant=quant,
                                              dtype=dtype))
             if j == 0:
                 self.add_module(f"fc_bn_{j}", BatchNorm(d))
             self.add_module(f"fc_relu_{j}", QuantAct(quant))
+            if head_sites:
+                self.add_module(f"bayes_fc_{j}", BayesSite(bayes, d))
+                sites.append(getattr(self, f"bayes_fc_{j}"))
             width = d
         self.classifier = BayesDense(width, num_classes, bayes=head_bayes,
                                      fused=fused, quant=quant, dtype=dtype)
         sites.append(self.classifier)
-        self.number_sites(sites)
-        # a block-input site that masks (dropout="block")
-        self.conv_sites = any(getattr(self, name).has_site
-                              for name, _ in self._exits)
+        self.number_sites(sites, [s for s in sites
+                                  if isinstance(s, BayesDense)])
         self.eval()
 
     def forward(self, x: torch.Tensor, seeds: torch.Tensor,
                 sample_idx=None) -> ExitOutputs:
-        idx, idx_host, sample_shape = self.prepare(x, seeds, sample_idx)
+        idx, sample_shape = self.prepare(x, seeds, sample_idx)
         exits, feats = [], []
 
         def head_out(y: torch.Tensor) -> torch.Tensor:
@@ -278,16 +290,22 @@ class VGG(SiteModel):
 
         out = x.permute(0, 3, 1, 2)          # NHWC → NCHW (channels_last)
         carry = None    # S once the activations carry the sample axis
-        for block_name, exit_name in self._exits:
+        for block_name, site_name, exit_name in self._exits:
             block = getattr(self, block_name)
             out = block(out, self.site_seeds(block.conv_site, seeds),
-                        idx_host if carry else idx, carry)
+                        idx.at(carry), carry)
             if block.has_site and sample_shape:
                 carry = sample_shape[0]   # the site returned S samples
+            if site_name is not None:
+                if out.dtype == torch.int8:
+                    # 1/keep leaves the grid: an exact dequantize first
+                    out = dequantize_int8(out, self.quant)
+                out, carry = self.run_site(getattr(self, site_name), out,
+                                           carry, seeds, idx)
             if exit_name is not None:
                 head = getattr(self, exit_name)
                 logit, feat = head(out, self.site_seeds(head.linear, seeds),
-                                   idx)
+                                   idx.at(carry), carry)
                 exits.append(head_out(logit))
                 feats.append(feat)
         out = flatten_nhwc(out)
@@ -299,9 +317,12 @@ class VGG(SiteModel):
             if j == 0:
                 out = getattr(self, f"fc_bn_{j}")(out)
             out = getattr(self, f"fc_relu_{j}")(out)
+            if self.head_sites:
+                out, carry = self.run_site(getattr(self, f"bayes_fc_{j}"),
+                                           out, carry, seeds, idx)
         exits.append(head_out(self.classifier(
             unfold(out), self.site_seeds(self.classifier, seeds),
-            idx_host if carry else idx)))
+            idx.at(carry))))
         return stack_exits(exits, feats)
 
 

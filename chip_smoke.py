@@ -40,8 +40,11 @@ ends the run with a nonzero exit and no result line.
    three deferred block sites of resnet18 at batch 128 (3x3 stride 2
    padded ((1, 1), (1, 1)) and the 1x1 stride-2 projection), the readout
    showing that the two convs of a block apply one mask, and the times of
-   the samples and _xs launches there. Every head check again at the
-   resnet18_me head (N = 100), where rows 3 and 5 are timed in bf16.
+   the samples and _xs launches there, and row 10's CUDA-core
+   ``conv_kernel`` (the f32 MC conv) once at block site 1 beside cuDNN
+   f32. Every head check again at the resnet18_me head (N = 100), the
+   lenet_me head (M = 256, K = 100, N = 10) and lenet's fc_1 (K = 80, N =
+   100), rows 3 and 5 timed in bf16 at the first two.
    ``dropout_apply`` (row 1) at the head and at the conv backward's
    (N·H·W, C) views of vgg11's block site 1 and resnet18's stage-1
    boundary, in f32 and bf16 x, timed beside ``torch.mul``; bit-equal to
@@ -102,18 +105,27 @@ ends the run with a nonzero exit and no result line.
    two profiled predicts, short bf16 fine-tunes of resnet18_me and the
    block-site resnet18 (launches per step; the loss falls), and one
    resnet18_me training step at batch 8 against the CPU.
-12. step_vs_cpu — one training step at batch 8 on the card and on the CPU
+12. lenet   — the LeNet family on MNIST shapes (``phase_lenet``): the
+   threefry masks of ``core.threefry`` on the card against the CPU bit for
+   bit at lenet's site-0 shape with S = 10 keys; ``lenet_me`` at the JAX
+   bench's config (batch 256, fused, bf16, S = 10) served with exact
+   launch counts and profiled, trained 3 epochs with the ``"lenet"``
+   recipe on synthetic MNIST and served in bf16 and int8; and the
+   materialized routes (threefry sites) of ``lenet(num_bayes_layers=3)``,
+   the unfused ``vgg11_me`` and ``resnet18(dropout="layer")`` at batch 8
+   against the CPU.
+13. step_vs_cpu — one training step at batch 8 on the card and on the CPU
    from one seeded init and the same seeds, in f32 and bf16.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. ``--only kernels,conv`` runs the card
 and build phases and then only the named kernel checks (a quick check of
 a kernel change), and prints no result line. The kernels' launches are
-those of the six main paths: the slice's predicts, the 936 training
+those of the seven main paths: the slice's predicts, the 936 training
 steps, the int8 phase
 (QAT, BN re-estimation and int8 serving), the mask phase (fine-tune and
-serving, bf16 and int8), the block phases and the resnet phase; the
-fake-quant evaluates are attribution and not counted.
+serving, bf16 and int8), the block phases, the resnet phase and the lenet
+phase; the fake-quant evaluates are attribution and not counted.
 """
 
 from __future__ import annotations
@@ -150,10 +162,16 @@ RAGGED = dict(M=300, K=700, N=130, S=3)
 # each resnet18_me exit head on CIFAR-100: w 512x100, ragged against the
 # float heads' 16-column tiles (rows 2-5 at S = 10, rows 6-9 at NUM_MASKS)
 RESNET_HEAD = dict(M=128, K=512, N=100, S=10)
-HEAD_LABELS = ("head", "resnet_head")       # timed; indices 0 … S-1
-# the kernels timed at the resnet18_me head (bf16 x for the float one): the
-# samples heads that its spatial predict launches, rows 3 and 5
-RESNET_HEAD_TIMED = ("dropout_matmul_samples", "dropout_matmul_int8_samples")
+# each lenet_me exit head at the JAX bench's batch (bench.py:706-709): x
+# 256x100, w 100x10; and lenet's fc_1 after a site, x 256x80, w 80x100: K a
+# multiple of neither 16 nor 32
+LENET_HEAD = dict(M=256, K=100, N=10, S=10)
+LENET_FC1 = dict(M=256, K=80, N=100, S=10)
+HEAD_LABELS = ("head", "resnet_head", "lenet_head")   # indices 0 … S-1
+# the kernels timed at the resnet18_me and lenet_me heads (bf16 x for the
+# float one): the samples heads that their spatial predicts launch, rows 3
+# and 5
+SAMPLES_TIMED = ("dropout_matmul_samples", "dropout_matmul_int8_samples")
 # dropout_apply (row 1) where the backward runs it: (M, K) of the vgg11_me
 # head, and the (N·H·W, C) view of a conv site's input at batch 128 at
 # vgg11's block site 1 (16x16x64) and resnet18's stage-1 boundary (32x32x64)
@@ -300,6 +318,20 @@ BLOCK_EPOCHS, BLOCK_MASK_EPOCHS, BLOCK_LR = 3, 2, 0.01
 # CIFAR-100 (SGD 0.9, cosine LR from RESNET_LR, clip 10)
 RESNET_CLASSES = 100
 RESNET_BATCHES, RESNET_EPOCHS, RESNET_LR = 4, 3, 0.05
+# the lenet phase: lenet_me at the JAX bench's batch, trained LENET_EPOCHS
+# epochs; the materialized routes at batch LENET_SMALL; the threefry masks
+# checked at lenet's site-0 shape (N, H, W, C) with SAMPLES keys
+LENET_BATCH, LENET_EPOCHS, LENET_SMALL = 256, 3, 8
+THREEFRY_SITE = (256, 14, 14, 20)
+# the shapes at which rows 2-5 are held against their plain versions: the
+# vgg11_me head, a ragged one, the resnet18_me and lenet heads, and the
+# lenet heads at batch LENET_SMALL, where the materialized lenet route
+# launches them (the whole of x inside one partial row tile)
+MATMUL_SHAPES = (("head", HEAD), ("ragged", RAGGED),
+                 ("resnet_head", RESNET_HEAD), ("lenet_head", LENET_HEAD),
+                 ("lenet_fc1", LENET_FC1),
+                 ("lenet_small_head", {**LENET_HEAD, "M": LENET_SMALL}),
+                 ("lenet_small_fc1", {**LENET_FC1, "M": LENET_SMALL}))
 
 
 def emit(obj: dict) -> None:
@@ -398,7 +430,9 @@ def _rounds(fns: dict, rounds: int, iters: int = 200) -> dict:
     the functions in turn in every round, so that what drifts over a call
     falls on all of them alike: ``key`` is the median, ``key_rounds`` the
     readings in order (their spread is what a ratio of two of them can
-    claim) and ``key_calls`` the calls each reading is over."""
+    claim) and ``key_calls`` the calls each reading is over. A window of
+    100 calls of a head kernel lost every record on the H100, three windows
+    running: ``iters`` stays 200."""
     got = {key: ([], []) for key in fns}
     for _ in range(rounds):
         for key, fn in fns.items():
@@ -781,8 +815,7 @@ def phase_kernels() -> dict:
     gen = torch.Generator().manual_seed(1234)
     summary = {name: {"max_abs_err": 0.0} for name in REPLACES}
     for dtype in (torch.bfloat16, torch.float32):
-        for label, shape in (("head", HEAD), ("ragged", RAGGED),
-                             ("resnet_head", RESNET_HEAD)):
+        for label, shape in MATMUL_SHAPES:
             x, w, seeds = _inputs(shape, dtype, gen)
             line = {"phase": "kernels", "shape": label, **shape,
                     "dtype": str(dtype).split(".")[-1], "rate": RATE}
@@ -853,14 +886,16 @@ def phase_kernels() -> dict:
                               summary)
             elif label in HEAD_LABELS and dtype == torch.bfloat16:
                 _time_kernels(mm, x, x3, w, seeds, shape, dtype, line, None,
-                              RESNET_HEAD_TIMED)
+                              SAMPLES_TIMED)
             emit(line)
-    for label, shape in (("head", HEAD), ("ragged", RAGGED),
-                         ("resnet_head", RESNET_HEAD)):
+    for label, shape in MATMUL_SHAPES:
         _check_int8(mm, shape, label, gen, summary)
     for label, shape in (("head", MASK_HEAD), ("ragged", MASK_RAGGED),
                          ("odd_k", MASK_ODD_K),
-                         ("resnet_head", {**RESNET_HEAD, "S": NUM_MASKS})):
+                         ("resnet_head", {**RESNET_HEAD, "S": NUM_MASKS}),
+                         ("lenet_head", {**LENET_HEAD, "S": NUM_MASKS}),
+                         ("lenet_fc1", {**LENET_FC1,
+                                        "S": len(MASK_RAGGED_IDXS)})):
         _check_bank(mm, shape, label, gen, summary)
     _apply_shapes(mm, gen)
     return summary
@@ -874,8 +909,8 @@ def _check_int8(mm, shape: dict, label: str, gen, summary: dict) -> None:
     (one ``dropout_matmul_int8_xs``) bit-equal to the plain version and,
     sample s, to the single launch on x[s] with seeds[s], and the mask
     readout (x_q = ones, w_q = eye) nonzero exactly where the float
-    kernel's is; at the head shape, their times (at the resnet18_me
-    head, row 5's)."""
+    kernel's is; at the head shape, their times (at the resnet18_me and
+    lenet_me heads, row 5's)."""
     import torch
     m, k, n, s = shape["M"], shape["K"], shape["N"], shape["S"]
     xs = ws = 2.0 ** -7                          # the flagship's int8 steps
@@ -935,7 +970,13 @@ def _check_int8(mm, shape: dict, label: str, gen, summary: dict) -> None:
                                                device="cuda"))
         xm3 = torch.where(keep, xq3, torch.zeros((), dtype=torch.int8,
                                                  device="cuda"))
-        wpad = torch.nn.functional.pad(wq, (0, (-n) % 8)).t().contiguous().t()
+        # torch._int_mm takes K and N in multiples of 8: zeros pad them
+        # (lenet's K = 100 -> 104), which leaves the product unchanged
+        kpad = (-k) % 8
+        xm = torch.nn.functional.pad(xm, (0, kpad))
+        xm3 = torch.nn.functional.pad(xm3, (0, kpad))
+        wpad = torch.nn.functional.pad(wq, (0, (-n) % 8, 0, kpad)
+                                       ).t().contiguous().t()
         timings = {
             "dropout_matmul_int8": (
                 lambda: mm.dropout_matmul_int8(xq, wq, s0, RATE, xs, ws),
@@ -947,16 +988,17 @@ def _check_int8(mm, shape: dict, label: str, gen, summary: dict) -> None:
                                                        xs, ws),
                 lambda: mm.dropout_matmul_int8_samples_plain(
                     xq, wq, seeds, RATE, xs, ws),
-                lambda: torch._int_mm(xm.reshape(s * m, k), wpad)),
+                lambda: torch._int_mm(xm.reshape(s * m, k + kpad), wpad)),
             "dropout_matmul_int8_xs": (
                 lambda: mm.dropout_matmul_int8_inference(xq3, wq, seeds,
                                                          RATE, xs, ws),
                 lambda: torch.stack([mm.dropout_matmul_int8_plain(
                     xq3[i], wq, seeds[i], RATE, xs, ws) for i in range(s)]),
-                lambda: torch._int_mm(xm3.reshape(s * m, k), wpad)),
+                lambda: torch._int_mm(xm3.reshape(s * m, k + kpad),
+                                      wpad)),
         }
         for name, (kern, plain, lib) in timings.items():
-            if label != "head" and name not in RESNET_HEAD_TIMED:
+            if label != "head" and name not in SAMPLES_TIMED:
                 continue
             # library: one cuBLASLt s8 GEMM on the pre-masked x, N padded
             # to 16 as torch._int_mm needs (all S samples in one call);
@@ -1655,8 +1697,9 @@ def phase_conv_kernels() -> dict:
     the mask readout, and at the four site shapes the main path's epilogues
     against the plain versions, then the times; then the same checks at
     resnet18's three deferred sites (both convs, batch 128), the readout
-    of their shared mask, and the times of the launches its block-site
-    spatial predict makes there."""
+    of their shared mask, the MC launches of its ``dropout="layer"`` route
+    at batch LENET_SMALL (``_resnet_small_checks``), and the times of the
+    launches its block-site spatial predict makes there."""
     import torch
     gen = torch.Generator().manual_seed(4321)
     summary = {name: {"max_abs_err": 0.0} for name in CONV_REPLACES}
@@ -1671,11 +1714,108 @@ def phase_conv_kernels() -> dict:
             _conv_checks(f"resnet_{hw}x{hw}x{c}_{kname}_s2",
                          (BATCH, hw, hw, c), k, f, padding, 2, gen, summary)
     _resnet_readout(gen)
+    _resnet_small_checks(gen)
     # as the block-site resnet18's spatial predict launches them
     _conv_times(gen, None, RESNET_SITES, RESNET_CONVS, 2, "resnet_site",
                 ("dropout_conv_samples", "bank_conv_samples",
                  "dropout_conv_xs", "bank_conv_xs"))
+    _conv_f32_time(gen)
     return summary
+
+
+def _conv_f32_time(gen) -> None:
+    """Row 10's CUDA-core ``conv_kernel``, which the f32 (and mixed-type)
+    MC convs run and no served path here reaches, at vgg11's block site 1
+    (batch 128, 16x16x64 -> 128, 3x3 SAME, the fold bias and relu, f32
+    store): against its plain version to CONV_RTOL, then one round of
+    ``device_ms`` beside cuDNN f32 (TF32 off) on the pre-masked x, with its
+    bound at the f32 peak outside the tensor cores."""
+    import torch
+    import torch.nn.functional as F
+    from bayestpu_torch.kernels import masked_conv as mc
+    hw, c, f = CONV_SITES[0]
+    x, w, aff, _, _ = _conv_data((BATCH, hw, hw, c), 3, f, torch.float32,
+                                 gen)
+    s0 = _inputs(dict(M=1, K=1, N=1, S=1), torch.float32, gen)[2][0]
+    s0 = s0.contiguous()
+    b = aff[1]
+
+    def kern():
+        return mc.dropout_conv_inference(x, w, s0, RATE, bias=b, act="relu")
+
+    got = kern()
+    want = mc.dropout_conv_plain(x, w, s0, RATE, "SAME", 1, b, "relu")
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    tol = CONV_RTOL * max(1.0, want.abs().max().item())
+    check(got.dtype == torch.float32 and err <= tol,
+          f"f32 dropout_conv site1: {err} > {tol}")
+    xm = _cl(mc._hash_masked(x, s0, RATE))
+    bound, by = _conv_bound("dropout_conv", x, w, 1, 4, kind="float32")
+    t = {"ms": device_ms(kern, 100),
+         "library_ms": device_ms(lambda: F.conv2d(xm, w, padding=1), 100),
+         "plain_ms": device_ms(lambda: mc.dropout_conv_plain(
+             x, w, s0, RATE, "SAME", 1, b, "relu"), 10),
+         "bound_ms": bound, "bound_by": by}
+    emit({"phase": "kernels", "kernel": "dropout_conv", "route":
+          "conv_kernel (CUDA cores)", "shape": "site1", "dtype": "float32",
+          "N": BATCH, "H": hw, "C": c, "F": f, "max_abs_err": err,
+          "tol": tol, **t, "ms_over_library": t["ms"] / t["library_ms"],
+          "ms_over_bound": t["ms"] / t["bound_ms"]})
+
+
+def _resnet_small_checks(gen) -> None:
+    """Row 10's bf16 MC convs at resnet18's three deferred stage sites
+    (convbn1 with relu and downsample with none, stride 2) at batch
+    LENET_SMALL, as the lenet phase's ``resnet18(dropout="layer")`` route
+    launches them: the _xs launch on x carrying SAMPLES samples (its
+    spatial predict) and the single launch (its temporal one), each with
+    the fold bias and a bf16 store, against its plain version to
+    BF16_OUT_RTOL; sample s of the _xs launch bit-equal to the single
+    launch on x[s] with seeds[s]. Checked, not timed."""
+    import torch
+    from bayestpu_torch.kernels import masked_conv as mc
+    n, bf16 = LENET_SMALL, torch.bfloat16
+    for hw, c, f in RESNET_SITES:
+        for kname, (k, padding, act) in RESNET_CONVS.items():
+            where = f"resnet_small_{hw}x{hw}x{c}_{kname}_s2"
+            x, w, aff, _, _ = _conv_data((n, hw, hw, c), k, f, bf16, gen)
+            b = aff[1]
+            seeds = _inputs(dict(M=1, K=1, N=1, S=SAMPLES), torch.float32,
+                            gen)[2]
+            x5 = mc.stack_samples([_cl(torch.randn(
+                n, c, hw, hw, generator=gen).to(bf16).cuda())
+                for _ in range(SAMPLES)])
+            epi = dict(bias=b, act=act, stride=2, out_dtype=bf16)
+            line = {"phase": "kernels", "kernel": "masked_conv",
+                    "shape": where, "x_nhwc": [n, hw, hw, c], "F": f, "k": k,
+                    "padding": padding, "stride": 2, "samples": SAMPLES}
+            yx = mc.dropout_conv_inference(x5, w, seeds, RATE, padding,
+                                           **epi)
+            singles = [mc.dropout_conv_inference(
+                x5[s], w, seeds[s].contiguous(), RATE, padding, **epi)
+                for s in range(SAMPLES)]
+            same = all(torch.equal(yx[s], singles[s])
+                       for s in range(SAMPLES))
+            check(same, f"dropout_conv_xs {where}: sample s differs from "
+                  "the single launch on x[s]")
+            line["dropout_conv_xs_equals_single_bitwise"] = same
+            for name, got, want in (
+                    ("dropout_conv_xs", yx, mc.stack_samples([
+                        mc.dropout_conv_plain(x5[s], w, seeds[s], RATE,
+                                              padding, 2, b, act, bf16)
+                        for s in range(SAMPLES)])),
+                    ("dropout_conv", mc.dropout_conv_inference(
+                        x, w, seeds[0].contiguous(), RATE, padding, **epi),
+                     mc.dropout_conv_plain(x, w, seeds[0], RATE, padding, 2,
+                                           b, act, bf16))):
+                check(got.dtype == bf16, f"{name} {where}: bf16 store")
+                err = (got.float() - want.float()).abs().max().item()
+                tol = BF16_OUT_RTOL * max(1.0,
+                                          want.float().abs().max().item())
+                check(err <= tol, f"{name} {where}: {err} > {tol}")
+                line[f"{name}_bf16out_err"] = err
+            emit(line)
 
 
 def _resnet_readout(gen) -> None:
@@ -2658,13 +2798,14 @@ def _int8_cpu_tol(quant, rescale: float):
         if isinstance(h, BayesDense)) * rescale
 
 
-def _block_finetune(model, xs, ys, epochs: int, lr: float, want: dict
-                    ) -> tuple[dict, dict]:
+def _block_finetune(model, xs, ys, epochs: int, lr: float, want: dict,
+                    tx=None) -> tuple[dict, dict]:
     """Fine-tune ``model`` (on the card, train mode) for ``epochs`` epochs
-    of the train phase's batches with SGD 0.9, cosine LR from ``lr``, clip
-    10 (the bench recipe's optimizer): the first step's launches must be
-    ``want``; epoch 1 runs free for the throughput, epoch 2 step by step
-    (host clock ending in a synchronise) for the p50."""
+    of the batches ``xs``/``ys`` with SGD 0.9, cosine LR from ``lr``, clip
+    10 (the bench recipe's optimizer), or with the optimizer ``tx``: the
+    first step's launches must be ``want``; epoch 1 runs free for the
+    throughput, epoch 2 step by step (host clock ending in a synchronise)
+    for the p50."""
     import numpy as np
     import torch
     from bayestpu_torch.core.rng import step_seeds
@@ -2672,8 +2813,9 @@ def _block_finetune(model, xs, ys, epochs: int, lr: float, want: dict
     from bayestpu_torch.train.loop import TrainState, make_train_step
     nb = xs.shape[0]
     steps = epochs * nb
-    tx = optim.chain(optim.clip_by_global_norm(TRAIN_CLIP), optim.sgd(
-        optim.cosine_decay_schedule(lr, steps), 0.9))
+    if tx is None:
+        tx = optim.chain(optim.clip_by_global_norm(TRAIN_CLIP), optim.sgd(
+            optim.cosine_decay_schedule(lr, steps), 0.9))
     state = TrainState(model, tx.init(dict(model.named_parameters())))
     step = make_train_step(model, tx)
     seeds = step_seeds(0, range(steps), model.num_sites).cuda()
@@ -2697,12 +2839,13 @@ def _block_finetune(model, xs, ys, epochs: int, lr: float, want: dict
     check(bool(np.isfinite(loss).all()), "training loss finite")
     p50 = statistics.median(step_ms)
     return state.variables(), {
-        "epochs": epochs, "steps": steps, "lr": lr, "clip": TRAIN_CLIP,
+        "epochs": epochs, "steps": steps, "batch": xs.shape[1], "lr": lr,
+        "clip": TRAIN_CLIP,
         "seconds": time.perf_counter() - t0,
         "launches_per_step": {k: v for k, v in first.items() if v},
         "step_p50_ms": p50, "step_min_ms": min(step_ms),
-        "images_per_s": nb * BATCH / epoch1_s,
-        "images_per_s_of_p50": BATCH / (p50 / 1e3),
+        "images_per_s": nb * xs.shape[1] / epoch1_s,
+        "images_per_s_of_p50": xs.shape[1] / (p50 / 1e3),
         "first_loss": float(loss[0]), "final_loss": float(loss[-1]),
         "epoch_mean_loss": loss.reshape(epochs, nb).mean(1).tolist()}
 
@@ -3002,6 +3145,183 @@ def phase_resnet(smi: str) -> dict:
     return {"launches": launches}
 
 
+def _check_threefry(smi: str) -> None:
+    """``core.threefry`` (the materialized sites' masks, plain PyTorch on
+    the card) against the same functions on the CPU, bit for bit: the
+    bits and the keep mask at lenet's site-0 shape (256, 14, 14, 20) for
+    SAMPLES seed pairs (the first negative) in one pass, and the keep
+    mask's device time there (all of its launches, summed by the
+    profiler)."""
+    import torch
+    from bayestpu_torch.core import threefry
+    gen = torch.Generator().manual_seed(99)
+    seeds = _inputs(dict(M=1, K=1, N=1, S=SAMPLES), torch.float32, gen)[2]
+    bits = threefry.random_bits(seeds, THREEFRY_SITE)
+    keep = threefry.bernoulli(seeds, 1.0 - RATE, THREEFRY_SITE)
+    torch.cuda.synchronize()
+    # the CPU's bits once; its keep mask from them, as bernoulli forms it
+    cpu_bits = threefry.random_bits(seeds.cpu(), THREEFRY_SITE)
+    same_bits = torch.equal(bits.cpu(), cpu_bits)
+    same_keep = torch.equal(keep.cpu(), (cpu_bits >> 9) < (
+        threefry.keep_threshold(1.0 - RATE)))
+    check(same_bits and same_keep, f"threefry card vs CPU: bits "
+          f"{same_bits}, keep {same_keep}")
+    elements = SAMPLES * THREEFRY_SITE[0] * 14 * 14 * 20
+    emit({"phase": "lenet_threefry", "card": smi, "shape":
+          [SAMPLES, *THREEFRY_SITE], "bits_equal_cpu": same_bits,
+          "keep_equal_cpu": same_keep,
+          "keep_fraction": keep.float().mean().item(),
+          "bernoulli_device_ms": device_ms(
+              lambda: threefry.bernoulli(seeds, 1.0 - RATE, THREEFRY_SITE),
+              5),
+          "bernoulli_events_ms": cuda_ms(
+              lambda: threefry.bernoulli(seeds, 1.0 - RATE, THREEFRY_SITE),
+              5, 3),
+          "bernoulli_mask_bytes_bound_ms": elements / MEM_BYTES_PER_S * 1e3})
+
+
+def phase_lenet(smi: str) -> dict:
+    """The LeNet family on MNIST shapes (28x28x1) through the entry points
+    a user calls (``get_model``, ``BayesEngine(device="cuda")``,
+    ``make_train_step`` with ``get_optimizer(get_recipe("lenet"))``):
+
+    (a) ``lenet_me`` at the JAX bench's config (``bench.py:706-709``:
+        batch 256, fused, bf16, MC rate 0.25, S = 10, seeded weights): 2
+        ``dropout_matmul_samples`` a spatial predict (the two heads, K =
+        100; the backbone runs once), 20 ``dropout_matmul`` a temporal one;
+        spatial against temporal, the card against the CPU on rows 0-7,
+        p50s and samples/s, and a profiled predict by kernel group.
+    (b) ``lenet_me`` trained from seeded weights for LENET_EPOCHS epochs
+        of 10,000 synthetic MNIST images with the ``"lenet"`` recipe (Adam
+        1e-3, constant, clip 10, batch 128), bf16: a step launches 2
+        ``dropout_matmul`` and 4 ``dropout_apply``; the loss falls; the
+        weights served on 2,000 test images (acc of each exit > 0.5, ECE,
+        aPE, aPE_ood), then on the int8 ``lenet_me`` (``int8_infer``, bf16
+        compute: 2 ``dropout_matmul_int8_samples`` a spatial predict, 20
+        ``dropout_matmul_int8`` a temporal one; the card against the CPU
+        within INT8_CPU_STEPS grid steps, bit-equality reported).
+    (c) the materialized routes at batch LENET_SMALL, bf16, seeded
+        weights, spatial against temporal and the card against the CPU:
+        ``lenet(num_bayes_layers=3, fused=True)`` (the threefry site 0
+        inside conv2d_2, then the activations carry S: fc_1 and fc_2 one
+        ``dropout_matmul_xs`` each, K = 80 and 100), ``vgg11_me`` with the
+        JAX default ``fused=False`` (five materialized heads: no port
+        kernel) and ``resnet18(dropout="layer", fused=True)`` on CIFAR-100
+        shapes (four materialized in-stage sites, the first of them before
+        any conv site, then 6 ``dropout_conv_xs`` at the deferred stage
+        boundaries).
+
+    The threefry masks are checked against the CPU first, uncounted."""
+    import torch
+    from bayestpu_torch.core.config import BayesConfig, QuantConfig
+    from bayestpu_torch.data.datasets import get_dataset
+    from bayestpu_torch.engine.engine import BayesEngine
+    from bayestpu_torch.nn.zoo import get_model
+    from bayestpu_torch.train.optim import get_optimizer, get_recipe
+
+    _check_threefry(smi)
+    mc_cfg = BayesConfig(rate=RATE)
+    int8_q = QuantConfig(8, 0, int8_infer=True)
+
+    def model_fn(name, quant=None, bayes=mc_cfg, fused=True, **kw):
+        return lambda: get_model(name, bayes=bayes, fused=fused,
+                                 dtype=torch.bfloat16, quant=quant, **kw)
+
+    def float_tol(model, l_cpu):
+        return CPU_REF_RTOL * max(1.0, l_cpu.abs().max().item())
+
+    ds = get_dataset("mnist")
+    x = torch.from_numpy(ds.x_test[:LENET_BATCH]).cuda()
+    recipe = get_recipe("lenet")
+    nb = len(ds.x_train) // recipe.batch_size
+    xs = torch.from_numpy(ds.x_train[:nb * recipe.batch_size]).cuda(
+        ).reshape((nb, recipe.batch_size) + ds.x_train.shape[1:])
+    ys = torch.from_numpy(ds.y_train[:nb * recipe.batch_size]).long(
+        ).cuda().reshape(nb, recipe.batch_size)
+    x_eval = ds.x_test[:2000]
+    y_eval = torch.from_numpy(ds.y_test[:2000]).long().cuda()
+    # ---- the main path, counted: (a)-(c)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = _block_serve("lenet_me", model_fn("lenet_me"), None,
+                       dict(dropout_matmul_samples=2),
+                       dict(dropout_matmul=2 * SAMPLES), x,
+                       SPATIAL_TEMPORAL_ATOL, float_tol, SAMPLES, False, 2)
+    eng = out.pop("engine")
+    emit({"phase": "lenet", "config": "lenet_me_bf16_b256", "card": smi,
+          "weights": "seeded init", "dtype": "bfloat16", "batch":
+          LENET_BATCH, "samples": SAMPLES, "rate": RATE, **out,
+          "seconds": time.perf_counter() - t0})
+    emit({"phase": "lenet_profile", "config": "lenet_me_bf16_b256",
+          "card": smi, "what": "spatial predict, profiled",
+          **_profile_predict(eng, x, 11, reps=5)})
+    t0 = time.perf_counter()
+    model = model_fn("lenet_me")()
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    variables, fit = _block_finetune(
+        model.cuda().train(), xs, ys, LENET_EPOCHS, recipe.lr,
+        dict(dropout_matmul=2, dropout_apply=4),
+        tx=get_optimizer(recipe, nb))
+    losses = fit["epoch_mean_loss"]
+    check(losses[-1] < losses[0], f"lenet_me training loss does not fall: "
+          f"{losses}")
+    served = {}
+    for name, quant in (("bf16", None), ("int8", int8_q)):
+        eng = BayesEngine(model_fn("lenet_me", quant)(),
+                          device="cuda").attach(variables)
+        mets = eng.evaluate(x_eval, ds.y_test[:2000], seed=3,
+                            num_samples=SAMPLES, ood_check=True,
+                            dataset="mnist")
+        probs = eng.predict(x_eval, 3, SAMPLES).probs
+        accs = (probs.argmax(-1) == y_eval).float().mean(-1).tolist()
+        check(min(accs) > 0.5, f"lenet_me {name} exit accuracies {accs}")
+        served[name] = {**mets, "exit_acc": accs}
+    emit({"phase": "lenet_train", "config": "lenet_me", "card": smi,
+          "dtype": "bfloat16", "rate": RATE, "recipe": "lenet (Adam 1e-3, "
+          "constant, clip 10)", "data": "synthetic MNIST", **fit,
+          "served_2000": served, "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    out = _block_serve("lenet_me_int8", model_fn("lenet_me", int8_q),
+                       variables, dict(dropout_matmul_int8_samples=2),
+                       dict(dropout_matmul_int8=2 * SAMPLES), x,
+                       SPATIAL_TEMPORAL_ATOL,
+                       _int8_cpu_tol(int8_q, 1.0 / (1.0 - RATE)), SAMPLES,
+                       False, 2)
+    out.pop("engine")
+    emit({"phase": "lenet", "config": "lenet_me_int8_b256", "card": smi,
+          "weights": "trained (b)", "quant": repr(int8_q), "dtype":
+          "bfloat16", "batch": LENET_BATCH, "samples": SAMPLES, **out,
+          "seconds": time.perf_counter() - t0})
+    cifar = get_dataset("cifar100")
+    routes = (
+        ("lenet_nb3_fused", model_fn("lenet", bayes=BayesConfig(
+            rate=RATE, num_bayes_layers=3)), x[:LENET_SMALL],
+         dict(dropout_matmul_xs=2), dict(dropout_matmul=2 * SAMPLES), 1,
+         10, SPATIAL_TEMPORAL_ATOL),
+        ("vgg11_me_unfused", model_fn("vgg11_me", fused=False),
+         torch.from_numpy(cifar.x_test[:LENET_SMALL]).cuda(), {}, {}, 5, 10,
+         SPATIAL_TEMPORAL_ATOL),
+        # spatial vs temporal to the resnet phase's tolerance: resnet18
+        # runs its convs after the first site at batch S·N in the spatial
+        # mapping and N in the temporal one, and cuDNN rounds a bf16 conv
+        # by its batch (ROADMAP known differences 11)
+        ("resnet18_layer_fused", model_fn("resnet18", dropout="layer",
+                                          num_classes=RESNET_CLASSES),
+         torch.from_numpy(cifar.x_test[:LENET_SMALL]).cuda(),
+         dict(dropout_conv_xs=6), dict(dropout_conv=6 * SAMPLES), 1,
+         RESNET_CLASSES, CPU_REF_RTOL))
+    for name, build, xr, want_sp, want_tm, exits, classes, st_tol in routes:
+        t0 = time.perf_counter()
+        out = _block_serve(name, build, None, want_sp, want_tm, xr, st_tol,
+                           float_tol, SAMPLES, False, exits, classes)
+        out.pop("engine")
+        emit({"phase": "lenet_materialized", "config": name, "card": smi,
+              "weights": "seeded init", "dtype": "bfloat16",
+              "batch": LENET_SMALL, "samples": SAMPLES, **out,
+              "seconds": time.perf_counter() - t0})
+    return {"launches": launch_counts()}
+
+
 def phase_step_vs_cpu() -> None:
     """One training step of vgg11_me at batch 8 on the card and on the
     CPU (``_step_vs_cpu``)."""
@@ -3101,6 +3421,8 @@ def main(argv: list[str]) -> int:
         t0 = time.perf_counter()
         out = fn(*args)
         seconds[name] = time.perf_counter() - t0
+        print(f"chip_smoke: phase {name} took {seconds[name]:.1f} s",
+              file=sys.stderr, flush=True)
         return out
 
     summary = timed("kernels", phase_kernels)
@@ -3113,12 +3435,13 @@ def main(argv: list[str]) -> int:
     mk = timed("mask", phase_mask, tr)
     bl = timed("block", phase_block, tr)
     rn = timed("resnet", phase_resnet, smi)
+    ln = timed("lenet", phase_lenet, smi)
     timed("step_vs_cpu", phase_step_vs_cpu)
     emit({"phase": "seconds", **seconds})
     kernels = []
     for name, stats in summary.items():
         launches = sum(ph["launches"][name]
-                       for ph in (sl, tr, i8, mk, bl, rn))
+                       for ph in (sl, tr, i8, mk, bl, rn, ln))
         check(launches > 0, f"{name} was never launched on the main paths")
         conv = name in CONV_REPLACES
         kernels.append({"name": name, "route": "cuda",

@@ -393,6 +393,59 @@ def test_block_train_step_matches_jax(block_vars):
         assert np.linalg.norm(bstats[k] - v) <= 3e-4 * np.linalg.norm(v), k
 
 
+def test_materialized_block_train_step_matches_jax(block_vars):
+    """One f32 MC training step of the JAX default ``fused=False`` block
+    model, batch 4: the materialized sites ``bayes_b0`` … ``bayes_b3`` and
+    the unfused classifier head draw threefry masks on the keys JAX drew
+    (captured in an eager pass), against the jitted
+    ``jax.value_and_grad``: the EED loss and every gradient by name to
+    3e-4 of its norm (as the fused step above)."""
+    _, variables, _ = block_vars
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(4, 32, 32, 3)).astype(np.float32)
+    y = np.array([1, 3, 9, 3], np.int32)
+    jm = jax_get_model("vgg11", bayes=JMC, dropout="block")
+
+    def loss_fn(params, bs):
+        o, upd = jm.apply({"params": params, "batch_stats": bs},
+                          jnp.asarray(x), train=True,
+                          rngs={"bayes": jax.random.key(9)},
+                          mutable=["batch_stats"])
+        return jax_eed_loss(o.logits, jnp.asarray(y), o.features), upd
+
+    seen = []
+    orig = jax.random.bernoulli
+
+    def spy(key, p, shape):
+        seen.append(np.asarray(jax.random.key_data(key)).astype(np.uint32))
+        return orig(key, p, shape)
+
+    jax.random.bernoulli = spy
+    try:
+        loss_fn(variables["params"], variables["batch_stats"])
+    finally:
+        jax.random.bernoulli = orig
+    (loss, _), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        variables["params"], variables["batch_stats"])
+    seeds = np.stack(seen).view(np.int32)
+    assert seeds.shape == (5, 2)
+    model = load_flax_variables(get_model(
+        "vgg11", bayes=MC, dropout="block"), variables).train()
+    assert model.num_sites == 5 and model.classifier.drop is not None
+    params = dict(model.named_parameters())
+    out = model(torch.from_numpy(x), torch.from_numpy(seeds))
+    tloss = eed_loss(out.logits, torch.from_numpy(y), out.features)
+    tgrads = dict(zip(params, torch.autograd.grad(tloss,
+                                                  list(params.values()))))
+    np.testing.assert_allclose(float(tloss.detach()), float(loss), rtol=1e-5)
+    want = _flat(jax.tree.map(np.asarray, grads))
+    assert set(want) == set(tgrads)
+    total = np.sqrt(sum(np.linalg.norm(w) ** 2 for w in want.values()))
+    for k, g in tgrads.items():
+        err = np.linalg.norm(_hwio(g) - want[k])
+        assert err <= 3e-4 * np.linalg.norm(want[k]) + 1e-6 * total, (k, err)
+
+
 def test_qat_convbn_with_site_train_step_matches_jax():
     """One QAT ``ConvBN`` whose input carries an MC site (the trainable
     masked conv on fake-quant weights, BN on batch statistics, relu and the

@@ -567,7 +567,8 @@ def test_bayes_conv_input_equals_jax():
     """``BayesConvInput``: the site's dropout in one pass,
     ``dropout_apply`` on the (N·H·W, C) view cast back to x's dtype, on the
     seeds JAX's site drew; rate 0 is the identity; the unfused site
-    (``BayesianDropout``, threefry) is not ported and raises."""
+    (``fused=False``: ``BayesianDropout``, threefry) bit-equal to the
+    jitted JAX site on the key it drew."""
     from bayestpu.nn import fused as jfused
     from bayestpu_torch.nn.fused import BayesConvInput
     x, _, _ = _data("same_s1", seed=6)
@@ -592,8 +593,24 @@ def test_bayes_conv_input_equals_jax():
         jnp.float32)))
     tx = _x(x)
     assert BayesConvInput(0.0)(tx) is tx
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BayesConvInput(RATE, fused=False)
+    keys = []
+    orig_b = jax.random.bernoulli
+
+    def spy_b(key, p, shape):
+        keys.append(np.asarray(jax.random.key_data(key)).astype(np.uint32))
+        return orig_b(key, p, shape)
+
+    unfused = jfused.BayesConvInput(rate=RATE, fused=False)
+    jax.random.bernoulli = spy_b
+    try:
+        unfused.apply({}, jnp.asarray(x), rngs={"bayes": jax.random.key(3)})
+    finally:
+        jax.random.bernoulli = orig_b
+    want = jax.jit(lambda xx: unfused.apply(
+        {}, xx, rngs={"bayes": jax.random.key(3)}))(jnp.asarray(x))
+    got = BayesConvInput(RATE, fused=False)(
+        tx, torch.from_numpy(keys[0].view(np.int32)))
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
 
 
 # ------------------------------------------------------ BayesConv branches
@@ -602,6 +619,8 @@ BRANCHES = {
     # name: (bayes kind, fused, stride, padding, quant, train)
     "mc_fused_s2_explicit": ("mc", True, 2, ((1, 1), (1, 1)), None, False),
     "mc_fused_train": ("mc", True, 1, "SAME", None, True),
+    "mc_unfused": ("mc", False, 1, "SAME", None, False),
+    "mc_unfused_s3_train": ("mc", True, 3, "SAME", None, True),
     "mask_fused_s2": ("mask", True, 2, "SAME", None, False),
     "mask_unfused": ("mask", False, 1, "SAME", None, False),
     "mask_train": ("mask", True, 1, "SAME", None, True),
@@ -615,9 +634,12 @@ def test_bayes_conv_branches_match_flax(branch):
     variables, per branch: the fused MC conv at stride 2 with explicit
     padding (BN fold and relu in the epilogue) and in training, the fused
     Masksembles conv at stride 2 with asymmetric SAME (index -1), the
-    unfused Masksembles row multiply, the batch split, and a deterministic
-    int8 conv through ``conv_int8_fused`` (``int8_det_pallas``). f32:
-    rtol/atol 1e-5; int8: bit for bit."""
+    unfused Masksembles row multiply, the batch split, the unfused MC site
+    (``BayesianDropout`` on the threefry key JAX drew, then the conv; at
+    stride 3 the JAX package routes a fused site unfused too), and a
+    deterministic int8 conv through ``conv_int8_fused``
+    (``int8_det_pallas``). f32: rtol/atol 1e-5 (the eager JAX site divides
+    by keep where the port multiplies, one ulp); int8: bit for bit."""
     from bayestpu.core.config import BayesConfig as JB
     from bayestpu.core.config import DropoutKind as JK
     from bayestpu.core.config import QuantConfig as JQ
@@ -655,12 +677,18 @@ def test_bayes_conv_branches_match_flax(branch):
     seen = []
     name = "dropout_conv" if train else "dropout_conv_inference"
     orig = getattr(jfused, name)
+    orig_b = jax.random.bernoulli
 
     def spy(xx, w, seeds, *a, **k):
         seen.append(np.asarray(seeds))
         return orig(xx, w, seeds, *a, **k)
 
+    def spy_b(key, p, shape):             # the unfused site's threefry key
+        seen.append(np.asarray(jax.random.key_data(key)).astype(np.uint32))
+        return orig_b(key, p, shape)
+
     setattr(jfused, name, spy)
+    jax.random.bernoulli = spy_b
     try:
         want = jl.apply(variables, jnp.asarray(x), train=train,
                         fold_scale=None if fold is None else jnp.asarray(
@@ -670,6 +698,7 @@ def test_bayes_conv_branches_match_flax(branch):
                         rngs={"bayes": jax.random.key(3)}, **kw)
     finally:
         setattr(jfused, name, orig)
+        jax.random.bernoulli = orig_b
     tl = BayesConv(c, f, strides=(stride, stride), padding=padding,
                    bayes=tb, fused=fused, quant=tq).train(train)
     with torch.no_grad():
@@ -677,8 +706,9 @@ def test_bayes_conv_branches_match_flax(branch):
             params["kernel"].transpose(3, 2, 0, 1))))
         if kind == "mask":
             tl.bank.copy_(torch.from_numpy(np.array(v["masks"]["bank"])))
-    seeds = (torch.from_numpy(seen[0].astype(np.int32)) if kind == "mc"
-             else None)
+    seeds = (torch.from_numpy(seen[0].view(np.int32) if seen[0].dtype
+                              == np.uint32 else seen[0].astype(np.int32))
+             if kind == "mc" else None)
     got = tl(_x(x), seeds=seeds,
              fold_scale=None if fold is None else torch.from_numpy(fold[0]),
              fold_bias=None if fold is None else torch.from_numpy(fold[1]),

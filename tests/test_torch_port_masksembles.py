@@ -126,9 +126,27 @@ def test_bayes_site_dispatch():
     none = tbayes.BayesSite(BayesConfig(kind=DropoutKind.NONE), 48)
     xt = torch.from_numpy(x)
     assert none(xt, 1) is xt
-    for rate in (0.0, 0.25):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tbayes.BayesSite(BayesConfig(rate=rate), 48)
+    # MC: the identity at rate 0; at rate 0.25 BayesianDropout, equal to
+    # the jitted JAX site on the key it drew
+    assert tbayes.BayesSite(BayesConfig(rate=0.0), 48)(xt, 1) is xt
+    keys = []
+    orig = jax.random.bernoulli
+
+    def spy(key, p, shape):
+        keys.append(np.asarray(jax.random.key_data(key)).astype(np.uint32))
+        return orig(key, p, shape)
+
+    mc = jbayes.BayesSite(JBayes(rate=0.25))
+    jax.random.bernoulli = spy
+    try:
+        mc.apply({}, jnp.asarray(x), rngs={"bayes": jax.random.key(1)})
+    finally:
+        jax.random.bernoulli = orig
+    want = jax.jit(lambda xx: mc.apply(
+        {}, xx, rngs={"bayes": jax.random.key(1)}))(jnp.asarray(x))
+    got = tbayes.BayesSite(BayesConfig(rate=0.25), 48)(
+        xt, 3, torch.from_numpy(keys[0].view(np.int32)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 # ------------------------------------------------------------ BayesDense

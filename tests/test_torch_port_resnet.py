@@ -39,6 +39,7 @@ from bayestpu_torch.interop.from_flax import (load_flax_variables,
                                               to_flax_variables)
 from bayestpu_torch.nn.zoo import get_model
 from bayestpu_torch.train.losses import eed_loss
+from test_torch_port_threefry import capture_site_keys
 
 RATE = 0.25
 MC, JMC = BayesConfig(rate=RATE), JBayes(rate=RATE)
@@ -477,27 +478,58 @@ def test_small_resnets_forward_match_jax(name, kw):
 
 
 @pytest.mark.parametrize("name,kw,err,item", [
-    ("resnet18", dict(fused=True, dropout="layer"), NotImplementedError,
-     "item 11"),
-    ("resnet18_me", dict(fused=True, dropout="block"), NotImplementedError,
-     "item 11"),
-    ("resnet18", dict(fused=False, dropout="block"), NotImplementedError,
-     "item 11"),
-    ("resnet20", dict(fused=True, dropout="block"), NotImplementedError,
-     "item 11"),
-    ("resnet18_me", dict(fused=False), NotImplementedError, "item 11"),
     ("resnet18", dict(fused=True, quant_overrides={"stem": None}),
      NotImplementedError, "item 8"),
     ("resnet18", dict(fused=True, dropout="bogus"), ValueError, "dropout"),
 ])
 def test_refusals_cite_their_items(name, kw, err, item):
-    """What is not ported raises and names its ROADMAP Queue 1 item:
-    ``dropout="layer"``, block sites with exits or unfused, a deferred MC
-    site below 32 input channels (resnet20's 16-channel stage boundary),
-    the unfused MC head (the JAX default ``fused=False``) and
-    ``quant_overrides``."""
+    """What is not ported raises and names its ROADMAP Queue 1 item
+    (``quant_overrides``); a bad ``dropout`` is a ``ValueError``."""
     with pytest.raises(err, match=item):
         get_model(name, bayes=MC, **kw)
+
+
+# the materialized-site configurations at a small width, 16x16 input:
+# resnet18's stage boundaries at 16 input channels (layer2_0, layer3_0),
+# below MASKED_CONV_FUSE_MIN_CH, and at 32 (layer4_0)
+SMALL18 = dict(stage_planes=(16, 16, 32, 32), num_classes=10)
+
+
+@pytest.mark.parametrize("name,kw,n_sites", [
+    ("resnet18", dict(fused=True, dropout="layer", **SMALL18), 9),
+    ("resnet18_me", dict(fused=True, dropout="block", **SMALL18), 7),
+    ("resnet18", dict(fused=False, dropout="block", **SMALL18), 3),
+    ("resnet20", dict(fused=True, dropout="block"), 4),
+    ("resnet18_me", dict(fused=False, **SMALL18), 4),
+])
+def test_materialized_configs_match_jax(name, kw, n_sites):
+    """The item-11 configurations, f32, batch 2, on the seeds JAX drew in
+    call order (threefry keys of the materialized sites, the fused sites'
+    seeds), S = 2, against the jitted JAX model (rtol/atol 1e-5), spatial
+    equal to temporal bit for bit: ``dropout="layer"`` (in-stage sites
+    materialized, stage boundaries deferred: fused at 32 channels, two
+    unfused masks, one a conv, at 16), block sites with exits, unfused
+    block sites, resnet20's deferred site at 16 channels (each conv draws
+    its own threefry mask, as JAX's two ``BayesianDropout`` do) and the
+    unfused MC heads of the JAX default ``fused=False``."""
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(2, 16, 16, 3)).astype(np.float32)
+    jm = jax_get_model(name, bayes=JMC, **kw)
+    v = jax.tree.map(np.asarray, jm.init(
+        {"params": jax.random.key(0), "bayes": jax.random.key(0)},
+        jnp.asarray(x)))
+    v = {k: _perturb(v[k], rng) for k in ("params", "batch_stats")}
+    want, seeds = capture_site_keys(jm, v, x, [jax.random.key(2),
+                                               jax.random.key(3)])
+    model = load_flax_variables(get_model(
+        name, bayes=MC, input_shape=(16, 16, 3), **kw), v)
+    assert model.num_sites == seeds.shape[1] == n_sites
+    xt, st = torch.from_numpy(x), torch.from_numpy(seeds)
+    with torch.inference_mode():
+        spatial = tsampler.mc_logits(model, xt, st)
+        temporal = tsampler.mc_logits(model, xt, st, SamplingMode.TEMPORAL)
+    assert torch.equal(spatial, temporal)
+    np.testing.assert_allclose(spatial.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 def test_site_on_identity_block_raises():

@@ -18,10 +18,12 @@ import torch
 
 import bayestpu.nn.fused as jfused
 from bayestpu.core.config import BayesConfig as JBayes
+from bayestpu.core.config import DropoutKind as JKind
 from bayestpu.nn.zoo import get_model as jax_get_model
-from bayestpu_torch.core.config import BayesConfig
+from bayestpu_torch.core.config import BayesConfig, DropoutKind
 from bayestpu_torch.interop.from_flax import load_flax_variables
 from bayestpu_torch.nn.zoo import available_models, get_model
+from test_torch_port_threefry import capture_site_keys
 
 RATE = 0.25
 S = 2
@@ -196,6 +198,8 @@ def test_deterministic_head_broadcasts_over_samples():
 
 
 def test_registry_and_unported_branches():
+    """The registry; what is ported builds (its values are held against
+    JAX below), what is not raises and names its ROADMAP item."""
     assert {"vgg11", "vgg11_me"} <= set(available_models())
     with pytest.raises(KeyError, match="available"):
         get_model("bogus")
@@ -207,20 +211,107 @@ def test_registry_and_unported_branches():
     assert get_model("vgg11", bayes=BayesConfig(kind=DropoutKind.MASK),
                      fused=True, dropout="block").num_sites == 0
     assert get_model("vgg11", fused=True, dropout="block").num_sites == 5
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("vgg11_me", bayes=BayesConfig(kind=DropoutKind.MASK),
-                  dropout="block")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("vgg11_me", fused=True, dropout="block")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("vgg11", fused=False, dropout="block")
+    # materialized block sites (fused=False, or a multi-exit model): a
+    # BayesSite after blocks 0-3, before the exit head it feeds
+    mask_me = get_model("vgg11_me", bayes=BayesConfig(kind=DropoutKind.MASK),
+                        dropout="block")
+    assert mask_me.num_sites == 0 and mask_me.conv_sites
+    assert get_model("vgg11_me", fused=True, dropout="block").num_sites == 9
+    unfused = get_model("vgg11", fused=False, dropout="block")
+    assert unfused.num_sites == 5 and unfused.bayes_b0.site == 0
     # quantization is ported; its per-layer overrides are not
     assert get_model("vgg11_me", quant=QuantConfig(),
                      fused=True).quant == QuantConfig()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model("vgg11_me", quant=QuantConfig(), fused=True,
                   quant_overrides={"fc_0": QuantConfig()})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("vgg11_me", dropout="block")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("vgg11_me", fused=False)
+    # the JAX default fused=False: unfused MC heads (BayesianDropout)
+    assert get_model("vgg11_me", dropout="block").num_sites == 9
+    assert get_model("vgg11_me", fused=False).classifier.drop is not None
+
+
+# ------------------------------------------- materialized sites (item 11)
+
+
+@pytest.fixture(scope="module")
+def vgg11_vars():
+    """Batch 2; the JAX vgg11 (one exit, dense head 512-512) Masksembles
+    init variables with BatchNorm perturbed; its ``masks`` tree holds the
+    banks of the materialized block sites and of the classifier."""
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(2, 32, 32, 3)).astype(np.float32)
+    jm = jax_get_model("vgg11", bayes=JBayes(kind=JKind.MASK, num_masks=4,
+                                             scale=2.0), dropout="block",
+                       head_sites=True)
+    v = jax.tree.map(np.asarray, jm.init(
+        {"params": jax.random.key(0), "bayes": jax.random.key(0)},
+        jnp.asarray(x)))
+    return x, {"params": _perturb(v["params"], rng),
+               "batch_stats": _perturb(v["batch_stats"], rng),
+               "masks": v["masks"]}
+
+
+# name: (model, its keywords beyond the bayes config; the JAX default
+# fused=False unless named)
+MATERIALIZED = {
+    "vgg11_me_unfused_heads": ("vgg11_me", {}),
+    "vgg11_block_unfused": ("vgg11", dict(dropout="block")),
+    "vgg11_me_block_exits": ("vgg11_me", dict(dropout="block", fused=True)),
+    "vgg11_head_sites": ("vgg11", dict(head_sites=True, fused=True)),
+}
+
+
+@pytest.mark.parametrize("config,dtype", [
+    (c, "f32") for c in MATERIALIZED] + [("vgg11_me_unfused_heads", "bf16")])
+def test_materialized_sites_match_jitted_jax(setup, vgg11_vars, config,
+                                             dtype):
+    """The item-11 configurations: the unfused MC heads of the JAX default
+    ``fused=False`` (``BayesianDropout`` then the dense), the materialized
+    block sites (``bayes_b0`` … ``bayes_b3``; with exits they feed the exit
+    heads too), and ``head_sites`` (``bayes_fc_0``, ``bayes_fc_1``), on
+    the seeds JAX drew (threefry keys and fused seeds, in call order),
+    S = 2, against the jitted JAX model (TOL); the spatial mapping equal to
+    the temporal one bit for bit."""
+    name, kw = MATERIALIZED[config]
+    jdt, tdt = DTYPES[dtype]
+    x, variables = setup if name == "vgg11_me" else vgg11_vars
+    variables = {k: variables[k] for k in ("params", "batch_stats")}
+    jm = jax_get_model(name, bayes=JBayes(rate=RATE), dtype=jdt, **kw)
+    keys = [jax.random.key(7), jax.random.key(8)]
+    want, seeds = capture_site_keys(jm, variables, x, keys)
+    tm = load_flax_variables(get_model(name, bayes=BayesConfig(rate=RATE),
+                                       dtype=tdt, **kw), variables)
+    assert seeds.shape[1] == tm.num_sites
+    xt, st = torch.from_numpy(x), torch.from_numpy(seeds)
+    with torch.inference_mode():
+        spatial = tm(xt, st).logits
+        temporal = torch.stack([tm(xt, st[s], s).logits for s in range(S)])
+    assert torch.equal(spatial, temporal)
+    np.testing.assert_allclose(spatial.float().numpy(), want, **TOL[dtype])
+    assert not torch.equal(spatial[0], spatial[1])
+
+
+def test_materialized_mask_sites_match_jax(vgg11_vars):
+    """The Masksembles twin of the unfused block sites with ``head_sites``:
+    the banks of ``bayes_b{i}`` and ``bayes_fc_{j}`` loaded by name
+    (``masks/bayes_b0/Masksembles_0/bank``), per-mask f32 logits against
+    JAX's (TOL), the spatial mapping equal to the one-index calls."""
+    x, variables = vgg11_vars
+    cfg = dict(dropout="block", head_sites=True)
+    mask = dict(kind=JKind.MASK, num_masks=4, scale=2.0)
+    jm = jax_get_model("vgg11", bayes=JBayes(**mask), **cfg)
+    tm = load_flax_variables(get_model(
+        "vgg11", bayes=BayesConfig(kind=DropoutKind.MASK, num_masks=4,
+                                   scale=2.0), **cfg), variables)
+    idxs = (0, 3, 5)
+    want = np.stack([np.asarray(jm.apply(variables, jnp.asarray(x),
+                                         sample_idx=i).logits)
+                     for i in idxs])
+    xt = torch.from_numpy(x)
+    seeds = torch.zeros(len(idxs), 0, 2, dtype=torch.int32)
+    with torch.inference_mode():
+        spatial = tm(xt, seeds, torch.tensor(idxs)).logits
+        ones = [tm(xt, seeds[0], i).logits for i in idxs]
+    np.testing.assert_allclose(spatial.numpy(), want, **TOL["f32"])
+    for s in range(len(idxs)):
+        assert torch.equal(spatial[s], ones[s])
