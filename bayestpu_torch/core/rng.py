@@ -8,6 +8,9 @@ site, word)`` — the same hash the kernels use for their masks:
   not depend on how many samples are drawn, and the temporal and spatial
   mappings (and any split of the sample axis) see the same masks for
   sample *i*.
+- ``fold_seed``: a new integer seed from a seed and a counter (``jax.random
+  .fold_in``'s role: ``BayesEngine.evaluate_repeated`` gives pass p the
+  seed ``fold_seed(seed, p)``); its words are a third stream.
 - ``step_seeds``: the counter is the training step (``fold_in(key, step)``
   then one ``make_rng`` per site, ``bayestpu/train/loop.py:92,150``), so a
   resumed run repeats the masks of an uninterrupted one. Its words lie in
@@ -26,6 +29,8 @@ from bayestpu_torch.kernels.masked_matmul import coord_bits, seed_stream
 
 # first word of the training stream: sample_seeds uses words [0, 2·sites)
 _STEP_WORD0 = 1 << 31
+# the two words of fold_seed, above the training stream's
+_FOLD_WORD0 = 3 << 30
 # eval step i draws at step EVAL_STEP0 + i (``loop.py:214,447``)
 EVAL_STEP0 = 10_000_000
 
@@ -52,3 +57,11 @@ def step_seeds(seed: int, step, num_sites: int) -> torch.Tensor:
     (num_sites, 2) int32, or (len(step), num_sites, 2), on the CPU."""
     return _seeds(seed, torch.as_tensor(step, dtype=torch.int64), num_sites,
                   _STEP_WORD0)
+
+
+def fold_seed(seed: int, counter: int) -> int:
+    """A 64-bit seed derived from ``seed`` and ``counter``, distinct for
+    every counter."""
+    lo, hi = (_seeds(seed, torch.tensor(int(counter)), 1, _FOLD_WORD0)[0]
+              .to(torch.int64) & 0xFFFFFFFF).tolist()
+    return lo | (hi << 32)

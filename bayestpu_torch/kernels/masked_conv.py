@@ -69,7 +69,7 @@ import torch.nn.functional as F
 from bayestpu_torch.core.quant import _round_ap_rnd, int8_conv2d
 from bayestpu_torch.kernels.masked_matmul import (
     _check_carried, _check_rate_seeds, bank_index, bank_indices,
-    bank_out_scale, device_indices, dropout_apply, dropout_apply_plain,
+    bank_out_scale, dropout_apply, dropout_apply_plain,
     host_indices, int8_out_scale, is_index_vector, keep_mask,
     keep_threshold, map_samples, scale_of)
 
@@ -438,9 +438,9 @@ def _check_xs(x: torch.Tensor, w: torch.Tensor, seeds: torch.Tensor,
 
 
 def _carried_indices(x: torch.Tensor, sample_idxs) -> torch.Tensor:
-    """The S indices of an _xs launch (a 1-D integer tensor, or a list of
-    ints) as int32 on x's device, one for each sample x carries."""
-    idxs = device_indices(sample_idxs, x.device)
+    """The S indices of an _xs launch (a 1-D integer tensor on x's device)
+    as int32, one for each sample x carries."""
+    idxs = bank_indices(sample_idxs)
     if idxs.device != x.device:
         raise ValueError(f"sample indices must be on x's device {x.device}")
     _check_carried(x, idxs)
@@ -829,8 +829,7 @@ def bank_conv_xs(x: torch.Tensor, w: torch.Tensor, bank: torch.Tensor,
     vmap rule maps the single kernel (``lax.map``, ``:845-851``): one
     launch on the card, sample s bit-identical to ``bank_conv`` on x[s];
     the single plain version per sample on the CPU. ``sample_idxs``: S
-    indices, a 1-D integer tensor or a list of ints (which a caller that
-    maps several sites copies to the host once)."""
+    indices, a 1-D integer tensor (on the CPU also a list of ints)."""
     _check_carries(x, w, False)
     _check_bank(x[0], bank)
     if x.device.type == "cpu":

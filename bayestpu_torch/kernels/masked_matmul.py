@@ -574,23 +574,11 @@ def is_index_vector(sample_idx) -> bool:
 
 
 def host_indices(sample_idx) -> list[int]:
-    """S sample indices as Python ints for S single launches: a list or
-    tuple as it is, a 1-D integer tensor copied to the host (on a card, a
-    wait for the stream; a caller that maps several sites copies once)."""
+    """S sample indices as Python ints for the CPU's S single calls: a list
+    or tuple as it is, a 1-D integer tensor copied to the host."""
     if isinstance(sample_idx, (list, tuple)):
         return [int(i) for i in sample_idx]
     return bank_indices(sample_idx).tolist()
-
-
-def device_indices(sample_idx, device: torch.device) -> torch.Tensor:
-    """S sample indices as contiguous int32 on ``device`` for one launch: a
-    1-D integer tensor as ``bank_indices`` makes it; a list or tuple of ints
-    (the host copy a caller that maps several sites made once) copied from
-    pinned memory without waiting for the stream."""
-    if isinstance(sample_idx, (list, tuple)):
-        return torch.tensor(sample_idx, dtype=torch.int32).pin_memory().to(
-            device, non_blocking=True)
-    return bank_indices(sample_idx)
 
 
 def bank_indices(idxs: torch.Tensor) -> torch.Tensor:
@@ -718,9 +706,9 @@ def _launch_bank_xs(name: str, x: torch.Tensor, w: torch.Tensor,
                     ) -> torch.Tensor:
     """One launch of the samples kernel ``name`` on an x (S, M, K) that
     carries the sample axis: sample s of x under index s, the S indices a
-    tensor or a list of ints; counted under ``count``."""
+    1-D integer tensor on x's device; counted under ``count``."""
     _check_bank(x, w, bank, x.dtype == torch.int8, x_ndim=3)
-    idxs = device_indices(sample_idx, x.device)
+    idxs = bank_indices(sample_idx)
     _check_carried(x, idxs)
     return _launch_bank(name, x, w, bank, idxs, args, x_stride=_x_stride(x),
                         count=count)
@@ -763,10 +751,10 @@ def bank_matmul_inference(x: torch.Tensor, w: torch.Tensor,
     one sample, (M, N); a 1-D tensor of S indices runs every sample in one
     launch, (S, M, N) — what the JAX package's vmap rule does (it chunks S
     by 32; per-sample results do not depend on the chunking). An x of (S,
-    M, K) with S indices (a tensor, or a list of ints) → sample s of x
-    under index s, as JAX's ``lax.map`` fallback (``:957-960``): one
-    ``bank_matmul_xs`` launch of the samples kernel on the card, the single
-    plain version per sample on the CPU."""
+    M, K) with S indices (a tensor; on the CPU also a list of ints) →
+    sample s of x under index s, as JAX's ``lax.map`` fallback
+    (``:957-960``): one ``bank_matmul_xs`` launch of the samples kernel on
+    the card, the single plain version per sample on the CPU."""
     if x.dim() == 3:
         if x.device.type == "cpu":
             return map_samples(lambda xs, i: bank_matmul(xs, w, bank, i), x,
@@ -816,10 +804,11 @@ def bank_matmul_int8_inference(x_q: torch.Tensor, w_q: torch.Tensor,
                                x_step: float, w_step: float) -> torch.Tensor:
     """Inference entry of the int8 Masksembles heads: an int index → one
     sample (M, N); a 1-D tensor of S indices → every sample in one launch,
-    (S, M, N); an x of (S, M, K) with S indices (a tensor, or a list of
-    ints) → sample s of x under index s, as JAX's ``lax.map`` fallback
-    (``:742-747``): one ``bank_matmul_int8_xs`` launch of the samples
-    kernel on the card, the single plain version per sample on the CPU."""
+    (S, M, N); an x of (S, M, K) with S indices (a tensor; on the CPU also
+    a list of ints) → sample s of x under index s, as JAX's ``lax.map``
+    fallback (``:742-747``): one ``bank_matmul_int8_xs`` launch of the
+    samples kernel on the card, the single plain version per sample on the
+    CPU."""
     if x_q.dim() == 3:
         if x_q.device.type == "cpu":
             return map_samples(lambda xs, i: bank_matmul_int8(

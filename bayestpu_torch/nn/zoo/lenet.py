@@ -137,8 +137,7 @@ class LeNet(_LeNetBase):
         feat = self.relu3(out)
         if carry:
             feat = feat.unflatten(0, (carry, -1))
-        logits = self.fc_2(feat, self.site_seeds(self.fc_2, seeds),
-                           idx.at(carry))
+        logits = self.fc_2(feat, self.site_seeds(self.fc_2, seeds), idx)
         logits = logits.expand(sample_shape + tuple(logits.shape[-2:]))
         return stack_exits([logits], [feat])
 
@@ -181,7 +180,7 @@ class LeNetME(_LeNetBase):
         feat_e = self.relu3_2nd_exit(self.fc_1_2nd_exit(e))
         m = flatten_nhwc(max_pool(self.relu2(self.conv2d_2(out)), 7))
         feat_m = self.relu3(self.fc_1(m))
-        exits = [head(feat, self.site_seeds(head, seeds), idx.dev)
+        exits = [head(feat, self.site_seeds(head, seeds), idx)
                  for head, feat in ((self.fc_2nd_exit, feat_e),
                                     (self.fc_exit_1st, feat_m))]
         return stack_exits([y.expand(sample_shape + tuple(y.shape[-2:]))

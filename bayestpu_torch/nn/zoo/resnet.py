@@ -311,7 +311,7 @@ class ResNet18(SiteModel):
                 if blk.has_site:
                     s1 = self.site_seeds(blk.convbn1.conv, seeds)
                     s2 = self.site_seeds(blk.downsample.conv, seeds)
-                out = blk(out, s1, idx.at(carry), carry, s2)
+                out = blk(out, s1, idx, carry, s2)
                 if blk.has_site and sample_shape:
                     carry = sample_shape[0]   # the site returned S samples
                 if after is not None:
@@ -323,7 +323,7 @@ class ResNet18(SiteModel):
             if exit_name is not None:
                 head = getattr(self, exit_name)
                 logit, feat = head(out, self.site_seeds(head.linear, seeds),
-                                   idx.at(carry), carry)
+                                   idx, carry)
                 exits.append(head_out(logit))
                 feats.append(feat)
         feat = flatten_nhwc(avg_pool(torch.relu(out), self.pool))
@@ -331,7 +331,7 @@ class ResNet18(SiteModel):
             feat = feat.unflatten(0, (carry, -1))
         feats.append(feat)
         exits.append(head_out(self.linear(
-            feat, self.site_seeds(self.linear, seeds), idx.at(carry))))
+            feat, self.site_seeds(self.linear, seeds), idx)))
         return stack_exits(exits, feats)
 
 

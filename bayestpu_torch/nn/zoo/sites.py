@@ -11,7 +11,7 @@ the seeds and turns ``sample_idx`` into what the heads and conv sites take
 
 from __future__ import annotations
 
-from typing import Iterable, NamedTuple
+from typing import Iterable
 
 import torch
 from torch import nn
@@ -19,17 +19,6 @@ from torch import nn
 from bayestpu_torch.nn.bayes import BayesSite
 from bayestpu_torch.nn.fused import BayesDense
 from bayestpu_torch.nn.layers import BatchNorm, Dense, _Conv
-
-
-class SampleIdx(NamedTuple):
-    """The index argument of the sites (``SiteModel.prepare``): ``dev``
-    before the activations carry the sample axis, ``host`` (the same as
-    host ints, copied once before any launch) after."""
-    dev: object
-    host: object
-
-    def at(self, carry: int | None):
-        return self.host if carry else self.dev
 
 
 class SiteModel(nn.Module):
@@ -93,7 +82,7 @@ class SiteModel(nn.Module):
         return 0 if sample_idx is None else sample_idx
 
     def run_site(self, site: nn.Module, y: torch.Tensor, carry: int | None,
-                 seeds: torch.Tensor, idx: SampleIdx
+                 seeds: torch.Tensor, idx
                  ) -> tuple[torch.Tensor, int | None]:
         """Run a site (a materialized ``BayesSite``, or a fused
         ``BayesConv`` or ``BayesDense`` that is the site) on y, whose
@@ -104,7 +93,7 @@ class SiteModel(nn.Module):
         Returns the output with S folded into the batch, and the carry."""
         y_in = y.unflatten(0, (carry, -1)) if carry else y
         kw = dict(seeds=self.site_seeds(site, seeds),
-                  sample_idx=idx.at(carry))
+                  sample_idx=idx)
         if isinstance(site, BayesSite):
             kw["carries_samples"] = carry is not None
         out = site(y_in, **kw)
@@ -116,9 +105,9 @@ class SiteModel(nn.Module):
 
     def prepare(self, x: torch.Tensor, seeds: torch.Tensor, sample_idx):
         """Check ``seeds``; return ``(idx, sample_shape)``: the index
-        argument of the sites (``SampleIdx``; its host ints are copied once,
-        before any launch, rather than at every site after the activations
-        carry the sample axis) and () or (S,)."""
+        argument of the sites (None, an int, or a 1-D tensor on x's device
+        that the kernels read there, so that a predict copies nothing
+        between host and card) and () or (S,)."""
         dims = (2,) if self.training else (2, 3)
         if seeds.dim() not in dims or seeds.shape[-2:] != (self.num_sites,
                                                            2):
@@ -126,12 +115,8 @@ class SiteModel(nn.Module):
                     else "(n_sites, 2) or (S, n_sites, 2)")
             raise ValueError(f"seeds must be {want} with n_sites="
                              f"{self.num_sites}; got {tuple(seeds.shape)}")
-        idx = self._sample_idx(seeds, sample_idx, x.device)
-        idx_host = idx
-        if isinstance(idx, torch.Tensor) and self.conv_sites:
-            idx_host = (list(range(idx.shape[0])) if sample_idx is None
-                        else idx.tolist())
-        return SampleIdx(idx, idx_host), tuple(seeds.shape[:-2])
+        return (self._sample_idx(seeds, sample_idx, x.device),
+                tuple(seeds.shape[:-2]))
 
 
 def flatten_nhwc(x: torch.Tensor) -> torch.Tensor:

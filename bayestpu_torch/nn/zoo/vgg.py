@@ -1,5 +1,6 @@
-"""VGG-11 with Bayesian multi-exit heads (counterpart of
-``bayestpu/nn/zoo/vgg.py``; ``vgg11`` and ``vgg11_me`` are ported).
+"""VGG-11/16/19 with Bayesian multi-exit heads (counterpart of
+``bayestpu/nn/zoo/vgg.py``: ``vgg11``, ``vgg11_me``, ``vgg16``, ``vgg19``
+and ``vgg19_me``, with JAX's defaults).
 
 ``VGG.forward(x, seeds, sample_idx=None)`` takes NHWC images, the MC seeds
 of every MC-dropout site, numbered in the JAX model's call order (with
@@ -293,7 +294,7 @@ class VGG(SiteModel):
         for block_name, site_name, exit_name in self._exits:
             block = getattr(self, block_name)
             out = block(out, self.site_seeds(block.conv_site, seeds),
-                        idx.at(carry), carry)
+                        idx, carry)
             if block.has_site and sample_shape:
                 carry = sample_shape[0]   # the site returned S samples
             if site_name is not None:
@@ -305,7 +306,7 @@ class VGG(SiteModel):
             if exit_name is not None:
                 head = getattr(self, exit_name)
                 logit, feat = head(out, self.site_seeds(head.linear, seeds),
-                                   idx.at(carry), carry)
+                                   idx, carry)
                 exits.append(head_out(logit))
                 feats.append(feat)
         out = flatten_nhwc(out)
@@ -322,7 +323,7 @@ class VGG(SiteModel):
                                            out, carry, seeds, idx)
         exits.append(head_out(self.classifier(
             unfold(out), self.site_seeds(self.classifier, seeds),
-            idx.at(carry))))
+            idx)))
         return stack_exits(exits, feats)
 
 
@@ -351,6 +352,29 @@ def build_vgg11_me(**kw) -> VGG:
     kw.setdefault("cfg_name", "vgg11")
     kw.setdefault("num_classes", 10)
     kw.setdefault("head_dims", (512, 512))
+    kw.setdefault("n_exits", 5)
+    kw.setdefault("dropout_exit", True)
+    _mixed_head(kw)
+    return VGG(**kw)
+
+
+@register_model("vgg16")
+def build_vgg16(**kw) -> VGG:
+    kw.setdefault("cfg_name", "vgg16")
+    _mixed_head(kw)
+    return VGG(**kw)
+
+
+@register_model("vgg19")
+def build_vgg19(**kw) -> VGG:
+    kw.setdefault("cfg_name", "vgg19")
+    _mixed_head(kw)
+    return VGG(**kw)
+
+
+@register_model("vgg19_me")
+def build_vgg19_me(**kw) -> VGG:
+    kw.setdefault("cfg_name", "vgg19")
     kw.setdefault("n_exits", 5)
     kw.setdefault("dropout_exit", True)
     _mixed_head(kw)

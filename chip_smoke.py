@@ -114,18 +114,33 @@ ends the run with a nonzero exit and no result line.
    materialized routes (threefry sites) of ``lenet(num_bayes_layers=3)``,
    the unfused ``vgg11_me`` and ``resnet18(dropout="layer")`` at batch 8
    against the CPU.
-13. step_vs_cpu — one training step at batch 8 on the card and on the CPU
+13. convert  — the NN→BNN converter and the rest of the engine
+   (``phase_convert``): vgg19_me at full width on CIFAR-100 shapes (bf16,
+   batch 128, S = 10; 5 ``dropout_matmul_samples`` a spatial predict),
+   ``BayesEngine.compile`` (a CUDA graph; its replayed predictive equal
+   to the eager one bit for bit), eager and replayed p50s, ``benchmark``
+   and ``cost_analysis``; vgg16 and vgg19 one predict each; the
+   ``cli/sweep.py`` lenet_specs sweep (n = 1-4 sites, batch 32, S = 4)
+   and a Masksembles point with ``_measure``'s keys; ``MCDropoutModel``
+   and ``MasksemblesModel`` against the CPU; AlexNet at its published
+   widths (224x224x3, 1000 classes, f32, batch 32, S = 10, n = 3 and 4:
+   row 3 at fc6, 3x at fc7, row 10's f32 samples launch at conv5),
+   compiled as vgg19_me; those three launches also held against their
+   plain versions at those shapes and timed beside the library call.
+14. step_vs_cpu — one training step at batch 8 on the card and on the CPU
    from one seeded init and the same seeds, in f32 and bf16.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``. ``--only kernels,conv`` runs the card
-and build phases and then only the named kernel checks (a quick check of
-a kernel change), and prints no result line. The kernels' launches are
-those of the seven main paths: the slice's predicts, the 936 training
-steps, the int8 phase
-(QAT, BN re-estimation and int8 serving), the mask phase (fine-tune and
-serving, bf16 and int8), the block phases, the resnet phase and the lenet
-phase; the fake-quant evaluates are attribution and not counted.
+``{"ok": true, "device": {...}}``. ``--only kernels,conv,convert`` runs
+the card and build phases and then only the named phases (a quick check
+of a kernel change, or of the convert phase), and prints no result line.
+The kernels' launches are those of the eight main paths: the slice's
+predicts, the 936 training steps, the int8 phase (QAT, BN re-estimation
+and int8 serving), the mask phase (fine-tune and serving, bf16 and
+int8), the block phases, the resnet phase, the lenet phase and the
+convert phase (a replayed CUDA graph relaunches the kernels it captured
+without passing through their wrappers, so only the capture counts); the
+fake-quant evaluates are attribution and not counted.
 """
 
 from __future__ import annotations
@@ -323,6 +338,47 @@ RESNET_BATCHES, RESNET_EPOCHS, RESNET_LR = 4, 3, 0.05
 # checked at lenet's site-0 shape (N, H, W, C) with SAMPLES keys
 LENET_BATCH, LENET_EPOCHS, LENET_SMALL = 256, 3, 8
 THREEFRY_SITE = (256, 14, 14, 20)
+# the convert phase: vgg19_me on CIFAR-100 shapes (bf16, batch BATCH, S =
+# SAMPLES); the converter sweep of cli/sweep.py (lenet_specs on MNIST
+# shapes, fused, batch 32, S = 4, n = 1-4 sites, DEFAULT strategy:
+# sweep.py:70-76,105-113); AlexNet at its published widths (224x224x3,
+# 1000 classes, f32 as the sweep's Sequential runs, batch 32, S =
+# SAMPLES, n = 3 and 4), its card-vs-CPU check on ALEX_CPU_ROWS rows
+SWEEP_BATCH, SWEEP_SAMPLES, SWEEP_N = 32, 4, (1, 2, 3, 4)
+ALEX_SHAPE, ALEX_CLASSES, ALEX_BATCH, ALEX_CPU_ROWS = (224, 224, 3), 1000, \
+    32, 2
+# AlexNet's fused sites at batch 32: fc6 (row 3, x 32x6400 shared by the
+# samples), fc7 (row 3x, x (S, 32, 4096)) and, at n = 4, conv5 (row 10's
+# f32 samples launch on the CUDA-core conv_kernel: 12x12x384 -> 256, 3x3
+# SAME, the conv bias, no activation, f32 out): (H = W, C, F)
+ALEX_FC6 = dict(M=ALEX_BATCH, K=6400, N=4096, S=SAMPLES)
+ALEX_FC7 = dict(M=ALEX_BATCH, K=4096, N=4096, S=SAMPLES)
+ALEX_CONV5 = (12, 384, 256)
+# the sweep's fused head, lenet_specs' fc (x 32x80, w 80x100): row 3 at n =
+# 2, row 3x at n = 3 and 4, row 2 in their temporal predicts, rows 8 and 9
+# at the Masksembles point (S = NUM_MASKS there)
+SWEEP_FC1 = dict(M=SWEEP_BATCH, K=80, N=100, S=SWEEP_SAMPLES)
+# the convert phase's f32 heads, each held against its plain version in
+# the kernels phase in f32 (its models' one dtype), and the kernels timed
+# there (AlexNet's launch at each; the lenet_specs head is checked, not
+# timed)
+CONVERT_SHAPES = (("sweep_fc1", SWEEP_FC1), ("alexnet_fc6", ALEX_FC6),
+                  ("alexnet_fc7", ALEX_FC7))
+F32_TIMED = {"alexnet_fc6": ("dropout_matmul_samples",),
+             "alexnet_fc7": ("dropout_matmul_xs",)}
+# card vs CPU for the f32 models of the convert phase (TF32 off on both):
+# cuBLAS/cuDNN and oneDNN/MKL sum in other orders, a few ulps a layer that
+# compound over depth, relative to max|logit|. Measured on an NVIDIA H100
+# 80GB HBM3 at 700 W: at most 2.1e-6 (AlexNet, 8 layers), 7.2e-7 (the
+# lenet_specs sweep), 8.9e-8 absolute on the wrappers' probabilities; the
+# limit is CONV_RTOL, over 10x the largest. A bf16 or TF32 route would miss
+# it by orders of magnitude (bf16's unit roundoff is 2^-8).
+F32_CPU_RTOL = CONV_RTOL
+# calls a timing window of row 10 at conv5 (~13 ms each on an NVIDIA H100
+# 80GB HBM3 at 700 W: a window of 200 would take 2.6 s), and the least
+# seconds of a ``benchmark`` window in the convert phase (with the
+# engine's default, 0.3 s, the phase ran 72 s on that card)
+CONV5_CALLS, COMPILED_WINDOW_S = 100, 0.1
 # the shapes at which rows 2-5 are held against their plain versions: the
 # vgg11_me head, a ragged one, the resnet18_me and lenet heads, and the
 # lenet heads at batch LENET_SMALL, where the materialized lenet route
@@ -623,15 +679,16 @@ def _check_bank(mm, shape: dict, label: str, gen, summary: dict) -> None:
     KERNEL_RTOL of max|ref|; the int8 rows bit for bit; sample s of each
     samples kernel bit-equal to its single
     kernel at idxs[s]; both heads on an x (S, M, K) that carries the
-    sample axis (one ``bank_matmul_xs`` or ``bank_matmul_int8_xs`` launch,
-    the indices as a tensor and as the host list the model passes) against
-    the plain version and, sample s, bit-equal to the single launch on x[s]
-    at idxs[s]; the int8 readout (ones @ eye) exactly out_scale where the
-    row keeps. At the head shape, their times."""
+    sample axis (one ``bank_matmul_xs`` or ``bank_matmul_int8_xs`` launch)
+    against the plain version and, sample s, bit-equal to the single launch
+    on x[s] at idxs[s]; the int8 readout (ones @ eye) exactly out_scale
+    where the row keeps. The indices are a model's, 0 … NUM_MASKS-1, at S
+    = NUM_MASKS, else MASK_RAGGED_IDXS (which wrap and include a negative
+    one). At the head shape, their times."""
     import torch
     from bayestpu_torch.kernels.mask_bank import generation_wrapper
     m, k, n, s = shape["M"], shape["K"], shape["N"], shape["S"]
-    idx_list = list(range(s)) if label in HEAD_LABELS else MASK_RAGGED_IDXS
+    idx_list = list(range(s)) if s == NUM_MASKS else MASK_RAGGED_IDXS
     idxs = torch.tensor(idx_list, dtype=torch.int32, device="cuda")
     _, bank = generation_wrapper(k, NUM_MASKS, MASK_SCALE, rng=0)
     bank = torch.from_numpy(bank).cuda().contiguous()   # numpy's is F-order
@@ -650,7 +707,6 @@ def _check_bank(mm, shape: dict, label: str, gen, summary: dict) -> None:
             ys = mm.bank_matmul_samples(x, w, b, idxs)
             singles = [mm.bank_matmul(x, w, b, i) for i in idx_list]
             yx = mm.bank_matmul_inference(x3, w, b, idxs)
-            yl = mm.bank_matmul_inference(x3, w, b, idx_list)
             singles_x = [mm.bank_matmul(x3[i], w, b, idx_list[i])
                          for i in range(s)]
             torch.cuda.synchronize()
@@ -660,7 +716,7 @@ def _check_bank(mm, shape: dict, label: str, gen, summary: dict) -> None:
             for name, got, want in (
                     ("bank_matmul_samples", ys, rs),
                     ("bank_matmul", torch.stack(singles), rs),
-                    ("bank_matmul_xs", yx, rx), ("bank_matmul_xs", yl, rx)):
+                    ("bank_matmul_xs", yx, rx)):
                 err = (got - want).abs().max().item()
                 tol = KERNEL_RTOL * max(1.0, want.abs().max().item())
                 check(err <= tol, f"{name} {label} {dtype} {bname}: {err} > "
@@ -671,7 +727,6 @@ def _check_bank(mm, shape: dict, label: str, gen, summary: dict) -> None:
             same_per_sample &= all(torch.equal(ys[i], singles[i])
                                    for i in range(s))
             same_per_sample &= all(torch.equal(yx[i], singles_x[i])
-                                   and torch.equal(yl[i], singles_x[i])
                                    for i in range(s))
     xq = torch.randint(-128, 128, (m, k), generator=gen,
                        dtype=torch.int8).cuda()
@@ -689,7 +744,6 @@ def _check_bank(mm, shape: dict, label: str, gen, summary: dict) -> None:
         singles = [mm.bank_matmul_int8(xq, wq, b, i, xs_, ws_)
                    for i in idx_list]
         yx = mm.bank_matmul_int8_inference(xq3, wq, b, idxs, xs_, ws_)
-        yl = mm.bank_matmul_int8_inference(xq3, wq, b, idx_list, xs_, ws_)
         singles_x = [mm.bank_matmul_int8(xq3[i], wq, b, idx_list[i], xs_, ws_)
                      for i in range(s)]
         torch.cuda.synchronize()
@@ -699,8 +753,7 @@ def _check_bank(mm, shape: dict, label: str, gen, summary: dict) -> None:
         for name, got, want in (
                 ("bank_matmul_int8_samples", ys, rs),
                 ("bank_matmul_int8", torch.stack(singles), rs),
-                ("bank_matmul_int8_xs", yx, rx),
-                ("bank_matmul_int8_xs", yl, rx)):
+                ("bank_matmul_int8_xs", yx, rx)):
             summary[name]["max_abs_err"] = max(
                 summary[name]["max_abs_err"],
                 (got - want).abs().max().item())
@@ -815,7 +868,9 @@ def phase_kernels() -> dict:
     gen = torch.Generator().manual_seed(1234)
     summary = {name: {"max_abs_err": 0.0} for name in REPLACES}
     for dtype in (torch.bfloat16, torch.float32):
-        for label, shape in MATMUL_SHAPES:
+        # the convert phase's Sequential models run f32 alone
+        for label, shape in MATMUL_SHAPES + (
+                CONVERT_SHAPES if dtype == torch.float32 else ()):
             x, w, seeds = _inputs(shape, dtype, gen)
             line = {"phase": "kernels", "shape": label, **shape,
                     "dtype": str(dtype).split(".")[-1], "rate": RATE}
@@ -887,6 +942,9 @@ def phase_kernels() -> dict:
             elif label in HEAD_LABELS and dtype == torch.bfloat16:
                 _time_kernels(mm, x, x3, w, seeds, shape, dtype, line, None,
                               SAMPLES_TIMED)
+            elif label in F32_TIMED and dtype == torch.float32:
+                _time_kernels(mm, x, x3, w, seeds, shape, dtype, line, None,
+                              F32_TIMED[label])
             emit(line)
     for label, shape in MATMUL_SHAPES:
         _check_int8(mm, shape, label, gen, summary)
@@ -895,7 +953,8 @@ def phase_kernels() -> dict:
                          ("resnet_head", {**RESNET_HEAD, "S": NUM_MASKS}),
                          ("lenet_head", {**LENET_HEAD, "S": NUM_MASKS}),
                          ("lenet_fc1", {**LENET_FC1,
-                                        "S": len(MASK_RAGGED_IDXS)})):
+                                        "S": len(MASK_RAGGED_IDXS)}),
+                         ("sweep_fc1", {**SWEEP_FC1, "S": NUM_MASKS})):
         _check_bank(mm, shape, label, gen, summary)
     _apply_shapes(mm, gen)
     return summary
@@ -1699,7 +1758,8 @@ def phase_conv_kernels() -> dict:
     resnet18's three deferred sites (both convs, batch 128), the readout
     of their shared mask, the MC launches of its ``dropout="layer"`` route
     at batch LENET_SMALL (``_resnet_small_checks``), and the times of the
-    launches its block-site spatial predict makes there."""
+    launches its block-site spatial predict makes there; row 10's f32
+    samples launch at AlexNet's conv5 (``_alex_conv5``)."""
     import torch
     gen = torch.Generator().manual_seed(4321)
     summary = {name: {"max_abs_err": 0.0} for name in CONV_REPLACES}
@@ -1720,6 +1780,7 @@ def phase_conv_kernels() -> dict:
                 ("dropout_conv_samples", "bank_conv_samples",
                  "dropout_conv_xs", "bank_conv_xs"))
     _conv_f32_time(gen)
+    _alex_conv5(gen, summary)
     return summary
 
 
@@ -1761,6 +1822,59 @@ def _conv_f32_time(gen) -> None:
           "conv_kernel (CUDA cores)", "shape": "site1", "dtype": "float32",
           "N": BATCH, "H": hw, "C": c, "F": f, "max_abs_err": err,
           "tol": tol, **t, "ms_over_library": t["ms"] / t["library_ms"],
+          "ms_over_bound": t["ms"] / t["bound_ms"]})
+
+
+def _alex_conv5(gen, summary: dict) -> None:
+    """Row 10's f32 samples launch as AlexNet's conv5 site makes it at n
+    = 4 (the CUDA-core ``conv_kernel``; batch ALEX_BATCH, S = SAMPLES,
+    12x12x384 -> 256, 3x3 SAME, the conv bias, no activation, f32 store):
+    against its plain version to CONV_RTOL, sample s bit-equal to the
+    single launch, then timed in TIMING_ROUNDS rounds that alternate it
+    with cuDNN f32 (TF32 off) on the S pre-masked inputs folded into the
+    batch, beside its plain version and its bound."""
+    import torch
+    import torch.nn.functional as F
+    from bayestpu_torch.kernels import masked_conv as mc
+    f32 = torch.float32
+    hw, c, f = ALEX_CONV5
+    x, w, aff, _, _ = _conv_data((ALEX_BATCH, hw, hw, c), 3, f, f32, gen)
+    seeds = _inputs(dict(M=1, K=1, N=1, S=SAMPLES), f32, gen)[2]
+    b = aff[1]
+
+    def kern():
+        return mc.dropout_conv_inference(x, w, seeds, RATE, bias=b)
+
+    def plain():
+        return mc.stack_samples([mc.dropout_conv_plain(
+            x, w, seeds[s], RATE, "SAME", 1, b) for s in range(SAMPLES)])
+
+    got, want = kern(), plain()
+    ones = [mc.dropout_conv_inference(x, w, seeds[s].contiguous(), RATE,
+                                      bias=b) for s in range(SAMPLES)]
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    tol = CONV_RTOL * max(1.0, want.abs().max().item())
+    same = all(torch.equal(got[s], ones[s]) for s in range(SAMPLES))
+    summary["dropout_conv_samples"]["max_abs_err"] = max(
+        summary["dropout_conv_samples"]["max_abs_err"], err)
+    check(got.dtype == f32 and err <= tol and same,
+          f"f32 dropout_conv_samples at conv5: {err} > {tol} or samples vs "
+          f"single bit identity {same}")
+    # cuDNN's one call: the S pre-masked inputs folded into the batch
+    xm = _cl(torch.cat([mc._hash_masked(x, seeds[s], RATE)
+                        for s in range(SAMPLES)]))
+    bound, by = _conv_bound("dropout_conv_samples", x, w, SAMPLES, 4,
+                            kind="float32")
+    t = {**_rounds({"ms": kern, "library_ms": lambda: F.conv2d(
+        xm, w, b, padding=1)}, TIMING_ROUNDS, CONV5_CALLS),
+         "plain_ms": device_ms(plain, 3), "bound_ms": bound, "bound_by": by}
+    emit({"phase": "kernels", "kernel": "dropout_conv_samples",
+          "route": "conv_kernel (CUDA cores)", "shape": "alexnet_conv5",
+          "dtype": "float32", "N": ALEX_BATCH, "H": hw, "C": c, "F": f,
+          "S": SAMPLES, "max_abs_err": err, "tol": tol,
+          "samples_equal_single_bitwise": same, **t,
+          "ms_over_library": t["ms"] / t["library_ms"],
           "ms_over_bound": t["ms"] / t["bound_ms"]})
 
 
@@ -2704,14 +2818,15 @@ def phase_mask(tr: dict) -> dict:
 
 def _block_serve(name: str, build, variables, want_sp: dict, want_tm: dict,
                  x, st_tol, cpu_tol_fn, samples: int, mask: bool,
-                 exits: int = 1, classes: int = 10) -> dict:
+                 exits: int = 1, classes: int = 10, cpu_rows: int = 8
+                 ) -> dict:
     """Serve one model through ``BayesEngine(device="cuda")``: exact launch
     counts of a spatial and a temporal predict, every probability (of
     ``exits`` exits over ``classes`` classes) finite and summing to 1, the
     per-sample logits of the two mappings within ``st_tol``, for
-    Masksembles ``predict(sample_idx=i)`` equal to sample i, and rows 0-7
-    against the same model on the CPU within ``cpu_tol_fn(cpu_model,
-    cpu_logits)``."""
+    Masksembles ``predict(sample_idx=i)`` equal to sample i, and the first
+    ``cpu_rows`` rows against the same model on the CPU within
+    ``cpu_tol_fn(cpu_model, cpu_logits)``."""
     import torch
     from bayestpu_torch.core.config import EngineConfig, SamplingMode
     from bayestpu_torch.engine import sampler
@@ -2743,17 +2858,17 @@ def _block_serve(name: str, build, variables, want_sp: dict, want_tm: dict,
         l_sp = sampler.mc_logits(sp.model, x, sd, SamplingMode.SPATIAL)
         l_tm = sampler.mc_logits(sp.model, x, sd, SamplingMode.TEMPORAL)
         cpu = engine(SamplingMode.SPATIAL, "cpu")
-        l_cpu = sampler.mc_logits(cpu.model, x[:8].cpu(), sd.cpu(),
+        l_cpu = sampler.mc_logits(cpu.model, x[:cpu_rows].cpu(), sd.cpu(),
                                   SamplingMode.SPATIAL)
     d_st = (l_sp - l_tm).abs().max().item()
     tol = st_tol * max(1.0, l_tm.abs().max().item())
     check(d_st <= tol, f"block {name} spatial vs temporal logits {d_st} > "
           f"{tol}")
-    d_rows = (l_sp[:, :, :8].cpu() - l_cpu).abs()
+    d_rows = (l_sp[:, :, :cpu_rows].cpu() - l_cpu).abs()
     cpu_tol = cpu_tol_fn(cpu.model, l_cpu)
     check(d_rows.max().item() <= cpu_tol,
-          f"block {name} card vs CPU rows 0-7: {d_rows.max().item()} > "
-          f"{cpu_tol}")
+          f"block {name} card vs CPU rows 0-{cpu_rows - 1}: "
+          f"{d_rows.max().item()} > {cpu_tol}")
     out = {"launches_spatial_predict": {k: v for k, v in
                                         sp_launches.items() if v},
            "launches_temporal_predict": {k: v for k, v in
@@ -2761,7 +2876,8 @@ def _block_serve(name: str, build, variables, want_sp: dict, want_tm: dict,
            "spatial_vs_temporal_logits_max_abs": d_st,
            "spatial_vs_temporal_tol": tol,
            "spatial_temporal_bit_identical": bool(torch.equal(l_sp, l_tm)),
-           "card_vs_cpu_rows0_7_logits_max_abs": d_rows.max().item(),
+           f"card_vs_cpu_rows0_{cpu_rows - 1}_logits_max_abs":
+               d_rows.max().item(),
            "card_vs_cpu_tol": cpu_tol,
            "card_vs_cpu_rows_differing": int(
                (d_rows.amax(dim=(0, 1, 3)) > 0).sum()),
@@ -3322,6 +3438,214 @@ def phase_lenet(smi: str) -> dict:
     return {"launches": launch_counts()}
 
 
+def _compiled(eng, x, seed: int, samples: int, mc: bool = True) -> dict:
+    """``BayesEngine.compile`` (a CUDA graph of one predict at x's shape
+    and ``samples``): the replayed predictive equal to the eager one bit
+    for bit (and, for MC, moved by another seed; after ``init`` draws new
+    weights, equal to the eager predict on them), the eager and replayed
+    p50s in one call, and the engine's ``benchmark`` and
+    ``cost_analysis`` of the compiled engine."""
+    import torch
+
+    def same(a, b) -> bool:
+        return all(torch.equal(u, v) for u, v in zip(a[:3], b[:3]))
+
+    eager = eng.predict(x, seed, samples)
+    eager_p50 = host_ms(lambda: eng.predict(x, seed, samples), 10)
+    rep = eng.compile(x, samples)
+    replayed = eng.predict(x, seed, samples)
+    other = eng.predict(x, seed + 1, samples)
+    torch.cuda.synchronize()
+    check(same(eager, replayed), f"compiled predict differs from the eager "
+          f"one: {(eager.probs - replayed.probs).abs().max().item()}")
+    check(not mc or not torch.equal(other.probs, replayed.probs),
+          "a replay at another seed gave the same predictive")
+    eng.init(1, x[:1].cpu())
+    fresh = eng._predict_fn()(x, eng.seeds(seed, samples))
+    check(same(fresh, eng.predict(x, seed, samples))
+          and not torch.equal(fresh.probs, replayed.probs),
+          "a replay after init does not see the new weights")
+    return {"compile": rep, "replay_bit_equal_eager": True,
+            "eager_p50_ms": eager_p50,
+            "replayed_p50_ms": host_ms(lambda: eng.predict(x, seed,
+                                                           samples), 10),
+            "benchmark": eng.benchmark(x, num_samples=samples,
+                                       min_diff_s=COMPILED_WINDOW_S),
+            "cost_analysis": eng.cost_analysis(x, samples)}
+
+
+def phase_convert(smi: str) -> dict:
+    """The NN→BNN converter and the rest of the engine (``phase_convert``),
+    through ``get_model``, ``Sequential``, ``MCDropoutModel``/
+    ``MasksemblesModel`` and ``BayesEngine(device="cuda")``:
+
+    (a) ``vgg19_me`` at full width on CIFAR-100 shapes (fused, bf16, MC
+        rate 0.25, batch BATCH, S = SAMPLES, seeded weights): 5
+        ``dropout_matmul_samples`` a spatial predict (x 128x512, w
+        512x100), 50 ``dropout_matmul`` a temporal one, spatial against
+        temporal, the card against the CPU on rows 0-7; a profiled eager
+        predict; then ``compile`` (the replayed predictive bit-equal to the
+        eager one), the eager and replayed p50s, ``benchmark`` and
+        ``cost_analysis``, and a profiled replayed predict. ``vgg16`` and
+        ``vgg19`` from the registry, one predict each.
+    (b) the converter sweep as ``cli/sweep.py dropouts`` runs it
+        (``Sequential(convert_to_bayesian(lenet_specs(), MC 0.25, n),
+        fused=True)``, n = 1-4, batch 32, MNIST shapes, S = 4): exact
+        launches (n = 2 one ``dropout_matmul_samples`` at fc K = 80, N =
+        100; n = 3, 4 one ``dropout_matmul_xs`` after the threefry site),
+        spatial against temporal, the card against the CPU, then
+        ``_measure``'s keys (``compile_s``, ``latency_ms``,
+        ``samples_per_s``, ``flops``, ``bytes_accessed``, ``code_bytes``);
+        one Masksembles point (4 masks, scale 2) with two sites, so that
+        the first fuses (the ``masks`` sweep's one site sits before the
+        last Dense, which never fuses): one ``bank_matmul_samples`` a
+        spatial predict; and ``MCDropoutModel``/``MasksemblesModel``
+        ``predict`` and ``evaluate`` on the card against the CPU.
+    (c) AlexNet at its published widths (224x224x3, 1000 classes, f32,
+        batch 32, S = SAMPLES, fused, seeded weights and inputs), n = 3
+        (fc6 row 3, fc7 row 3x, a threefry site before fc8) and n = 4
+        (conv5's f32 samples launch first, then fc6 and fc7 row 3x):
+        exact launches, spatial against temporal, the card against the
+        CPU on ALEX_CPU_ROWS rows, then compile as in (a).
+
+    The card-vs-CPU checks of the f32 models hold them to F32_CPU_RTOL,
+    vgg19_me's (bf16) to CPU_REF_RTOL. The kernels of (a)-(c) are held
+    against their plain versions at these shapes in the kernels phase
+    (CONVERT_SHAPES, rows 8-9 at ``sweep_fc1``) and the conv phase
+    (``_alex_conv5``)."""
+    import torch
+    from bayestpu_torch.core.config import BayesConfig, DropoutKind
+    from bayestpu_torch.data.datasets import get_dataset
+    from bayestpu_torch.engine.engine import BayesEngine
+    from bayestpu_torch.interop.from_flax import to_flax_variables
+    from bayestpu_torch.nn.convert import (MasksemblesModel, MCDropoutModel,
+                                           Sequential, convert_to_bayesian,
+                                           lenet_specs)
+    from bayestpu_torch.nn.zoo import get_model
+    from bayestpu_torch.nn.zoo.autobayes import alexnet_specs
+
+    gen = torch.Generator().manual_seed(4321)
+    mc_cfg = BayesConfig(rate=RATE)
+
+    def float_tol(model, l_cpu):          # vgg19_me, bf16
+        return CPU_REF_RTOL * max(1.0, l_cpu.abs().max().item())
+
+    def f32_tol(model, l_cpu):            # the f32 Sequential models
+        return F32_CPU_RTOL * max(1.0, l_cpu.abs().max().item())
+
+    cifar = get_dataset("cifar100")
+    x = torch.from_numpy(cifar.x_test[:BATCH]).cuda()
+    mnist = get_dataset("mnist")
+    xs = torch.from_numpy(mnist.x_test[:SWEEP_BATCH]).cuda()
+    ys = mnist.y_test[:SWEEP_BATCH]
+    xa = torch.randn((ALEX_BATCH,) + ALEX_SHAPE, generator=gen).cuda()
+    # ---- the main path, counted: (a)-(c)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = _block_serve(
+        "vgg19_me", lambda: get_model("vgg19_me", bayes=mc_cfg, fused=True,
+                                      dtype=torch.bfloat16),
+        None, dict(dropout_matmul_samples=5),
+        dict(dropout_matmul=5 * SAMPLES), x, SPATIAL_TEMPORAL_ATOL,
+        float_tol, SAMPLES, False, 5, RESNET_CLASSES)
+    eng = out.pop("engine")
+    eager_prof = _profile_predict(eng, x, 11, reps=5)
+    out.update(_compiled(eng, x, 11, SAMPLES))
+    emit({"phase": "convert", "config": "vgg19_me_bf16_b128", "card": smi,
+          "weights": "seeded init", "dtype": "bfloat16", "batch": BATCH,
+          "samples": SAMPLES, "rate": RATE, **out,
+          "seconds": time.perf_counter() - t0})
+    emit({"phase": "convert_profile", "config": "vgg19_me_bf16_b128",
+          "card": smi, "what": "spatial predict, eager", **eager_prof})
+    emit({"phase": "convert_profile", "config": "vgg19_me_bf16_b128",
+          "card": smi, "what": "spatial predict, replayed CUDA graph",
+          **_profile_predict(eng, x, 11, reps=5)})
+    for name in ("vgg16", "vgg19"):
+        e = BayesEngine(get_model(name, bayes=mc_cfg, fused=True,
+                                  dtype=torch.bfloat16),
+                        device="cuda").init(0, x[:1].cpu())
+        p = e.predict(x, 3, SAMPLES).probs
+        check(p.shape == (1, BATCH, RESNET_CLASSES)
+              and bool(torch.isfinite(p).all()), f"{name} predict")
+        emit({"phase": "convert", "config": f"{name}_bf16_b128",
+              "card": smi, "probs_shape": list(p.shape),
+              "spatial_p50_ms": host_ms(lambda: e.predict(x, 3, SAMPLES),
+                                        5)})
+    # (b) the converter sweep
+    sweep = [(n, BayesConfig(rate=RATE, num_bayes_layers=n,
+                             num_samples=SWEEP_SAMPLES),
+              {2: dict(dropout_matmul_samples=1)}.get(
+                  n, dict(dropout_matmul_xs=1) if n > 2 else {}),
+              dict(dropout_matmul=SWEEP_SAMPLES) if n > 1 else {})
+             for n in SWEEP_N]
+    sweep.append(("mask", BayesConfig(kind=DropoutKind.MASK,
+                                      num_masks=NUM_MASKS, scale=MASK_SCALE,
+                                      num_bayes_layers=2),
+                  dict(bank_matmul_samples=1), dict(bank_matmul=NUM_MASKS)))
+    for n, cfg, want_sp, want_tm in sweep:
+        t0 = time.perf_counter()
+        mask = cfg.kind is DropoutKind.MASK
+        samples = NUM_MASKS if mask else SWEEP_SAMPLES
+        out = _block_serve(
+            f"sweep_{n}", lambda: Sequential(convert_to_bayesian(
+                lenet_specs(), cfg), (28, 28, 1), fused=True),
+            None, want_sp, want_tm, xs, SPATIAL_TEMPORAL_ATOL, f32_tol,
+            samples, mask)
+        eng = out.pop("engine")
+        comp = _compiled(eng, xs, 11, samples, not mask)
+        bench, cost = comp["benchmark"], comp["cost_analysis"]
+        emit({"phase": "convert_sweep", "card": smi,
+              "sweep": "masks" if mask else "dropouts",
+              "n_bayes_layers": cfg.num_bayes_layers, "batch": SWEEP_BATCH,
+              "samples": samples, "fused": True,
+              "compile_s": comp["compile"]["compile_seconds"],
+              "latency_ms": bench["latency_s"] * 1e3,
+              "samples_per_s": bench["samples_per_s"],
+              "flops": cost["flops"],
+              "bytes_accessed": cost["bytes_accessed"],
+              "code_bytes": cost["generated_code_size_in_bytes"],
+              **out, **comp, "seconds": time.perf_counter() - t0})
+    for cls, kw in ((MCDropoutModel, dict(num_samples=SWEEP_SAMPLES,
+                                          rate=RATE, num=2)),
+                    (MasksemblesModel, dict(num_masks=NUM_MASKS,
+                                            scale=MASK_SCALE, num=2))):
+        card = cls(lenet_specs(), **kw)
+        card.init(0, xs[:1].cpu())
+        cpu = cls(lenet_specs(), input_shape=(28, 28, 1), device="cpu", **kw)
+        cpu.attach(to_flax_variables(card.model))
+        p, p_cpu = card.predict(xs, 3).cpu(), cpu.predict(xs.cpu(), 3)
+        d = (p - p_cpu).abs().max().item()
+        m, m_cpu = card.evaluate(xs, ys, 3), cpu.evaluate(xs.cpu(), ys, 3)
+        check(d <= F32_CPU_RTOL and abs(m["acc"] - m_cpu["acc"]) <= 1 / 16,
+              f"{cls.__name__} card vs CPU: probs {d}, acc {m} {m_cpu}")
+        emit({"phase": "convert_wrapper", "wrapper": cls.__name__,
+              "card": smi, **kw, "batch": SWEEP_BATCH,
+              "card_vs_cpu_probs_max_abs": d, "evaluate": m,
+              "evaluate_cpu": m_cpu})
+    # (c) AlexNet at full width
+    for n in (3, 4):
+        t0 = time.perf_counter()
+        cfg = BayesConfig(rate=RATE, num_bayes_layers=n)
+        want_sp = (dict(dropout_matmul_samples=1, dropout_matmul_xs=1)
+                   if n == 3 else dict(dropout_conv_samples=1,
+                                       dropout_matmul_xs=2))
+        want_tm = dict(dropout_matmul=2 * SAMPLES, **(
+            {} if n == 3 else dict(dropout_conv=SAMPLES)))
+        out = _block_serve(
+            f"alexnet_n{n}", lambda: Sequential(convert_to_bayesian(
+                alexnet_specs(ALEX_CLASSES), cfg), ALEX_SHAPE, fused=True),
+            None, want_sp, want_tm, xa, SPATIAL_TEMPORAL_ATOL, f32_tol,
+            SAMPLES, False, 1, ALEX_CLASSES, ALEX_CPU_ROWS)
+        eng = out.pop("engine")
+        out.update(_compiled(eng, xa, 11, SAMPLES))
+        emit({"phase": "convert", "config": f"alexnet_n{n}_f32_b32",
+              "card": smi, "weights": "seeded init", "dtype": "float32",
+              "batch": ALEX_BATCH, "samples": SAMPLES, "rate": RATE, **out,
+              "profile": _profile_predict(eng, xa, 11, reps=3),
+              "seconds": time.perf_counter() - t0})
+    return {"launches": launch_counts()}
+
+
 def phase_step_vs_cpu() -> None:
     """One training step of vgg11_me at batch 8 on the card and on the
     CPU (``_step_vs_cpu``)."""
@@ -3398,7 +3722,8 @@ def main(argv: list[str]) -> int:
         return 1
     import bayestpu_torch  # noqa: F401  (fails outside a checkout)
 
-    partial = {"kernels": phase_kernels, "conv": phase_conv_kernels}
+    partial = {"kernels": phase_kernels, "conv": phase_conv_kernels,
+               "convert": lambda: phase_convert(smi)}
     only = None
     if argv:
         check(len(argv) == 2 and argv[0] == "--only"
@@ -3436,12 +3761,13 @@ def main(argv: list[str]) -> int:
     bl = timed("block", phase_block, tr)
     rn = timed("resnet", phase_resnet, smi)
     ln = timed("lenet", phase_lenet, smi)
+    cv = timed("convert", phase_convert, smi)
     timed("step_vs_cpu", phase_step_vs_cpu)
     emit({"phase": "seconds", **seconds})
     kernels = []
     for name, stats in summary.items():
         launches = sum(ph["launches"][name]
-                       for ph in (sl, tr, i8, mk, bl, rn, ln))
+                       for ph in (sl, tr, i8, mk, bl, rn, ln, cv))
         check(launches > 0, f"{name} was never launched on the main paths")
         conv = name in CONV_REPLACES
         kernels.append({"name": name, "route": "cuda",

@@ -307,7 +307,9 @@ def test_import_pulls_in_no_jax():
             "bayestpu_torch.nn.zoo, bayestpu_torch.kernels._build, "
             "bayestpu_torch.train.loop, bayestpu_torch.data.datasets, "
             "bayestpu_torch.nn.bayes, bayestpu_torch.kernels.mask_bank, "
-            "bayestpu_torch.kernels.masked_conv, bayestpu_torch.nn.fused\n"
+            "bayestpu_torch.kernels.masked_conv, bayestpu_torch.nn.fused, "
+            "bayestpu_torch.nn.convert, bayestpu_torch.nn.zoo.autobayes, "
+            "bayestpu_torch.utils.timing\n"
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "
             "'bayestpu') or m.startswith(('jax.', 'flax.', 'optax.', "
             "'bayestpu.'))]\n"
