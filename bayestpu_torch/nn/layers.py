@@ -37,7 +37,9 @@ branches (``layers.py:58-83,163-178``, ``fused.py:269-496`` with no mask):
   rounded to the compute dtype as in float. The epilogue emits int8
   (``clip(AP_RND(y / step), -128, 127)``), or with ``defer_int8`` the
   unsigned grid value in bf16, re-quantized by the caller after its pool.
-  ``Dense`` runs ``int8_matmul``.
+  ``Dense`` runs ``int8_matmul``; ``Dense(int8_infer=True)`` does so
+  whatever its input width, and ``bias_quant`` gives the bias a grid of
+  its own.
 
 ``Conv`` is the JAX package's plain ``Conv`` (``layers.py:86-160``), an XLA
 conv there and ``F.conv2d`` (cuDNN) here: any stride, SAME (XLA's
@@ -97,6 +99,11 @@ def quant_operands(x: torch.Tensor, kernel: torch.Tensor,
         wq, ws = quantize_int8(kernel, q)
         return xq, wq, (xs, ws)
     if x.dtype == torch.int8:
+        if q is None:
+            raise ValueError("int8-residency input reached a dense layer "
+                             "with quant=None: the producing layer's "
+                             "int8 output needs every consumer to carry "
+                             "the quant config")
         x = dequantize_int8(x, q)
     return x, maybe_quant(kernel, q), None
 
@@ -110,17 +117,22 @@ def quant_dot(x: torch.Tensor, kernel: torch.Tensor, q: QuantConfig | None,
 
 
 class Dense(nn.Module):
-    """Dense layer; with ``quant`` fake-quantized kernel and bias, or under
-    ``quant.int8_infer`` (inputs of at least ``int8_dense_min_dim``
-    features) int8 × int8 → int32 with one rescale, then the fake-quantized
-    bias (``layers.py:58-83``)."""
+    """Dense layer; with ``quant`` fake-quantized kernel and bias, or with
+    ``int8_infer`` (or under ``quant.int8_infer``, inputs of at least
+    ``int8_dense_min_dim`` features) int8 × int8 → int32 with one rescale,
+    then the fake-quantized bias (``layers.py:36-83``). ``bias_quant``
+    puts the bias alone on a grid of its own (the reference's 2×-bits fc_0
+    bias); None leaves it on ``quant``'s."""
 
     def __init__(self, in_features: int, features: int,
                  use_bias: bool = True, quant: QuantConfig | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, int8_infer: bool = False,
+                 bias_quant: QuantConfig | None = None):
         super().__init__()
         self.quant = quant
         self.dtype = dtype
+        self.int8_infer = int8_infer
+        self.bias_quant = bias_quant
         self.kernel = nn.Parameter(torch.empty(in_features, features))
         self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
                      else None)
@@ -132,12 +144,12 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         q = self.quant
-        int8 = (q is not None and q.int8_infer
-                and x.shape[-1] >= q.int8_dense_min_dim)
+        int8 = q is not None and (self.int8_infer or (
+            q.int8_infer and x.shape[-1] >= q.int8_dense_min_dim))
         y = quant_dot(x, self.kernel, q, self.dtype, int8)
         if self.bias is None:
             return y
-        return y + maybe_quant(self.bias, q)
+        return y + maybe_quant(self.bias, self.bias_quant or q)
 
 
 class BatchNorm(nn.Module):
@@ -335,11 +347,14 @@ class ConvBN(nn.Module):
         self.bn = BatchNorm(features, epsilon, momentum)
 
     def forward(self, x: torch.Tensor, act: str | None = None,
-                act_quant: bool = False, defer_int8: bool = False,
+                act_quant: bool = False, emit_int8: bool = False,
+                defer_int8: bool = False,
                 seeds: torch.Tensor | None = None, sample_idx=0
                 ) -> torch.Tensor:
         """``act_quant``: an unsigned fake-quant (QuantAct) follows the
-        relu, or in the int8 model the epilogue emits int8. ``defer_int8``
+        relu, or in the int8 model the epilogue emits int8. ``emit_int8``
+        (int8 model, relu): emit int8 without ``act_quant``; every
+        consumer must requantize on the same grid. ``defer_int8``
         (int8 model, unfused conv): emit the grid value in bf16 instead; the
         caller's max pool commutes with the grid rounding and re-quantizes
         after it (``fused.py:476-483``). ``seeds``/``sample_idx`` feed the
@@ -354,7 +369,8 @@ class ConvBN(nn.Module):
         inv, shift = self.bn.fold()
         return self.conv(x, seeds=seeds, sample_idx=sample_idx,
                          fold_scale=inv, fold_bias=shift, act=act,
-                         act_quant=act_quant, defer_int8=defer_int8)
+                         act_quant=act_quant, emit_int8=emit_int8,
+                         defer_int8=defer_int8)
 
 
 class QuantAct(nn.Module):

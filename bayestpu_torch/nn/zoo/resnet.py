@@ -39,8 +39,8 @@ model's call order.
   shift the rows of the mask). ``fused=False`` (the JAX default) makes the
   MC heads unfused too (``BayesianDropout`` then the dense).
 
-Not ported, and raising with the ROADMAP Queue 1 item: ``quant_overrides``
-(item 8).
+Like the JAX ``ResNet18`` (``resnet.py:176-189``), it takes no
+``quant_overrides``: the keyword is a ``TypeError``.
 
 Parameter names follow the Flax tree (``stem.conv.kernel``,
 ``layer2_0.convbn1.conv.kernel``, ``layer2_0.downsample.bn.scale``,
@@ -211,8 +211,7 @@ class ResNet18(SiteModel):
                  stage_planes: Sequence[int] = (64, 128, 256, 512),
                  block: str = "basic", quant: QuantConfig | None = None,
                  dtype: torch.dtype = torch.float32, fused: bool = False,
-                 input_shape: tuple[int, int, int] = (32, 32, 3),
-                 quant_overrides: dict | None = None):
+                 input_shape: tuple[int, int, int] = (32, 32, 3)):
         super().__init__()
         if dropout not in (None, "block", "layer"):
             raise ValueError(f"dropout must be None, 'block' or 'layer'; "
@@ -221,10 +220,6 @@ class ResNet18(SiteModel):
             raise ValueError(f"block must be 'basic' or 'bottleneck'; got "
                              f"{block!r}")
         can_defer = fused and n_exits == 1
-        if quant_overrides:
-            raise NotImplementedError(
-                "per-layer quant_overrides are not ported yet: ROADMAP "
-                "Queue 1 item 8")
         self.bayes, self.quant = bayes, quant
         self.input_shape = tuple(input_shape)
         make = basic_block if block == "basic" else bottleneck

@@ -54,6 +54,16 @@ then the block re-quantizes), whose exit heads dequantize before their
 average pool, and whose Bayesian heads and sites run the int8 kernels.
 ``QuantConfig`` adds no parameters.
 
+``quant_overrides`` (``vgg.py:186-203``) gives a layer a ``QuantConfig`` (or
+None: float) of its own in place of ``quant``, keyed by the names JAX
+consults and no others: ``block{i}`` (a whole conv block), ``fc_{j}``,
+``fc_{j}/bias`` (the bias grid alone), ``fc_relu_{j}`` and ``classifier``;
+other keys are ignored, as in JAX. The exit heads keep ``quant``. Int8
+residency follows each block's own config: a float block never re-enters
+int8, and the first int8 block quantizes its float input. ``mixed_head=
+True`` on every builder is the reference's fc_0 head: its bias and relu at
+twice the bits (``_mixed_head_overrides``).
+
 Parameter names follow the Flax tree (``block0.convbn0.conv.kernel`` ≙
 ``params/block0/convbn0/conv/kernel``, ``exit1.linear.bank`` ≙
 ``masks/exit1/linear/bank``, ``block1.convbn0.conv.bank`` ≙
@@ -197,7 +207,7 @@ class _VGGExitHead(nn.Module):
 class VGG(SiteModel):
     """Multi-exit Bayesian VGG over a block config.
 
-    Per-layer ``quant_overrides`` are not ported yet and raise.
+    ``quant_overrides``: per-layer precision (see the module docstring).
     ``input_shape`` (H, W, C) fixes the dense widths, which Flax infers from
     the first input.
     """
@@ -214,12 +224,9 @@ class VGG(SiteModel):
         if dropout not in (None, "block"):
             raise ValueError(f"dropout must be None or 'block'; got "
                              f"{dropout!r}")
-        if quant_overrides:
-            raise NotImplementedError(
-                "per-layer quant_overrides (and mixed_head) are not ported "
-                "yet: ROADMAP Queue 1 item 8")
         self.bayes = bayes
         self.quant = quant
+        self.quant_overrides = quant_overrides
         self.input_shape = tuple(input_shape)
         head_bayes = bayes if dropout_exit else dataclasses.replace(
             bayes, kind=DropoutKind.NONE)
@@ -234,7 +241,8 @@ class VGG(SiteModel):
         # (block, materialized site after it, exit head)
         self._exits: list[tuple[str, str | None, str | None]] = []
         for i, chans in enumerate(blocks):
-            block = _VGGBlock(c, chans, dtype, quant, quant_input=i != 0,
+            block = _VGGBlock(c, chans, dtype, self._q(f"block{i}"),
+                              quant_input=i != 0,
                               bayes_in=bayes if fuse_block and i > 0
                               else None)
             self.add_module(f"block{i}", block)
@@ -261,21 +269,30 @@ class VGG(SiteModel):
         self.n_fc = len(head_dims)
         self.head_sites = head_sites
         for j, d in enumerate(head_dims):
-            self.add_module(f"fc_{j}", Dense(width, d, quant=quant,
-                                             dtype=dtype))
+            # the bias grid only where named: Dense reads ``bias_quant or
+            # quant``, so the model-wide fallback here would override a
+            # whole-layer ``fc_{j}`` entry for the bias (``vgg.py:262-266``)
+            self.add_module(f"fc_{j}", Dense(
+                width, d, quant=self._q(f"fc_{j}"), dtype=dtype,
+                bias_quant=(quant_overrides or {}).get(f"fc_{j}/bias")))
             if j == 0:
                 self.add_module(f"fc_bn_{j}", BatchNorm(d))
-            self.add_module(f"fc_relu_{j}", QuantAct(quant))
+            self.add_module(f"fc_relu_{j}", QuantAct(self._q(f"fc_relu_{j}")))
             if head_sites:
                 self.add_module(f"bayes_fc_{j}", BayesSite(bayes, d))
                 sites.append(getattr(self, f"bayes_fc_{j}"))
             width = d
         self.classifier = BayesDense(width, num_classes, bayes=head_bayes,
-                                     fused=fused, quant=quant, dtype=dtype)
+                                     fused=fused, quant=self._q("classifier"),
+                                     dtype=dtype)
         sites.append(self.classifier)
         self.number_sites(sites, [s for s in sites
                                   if isinstance(s, BayesDense)])
         self.eval()
+
+    def _q(self, name: str) -> QuantConfig | None:
+        """The config of layer ``name``: its override, else ``quant``."""
+        return (self.quant_overrides or {}).get(name, self.quant)
 
     def forward(self, x: torch.Tensor, seeds: torch.Tensor,
                 sample_idx=None) -> ExitOutputs:
@@ -327,14 +344,22 @@ class VGG(SiteModel):
         return stack_exits(exits, feats)
 
 
-def _mixed_head(kw: dict) -> None:
-    """``mixed_head`` of the JAX ``build_vgg*`` functions (a 2×-bits fc_0
-    bias and relu, ``vgg.py:295-310``) rides on ``quant_overrides``, which
-    are not ported yet."""
-    if kw.pop("mixed_head", False):
-        raise NotImplementedError(
-            "mixed_head (per-layer quant_overrides) is not ported yet: "
-            "ROADMAP Queue 1 item 8")
+def _mixed_head_overrides(kw: dict) -> None:
+    """``mixed_head=True``: the reference's fc_0 head (``vgg.py:295-310``,
+    ``s_qmodels_bayes.py:294-298``): the bias at twice the bits and the
+    following relu at twice the bits, the kernel at the base bits. Entries
+    the caller set win; nothing happens on a float model."""
+    if not kw.pop("mixed_head", False):
+        return
+    q = kw.get("quant")
+    if q is None:
+        return
+    q2 = dataclasses.replace(q, total_bits=2 * q.total_bits,
+                             int8_infer=False)
+    ov = dict(kw.get("quant_overrides") or {})
+    ov.setdefault("fc_0/bias", q2)
+    ov.setdefault("fc_relu_0", q2)
+    kw["quant_overrides"] = ov
 
 
 @register_model("vgg11")
@@ -343,7 +368,7 @@ def build_vgg11(**kw) -> VGG:
     kw.setdefault("num_classes", 10)
     kw.setdefault("head_dims", (512, 512))
     kw.setdefault("dropout_exit", True)
-    _mixed_head(kw)
+    _mixed_head_overrides(kw)
     return VGG(**kw)
 
 
@@ -354,21 +379,21 @@ def build_vgg11_me(**kw) -> VGG:
     kw.setdefault("head_dims", (512, 512))
     kw.setdefault("n_exits", 5)
     kw.setdefault("dropout_exit", True)
-    _mixed_head(kw)
+    _mixed_head_overrides(kw)
     return VGG(**kw)
 
 
 @register_model("vgg16")
 def build_vgg16(**kw) -> VGG:
     kw.setdefault("cfg_name", "vgg16")
-    _mixed_head(kw)
+    _mixed_head_overrides(kw)
     return VGG(**kw)
 
 
 @register_model("vgg19")
 def build_vgg19(**kw) -> VGG:
     kw.setdefault("cfg_name", "vgg19")
-    _mixed_head(kw)
+    _mixed_head_overrides(kw)
     return VGG(**kw)
 
 
@@ -377,5 +402,5 @@ def build_vgg19_me(**kw) -> VGG:
     kw.setdefault("cfg_name", "vgg19")
     kw.setdefault("n_exits", 5)
     kw.setdefault("dropout_exit", True)
-    _mixed_head(kw)
+    _mixed_head_overrides(kw)
     return VGG(**kw)

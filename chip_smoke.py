@@ -20,7 +20,9 @@ ends the run with a nonzero exit and no result line.
    with its library call; rows 2 and 3 in bf16 and f32). The MC heads on
    an x that carries the sample axis (one ``dropout_matmul_xs`` or
    ``dropout_matmul_int8_xs`` launch, sample s bit-equal to the single
-   launch on x[s]). The four Masksembles
+   launch on x[s]). ``dropout_matmul_samples`` in bf16 at the heads that
+   the analysis phase alone gives it (batch 250: S = 10 and 49, 10 and 100
+   classes), sample s bit-equal to the single launch. The four Masksembles
    bank kernels at the Masksembles head shape (S = 4), a ragged one and one
    whose K is odd, their indices wrapping and including a negative one:
    float rows on a {0, 1} bank and on one with 2.0 entries, int8 rows bit
@@ -75,7 +77,22 @@ ends the run with a nonzero exit and no result line.
    bench's gate against the bf16 point, launch counts, spatial against
    temporal, the card against the CPU on 8 rows, the int8 and bf16 spatial
    p50 in turns, and the int8 predict profiled by kernel group.
-9. mask    — the Masksembles vgg11_me of ``bench.py:723-739``
+9. analysis — the paper's analysis battery and the rest of int8
+   (``phase_analysis``): ``FullAnalysis`` on the trained bf16 vgg11_me
+   (2,000 test images, batch 250, 10 passes: per-exit and ensemble acc,
+   KDE-ECE, hist-ECE, overthinking; the 1-49 pass sweep; the early-exit
+   table over ``REFERENCE_THRESHOLDS``, max and margin rules), profiled;
+   ``early_exit_select`` on the card equal to the CPU's; the sweep's first
+   rows against the CPU; the native KDE-ECE against numpy; the FLOPs table
+   of vgg19_me (seeded weights, 500 images), its first rows' early exits
+   and FLOPs, with planted confident rows, equal to the CPU model's; the
+   int8 vgg11_me with ``mixed_head`` and
+   with the quantize-late overrides on the QAT weights, served and held
+   against the CPU, with their residency dtypes; the native library built
+   from the port's copies, ``augment_gather`` against numpy and one
+   ``BatchPipeline`` epoch, on the host and through ``PrefetchIterator`` to
+   the card.
+10. mask    — the Masksembles vgg11_me of ``bench.py:723-739``
    (``BayesConfig(kind=MASK, num_masks=4, scale=2.0)``, bf16, batch 128,
    S = 4): the trained float weights with the model's own banks,
    fine-tuned for 2 epochs under the batch split (no port kernel a step),
@@ -89,7 +106,7 @@ ends the run with a nonzero exit and no result line.
    ``bank_matmul_int8`` per temporal one, spatial and temporal
    bit-identical, the card against the CPU, acc and ECE, the int8 and bf16
    spatial p50 in turns.
-10. block   — ``vgg11`` with fused block sites (``dropout="block"``), bf16,
+11. block   — ``vgg11`` with fused block sites (``dropout="block"``), bf16,
    batch 128: seeded MC serving (S = 10) with exact launch counts (1
    ``dropout_conv_samples``, 3 ``dropout_conv_xs``, 1 ``dropout_matmul_xs``
    a spatial predict; its Masksembles twin 1 ``bank_conv_samples``, 3
@@ -98,14 +115,14 @@ ends the run with a nonzero exit and no result line.
    images, its Masksembles twin (S = 4) fine-tuned under the batch split
    and served, and the int8 models (also with ``int8_conv_min_ch=32``);
    spatial against temporal, the card against the CPU (``phase_block``).
-11. resnet  — ResNet-18 on CIFAR-100 shapes (``phase_resnet``): the int8
+12. resnet  — ResNet-18 on CIFAR-100 shapes (``phase_resnet``): the int8
    resnet18_me of the JAX bench's BASELINE config 5 and its bf16 twin,
    the block-site resnet18 (MC and Masksembles, bf16) served with exact
    launch counts, spatial against temporal and the card against the CPU,
    two profiled predicts, short bf16 fine-tunes of resnet18_me and the
    block-site resnet18 (launches per step; the loss falls), and one
    resnet18_me training step at batch 8 against the CPU.
-12. lenet   — the LeNet family on MNIST shapes (``phase_lenet``): the
+13. lenet   — the LeNet family on MNIST shapes (``phase_lenet``): the
    threefry masks of ``core.threefry`` on the card against the CPU bit for
    bit at lenet's site-0 shape with S = 10 keys; ``lenet_me`` at the JAX
    bench's config (batch 256, fused, bf16, S = 10) served with exact
@@ -114,7 +131,7 @@ ends the run with a nonzero exit and no result line.
    materialized routes (threefry sites) of ``lenet(num_bayes_layers=3)``,
    the unfused ``vgg11_me`` and ``resnet18(dropout="layer")`` at batch 8
    against the CPU.
-13. convert  — the NN→BNN converter and the rest of the engine
+14. convert  — the NN→BNN converter and the rest of the engine
    (``phase_convert``): vgg19_me at full width on CIFAR-100 shapes (bf16,
    batch 128, S = 10; 5 ``dropout_matmul_samples`` a spatial predict),
    ``BayesEngine.compile`` (a CUDA graph; its replayed predictive equal
@@ -127,20 +144,21 @@ ends the run with a nonzero exit and no result line.
    row 3 at fc6, 3x at fc7, row 10's f32 samples launch at conv5),
    compiled as vgg19_me; those three launches also held against their
    plain versions at those shapes and timed beside the library call.
-14. step_vs_cpu — one training step at batch 8 on the card and on the CPU
+15. step_vs_cpu — one training step at batch 8 on the card and on the CPU
    from one seeded init and the same seeds, in f32 and bf16.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. ``--only kernels,conv,convert`` runs
 the card and build phases and then only the named phases (a quick check
 of a kernel change, or of the convert phase), and prints no result line.
-The kernels' launches are those of the eight main paths: the slice's
+The kernels' launches are those of the nine main paths: the slice's
 predicts, the 936 training steps, the int8 phase (QAT, BN re-estimation
-and int8 serving), the mask phase (fine-tune and serving, bf16 and
-int8), the block phases, the resnet phase, the lenet phase and the
-convert phase (a replayed CUDA graph relaunches the kernels it captured
-without passing through their wrappers, so only the capture counts); the
-fake-quant evaluates are attribution and not counted.
+and int8 serving), the analysis phase, the mask phase (fine-tune and
+serving, bf16 and int8), the block phases, the resnet phase, the lenet
+phase and the convert phase (a replayed CUDA graph relaunches the
+kernels it captured without passing through their wrappers, so only the
+capture counts); the fake-quant evaluates are attribution and not
+counted.
 """
 
 from __future__ import annotations
@@ -515,6 +533,7 @@ def host_ms(fn, reps: int) -> float:
 
 
 def phase_card() -> str:
+    import numpy as np
     import torch
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -523,7 +542,8 @@ def phase_card() -> str:
     emit({"phase": "card", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+          "cuda": torch.version.cuda, "python": sys.version.split()[0],
+          "numpy": np.__version__})
     return smi
 
 
@@ -946,6 +966,24 @@ def phase_kernels() -> dict:
                 _time_kernels(mm, x, x3, w, seeds, shape, dtype, line, None,
                               F32_TIMED[label])
             emit(line)
+    for label, shape in ANALYSIS_SHAPES:
+        x, w, seeds = _inputs(shape, torch.bfloat16, gen)
+        ys = mm.dropout_matmul_samples(x, w, seeds, RATE)
+        rs = mm.dropout_matmul_samples_plain(x, w, seeds, RATE)
+        torch.cuda.synchronize()
+        err = (ys - rs).abs().max().item()
+        tol = KERNEL_RTOL * max(1.0, rs.abs().max().item())
+        check(err <= tol, f"dropout_matmul_samples {label}: {err} > {tol}")
+        summary["dropout_matmul_samples"]["max_abs_err"] = max(
+            summary["dropout_matmul_samples"]["max_abs_err"], err)
+        same = all(torch.equal(ys[s], mm.dropout_matmul(
+            x, w, seeds[s].contiguous(), RATE)) for s in range(shape["S"]))
+        check(same, f"samples vs single bit identity {label}")
+        emit({"phase": "kernels", "shape": label, **shape,
+              "dtype": "bfloat16", "rate": RATE,
+              "dropout_matmul_samples_max_abs_err": err,
+              "dropout_matmul_samples_tol": tol,
+              "samples_equal_single_bitwise": same})
     for label, shape in MATMUL_SHAPES:
         _check_int8(mm, shape, label, gen, summary)
     for label, shape in (("head", MASK_HEAD), ("ragged", MASK_RAGGED),
@@ -2579,6 +2617,356 @@ def phase_int8(tr: dict) -> dict:
           "int8_mc_samples_per_s": BATCH * SAMPLES / (int8_ms / 1e3)})
     emit({"phase": "int8_profile", "what": "int8 spatial predict, profiled",
           **_profile_predict(i8, x, seed)})
+    return {"launches": launches, "variables": variables,
+            "mets": served["int8"]}
+
+
+ANALYSIS_BATCH = 250       # FullAnalysis's batch (analysis.py:94)
+ANALYSIS_TEST = 2000       # the flagship's test images
+ANALYSIS_PASSES = range(1, 50)                 # results_analyzer.py:73-92
+FLOPS_IMAGES = 500         # the vgg19_me FLOPs table's seeded images
+KDE_RTOL = 1e-9            # native KDE-ECE against numpy (test_native.py)
+QUANTIZE_LATE = {"block0": None, "block1": None}   # exp_quantize_late.py
+# the shapes at which the analysis phase alone launches row 3, held in the
+# kernels phase against the plain version in bf16 (the models' dtype), each
+# sample bit-equal to the single launch, not timed: the flagship's heads at
+# FullAnalysis's batch in run() (S = SAMPLES) and in the 1-49 pass sweep
+# (S = 49), and vgg19_me's CIFAR-100 heads there
+ANALYSIS_SHAPES = (
+    ("analysis_head", {**HEAD, "M": ANALYSIS_BATCH}),
+    ("analysis_sweep_head", {**HEAD, "M": ANALYSIS_BATCH,
+                             "S": max(ANALYSIS_PASSES)}),
+    ("analysis_vgg19_head", {**RESNET_HEAD, "M": ANALYSIS_BATCH}))
+# rows of each analysed model held against the same model on the CPU, and
+# the vgg19_me table's planted rows: row r is confident at exit e with
+# confidence c, (e, c) = PLANTED[r], and the model's own near-uniform before
+# it, so that rows leave at each exit the table may take (1-3; exit 0 is not
+# taken, first_exit = 1) and the FLOPs differ between thresholds (at seeded
+# weights every row of the 100 classes leaves at the last exit); each
+# confidence lies 0.02 or more from every threshold of REFERENCE_THRESHOLDS
+ANALYSIS_CPU_ROWS = 8
+PLANTED = ((1, 0.3), (2, 0.65), (3, 0.85), (1, 0.97))
+
+
+def _analysis_cpu_rows(fa, card_probs):
+    """The first ANALYSIS_CPU_ROWS rows of ``card_probs`` (``fa``'s
+    ``collect``, (E, N, C), or ``collect_samples``, (S, E, N, C), on the
+    card) against the same model on the CPU with batch 0's seeds: (max abs
+    difference, tolerance, the CPU's (S, E, rows, C) softmax). Softmax moves
+    no probability by more than half the largest change of a logit, so the
+    tolerance is half the logits' CPU_REF_RTOL rule of the other phases."""
+    import copy
+
+    import numpy as np
+    import torch
+    from bayestpu_torch.engine import sampler
+    s = card_probs.shape[0] if card_probs.ndim == 4 else fa.mc_passes
+    cpu = copy.deepcopy(fa.model).cpu()
+    with torch.inference_mode():
+        l_cpu = sampler.mc_logits(
+            cpu, torch.as_tensor(fa.x[:ANALYSIS_CPU_ROWS]),
+            fa._batch_seeds(0, s))
+        p_cpu = torch.softmax(l_cpu, dim=-1).numpy()
+    mine = p_cpu if card_probs.ndim == 4 else p_cpu.mean(0)
+    d = float(np.abs(card_probs[..., :ANALYSIS_CPU_ROWS, :] - mine).max())
+    return d, 0.5 * CPU_REF_RTOL * max(1.0, l_cpu.abs().max().item()), p_cpu
+
+
+def phase_analysis(tr: dict, i8: dict, smi: str) -> dict:
+    """The paper's analysis battery and the rest of int8 (``phase_analysis``):
+
+    (a) ``FullAnalysis`` on the trained bf16 vgg11_me (MC 0.25, fused, the
+        2,000 test images, batch 250, 10 passes): ``run``, the 1-49 pass
+        sweep (one ``collect_samples(49)``) and ``confidence_exiting_table``
+        over ``REFERENCE_THRESHOLDS`` with the ``max`` and ``margin`` rules,
+        profiled for its device time; ``early_exit_select`` on the card
+        equal to the same call on the CPU copies (exit indices equal, the
+        selected probabilities bit-equal); the sweep's first
+        ANALYSIS_CPU_ROWS rows against the same model on the CPU; each
+        exit's native KDE-ECE within KDE_RTOL of numpy's.
+    (b) the paper's FLOPs table: vgg19_me (CIFAR-100 shapes, bf16, fused,
+        S = SAMPLES, seeded init weights), ``FullAnalysis(model_type=
+        "vgg19")`` on FLOPS_IMAGES seeded images; the first
+        ANALYSIS_CPU_ROWS rows against the same model on the CPU, and, with
+        PLANTED confident rows in both, their exit indices, ``flops`` and
+        ``flops_ensembled`` at every threshold equal to the CPU's.
+    (c) the int8 vgg11_me with ``mixed_head`` and with the quantize-late
+        overrides, on the int8 phase's QAT weights, served through
+        ``BayesEngine`` at batch BATCH, S = SAMPLES: exact launches, spatial
+        against temporal, the card against the CPU as the int8 phase holds
+        its model, the residency dtypes (quantize-late: block 1 out of int8,
+        block 2 in; the mixed head's ``fc_relu_0`` f32), acc/ECE on the
+        test images beside the int8 point's (no gate: post-training
+        variants of the QAT weights).
+    (d) the native library built from the port's copies on this machine:
+        ``augment_gather`` bit-equal to ``augment_gather_ref``, one epoch
+        of ``BatchPipeline`` over the synthetic CIFAR-10 train set (images/s
+        on the host), and the same epoch through ``PrefetchIterator`` to the
+        card equal to it."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from bayestpu_torch import native
+    from bayestpu_torch.core.config import BayesConfig, QuantConfig
+    from bayestpu_torch.data.datasets import DATASET_STATS, get_dataset
+    from bayestpu_torch.data.pipeline import (BatchPipeline,
+                                              PrefetchIterator,
+                                              augment_gather,
+                                              augment_gather_ref)
+    from bayestpu_torch.engine.engine import BayesEngine
+    from bayestpu_torch.engine.inference import (REFERENCE_THRESHOLDS,
+                                                 early_exit_select)
+    from bayestpu_torch.interop.from_flax import load_flax_variables
+    from bayestpu_torch.metrics.analysis import FullAnalysis
+    from bayestpu_torch.metrics.flops import (TABLES, flops_ensembled,
+                                              flops_standard)
+    from bayestpu_torch.metrics.kde import ece_kde
+    from bayestpu_torch.nn.zoo import get_model
+
+    mc_cfg = BayesConfig(rate=RATE)
+    ds = tr["ds"]
+    x_te, y_te = ds.x_test[:ANALYSIS_TEST], ds.y_test[:ANALYSIS_TEST]
+
+    # (d) first: the native library, built from the port's copies here
+    lib_path = native.lib_path()
+    t = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t
+
+    # ---- the main path, counted: (a)-(c)
+    reset_counts()
+    t_phase = time.perf_counter()
+    # (a) the flagship, analysed
+    model = load_flax_variables(get_model(
+        "vgg11_me", bayes=mc_cfg, fused=True, dtype=torch.bfloat16),
+        tr["variables"])
+    fa = FullAnalysis(model, x_te, y_te, mc_passes=SAMPLES,
+                      batch_size=ANALYSIS_BATCH, seed=0, device="cuda")
+    # torch.profiler's summary costs about half a millisecond of host time
+    # a recorded op (27 s for 60,000 CPU ops), and the whole battery makes
+    # ~59,000 launches: only the first run() is profiled
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        rep = fa.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+    rows = _profile_rows(prof, 1)
+    dev_ms = sum(r[0] for r in rows)
+    t = time.perf_counter()
+    mp = fa.multipass_experiment(ANALYSIS_PASSES)
+    multipass_s = time.perf_counter() - t
+    t = time.perf_counter()
+    tables = {rule: fa.confidence_exiting_table(rule=rule)
+              for rule in ("max", "margin")}
+    tables_s = time.perf_counter() - t
+    # one run() of its own and one a table, then one collect_samples
+    n_runs = 1 + len(tables) + 1
+    n_batches = -(-ANALYSIS_TEST // ANALYSIS_BATCH)
+    flagship_launches = launch_counts()
+    check(flagship_launches == counts(
+        dropout_matmul_samples=5 * n_batches * n_runs),
+        f"analysis launches {flagship_launches} over {n_runs} collections")
+    check(rep.preds.shape == (5, ANALYSIS_TEST, 10)
+          and bool(np.isfinite(rep.preds).all()), "analysis predictions")
+    # the 1-49 pass sweep's first rows (its own S = 49 launches) against
+    # the same model on the CPU
+    sweep = fa.collect_samples(max(ANALYSIS_PASSES))
+    d_sweep, tol_sweep, _ = _analysis_cpu_rows(fa, sweep)
+    check(d_sweep <= tol_sweep, f"analysis sweep card vs CPU rows: "
+          f"{d_sweep} > {tol_sweep}")
+    # early exit on the card against the same call on the CPU copies
+    p_card = torch.as_tensor(rep.preds).cuda()
+    p_cpu = torch.as_tensor(rep.preds)
+    for rule in ("max", "margin"):
+        for th in REFERENCE_THRESHOLDS:
+            a = early_exit_select(p_card, th, rule)
+            b = early_exit_select(p_cpu, th, rule)
+            check(torch.equal(a.exit_idx.cpu(), b.exit_idx)
+                  and torch.equal(a.probs.cpu(), b.probs),
+                  f"early exit card vs CPU at {rule} {th}")
+    kde_rel = 0.0
+    for e, r in enumerate(rep.exits):
+        py = ece_kde(rep.preds[e], y_te, native=False)
+        kde_rel = max(kde_rel, abs(r.ece_kde - py) / max(abs(py), 1e-300))
+    check(kde_rel <= KDE_RTOL, f"native KDE-ECE vs numpy: rel {kde_rel}")
+    at9 = {rule: next(r for r in rows_ if r["threshold"] == 0.9)
+           for rule, rows_ in tables.items()}
+    emit({"phase": "analysis", "config": "vgg11_me_bf16_trained",
+          "card": smi, "test_images": ANALYSIS_TEST,
+          "batch": ANALYSIS_BATCH, "mc_passes": SAMPLES,
+          "exits": [{"exit": e, "acc": r.acc, "ece_kde": r.ece_kde,
+                     "ece_hist": r.ece_hist, "nll": r.nll,
+                     "overthinking": r.destructive_overthinking,
+                     "unique_correct": r.unique_correct}
+                    for e, r in enumerate(rep.exits)],
+          "ensemble_acc": [r.acc for r in rep.ensemble],
+          "ensemble_ece_kde": [r.ece_kde for r in rep.ensemble],
+          "passes": {p: {"acc": mp["acc"][p - 1], "ece": mp["ece"][p - 1],
+                         "ens_acc": mp["ens_acc"][p - 1]}
+                     for p in (1, 10, 49)},
+          "early_exit_t0.9": {rule: {k: r[k] for k in ("acc", "ece_hist",
+                                                       "mean_exit")}
+                              for rule, r in at9.items()},
+          "early_exit_card_equals_cpu": True,
+          f"sweep_card_vs_cpu_rows0_{ANALYSIS_CPU_ROWS - 1}_probs_max_abs":
+              d_sweep, "sweep_card_vs_cpu_tol": tol_sweep,
+          "native_kde_vs_numpy_max_rel": kde_rel,
+          "launches": {k: v for k, v in flagship_launches.items() if v},
+          "run_wall_s": run_s, "run_device_ms": dev_ms,
+          "run_device_busy_share": dev_ms / (run_s * 1e3),
+          "run_kernel_launches": sum(r[1] for r in rows),
+          "run_by_group": _by_group(rows), "multipass_wall_s": multipass_s,
+          "tables_wall_s": tables_s,
+          "seconds": time.perf_counter() - t_phase})
+
+    # (b) the paper's FLOPs table on vgg19_me
+    t_b = time.perf_counter()
+    before = launch_counts()
+    cifar = get_dataset("cifar100")
+    m19 = BayesEngine(get_model("vgg19_me", bayes=mc_cfg, fused=True,
+                                dtype=torch.bfloat16),
+                      device="cuda").init(0, cifar.x_test[:1]).model
+    fa19 = FullAnalysis(m19, cifar.x_test[:FLOPS_IMAGES],
+                        cifar.y_test[:FLOPS_IMAGES], mc_passes=SAMPLES,
+                        batch_size=ANALYSIS_BATCH, seed=1,
+                        model_type="vgg19", device="cuda")
+    t = time.perf_counter()
+    table = fa19.confidence_exiting_table()
+    flops_s = time.perf_counter() - t
+    check(launch_counts()["dropout_matmul_samples"]
+          - before["dropout_matmul_samples"]
+          == 5 * -(-FLOPS_IMAGES // ANALYSIS_BATCH),
+          "vgg19_me analysis launches")
+    # the early exits and FLOPs of the card's first rows against those of
+    # the same model's rows on the CPU, both with PLANTED rows, so that the
+    # forward pass and the early exits at every exit are compared
+    preds19 = fa19.collect()
+    d19, tol19, p_cpu = _analysis_cpu_rows(fa19, preds19)
+    check(d19 <= tol19, f"vgg19_me card vs CPU rows: {d19} > {tol19}")
+    y19 = fa19.y[:ANALYSIS_CPU_ROWS]
+    t19 = TABLES["vgg19"]
+    planted = {}
+    for side, p in (("card", preds19[:, :ANALYSIS_CPU_ROWS]),
+                    ("cpu", p_cpu.mean(0))):
+        p = p.copy()
+        for r, (e, c) in enumerate(PLANTED):
+            p[e, r] = (1.0 - c) / (p.shape[-1] - 1)
+            p[e, r, y19[r]] = c
+        probs = torch.as_tensor(p, device="cuda" if side == "card" else "cpu")
+        planted[side] = []
+        for th in REFERENCE_THRESHOLDS:
+            e_idx = early_exit_select(probs, th).exit_idx.cpu().numpy()
+            planted[side].append({
+                "threshold": th, "exit_idx": e_idx.tolist(),
+                "flops": flops_standard(e_idx, t19, SAMPLES),
+                "flops_ensembled": flops_ensembled(e_idx, t19, SAMPLES)})
+    check(planted["card"] == planted["cpu"],
+          f"vgg19_me planted early exits and FLOPs: card {planted['card']} "
+          f"vs CPU {planted['cpu']}")
+    exits_seen = {e for r in planted["card"] for e in r["exit_idx"]}
+    check(exits_seen == {1, 2, 3, 4}, f"planted rows leave at {exits_seen}")
+    emit({"phase": "analysis_flops", "config": "vgg19_me_bf16_seeded",
+          "card": smi, "images": FLOPS_IMAGES, "mc_passes": SAMPLES,
+          "baseline_flops_per_image": t19.baseline, "table_s": flops_s,
+          "rows": [{k: r[k] for k in ("threshold", "acc", "mean_exit",
+                                      "flops", "flops_ensembled",
+                                      "flops_vs_baseline")}
+                   for r in table],
+          f"card_vs_cpu_rows0_{ANALYSIS_CPU_ROWS - 1}_probs_max_abs": d19,
+          "card_vs_cpu_tol": tol19,
+          "planted_rows_card_equals_cpu": [
+              {**r, "flops_vs_baseline": r["flops"] / (
+                  t19.baseline * ANALYSIS_CPU_ROWS)}
+              for r in planted["card"]],
+          "seconds": time.perf_counter() - t_b})
+
+    # (c) the rest of int8, served
+    int8_q = QuantConfig(8, 0, int8_infer=True)
+    x = torch.from_numpy(x_te[:BATCH]).cuda()
+    served = {}
+    for name, kw in (("mixed_head", dict(mixed_head=True)),
+                     ("quantize_late", dict(quant_overrides=QUANTIZE_LATE))):
+        t_c = time.perf_counter()
+        def build(kw=kw):
+            return get_model("vgg11_me", bayes=mc_cfg, fused=True,
+                             dtype=torch.bfloat16, quant=int8_q, **kw)
+        out = _block_serve(
+            f"int8_{name}", build, i8["variables"],
+            dict(dropout_matmul_int8_samples=5),
+            dict(dropout_matmul_int8=5 * SAMPLES), x, SPATIAL_TEMPORAL_ATOL,
+            _int8_cpu_tol(int8_q, 1.0 / (1.0 - RATE)), SAMPLES, False, 5)
+        eng = out.pop("engine")
+        seen = {}
+        hooks = [getattr(eng.model, n).register_forward_hook(
+            lambda m, a, o, n=n: seen.__setitem__(n, str(o.dtype)))
+            for n in ("block1", "block2", "fc_relu_0")]
+        eng.predict(x, 0, SAMPLES)
+        for h in hooks:
+            h.remove()
+        if name == "quantize_late":
+            check(seen["block1"] != "torch.int8"
+                  and seen["block2"] == "torch.int8",
+                  f"quantize-late residency {seen}")
+        else:
+            check(seen["block1"] == seen["block2"] == "torch.int8"
+                  and seen["fc_relu_0"] == "torch.float32",
+                  f"mixed-head residency {seen}")
+        mets, launched = _launched(lambda: eng.evaluate(
+            x_te, y_te, seed=0, num_samples=SAMPLES))
+        check(launched == counts(dropout_matmul_int8_samples=5),
+              f"int8 {name} evaluate launches {launched}")
+        check(all(np.isfinite(v) for v in mets.values()),
+              f"int8 {name} metrics {mets}")
+        served[name] = {**{k: mets[k] for k in ("acc", "ece_hist", "nll")},
+                        "residency": seen, **out}
+        emit({"phase": "analysis_int8", "variant": name, "card": smi,
+              "quant": "QuantConfig(8, 0, int8_infer=True)",
+              "dtype": "bfloat16", "batch": BATCH, "samples": SAMPLES,
+              "test_images": ANALYSIS_TEST, **served[name],
+              "int8_point": {k: i8["mets"][k]
+                             for k in ("acc", "ece_hist", "nll")},
+              "seconds": time.perf_counter() - t_c})
+    launches = launch_counts()
+    main_s = time.perf_counter() - t_phase
+
+    # (d) the native batch pipeline on this machine (host work, no kernel)
+    rng = np.random.default_rng(0)
+    mean, std = (np.asarray(v, np.float32)
+                 for v in DATASET_STATS["cifar10"])
+    idx = rng.integers(0, len(ds.x_train), BATCH)
+    for train in (True, False):
+        check(np.array_equal(
+            augment_gather(ds.x_train, idx, mean, std, 4, 7, train),
+            augment_gather_ref(ds.x_train, idx, mean, std, 4, 7, train)),
+            f"native augment_gather vs numpy (train={train})")
+    pipe = BatchPipeline(ds.x_train, ds.y_train, BATCH, mean, std, seed=0)
+    t = time.perf_counter()
+    host = list(pipe)
+    epoch_s = time.perf_counter() - t
+    n_img = sum(len(xb) for xb, _ in host)
+    # the same epoch again through the prefetcher to the card: pinned
+    # memory, a copy that does not block, the same batches
+    pipe.seek(0)
+    t = time.perf_counter()
+    on_card = list(PrefetchIterator(iter(pipe), device="cuda"))
+    torch.cuda.synchronize()
+    prefetch_s = time.perf_counter() - t
+    check(len(on_card) == len(host) and all(
+        xd.is_cuda and torch.equal(xd.cpu(), torch.from_numpy(xh))
+        and torch.equal(yd.cpu(), torch.from_numpy(yh))
+        for (xd, yd), (xh, yh) in zip(on_card, host)),
+        "PrefetchIterator to the card vs BatchPipeline on the host")
+    emit({"phase": "analysis_native", "card": smi,
+          "library": lib_path.name, "built": build_s,
+          "augment_gather_native_equals_numpy": True,
+          "pipeline_epoch_images": n_img, "pipeline_epoch_s": epoch_s,
+          "pipeline_images_per_s_host": n_img / epoch_s,
+          "prefetch_to_card_epoch_s": prefetch_s,
+          "prefetch_to_card_equals_host": True,
+          "main_path_seconds": main_s,
+          "phase_seconds": time.perf_counter() - t_phase})
     return {"launches": launches}
 
 
@@ -3757,6 +4145,7 @@ def main(argv: list[str]) -> int:
     timed("profile", phase_profile, sl)
     tr = timed("train", phase_train)
     i8 = timed("int8", phase_int8, tr)
+    an = timed("analysis", phase_analysis, tr, i8, smi)
     mk = timed("mask", phase_mask, tr)
     bl = timed("block", phase_block, tr)
     rn = timed("resnet", phase_resnet, smi)
@@ -3767,7 +4156,7 @@ def main(argv: list[str]) -> int:
     kernels = []
     for name, stats in summary.items():
         launches = sum(ph["launches"][name]
-                       for ph in (sl, tr, i8, mk, bl, rn, ln, cv))
+                       for ph in (sl, tr, i8, an, mk, bl, rn, ln, cv))
         check(launches > 0, f"{name} was never launched on the main paths")
         conv = name in CONV_REPLACES
         kernels.append({"name": name, "route": "cuda",

@@ -309,7 +309,9 @@ def test_import_pulls_in_no_jax():
             "bayestpu_torch.nn.bayes, bayestpu_torch.kernels.mask_bank, "
             "bayestpu_torch.kernels.masked_conv, bayestpu_torch.nn.fused, "
             "bayestpu_torch.nn.convert, bayestpu_torch.nn.zoo.autobayes, "
-            "bayestpu_torch.utils.timing\n"
+            "bayestpu_torch.utils.timing, bayestpu_torch.metrics, "
+            "bayestpu_torch.metrics.analysis, bayestpu_torch.native, "
+            "bayestpu_torch.engine.inference, bayestpu_torch.data.pipeline\n"
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "
             "'bayestpu') or m.startswith(('jax.', 'flax.', 'optax.', "
             "'bayestpu.'))]\n"
@@ -325,6 +327,50 @@ def test_no_source_imports_jax_or_the_jax_package():
         r"^\s*(import|from)\s+(jax|flax|optax|bayestpu)(\s|\.|,|$)", re.M)
     files = sorted((REPO / "bayestpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py"]
+    # nor does a port module name a path under the JAX package (its native
+    # sources included): a string that starts with the package's directory
+    # (chip_smoke.py names the TPU kernels' lines it reports against)
+    path = re.compile(r"""["']bayestpu(/|["'])""")
     assert len(files) > 10
     for f in files:
         assert not pattern.search(f.read_text()), f
+        assert f.name == "chip_smoke.py" or not path.search(f.read_text()), f
+
+
+def test_no_port_module_reads_the_jax_package(tmp_path):
+    """Import every port module, build the native library into an empty
+    directory and call both of its entry points, with an audit hook that
+    records every file opened, and every argument of a started process,
+    under ``bayestpu/``: none."""
+    code = f"""
+import os, sys
+root = os.path.realpath("bayestpu") + os.sep
+seen = []
+def under(a):
+    try:
+        return os.path.realpath(os.fsdecode(a)).startswith(root)
+    except (TypeError, ValueError):
+        return False
+def hook(event, args):
+    if event == "open" and under(args[0]):
+        seen.append(args[0])
+    if event == "subprocess.Popen":
+        seen.extend(a for a in (args[1] or []) if under(a))
+sys.addaudithook(hook)
+import pkgutil, importlib, numpy as np
+import bayestpu_torch
+for m in pkgutil.walk_packages(bayestpu_torch.__path__, "bayestpu_torch."):
+    importlib.import_module(m.name)
+from bayestpu_torch import native
+native.BUILD_DIR = __import__("pathlib").Path({str(tmp_path)!r})
+p = np.full((8, 3), 0.2); p[:, 0] = 0.6
+native.kde_ece(p, np.zeros(8, np.int64))
+native.augment_gather(np.ones((4, 6, 6, 1), np.float32), np.arange(2),
+                      np.zeros(1), np.ones(1), 2, 1, True)
+assert list(native.BUILD_DIR.glob("*.so")), "nothing was built"
+print(seen)
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"

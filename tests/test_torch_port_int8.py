@@ -369,10 +369,28 @@ def test_qat_variables_load_by_name(qat_vars):
 
 
 def test_quant_overrides_and_mixed_head_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("vgg11_me", quant=Q8, quant_overrides={"fc_0": Q8})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("vgg11_me", quant=Q8, mixed_head=True)
+    """Per-layer overrides and ``mixed_head`` (ported since they raised):
+    every layer's config equals the JAX model's ``_q`` at each key JAX
+    consults, and the layers carry it."""
+    import dataclasses
+    ov = {"fc_0": JQuant(8, 1), "fc_1/bias": JQuant(16, 0), "bogus": None}
+    tov = {k: None if v is None else QuantConfig(**dataclasses.asdict(v))
+           for k, v in ov.items()}
+    for kw, tkw in ((dict(quant_overrides=ov), dict(quant_overrides=tov)),
+                    (dict(mixed_head=True), dict(mixed_head=True))):
+        jm = jax_get_model("vgg11_me", quant=JINT8_Q, **kw)
+        tm = get_model("vgg11_me", quant=INT8_Q, **tkw)
+        for key in ("block0", "block4", "fc_0", "fc_0/bias", "fc_1",
+                    "fc_relu_0", "fc_relu_1", "classifier"):
+            want, got = jm._q(key), tm._q(key)
+            assert (None if want is None else dataclasses.asdict(want)) == (
+                None if got is None else dataclasses.asdict(got)), key
+        assert tm.fc_0.quant == tm._q("fc_0")
+        assert tm.fc_relu_0.quant == tm._q("fc_relu_0")
+        assert tm.classifier.quant == tm._q("classifier")
+        assert tm.block0.quant == tm._q("block0")
+    # the bias grid only where named (vgg.py:262-266)
+    assert tm.fc_0.bias_quant.total_bits == 16 and tm.fc_1.bias_quant is None
 
 
 # --------------------------------------------------------------- QAT step

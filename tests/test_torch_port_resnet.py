@@ -479,14 +479,17 @@ def test_small_resnets_forward_match_jax(name, kw):
 
 @pytest.mark.parametrize("name,kw,err,item", [
     ("resnet18", dict(fused=True, quant_overrides={"stem": None}),
-     NotImplementedError, "item 8"),
+     TypeError, "quant_overrides"),
     ("resnet18", dict(fused=True, dropout="bogus"), ValueError, "dropout"),
 ])
 def test_refusals_cite_their_items(name, kw, err, item):
-    """What is not ported raises and names its ROADMAP Queue 1 item
-    (``quant_overrides``); a bad ``dropout`` is a ``ValueError``."""
+    """``quant_overrides`` is a ``TypeError``, as the JAX ``ResNet18``
+    has no such field; a bad ``dropout`` is a ``ValueError``."""
     with pytest.raises(err, match=item):
         get_model(name, bayes=MC, **kw)
+    if err is TypeError:
+        with pytest.raises(TypeError, match=item):
+            jax_get_model(name, **kw)
 
 
 # the materialized-site configurations at a small width, 16x16 input:

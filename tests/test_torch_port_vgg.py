@@ -219,12 +219,15 @@ def test_registry_and_unported_branches():
     assert get_model("vgg11_me", fused=True, dropout="block").num_sites == 9
     unfused = get_model("vgg11", fused=False, dropout="block")
     assert unfused.num_sites == 5 and unfused.bayes_b0.site == 0
-    # quantization is ported; its per-layer overrides are not
+    # quantization is ported, and its per-layer overrides apply
     assert get_model("vgg11_me", quant=QuantConfig(),
                      fused=True).quant == QuantConfig()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("vgg11_me", quant=QuantConfig(), fused=True,
-                  quant_overrides={"fc_0": QuantConfig()})
+    over = get_model("vgg11_me", quant=QuantConfig(), fused=True,
+                     quant_overrides={"fc_0": QuantConfig(8, 2),
+                                      "block1": None})
+    assert over.fc_0.quant == QuantConfig(8, 2)
+    assert over.fc_1.quant == QuantConfig() and over.block1.quant is None
+    assert over.block1.convbn0.conv.quant is None
     # the JAX default fused=False: unfused MC heads (BayesianDropout)
     assert get_model("vgg11_me", dropout="block").num_sites == 9
     assert get_model("vgg11_me", fused=False).classifier.drop is not None
