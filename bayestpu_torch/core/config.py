@@ -28,8 +28,10 @@ class SamplingMode(str, enum.Enum):
 
     ``temporal`` re-runs the whole network once per sample; ``spatial`` runs
     the deterministic backbone once and every sample of the stochastic heads
-    in one launch each; ``sharded`` and ``auto`` are accepted for
-    configuration compatibility (the engine runs ``auto`` as spatial).
+    in one launch each; ``sharded`` runs as spatial on one process (a
+    ``BayesEngine`` with a mesh splits samples and rows over ranks:
+    ``engine.sharding``); ``auto`` runs as spatial until ``autotune``
+    measures it.
     """
 
     TEMPORAL = "temporal"

@@ -56,18 +56,25 @@ def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
     return x0, x1
 
 
-def random_bits(seeds: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+def random_bits(seeds: torch.Tensor, shape: Sequence[int], row0: int = 0
+                ) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` for the keys ``seeds`` of
     shape (..., 2) (int32, read as uint32): (..., *shape) int64 of uint32
     values on the seeds' device, the seeds' leading axes outermost (S keys,
-    S masks in one pass)."""
+    S masks in one pass). With ``row0`` the bits are rows ``row0 ..
+    row0 + shape[0]`` along the first axis of a larger array of the same
+    trailing shape: the flat indices, the counters, are the larger array's
+    (one rank's slice of a data-sharded batch, whose global shape differs
+    from ``shape`` only in its first axis)."""
     shape = tuple(int(d) for d in shape)
     lead = tuple(seeds.shape[:-1])
     words = seeds.to(torch.int64) & _M32
     k0, k1 = (words[..., j].reshape(lead + (1,) * len(shape))
               for j in range(2))
     n = math.prod(shape)
-    i = torch.arange(n, dtype=torch.int64, device=seeds.device).view(shape)
+    first = int(row0) * math.prod(shape[1:])
+    i = torch.arange(first, first + n, dtype=torch.int64,
+                     device=seeds.device).view(shape)
     y0, y1 = threefry2x32(k0, k1, i >> 32, i & _M32)
     return y0 ^ y1
 
@@ -79,8 +86,10 @@ def keep_threshold(p: float) -> int:
     return math.ceil(float(np.float32(p)) * 2.0 ** 23)
 
 
-def bernoulli(seeds: torch.Tensor, p: float, shape: Sequence[int]
-              ) -> torch.Tensor:
+def bernoulli(seeds: torch.Tensor, p: float, shape: Sequence[int],
+              row0: int = 0) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)`` for the keys ``seeds`` (...,
-    2): a bool tensor (..., *shape), True with probability ``p``."""
-    return (random_bits(seeds, shape) >> 9) < keep_threshold(p)
+    2): a bool tensor (..., *shape), True with probability ``p``; with
+    ``row0``, rows ``row0 ..`` of the mask of a larger first axis
+    (``random_bits``)."""
+    return (random_bits(seeds, shape, row0) >> 9) < keep_threshold(p)

@@ -26,8 +26,10 @@
 // s-th of S inputs (S, N, H, W, C), as JAX's vmap over (x, seeds) maps the
 // single kernel. The mask of x_s element (n, h, w, c):
 //   - HashMask: the counter hash of prng.cuh on the sample's own, unpadded
-//     coordinate (n·H·W + h·W + w, c) with seeds[s], i.e. the bits
-//     dropout_apply gives x_s viewed as (N·H·W, C); a kept float value is
+//     coordinate (row0 + n·H·W + h·W + w, c) with seeds[s], i.e. the bits
+//     dropout_apply gives x_s viewed as (N·H·W, C) at the same row0 (dims
+//     [13]: b0·H·W, uint32, for x the rows from global image b0 on; 0 for
+//     the whole batch); a kept float value is
 //     multiplied by the dropout scale and rounded to x's type (bf16: scale
 //     1.3359375 at rate 0.25, as JAX's weak-typed constant), an int8 one
 //     kept as it is (1/keep folds into out_scale);
@@ -222,13 +224,14 @@ struct HashMask {
   const int32_t* seeds;  // (S, 2)
   uint32_t thresh;
   float scale;
+  uint32_t row0;         // the hash row of x's first pixel: b0·H·W
   uint32_t stream;
   __device__ __forceinline__ void begin(int s) {
     stream = bayestpu::seed_stream(seeds[2 * s], seeds[2 * s + 1]);
   }
   __device__ __forceinline__ V apply(uint32_t row, int c, V v) const {
     const uint32_t bits =
-        bayestpu::coord_bits(row, static_cast<uint32_t>(c), stream);
+        bayestpu::coord_bits(row0 + row, static_cast<uint32_t>(c), stream);
     return bits < thresh ? keep_scaled<TX>(v, scale) : V(0);
   }
   template <int VE>
@@ -932,7 +935,9 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
 
 // ---------------------------------------------------------------- launch
 
-// dims: N, H, W, C, F, KH, KW, stride, pad_top, pad_left, Ho, Wo, S.
+// dims: N, H, W, C, F, KH, KW, stride, pad_top, pad_left, Ho, Wo, S, and
+// row0 (the MC mask's row offset; the bank and mask-free routines ignore
+// it).
 // The output tile of a block: up to 8 x 8 outputs of NB images, 64 pixels
 // in all, fixed by the shape alone (never by S or the launch kind).
 int read_dims(const int* dims, int x_carries, Geom* g) {
@@ -1101,6 +1106,7 @@ int masked_conv(const void* x, const void* w, const void* seeds,
         m.seeds = sd;
         m.thresh = thresh;
         m.scale = scale;
+        m.row0 = static_cast<uint32_t>(dims[13]);
         return m;
       });
 }
@@ -1115,6 +1121,7 @@ int masked_conv_int8(const void* x, const void* w, const void* seeds,
   HashMask<int8_t> m{};
   m.seeds = static_cast<const int32_t*>(seeds);
   m.thresh = thresh;
+  m.row0 = static_cast<uint32_t>(dims[13]);
   return launch_mma<int8_t, int8_t>(x, w, m, out, dims, x_carries, e,
                                     stream);
 }
@@ -1163,7 +1170,10 @@ int bank_conv_int8(const void* x, const void* w, const void* bank,
 //   affine   the (2, F) f32 [scale; bias] stack of the epilogue, or null;
 //   out      (S, N, Ho, Wo, F) of out_kind's type;
 //   dims     a host array (N, H, W, C, F, KH, KW, stride, pad_top,
-//            pad_left, Ho, Wo, S); one sample is S = 1;
+//            pad_left, Ho, Wo, S, row0); one sample is S = 1; row0 is the
+//            MC mask's hash row of x's first pixel as a uint32 (b0·H·W
+//            for the images from global image b0 on; 0: the whole batch),
+//            unused by the bank entries;
 //   fscale   the dropout scale (float MC kernels: 1/(1 - rate) in x's
 //            type), or out_scale (int8 kernels); unused by the float bank
 //            kernels;

@@ -206,7 +206,8 @@ __device__ __forceinline__ void apply_rows(const T* __restrict__ x,
                                            const int32_t* __restrict__ seeds,
                                            float* __restrict__ out,
                                            uint32_t M, uint32_t K,
-                                           uint32_t thresh, float scale) {
+                                           uint32_t thresh, float scale,
+                                           uint32_t row0) {
   const uint32_t pieces = K / V;
   const uint32_t row_step = gridDim.x * blockDim.y;
   uint32_t r = blockIdx.x * blockDim.y + threadIdx.y;
@@ -215,7 +216,7 @@ __device__ __forceinline__ void apply_rows(const T* __restrict__ x,
   float v[V];
   apply_load<T, V>(x + static_cast<size_t>(r) * K + c * V, v);
   const uint32_t stream = bayestpu::seed_stream(seeds[0], seeds[1]);
-  uint32_t rt = bayestpu::row_term(r, stream);
+  uint32_t rt = bayestpu::row_term(row0 + r, stream);
   for (;;) {
     uint32_t nr = r, nc = c + blockDim.x;
     if (nc >= pieces) {
@@ -233,7 +234,7 @@ __device__ __forceinline__ void apply_rows(const T* __restrict__ x,
     }
     apply_store<V>(out + static_cast<size_t>(r) * K + c * V, o);
     if (!more) break;
-    if (nr != r) rt = bayestpu::row_term(nr, stream);
+    if (nr != r) rt = bayestpu::row_term(row0 + nr, stream);
     r = nr;
     c = nc;
 #pragma unroll
@@ -246,11 +247,12 @@ __global__ void __launch_bounds__(APPLY_THREADS)
     dropout_apply_kernel(const T* __restrict__ x,
                          const int32_t* __restrict__ seeds,
                          float* __restrict__ out, int M, int K,
-                         uint32_t thresh, float scale, int vec) {
+                         uint32_t thresh, float scale, uint32_t row0,
+                         int vec) {
   if (vec) {
-    apply_rows<T, ApplyVec<T>::N>(x, seeds, out, M, K, thresh, scale);
+    apply_rows<T, ApplyVec<T>::N>(x, seeds, out, M, K, thresh, scale, row0);
   } else {
-    apply_rows<T, 1>(x, seeds, out, M, K, thresh, scale);
+    apply_rows<T, 1>(x, seeds, out, M, K, thresh, scale, row0);
   }
 }
 
@@ -259,7 +261,8 @@ __global__ void __launch_bounds__(APPLY_THREADS)
 // or fewer when the rows run out first.
 template <typename T>
 int launch_apply(const void* x, const void* seeds, void* out, int M, int K,
-                 uint32_t thresh, float scale, cudaStream_t st) {
+                 uint32_t thresh, float scale, uint32_t row0,
+                 cudaStream_t st) {
   static const int per_sm = [] {
     int b = 0;
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -282,7 +285,7 @@ int launch_apply(const void* x, const void* seeds, void* out, int M, int K,
   const dim3 grid(static_cast<unsigned>(want < wave ? want : wave));
   dropout_apply_kernel<T><<<grid, block, 0, st>>>(
       static_cast<const T*>(x), static_cast<const int32_t*>(seeds),
-      static_cast<float*>(out), M, K, thresh, scale, vec ? 1 : 0);
+      static_cast<float*>(out), M, K, thresh, scale, row0, vec ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -482,8 +485,8 @@ __device__ __forceinline__ float chain_chunk(const T* xr, const T* wc, int kn,
 
 // MC dropout (rows 2 and 3): x staged in its own type by 16-byte cp.async
 // (plain loads where its rows are not 16-byte aligned), then masked in
-// place: keep iff coord_bits(gr, gc + j, stream_s) < thresh, the kept
-// value x * scale in x's type.
+// place: keep iff coord_bits(row0 + gr, gc + j, stream_s) < thresh, the
+// kept value x * scale in x's type.
 template <typename TT>
 struct HashChain {
   using TX = TT;
@@ -492,6 +495,7 @@ struct HashChain {
   const int32_t* seeds;  // (S, 2)
   uint32_t thresh;
   float scale;
+  uint32_t row0;         // the global row of x's first row
   uint32_t stream;
   bool vec;
   struct Regs {};
@@ -523,8 +527,8 @@ struct HashChain {
 #pragma unroll
     for (int j = 0; j < VEC; ++j)
       e[j] = masked(e[j],
-                    bayestpu::coord_bits(static_cast<uint32_t>(gr), gc + j,
-                                         stream) < thresh,
+                    bayestpu::coord_bits(row0 + static_cast<uint32_t>(gr),
+                                         gc + j, stream) < thresh,
                     scale);
     *reinterpret_cast<uint4*>(piece) = *reinterpret_cast<uint4*>(e);
   }
@@ -712,10 +716,11 @@ constexpr int I8_SPLIT = 4;
 
 // A staging policy: `begin` takes the block's sample, `apply` zeroes the
 // dropped bytes among 16 staged x bytes at row gr, columns gc .. gc + 15.
-// MC dropout: keep iff coord_bits(gr, gc + j, stream_s) < thresh.
+// MC dropout: keep iff coord_bits(row0 + gr, gc + j, stream_s) < thresh.
 struct HashStage {
   const int32_t* seeds;  // (S, 2)
   uint32_t thresh;
+  uint32_t row0;         // the global row of x's first row
   uint32_t stream;
   __device__ __forceinline__ void begin(int s) {
     stream = bayestpu::seed_stream(seeds[2 * s], seeds[2 * s + 1]);
@@ -725,7 +730,8 @@ struct HashStage {
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const uint32_t bits = bayestpu::coord_bits(
-          static_cast<uint32_t>(gr), static_cast<uint32_t>(gc + j), stream);
+          row0 + static_cast<uint32_t>(gr), static_cast<uint32_t>(gc + j),
+          stream);
       if (bits >= thresh) e[j] = 0;
     }
   }
@@ -929,7 +935,7 @@ int launch_bank_chain(const void* x, const void* w, const void* bank,
 int launch_hash_chain(const void* x, const void* w, const void* seeds,
                       void* out, int M, int K, int N, int S, int x_stride,
                       uint32_t thresh, float scale, int is_bf16,
-                      cudaStream_t st) {
+                      uint32_t row0, cudaStream_t st) {
   const dim3 grid((M + CH_BM - 1) / CH_BM, (N + CH_BN - 1) / CH_BN, S);
   const auto* sd = static_cast<const int32_t*>(seeds);
   auto* o = static_cast<float*>(out);
@@ -938,26 +944,30 @@ int launch_hash_chain(const void* x, const void* w, const void* seeds,
     chain_samples_kernel<Stage><<<grid, CH_THREADS, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x),
         static_cast<const __nv_bfloat16*>(w),
-        Stage{sd, thresh, scale, 0u, false}, o, M, K, N, x_stride);
+        Stage{sd, thresh, scale, row0, 0u, false}, o, M, K, N, x_stride);
   } else {
     using Stage = HashChain<float>;
     chain_samples_kernel<Stage><<<grid, CH_THREADS, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),
-        Stage{sd, thresh, scale, 0u, false}, o, M, K, N, x_stride);
+        Stage{sd, thresh, scale, row0, 0u, false}, o, M, K, N, x_stride);
   }
   return static_cast<int>(cudaGetLastError());
 }
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError()
-// (0 on success); it neither allocates nor synchronises.
+// (0 on success); it neither allocates nor synchronises. The MC entries
+// take row0, the global row of x's first row (of each sample's x): row r
+// of x is hashed as row row0 + r, uint32 with wraparound, so a launch on
+// rows [r0, r0 + M) of a batch masks them as the launch on the whole batch
+// does (0: x is the whole batch).
 // seeds: one (1, 2) pair; row 3's kernel at one sample
 extern "C" int bt_dropout_matmul(const void* x, const void* w,
                                  const void* seeds, void* out, int M, int K,
                                  int N, uint32_t thresh, float scale,
-                                 int is_bf16, void* stream) {
+                                 int is_bf16, uint32_t row0, void* stream) {
   return launch_hash_chain(x, w, seeds, out, M, K, N, 1, 0, thresh, scale,
-                           is_bf16, static_cast<cudaStream_t>(stream));
+                           is_bf16, row0, static_cast<cudaStream_t>(stream));
 }
 
 // x_stride: elements between samples' x, 0 when x is shared (row 3), M * K
@@ -966,19 +976,21 @@ extern "C" int bt_dropout_matmul_samples(const void* x, const void* w,
                                          const void* seeds, void* out, int M,
                                          int K, int N, int S, int x_stride,
                                          uint32_t thresh, float scale,
-                                         int is_bf16, void* stream) {
+                                         int is_bf16, uint32_t row0,
+                                         void* stream) {
   return launch_hash_chain(x, w, seeds, out, M, K, N, S, x_stride, thresh,
-                           scale, is_bf16, static_cast<cudaStream_t>(stream));
+                           scale, is_bf16, row0,
+                           static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int bt_dropout_apply(const void* x, const void* seeds, void* out,
                                 int M, int K, uint32_t thresh, float scale,
-                                int is_bf16, void* stream) {
+                                int is_bf16, uint32_t row0, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_apply<__nv_bfloat16>(x, seeds, out, M, K, thresh,
-                                               scale, st)
+                                               scale, row0, st)
                  : launch_apply<float>(x, seeds, out, M, K, thresh, scale,
-                                       st);
+                                       row0, st);
 }
 
 // seeds: one (1, 2) pair; row 5's kernel at one sample, K split over a
@@ -986,12 +998,13 @@ extern "C" int bt_dropout_apply(const void* x, const void* seeds, void* out,
 extern "C" int bt_dropout_matmul_int8(const void* x, const void* w,
                                       const void* seeds, void* out, int M,
                                       int K, int N, uint32_t thresh,
-                                      float out_scale, void* stream) {
+                                      float out_scale, uint32_t row0,
+                                      void* stream) {
   const dim3 grid((M + I8_BM - 1) / I8_BM, (N + I8_BN - 1) / I8_BN, 1);
   return launch_int8_mma<I8_SPLIT>(
       grid, static_cast<cudaStream_t>(stream), x, w,
-      HashStage{static_cast<const int32_t*>(seeds), thresh, 0u}, out, M, K,
-      N, 0, out_scale);
+      HashStage{static_cast<const int32_t*>(seeds), thresh, row0, 0u}, out,
+      M, K, N, 0, out_scale);
 }
 
 // x_stride: elements between samples' x, 0 when x is shared (row 5), M * K
@@ -1000,12 +1013,13 @@ extern "C" int bt_dropout_matmul_int8_samples(const void* x, const void* w,
                                               const void* seeds, void* out,
                                               int M, int K, int N, int S,
                                               int x_stride, uint32_t thresh,
-                                              float out_scale, void* stream) {
+                                              float out_scale, uint32_t row0,
+                                              void* stream) {
   const dim3 grid((M + I8_BM - 1) / I8_BM, (N + I8_BN - 1) / I8_BN, S);
   return launch_int8_mma<1>(
       grid, static_cast<cudaStream_t>(stream), x, w,
-      HashStage{static_cast<const int32_t*>(seeds), thresh, 0u}, out, M, K,
-      N, x_stride, out_scale);
+      HashStage{static_cast<const int32_t*>(seeds), thresh, row0, 0u}, out,
+      M, K, N, x_stride, out_scale);
 }
 
 // row 8's kernel at one sample, bank row idx (no index copied to the card)

@@ -8,6 +8,10 @@
 // kernels reproduce the JAX package's masks bit for bit. An element is kept
 // iff coord_bits(row, col, seed_stream(s0, s1)) < threshold, where the
 // threshold min(round((1 - rate) * 2^32), 2^32 - 1) is computed on the host.
+// A launch on a slice of a batch (one rank's rows under data sharding) takes
+// row0, the global row of its first row, and hashes row row0 + r: the sum is
+// uint32 and wraps as the JAX package's does, and it enters row_term, which
+// a kernel computes once a row, never an element's hash.
 #pragma once
 
 #include <cstdint>

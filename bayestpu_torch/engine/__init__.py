@@ -9,6 +9,6 @@ def __getattr__(name):
     if name == "BayesEngine":
         return importlib.import_module(
             "bayestpu_torch.engine.engine").BayesEngine
-    if name in ("inference", "engine"):
+    if name in ("inference", "engine", "sharding", "distributed"):
         return importlib.import_module(f"bayestpu_torch.engine.{name}")
     raise AttributeError(name)

@@ -14,8 +14,11 @@ predict at a fixed input shape and S into a CUDA graph, which ``predict``
 replays for that shape and S. ``autotune`` times the spatial mapping
 against the temporal one and adopts the faster; ``benchmark`` times the
 served predict; ``evaluate_repeated``, ``compare`` and ``cost_analysis``
-follow the JAX engine's keys. Sample-axis sharding comes with a later
-slice.
+follow the JAX engine's keys. With a ``mesh`` (``engine.sharding``)
+``predict`` runs the sharded predictive: the samples over the mesh's sample
+axis, the batch over its data axis, every rank returning the whole
+batch's predictive; the other methods keep their one-process paths, as in
+JAX.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch
 
 from bayestpu_torch.core.config import BayesConfig, EngineConfig, SamplingMode
 from bayestpu_torch.core.rng import fold_seed, sample_seeds
-from bayestpu_torch.engine import sampler
+from bayestpu_torch.engine import sampler, sharding
 from bayestpu_torch.engine.sampler import Predictive
 from bayestpu_torch.interop.from_flax import load_flax_variables
 from bayestpu_torch.metrics.ece import eval_metrics
@@ -58,11 +61,9 @@ class BayesEngine:
     def __init__(self, model: torch.nn.Module,
                  bayes: BayesConfig | None = None,
                  config: EngineConfig = EngineConfig(),
-                 device: str | torch.device = "cuda"):
-        if config.mode is SamplingMode.SHARDED:
-            raise NotImplementedError("sample-axis sharding is not ported "
-                                      "yet: ROADMAP Queue 1 item 13")
+                 device: str | torch.device = "cuda", mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.model = model.to(self.device).eval()
         self.bayes = bayes if bayes is not None else getattr(
             model, "bayes", BayesConfig())
@@ -191,7 +192,9 @@ class BayesEngine:
         for Masksembles the fork's ``predict(x, mask_index=i)`` — which
         equals sample ``sample_idx`` of the MC average. A predict whose
         shape and S were compiled on a card replays the captured graph and
-        returns copies of its outputs."""
+        returns copies of its outputs. With a mesh the sharded predictive
+        runs (ahead of any captured graph, as in JAX), over S padded to a
+        multiple of the sample axis, which it reports."""
         if not self.ready:
             raise RuntimeError("engine not initialized: call init()/attach()")
         x = self._input(x)
@@ -202,6 +205,11 @@ class BayesEngine:
             return torch.softmax(self.model(x, seeds, sample_idx).logits,
                                  dim=-1)
         s = sampler.num_effective_samples(self.bayes, num_samples)
+        if self.mesh is not None:
+            return sharding.sharded_predictive(
+                self.model, x,
+                self.seeds(seed, sharding.padded_samples(s, self.mesh)),
+                self.mesh)
         graph = self._graphs.get((tuple(x.shape), s))
         if graph is not None:
             return graph.replay(x, sample_seeds(seed, s,

@@ -52,14 +52,13 @@ def _entropy(p: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 def mc_logits(model, x: torch.Tensor, seeds: torch.Tensor,
               mode: SamplingMode = SamplingMode.SPATIAL) -> torch.Tensor:
-    """All per-sample, per-exit logits: (S, E, B, C)."""
+    """All per-sample, per-exit logits: (S, E, B, C). ``SHARDED`` (and an
+    untuned ``AUTO``) runs as spatial, as in JAX (``sampler.py:70-72``):
+    on one process the sharded mapping is the spatial one, and the mesh's
+    split is ``engine.sharding``'s."""
     if mode is SamplingMode.TEMPORAL:
         return torch.stack([model(x, seeds[s], s).logits
                             for s in range(seeds.shape[0])])
-    if mode is not SamplingMode.SPATIAL:
-        raise NotImplementedError(
-            f"the {mode.value} mapping is not ported (sharding: ROADMAP "
-            "Queue 1 item 13; BayesEngine runs an untuned AUTO as spatial)")
     return model(x, seeds).logits    # sample_idx defaults to arange(S)
 
 

@@ -35,20 +35,22 @@ _CONV_TAIL = [_P, _P, ctypes.POINTER(ctypes.c_int), _F, _I, _I, _F, _I, _I,
 # argtypes of every exported C function, by source name
 _SIGNATURES: dict[str, dict[str, list]] = {
     "masked_matmul": {
-        # x, w, seeds, out, M, K, N, thresh, scale, is_bf16, stream
-        "bt_dropout_matmul": [_P, _P, _P, _P, _I, _I, _I, _U32, _F, _I, _P],
+        # x, w, seeds, out, M, K, N, thresh, scale, is_bf16, row0, stream
+        "bt_dropout_matmul": [_P, _P, _P, _P, _I, _I, _I, _U32, _F, _I, _U32,
+                              _P],
         # x, w, seeds, out, M, K, N, S, x_stride (0: x shared), thresh,
-        # scale, is_bf16, stream
+        # scale, is_bf16, row0, stream
         "bt_dropout_matmul_samples": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                      _U32, _F, _I, _P],
-        # x, seeds, out, M, K, thresh, scale, is_bf16, stream
-        "bt_dropout_apply": [_P, _P, _P, _I, _I, _U32, _F, _I, _P],
-        # x_q, w_q, seeds, out, M, K, N, thresh, out_scale, stream
-        "bt_dropout_matmul_int8": [_P, _P, _P, _P, _I, _I, _I, _U32, _F, _P],
+                                      _U32, _F, _I, _U32, _P],
+        # x, seeds, out, M, K, thresh, scale, is_bf16, row0, stream
+        "bt_dropout_apply": [_P, _P, _P, _I, _I, _U32, _F, _I, _U32, _P],
+        # x_q, w_q, seeds, out, M, K, N, thresh, out_scale, row0, stream
+        "bt_dropout_matmul_int8": [_P, _P, _P, _P, _I, _I, _I, _U32, _F,
+                                   _U32, _P],
         # x_q, w_q, seeds, out, M, K, N, S, x_stride (0: x shared), thresh,
-        # out_scale, stream
+        # out_scale, row0, stream
         "bt_dropout_matmul_int8_samples": [_P, _P, _P, _P, _I, _I, _I, _I,
-                                           _I, _U32, _F, _P],
+                                           _I, _U32, _F, _U32, _P],
         # x, w, bank, out, M, K, N, idx, num_masks, is_bf16, stream
         "bt_bank_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         # x, w, bank, idxs, out, M, K, N, S, x_stride (0: x shared),

@@ -22,7 +22,10 @@ The MC mask of x element (n, c, h, w) is that of ``dropout_apply`` on x
 viewed as (N·H·W, C): the counter hash of ``masked_matmul`` on the global,
 unpadded coordinate (n·H·W + h·W + w, c), which is why N·H·W must stay below
 2³² and why a caller never folds a sample axis into the batch of a masked
-conv (the mask rows would shift). A kept float value is ``x · scale`` in x's
+conv (the mask rows would shift). Every MC function takes ``row0``, the hash
+row of x's first pixel: ``b0·H·W`` when x holds the images from global
+image b0 on (one rank's rows of a data-sharded batch; JAX's ``n0·hw``), 0
+for the whole batch; the sum wraps at 2³², as JAX's uint32 rows do. A kept float value is ``x · scale`` in x's
 dtype (bf16: 1.3359375 at rate 0.25, ``scale_of``), products accumulate in
 f32; the int8 kernels keep the int8 value and return ``f32(acc) ·
 out_scale``, ``out_scale`` the f32 of the double ``x_step·w_step/(1-rate)``.
@@ -71,7 +74,7 @@ from bayestpu_torch.kernels.masked_matmul import (
     _check_carried, _check_rate_seeds, bank_index, bank_indices,
     bank_out_scale, dropout_apply, dropout_apply_plain,
     host_indices, int8_out_scale, is_index_vector, keep_mask,
-    keep_threshold, map_samples, scale_of)
+    keep_threshold, map_samples, row_offset, scale_of)
 
 _FLOAT = (torch.float32, torch.bfloat16)
 
@@ -246,19 +249,33 @@ def conv_int8(x_q: torch.Tensor, w_q: torch.Tensor, g: Geom, stride: int
                        (stride, stride), (0, 0))
 
 
-def keep_mask_nchw(seeds: torch.Tensor, x: torch.Tensor, rate: float
-                   ) -> torch.Tensor:
+def image_row0(b0: int, h: int, w: int) -> int:
+    """The hash row of image b0's first pixel in an (N·H·W, C) view: the
+    ``row0`` of a conv input or ``mask_apply_nhwc`` that starts at global
+    image b0 (uint32, wrapping)."""
+    return row_offset(int(b0) * h * w)
+
+
+def int32_bits(row0: int) -> int:
+    """``row0`` as the int32 whose bits are its uint32 (``row_offset``):
+    the value ``dims[13]`` carries to the kernels."""
+    r = row_offset(row0)
+    return r - (r >> 31 << 32)
+
+
+def keep_mask_nchw(seeds: torch.Tensor, x: torch.Tensor, rate: float,
+                   row0: int = 0) -> torch.Tensor:
     """The (N, C, H, W) keep mask of x: ``keep_mask`` on (N·H·W, C)."""
     n, c, h, w = x.shape
-    return keep_mask(seeds, n * h * w, c, rate).view(n, h, w, c).permute(
-        0, 3, 1, 2)
+    return keep_mask(seeds, n * h * w, c, rate, row0).view(
+        n, h, w, c).permute(0, 3, 1, 2)
 
 
-def _hash_masked(x: torch.Tensor, seeds: torch.Tensor, rate: float
-                 ) -> torch.Tensor:
+def _hash_masked(x: torch.Tensor, seeds: torch.Tensor, rate: float,
+                 row0: int = 0) -> torch.Tensor:
     """x under the MC mask as the kernels stage it: a float x times the
     dtype's scale (rounded to x's dtype), an int8 x as it is."""
-    keep = keep_mask_nchw(seeds, x, rate)
+    keep = keep_mask_nchw(seeds, x, rate, row0)
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     if x.dtype == torch.int8:
         return torch.where(keep, x, zero)
@@ -276,8 +293,8 @@ def _bank_row(bank: torch.Tensor, idx: int) -> torch.Tensor:
 
 
 def dropout_conv_plain(x, w, seeds, rate, padding="SAME", stride=1,
-                       bias=None, act=None, out_dtype=None, out_step=None
-                       ) -> torch.Tensor:
+                       bias=None, act=None, out_dtype=None, out_step=None,
+                       row0: int = 0) -> torch.Tensor:
     """One MC sample of the float masked conv with its epilogue, in plain
     PyTorch on any device; rate 0 is the reference conv."""
     g = geometry(x.shape[2], x.shape[3], w.shape[2], w.shape[3], padding,
@@ -286,18 +303,18 @@ def dropout_conv_plain(x, w, seeds, rate, padding="SAME", stride=1,
     affine = affine_rows(bias, w.shape[0])
     if rate == 0.0:
         return epilogue_plain(conv_ref(x, w, g, stride), affine, epi)
-    y = conv_f32(_hash_masked(x, seeds, rate), w, g, stride)
+    y = conv_f32(_hash_masked(x, seeds, rate, row0), w, g, stride)
     return epilogue_plain(y, affine, epi)
 
 
 def dropout_conv_int8_plain(x_q, w_q, seeds, rate, x_step, w_step,
                             padding="SAME", stride=1, bias=None, act=None,
-                            out_step=None) -> torch.Tensor:
+                            out_step=None, row0: int = 0) -> torch.Tensor:
     """One sample of the int8 masked conv: exact int32 sums, then ``f32(acc)
     · out_scale`` and the epilogue; rate 0 masks nothing."""
     g = geometry(x_q.shape[2], x_q.shape[3], w_q.shape[2], w_q.shape[3],
                  padding, stride)
-    xm = _hash_masked(x_q, seeds, rate) if rate > 0.0 else x_q
+    xm = _hash_masked(x_q, seeds, rate, row0) if rate > 0.0 else x_q
     return epilogue_plain(conv_int8(xm, w_q, g, stride).float(),
                           affine_rows(bias, w_q.shape[0]),
                           make_epi(bias, act, out_step, None),
@@ -339,17 +356,18 @@ def stack_samples(ys: list[torch.Tensor]) -> torch.Tensor:
 
 
 def mask_apply_nhwc(x: torch.Tensor, seeds: torch.Tensor, rate: float,
-                    apply=dropout_apply) -> torch.Tensor:
+                    apply=dropout_apply, row0: int = 0) -> torch.Tensor:
     """Dropout of an NCHW x alone with the conv kernels' exact mask,
-    ``dropout_apply`` on the (N·H·W, C) view (``:566-572``): f32, scaled by
-    the f32 ``1/(1-rate)``, in ``channels_last`` memory. ``apply`` is
-    ``dropout_apply`` (the kernel on a CUDA tensor) or its plain version."""
+    ``dropout_apply`` on the (N·H·W, C) view (``:566-572``) at ``row0``
+    (``image_row0``): f32, scaled by the f32 ``1/(1-rate)``, in
+    ``channels_last`` memory. ``apply`` is ``dropout_apply`` (the kernel on
+    a CUDA tensor) or its plain version."""
     n, c, h, w = x.shape
-    y = apply(x.permute(0, 2, 3, 1).reshape(-1, c), seeds, rate)
+    y = apply(x.permute(0, 2, 3, 1).reshape(-1, c), seeds, rate, row0)
     return y.view(n, h, w, c).permute(0, 3, 1, 2)
 
 
-def _conv_vjp(x, w, seeds, rate, padding, stride, gy, apply
+def _conv_vjp(x, w, seeds, rate, padding, stride, gy, apply, row0: int = 0
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dx, dw) of ``conv(dropout(x), w)`` (``_dropout_conv_bwd``,
     ``:621-637``): the mask regenerated by ``mask_apply_nhwc`` and cast to
@@ -357,22 +375,22 @@ def _conv_vjp(x, w, seeds, rate, padding, stride, gy, apply
     again; both cast to the input dtypes."""
     g = geometry(x.shape[2], x.shape[3], w.shape[2], w.shape[3], padding,
                  stride)
-    xm = mask_apply_nhwc(x, seeds, rate, apply).to(x.dtype)
+    xm = mask_apply_nhwc(x, seeds, rate, apply, row0).to(x.dtype)
     with torch.enable_grad():
         a = xm.detach().requires_grad_(True)
         b = w.detach().requires_grad_(True)
         dxm, dw = torch.autograd.grad(conv_ref(a, b, g, stride), (a, b), gy)
-    dx = mask_apply_nhwc(dxm, seeds, rate, apply).to(x.dtype)
+    dx = mask_apply_nhwc(dxm, seeds, rate, apply, row0).to(x.dtype)
     return dx, dw.to(w.dtype)
 
 
 def dropout_conv_vjp_plain(x, w, seeds, rate, gy, padding="SAME",
-                           stride: int = 1
+                           stride: int = 1, row0: int = 0
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """``DropoutConv``'s backward in plain PyTorch on any device: the masks
     from ``dropout_apply_plain``, the same conv transposes."""
     return _conv_vjp(x, w, seeds, rate, padding, stride, gy,
-                     dropout_apply_plain)
+                     dropout_apply_plain, row0)
 
 
 # -------------------------------------------------------------- wrappers
@@ -489,15 +507,16 @@ def conv_weights(w: torch.Tensor, mma: bool,
 
 def _launch(entry: str, counter: str, x: torch.Tensor, w: torch.Tensor,
             head: list, num_samples: int, padding, stride: int,
-            bias: torch.Tensor | None, epi: Epi, fscale: float
-            ) -> torch.Tensor:
+            bias: torch.Tensor | None, epi: Epi, fscale: float,
+            row0: int = 0) -> torch.Tensor:
     """Launch ``bt_<entry>`` of ``masked_conv.cu`` on PyTorch's current
     stream: x (NCHW, channels_last; (S, N, C, H, W) for an _xs entry), the
     OIHW w in the layout and type of the entry's routine (``conv_weights``,
     ``staged_dtype``), the
     entry's own ``head`` arguments (the mask tensors, or None, held here
-    while the kernel is launched, and ints), then the common tail. Returns
-    (S, N, F, Ho, Wo), each sample in channels_last memory."""
+    while the kernel is launched, and ints), then the common tail; the MC
+    mask's ``row0`` rides in ``dims`` as its int32 bits. Returns (S, N, F,
+    Ho, Wo), each sample in channels_last memory."""
     from bayestpu_torch.kernels import _build
 
     n, c, h, wd = x.shape[-4:]
@@ -514,8 +533,9 @@ def _launch(entry: str, counter: str, x: torch.Tensor, w: torch.Tensor,
                            staged_dtype(entry, w))
         head = [a.contiguous() if isinstance(a, torch.Tensor) else a
                 for a in head]
-        dims = (ctypes.c_int * 13)(n, h, wd, c, f, kh, kw, stride, g.ph,
-                                   g.pw, g.ho, g.wo, num_samples)
+        dims = (ctypes.c_int * 14)(n, h, wd, c, f, kh, kw, stride, g.ph,
+                                   g.pw, g.ho, g.wo, num_samples,
+                                   int32_bits(row0))
         lib = _build.library("masked_conv")
         with torch.cuda.device(x.device):
             stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
@@ -549,26 +569,27 @@ class DropoutConv(torch.autograd.Function):
     ``dx = mask_apply_nhwc(dxm)``; both cast to the input dtypes."""
 
     @staticmethod
-    def forward(ctx, x, w, seeds, rate, padding, stride):
+    def forward(ctx, x, w, seeds, rate, padding, stride, row0):
         ctx.save_for_backward(x, w, seeds)
-        ctx.conf = (rate, padding, stride)
+        ctx.conf = (rate, padding, stride, row0)
         if x.device.type == "cpu":
-            return dropout_conv_plain(x, w, seeds, rate, padding, stride)
+            return dropout_conv_plain(x, w, seeds, rate, padding, stride,
+                                      row0=row0)
         return _launch("masked_conv", "dropout_conv", x, w,
                        _seeds_arg(seeds, rate), 1, padding, stride, None,
-                       Epi(), scale_of(rate, x.dtype))[0]
+                       Epi(), scale_of(rate, x.dtype), row0)[0]
 
     @staticmethod
     def backward(ctx, gy):
         x, w, seeds = ctx.saved_tensors
-        rate, padding, stride = ctx.conf
+        rate, padding, stride, row0 = ctx.conf
         dx, dw = _conv_vjp(x, w, seeds, rate, padding, stride, gy,
-                           dropout_apply)
-        return dx, dw, None, None, None, None
+                           dropout_apply, row0)
+        return dx, dw, None, None, None, None, None
 
 
 def dropout_conv(x: torch.Tensor, w: torch.Tensor, seeds: torch.Tensor,
-                 rate: float, padding="SAME", stride: int = 1
+                 rate: float, padding="SAME", stride: int = 1, row0: int = 0
                  ) -> torch.Tensor:
     """``conv(dropout(x), w)`` with the mask fused into the kernel;
     trainable through ``DropoutConv``. x (N, C, H, W) f32/bf16 in
@@ -581,25 +602,25 @@ def dropout_conv(x: torch.Tensor, w: torch.Tensor, seeds: torch.Tensor,
         g = geometry(x.shape[2], x.shape[3], w.shape[2], w.shape[3],
                      padding, stride)
         return conv_ref(x, w, g, stride)
-    return DropoutConv.apply(x, w, seeds, rate, padding, stride)
+    return DropoutConv.apply(x, w, seeds, rate, padding, stride, row0)
 
 
 def _dropout_conv_one(x, w, seeds, rate, padding, stride, bias, act,
-                      out_dtype, out_step) -> torch.Tensor:
+                      out_dtype, out_step, row0) -> torch.Tensor:
     """One MC sample with the epilogue (the single kernel)."""
     if x.device.type == "cpu" or rate == 0.0:
         return dropout_conv_plain(x, w, seeds, rate, padding, stride, bias,
-                                  act, out_dtype, out_step)
+                                  act, out_dtype, out_step, row0)
     return _launch("masked_conv", "dropout_conv", x, w,
                    _seeds_arg(seeds, rate), 1, padding, stride, bias,
                    make_epi(bias, act, out_step, out_dtype),
-                   scale_of(rate, x.dtype))[0]
+                   scale_of(rate, x.dtype), row0)[0]
 
 
 def dropout_conv_samples(x: torch.Tensor, w: torch.Tensor,
                          seeds: torch.Tensor, rate: float, padding="SAME",
                          bias=None, act=None, out_dtype=None, out_step=None,
-                         stride: int = 1) -> torch.Tensor:
+                         stride: int = 1, row0: int = 0) -> torch.Tensor:
     """Every MC sample in one launch: seeds (S, 2) int32; (S, N, F, Ho, Wo),
     sample s bit-identical to the single kernel with seeds[s] and the same
     epilogue. Rate 0 is the reference conv repeated S times."""
@@ -613,17 +634,18 @@ def dropout_conv_samples(x: torch.Tensor, w: torch.Tensor,
     if x.device.type == "cpu":
         return stack_samples([
             dropout_conv_plain(x, w, seeds[s], rate, padding, stride, bias,
-                               act, out_dtype, out_step)
+                               act, out_dtype, out_step, row0)
             for s in range(seeds.shape[0])])
     return _launch("masked_conv", "dropout_conv_samples", x, w,
                    _seeds_arg(seeds, rate), seeds.shape[0], padding, stride,
-                   bias, epi, scale_of(rate, x.dtype))
+                   bias, epi, scale_of(rate, x.dtype), row0)
 
 
 def dropout_conv_inference(x: torch.Tensor, w: torch.Tensor,
                            seeds: torch.Tensor, rate: float, padding="SAME",
                            bias=None, act=None, out_dtype=None,
-                           out_step=None, stride: int = 1) -> torch.Tensor:
+                           out_step=None, stride: int = 1, row0: int = 0
+                           ) -> torch.Tensor:
     """The inference entry of the MC conv sites (``:753-775`` and the vmap
     rule ``:732-748``): seeds (2,) → one sample, (N, F, Ho, Wo); seeds (S,
     2) with x (N, C, H, W) → every sample in one samples launch; seeds (S,
@@ -637,18 +659,18 @@ def dropout_conv_inference(x: torch.Tensor, w: torch.Tensor,
             return map_samples(
                 lambda xs, sd: _dropout_conv_one(
                     xs, w, sd, rate, padding, stride, bias, act, out_dtype,
-                    out_step), x, seeds, stack_samples)
+                    out_step, row0), x, seeds, stack_samples)
         return _launch("masked_conv_xs", "dropout_conv_xs", x, w,
                        _seeds_arg(seeds, rate), x.shape[0], padding, stride,
                        bias, make_epi(bias, act, out_step, out_dtype),
-                       scale_of(rate, x.dtype))
+                       scale_of(rate, x.dtype), row0)
     if seeds.dim() == 2:
         return dropout_conv_samples(x, w, seeds, rate, padding, bias, act,
-                                    out_dtype, out_step, stride)
+                                    out_dtype, out_step, stride, row0)
     _check(x, w, False)
     _check_rate_seeds(x, seeds, 1, rate)
     return _dropout_conv_one(x, w, seeds, rate, padding, stride, bias, act,
-                             out_dtype, out_step)
+                             out_dtype, out_step, row0)
 
 
 def conv_fused_plain(x, w, bias=None, act=None, out_dtype=None,
@@ -681,21 +703,23 @@ def conv_fused(x: torch.Tensor, w: torch.Tensor, bias=None, act=None,
 
 
 def _int8_one(x_q, w_q, seeds, rate, x_step, w_step, padding, stride, bias,
-              act, out_step) -> torch.Tensor:
+              act, out_step, row0) -> torch.Tensor:
     if x_q.device.type == "cpu":
         return dropout_conv_int8_plain(x_q, w_q, seeds, rate, x_step, w_step,
-                                       padding, stride, bias, act, out_step)
+                                       padding, stride, bias, act, out_step,
+                                       row0)
     head = _seeds_arg(seeds, rate) if rate > 0.0 else [None, 0]
     return _launch("masked_conv_int8", "dropout_conv_int8", x_q, w_q, head,
                    1, padding, stride, bias,
                    make_epi(bias, act, out_step, None),
-                   int8_out_scale(x_step, w_step, rate))[0]
+                   int8_out_scale(x_step, w_step, rate), row0)[0]
 
 
 def dropout_conv_int8(x_q: torch.Tensor, w_q: torch.Tensor,
                       seeds: torch.Tensor, rate: float, x_step: float,
                       w_step: float, padding="SAME", bias=None, act=None,
-                      out_step=None, stride: int = 1) -> torch.Tensor:
+                      out_step=None, stride: int = 1, row0: int = 0
+                      ) -> torch.Tensor:
     """``dequant(conv(dropout(x_q), w_q))`` in int8 (``:899-921``): x_q and
     w_q int8 on the ap_fixed grid, seeds (2,); the float kernels' mask,
     exact int32 sums, ``f32(acc) · f32(x_step·w_step/(1-rate))``, then the
@@ -703,14 +727,15 @@ def dropout_conv_int8(x_q: torch.Tensor, w_q: torch.Tensor,
     _check(x_q, w_q, True)
     _check_rate_seeds(x_q, seeds, 1, rate)
     return _int8_one(x_q, w_q, seeds, rate, x_step, w_step, padding, stride,
-                     bias, act, out_step)
+                     bias, act, out_step, row0)
 
 
 def dropout_conv_int8_samples(x_q: torch.Tensor, w_q: torch.Tensor,
                               seeds: torch.Tensor, rate: float,
                               x_step: float, w_step: float, padding="SAME",
                               bias=None, act=None, out_step=None,
-                              stride: int = 1) -> torch.Tensor:
+                              stride: int = 1, row0: int = 0
+                              ) -> torch.Tensor:
     """Every int8 MC sample in one launch: seeds (S, 2); sample s
     bit-identical to ``dropout_conv_int8`` with seeds[s]."""
     _check(x_q, w_q, True)
@@ -718,20 +743,22 @@ def dropout_conv_int8_samples(x_q: torch.Tensor, w_q: torch.Tensor,
     if x_q.device.type == "cpu":
         return stack_samples([
             dropout_conv_int8_plain(x_q, w_q, seeds[s], rate, x_step, w_step,
-                                    padding, stride, bias, act, out_step)
+                                    padding, stride, bias, act, out_step,
+                                    row0)
             for s in range(seeds.shape[0])])
     head = _seeds_arg(seeds, rate) if rate > 0.0 else [None, 0]
     return _launch("masked_conv_int8", "dropout_conv_int8_samples",
                    x_q, w_q, head, seeds.shape[0], padding, stride, bias,
                    make_epi(bias, act, out_step, None),
-                   int8_out_scale(x_step, w_step, rate))
+                   int8_out_scale(x_step, w_step, rate), row0)
 
 
 def dropout_conv_int8_inference(x_q: torch.Tensor, w_q: torch.Tensor,
                                 seeds: torch.Tensor, rate: float,
                                 x_step: float, w_step: float, padding="SAME",
                                 bias=None, act=None, out_step=None,
-                                stride: int = 1) -> torch.Tensor:
+                                stride: int = 1, row0: int = 0
+                                ) -> torch.Tensor:
     """The int8 twin of ``dropout_conv_inference`` (``:948-998``), with the
     same three dispatch cases (an x carrying the sample axis: one _xs
     launch on the card, at rate 0 without a mask)."""
@@ -741,19 +768,19 @@ def dropout_conv_int8_inference(x_q: torch.Tensor, w_q: torch.Tensor,
             return map_samples(
                 lambda xs, sd: _int8_one(xs, w_q, sd, rate, x_step, w_step,
                                          padding, stride, bias, act,
-                                         out_step), x_q, seeds,
+                                         out_step, row0), x_q, seeds,
                 stack_samples)
         head = _seeds_arg(seeds, rate) if rate > 0.0 else [None, 0]
         return _launch("masked_conv_int8_xs", "dropout_conv_int8_xs", x_q,
                        w_q, head, x_q.shape[0], padding, stride, bias,
                        make_epi(bias, act, out_step, None),
-                       int8_out_scale(x_step, w_step, rate))
+                       int8_out_scale(x_step, w_step, rate), row0)
     if seeds.dim() == 2:
         return dropout_conv_int8_samples(x_q, w_q, seeds, rate, x_step,
                                          w_step, padding, bias, act,
-                                         out_step, stride)
+                                         out_step, stride, row0)
     return dropout_conv_int8(x_q, w_q, seeds, rate, x_step, w_step, padding,
-                             bias, act, out_step, stride)
+                             bias, act, out_step, stride, row0)
 
 
 def conv_int8_fused(x_q: torch.Tensor, w_q: torch.Tensor, x_step: float,

@@ -16,7 +16,11 @@ reproduces it bit for bit, and so does the JAX package: an element is kept
 iff
 ``coord_bits(r, c, seed_stream(s0, s1)) < keep_threshold(rate)``, all in
 uint32 with wraparound. The plain versions compute those bits in int64 with
-``& 0xFFFFFFFF`` after every multiply.
+``& 0xFFFFFFFF`` after every multiply. Every MC function takes ``row0``,
+the global row of x's first row (default 0: x is the whole batch): row r of
+x hashes as row ``row0 + r`` (uint32, wrapping), so one rank's rows of a
+data-sharded batch get the masks of those rows of the whole batch, as the
+JAX kernels give them under a sharded ``jit``.
 
 Scaling follows the JAX kernels exactly. In the forward kernels the Python
 scale ``1/(1-rate)`` is first rounded to x's dtype (bf16: 1.3359375 for rate
@@ -131,10 +135,18 @@ def coord_bits(grow, gcol, stream) -> torch.Tensor:
     return mix(x ^ _mul32(gcol, 0x165667B1))
 
 
-def keep_mask(seeds: torch.Tensor, m: int, k: int, rate: float
-               ) -> torch.Tensor:
-    """(m, k) bool keep mask of one seed pair, on the seeds' device."""
-    rows = torch.arange(m, dtype=torch.int64, device=seeds.device)[:, None]
+def row_offset(row0) -> int:
+    """``row0`` as the uint32 the kernels add to a row: global rows wrap
+    modulo 2^32, as the JAX package's uint32 row counters do."""
+    return int(row0) & _M32
+
+
+def keep_mask(seeds: torch.Tensor, m: int, k: int, rate: float,
+              row0: int = 0) -> torch.Tensor:
+    """(m, k) bool keep mask of one seed pair, on the seeds' device: rows
+    ``row0 .. row0 + m`` of the whole tensor's mask."""
+    rows = row_offset(row0) + torch.arange(
+        m, dtype=torch.int64, device=seeds.device)[:, None]
     cols = torch.arange(k, dtype=torch.int64, device=seeds.device)[None, :]
     return coord_bits(rows, cols, seed_stream(seeds[0], seeds[1])) \
         < keep_threshold(rate)
@@ -162,11 +174,12 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def dropout_matmul_plain(x: torch.Tensor, w: torch.Tensor,
-                         seeds: torch.Tensor, rate: float) -> torch.Tensor:
+                         seeds: torch.Tensor, rate: float, row0: int = 0
+                         ) -> torch.Tensor:
     """``dropout(x) @ w`` in plain PyTorch on any device: (M, N) f32."""
     if rate == 0.0:
         return matmul_f32(x, w)
-    keep = keep_mask(seeds, x.shape[0], x.shape[1], rate)
+    keep = keep_mask(seeds, x.shape[0], x.shape[1], rate, row0)
     scale = torch.tensor(scale_of(rate, x.dtype), dtype=x.dtype,
                          device=x.device)
     xm = torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype,
@@ -175,23 +188,23 @@ def dropout_matmul_plain(x: torch.Tensor, w: torch.Tensor,
 
 
 def dropout_matmul_samples_plain(x: torch.Tensor, w: torch.Tensor,
-                                 seeds: torch.Tensor, rate: float
-                                 ) -> torch.Tensor:
+                                 seeds: torch.Tensor, rate: float,
+                                 row0: int = 0) -> torch.Tensor:
     """All S samples in plain PyTorch: (S, M, N) f32, sample s equal to
     ``dropout_matmul_plain(x, w, seeds[s], rate)`` bit for bit."""
     num_samples = seeds.shape[0]
     if rate == 0.0:
         y = matmul_f32(x, w)
         return y.expand((num_samples,) + tuple(y.shape))
-    return torch.stack([dropout_matmul_plain(x, w, seeds[s], rate)
+    return torch.stack([dropout_matmul_plain(x, w, seeds[s], rate, row0)
                         for s in range(num_samples)])
 
 
 def dropout_apply_plain(x: torch.Tensor, seeds: torch.Tensor,
-                        rate: float) -> torch.Tensor:
+                        rate: float, row0: int = 0) -> torch.Tensor:
     """``dropout(x)`` alone in plain PyTorch: (M, K) f32, the forward's mask
     times the f32 scale."""
-    keep = keep_mask(seeds, x.shape[0], x.shape[1], rate)
+    keep = keep_mask(seeds, x.shape[0], x.shape[1], rate, row0)
     scale = torch.tensor(apply_scale(rate), dtype=torch.float32,
                          device=x.device)
     return torch.where(keep, x.float() * scale,
@@ -200,7 +213,7 @@ def dropout_apply_plain(x: torch.Tensor, seeds: torch.Tensor,
 
 def dropout_matmul_vjp_plain(x: torch.Tensor, w: torch.Tensor,
                              seeds: torch.Tensor, rate: float,
-                             g: torch.Tensor
+                             g: torch.Tensor, row0: int = 0
                              ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dx, dw) of ``dropout(x) @ w`` for the f32 cotangent g (M, N), in
     plain PyTorch: ``dx = dropout(g @ wᵀ)`` and ``dw = dropout(x)ᵀ @ g``,
@@ -211,8 +224,9 @@ def dropout_matmul_vjp_plain(x: torch.Tensor, w: torch.Tensor,
         return (torch.matmul(g, w.float().T).to(x.dtype),
                 torch.matmul(x.float().T, g).to(w.dtype))
     gx = torch.matmul(g, w.float().T)
-    dx = dropout_apply_plain(gx, seeds, rate).to(x.dtype)
-    dw = torch.matmul(dropout_apply_plain(x, seeds, rate).T, g).to(w.dtype)
+    dx = dropout_apply_plain(gx, seeds, rate, row0).to(x.dtype)
+    dw = torch.matmul(dropout_apply_plain(x, seeds, rate, row0).T,
+                      g).to(w.dtype)
     return dx, dw
 
 
@@ -313,30 +327,31 @@ def _check_carried(x: torch.Tensor, keys) -> None:
                          "it")
 
 
-def _float_args(x: torch.Tensor, rate: float) -> list:
+def _float_args(x: torch.Tensor, rate: float, row0: int = 0) -> list:
     return [keep_threshold(rate), scale_of(rate, x.dtype),
-            int(x.dtype == torch.bfloat16)]
+            int(x.dtype == torch.bfloat16), row_offset(row0)]
 
 
 def dropout_apply(x: torch.Tensor, seeds: torch.Tensor,
-                  rate: float) -> torch.Tensor:
+                  rate: float, row0: int = 0) -> torch.Tensor:
     """``dropout(x)`` alone: x (M, K) f32/bf16, seeds (2,) int32 on x's
-    device. Returns (M, K) f32 with the forward kernels' mask bit for bit,
-    scaled by the f32 ``1/(1-rate)`` (``_dropout_apply``)."""
+    device, ``row0`` the global row of x's first row. Returns (M, K) f32
+    with the forward kernels' mask bit for bit, scaled by the f32
+    ``1/(1-rate)`` (``_dropout_apply``)."""
     if x.dim() != 2:
         raise ValueError(f"need x (M, K); got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16; got {x.dtype}")
     _check_rate_seeds(x, seeds, 1, rate)
     if x.device.type == "cpu":
-        return dropout_apply_plain(x, seeds, rate)
+        return dropout_apply_plain(x, seeds, rate, row0)
     m, k = x.shape
     out = torch.empty((m, k), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
     _call("dropout_apply", x.device, {"x": x, "seeds": seeds, "out": out},
           [m, k, keep_threshold(rate), apply_scale(rate),
-           int(x.dtype == torch.bfloat16)])
+           int(x.dtype == torch.bfloat16), row_offset(row0)])
     return out
 
 
@@ -350,18 +365,18 @@ class DropoutMatmul(torch.autograd.Function):
     dtype, so under bf16 both reach the f32 parameters bf16-rounded."""
 
     @staticmethod
-    def forward(ctx, x, w, seeds, rate):
+    def forward(ctx, x, w, seeds, rate, row0):
         ctx.save_for_backward(x, w, seeds)
-        ctx.rate = rate
+        ctx.rate, ctx.row0 = rate, row0
         if x.device.type == "cpu" or rate == 0.0:
-            return dropout_matmul_plain(x, w, seeds, rate)
+            return dropout_matmul_plain(x, w, seeds, rate, row0)
         return _launch("dropout_matmul", x, w, seeds.reshape(1, 2),
-                       _float_args(x, rate))
+                       _float_args(x, rate, row0))
 
     @staticmethod
     def backward(ctx, g):
         x, w, seeds = ctx.saved_tensors
-        rate = ctx.rate
+        rate, row0 = ctx.rate, ctx.row0
         need_x, need_w = ctx.needs_input_grad[:2]
         g = g.float().contiguous()
         dx = dw = None
@@ -370,29 +385,32 @@ class DropoutMatmul(torch.autograd.Function):
                 dx = torch.matmul(g, w.float().T).to(x.dtype)
             if need_w:
                 dw = torch.matmul(x.float().T, g).to(w.dtype)
-            return dx, dw, None, None
+            return dx, dw, None, None, None
         if need_x:
-            dx = dropout_apply(torch.matmul(g, w.float().T), seeds,
-                               rate).to(x.dtype)
+            dx = dropout_apply(torch.matmul(g, w.float().T), seeds, rate,
+                               row0).to(x.dtype)
         if need_w:
-            dw = torch.matmul(dropout_apply(x, seeds, rate).T, g).to(w.dtype)
-        return dx, dw, None, None
+            dw = torch.matmul(dropout_apply(x, seeds, rate, row0).T,
+                              g).to(w.dtype)
+        return dx, dw, None, None, None
 
 
 def dropout_matmul(x: torch.Tensor, w: torch.Tensor, seeds: torch.Tensor,
-                   rate: float) -> torch.Tensor:
+                   rate: float, row0: int = 0) -> torch.Tensor:
     """``dropout(x) @ w`` with the mask fused into the kernel; trainable
     through ``DropoutMatmul``.
 
     x: (M, K) f32/bf16; w: (K, N) of x's dtype; seeds: (2,) int32 on x's
-    device. Returns (M, N) f32. Rate 0 is a plain matmul.
+    device; row0: the global row of x's first row. Returns (M, N) f32. Rate
+    0 is a plain matmul.
     """
     _check(x, w, seeds, 1, rate)
-    return DropoutMatmul.apply(x, w, seeds, rate)
+    return DropoutMatmul.apply(x, w, seeds, rate, row0)
 
 
 def dropout_matmul_samples(x: torch.Tensor, w: torch.Tensor,
-                           seeds: torch.Tensor, rate: float) -> torch.Tensor:
+                           seeds: torch.Tensor, rate: float, row0: int = 0
+                           ) -> torch.Tensor:
     """All-samples fused MC head: ``stack([dropout_s(x) @ w for s in S])``.
 
     seeds: (S, 2) int32. Returns (S, M, N) f32 with sample s bit-identical to
@@ -401,9 +419,9 @@ def dropout_matmul_samples(x: torch.Tensor, w: torch.Tensor,
     """
     _check(x, w, seeds, 2, rate)
     if x.device.type == "cpu" or rate == 0.0:
-        return dropout_matmul_samples_plain(x, w, seeds, rate)
+        return dropout_matmul_samples_plain(x, w, seeds, rate, row0)
     return _launch("dropout_matmul_samples", x, w, seeds,
-                   [0] + _float_args(x, rate))
+                   [0] + _float_args(x, rate, row0))
 
 
 def map_samples(fn, x: torch.Tensor, keys, stack=torch.stack
@@ -416,7 +434,7 @@ def map_samples(fn, x: torch.Tensor, keys, stack=torch.stack
 
 
 def dropout_matmul_inference(x: torch.Tensor, w: torch.Tensor,
-                             seeds: torch.Tensor, rate: float
+                             seeds: torch.Tensor, rate: float, row0: int = 0
                              ) -> torch.Tensor:
     """Inference entry of the masked heads. ``seeds`` (2,) gives one sample,
     (M, N); ``seeds`` (S, 2) gives every sample in one launch, (S, M, N) —
@@ -426,19 +444,20 @@ def dropout_matmul_inference(x: torch.Tensor, w: torch.Tensor,
     seeds[s], on its own coordinates, as JAX's ``lax.map`` fallback runs
     the single kernel per sample (``:407-411``) — one ``dropout_matmul_xs``
     launch of the samples kernel on the card, the single plain version per
-    sample on the CPU (and at rate 0, a plain matmul)."""
+    sample on the CPU (and at rate 0, a plain matmul). ``row0`` is the
+    global row of x's first row (of each sample's x)."""
     if x.dim() == 3:
         if x.device.type == "cpu" or rate == 0.0:
-            return map_samples(lambda xs, sd: dropout_matmul(xs, w, sd, rate),
-                               x, seeds)
+            return map_samples(lambda xs, sd: dropout_matmul(xs, w, sd, rate,
+                                                             row0), x, seeds)
         _check(x, w, seeds, 2, rate, x_ndim=3)
         _check_carried(x, seeds)
         return _launch("dropout_matmul_samples", x, w, seeds,
-                       [_x_stride(x)] + _float_args(x, rate),
+                       [_x_stride(x)] + _float_args(x, rate, row0),
                        "dropout_matmul_xs")
     if seeds.dim() == 1:
-        return dropout_matmul(x, w, seeds, rate)
-    return dropout_matmul_samples(x, w, seeds, rate)
+        return dropout_matmul(x, w, seeds, rate, row0)
+    return dropout_matmul_samples(x, w, seeds, rate, row0)
 
 
 # ------------------------------------------------------------ int8 heads
@@ -453,14 +472,15 @@ def int8_out_scale(x_step: float, w_step: float, rate: float) -> float:
 
 def dropout_matmul_int8_plain(x_q: torch.Tensor, w_q: torch.Tensor,
                               seeds: torch.Tensor, rate: float,
-                              x_step: float, w_step: float) -> torch.Tensor:
+                              x_step: float, w_step: float, row0: int = 0
+                              ) -> torch.Tensor:
     """``f32(dropout(x_q) @ w_q) * out_scale`` in plain PyTorch on any
     device: the mask of ``keep_mask`` zeroes int8 elements (no scaling
     there), ``int_mm`` sums exactly in int32. Rate 0 applies no mask, as the
     JAX kernel skips masking then (``:454``)."""
     xm = x_q
     if rate > 0.0:
-        keep = keep_mask(seeds, x_q.shape[0], x_q.shape[1], rate)
+        keep = keep_mask(seeds, x_q.shape[0], x_q.shape[1], rate, row0)
         xm = torch.where(keep, x_q, torch.zeros((), dtype=torch.int8,
                                                 device=x_q.device))
     return int_mm(xm, w_q).float() * int8_out_scale(x_step, w_step, rate)
@@ -468,12 +488,12 @@ def dropout_matmul_int8_plain(x_q: torch.Tensor, w_q: torch.Tensor,
 
 def dropout_matmul_int8_samples_plain(x_q: torch.Tensor, w_q: torch.Tensor,
                                       seeds: torch.Tensor, rate: float,
-                                      x_step: float, w_step: float
-                                      ) -> torch.Tensor:
+                                      x_step: float, w_step: float,
+                                      row0: int = 0) -> torch.Tensor:
     """All S int8 samples in plain PyTorch: (S, M, N) f32, sample s equal to
     ``dropout_matmul_int8_plain(x_q, w_q, seeds[s], ...)`` bit for bit."""
     return torch.stack([dropout_matmul_int8_plain(x_q, w_q, seeds[s], rate,
-                                                  x_step, w_step)
+                                                  x_step, w_step, row0)
                         for s in range(seeds.shape[0])])
 
 
@@ -493,13 +513,15 @@ def _check_int8(x_q: torch.Tensor, w_q: torch.Tensor, seeds: torch.Tensor,
     _check_rate_seeds(x_q, seeds, seeds_ndim, rate)
 
 
-def _int8_args(rate: float, x_step: float, w_step: float) -> list:
-    return [keep_threshold(rate), int8_out_scale(x_step, w_step, rate)]
+def _int8_args(rate: float, x_step: float, w_step: float, row0: int = 0
+               ) -> list:
+    return [keep_threshold(rate), int8_out_scale(x_step, w_step, rate),
+            row_offset(row0)]
 
 
 def dropout_matmul_int8(x_q: torch.Tensor, w_q: torch.Tensor,
                         seeds: torch.Tensor, rate: float, x_step: float,
-                        w_step: float) -> torch.Tensor:
+                        w_step: float, row0: int = 0) -> torch.Tensor:
     """``dequant(dropout(x_q) @ w_q)`` in int8: x_q (M, K) and w_q (K, N)
     int8 (``core.quant.quantize_int8``), seeds (2,) int32 on their device.
     Returns (M, N) f32 rescaled by ``x_step·w_step/(1-rate)``, with the
@@ -507,14 +529,14 @@ def dropout_matmul_int8(x_q: torch.Tensor, w_q: torch.Tensor,
     _check_int8(x_q, w_q, seeds, 1, rate)
     if x_q.device.type == "cpu" or rate == 0.0:
         return dropout_matmul_int8_plain(x_q, w_q, seeds, rate, x_step,
-                                         w_step)
+                                         w_step, row0)
     return _launch("dropout_matmul_int8", x_q, w_q, seeds.reshape(1, 2),
-                   _int8_args(rate, x_step, w_step))
+                   _int8_args(rate, x_step, w_step, row0))
 
 
 def dropout_matmul_int8_samples(x_q: torch.Tensor, w_q: torch.Tensor,
                                 seeds: torch.Tensor, rate: float,
-                                x_step: float, w_step: float
+                                x_step: float, w_step: float, row0: int = 0
                                 ) -> torch.Tensor:
     """All-samples int8 head: seeds (S, 2) int32; (S, M, N) f32 with sample
     s bit-identical to ``dropout_matmul_int8(x_q, w_q, seeds[s], ...)``; the
@@ -523,15 +545,15 @@ def dropout_matmul_int8_samples(x_q: torch.Tensor, w_q: torch.Tensor,
     _check_int8(x_q, w_q, seeds, 2, rate)
     if x_q.device.type == "cpu" or rate == 0.0:
         return dropout_matmul_int8_samples_plain(x_q, w_q, seeds, rate,
-                                                 x_step, w_step)
+                                                 x_step, w_step, row0)
     return _launch("dropout_matmul_int8_samples", x_q, w_q, seeds,
-                   [0] + _int8_args(rate, x_step, w_step))
+                   [0] + _int8_args(rate, x_step, w_step, row0))
 
 
 def dropout_matmul_int8_inference(x_q: torch.Tensor, w_q: torch.Tensor,
                                   seeds: torch.Tensor, rate: float,
-                                  x_step: float, w_step: float
-                                  ) -> torch.Tensor:
+                                  x_step: float, w_step: float,
+                                  row0: int = 0) -> torch.Tensor:
     """Inference entry of the int8 heads: seeds (2,) → one sample (M, N);
     seeds (S, 2) → every sample in one launch, (S, M, N), what the JAX
     package's vmap rule does; x (S, M, K) with seeds (S, 2) → sample s of
@@ -541,16 +563,18 @@ def dropout_matmul_int8_inference(x_q: torch.Tensor, w_q: torch.Tensor,
     if x_q.dim() == 3:
         if x_q.device.type == "cpu" or rate == 0.0:
             return map_samples(lambda xs, sd: dropout_matmul_int8(
-                xs, w_q, sd, rate, x_step, w_step), x_q, seeds)
+                xs, w_q, sd, rate, x_step, w_step, row0), x_q, seeds)
         _check_int8(x_q, w_q, seeds, 2, rate, x_ndim=3)
         _check_carried(x_q, seeds)
         return _launch("dropout_matmul_int8_samples", x_q, w_q, seeds,
-                       [_x_stride(x_q)] + _int8_args(rate, x_step, w_step),
+                       [_x_stride(x_q)]
+                       + _int8_args(rate, x_step, w_step, row0),
                        "dropout_matmul_int8_xs")
     if seeds.dim() == 1:
-        return dropout_matmul_int8(x_q, w_q, seeds, rate, x_step, w_step)
+        return dropout_matmul_int8(x_q, w_q, seeds, rate, x_step, w_step,
+                                   row0)
     return dropout_matmul_int8_samples(x_q, w_q, seeds, rate, x_step,
-                                       w_step)
+                                       w_step, row0)
 
 
 # ------------------------------------------------------ Masksembles heads

@@ -11,7 +11,8 @@ caller names another (``channel_dim``: ``BayesConv`` masks NCHW tensors).
 
 - train mode: the batch splits into ``num_masks`` equal groups and group g
   is multiplied by bank row g; a batch not divisible by ``num_masks``
-  raises ``ValueError``.
+  raises ``ValueError``. Under data sharding the split is the global
+  batch's (``nn.rows``): a rank's row takes the group of its global row.
 - eval mode: x is multiplied by ``bank[sample_idx % num_masks]``; a 1-D
   tensor of S indices gives every sample at once on a new leading axis.
 
@@ -32,7 +33,8 @@ x is widened, multiplied and rounded back. Rate 0 is the identity.
 A site takes its ``seeds``: (2,) for one sample; (S, 2) for S samples on a
 new leading axis; or with ``carries_samples`` an x whose leading axis
 already holds the S samples, sample s under ``seeds[s]`` on its own
-coordinates.
+coordinates. On one rank's rows of a data-sharded batch (``nn.rows``) the
+mask is those rows of the global batch's mask.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from bayestpu_torch.core.config import BayesConfig, DropoutKind
 from bayestpu_torch.core.threefry import bernoulli
 from bayestpu_torch.kernels import mask_bank
 from bayestpu_torch.kernels.masked_matmul import bank_index
+from bayestpu_torch.nn.rows import WHOLE, RowAware, Rows
 
 # The Flax collection of the banks; ``interop.from_flax`` routes every
 # buffer named ``bank`` to it.
@@ -81,18 +84,21 @@ def _channel_shape(ndim: int, channel_dim: int, lead: int, c: int
     return tuple(shape)
 
 
-def batch_split(x: torch.Tensor, bank: torch.Tensor, channel_dim: int = -1
-                ) -> torch.Tensor:
+def batch_split(x: torch.Tensor, bank: torch.Tensor, channel_dim: int = -1,
+                rows: Rows = WHOLE) -> torch.Tensor:
     """The train-mode Masksembles mask: group g of the batch (split into
     ``num_masks`` equal groups) times bank row g, along the channel axis
-    (the last one by default; dim 1 of an NCHW tensor)."""
+    (the last one by default; dim 1 of an NCHW tensor). With ``rows`` x is
+    the rows from ``rows.row0`` of a batch of ``rows.batch``, and row r
+    takes the group of global row ``row0 + r``."""
     n, c = bank.shape
     b = x.shape[0]
-    if b % n != 0:
-        raise ValueError(f"batch size {b} not divisible by num_masks {n}")
-    gx = x.reshape((n, b // n) + tuple(x.shape[1:]))
-    return (gx * bank.view(_channel_shape(x.dim(), channel_dim, n, c))
-            ).reshape(x.shape)
+    total = b if rows.batch is None else rows.batch
+    if total % n != 0:
+        raise ValueError(f"batch size {total} not divisible by num_masks {n}")
+    group = (rows.row0 + torch.arange(b, device=x.device)) // (total // n)
+    dim = channel_dim % x.dim()        # never the batch axis
+    return x * bank[group].view(_channel_shape(x.dim() - 1, dim - 1, b, c))
 
 
 def apply_row(x: torch.Tensor, bank: torch.Tensor, sample_idx,
@@ -115,7 +121,7 @@ def apply_row(x: torch.Tensor, bank: torch.Tensor, sample_idx,
     return x * row.view(_channel_shape(x.dim(), channel_dim, 1, -1)[1:])
 
 
-class Masksembles(nn.Module):
+class Masksembles(RowAware, nn.Module):
     """Fixed-mask-bank site over the channel axis ``channel_dim`` (the last
     by default, as in JAX; ``BayesSite`` names dim 1 of an NCHW image)."""
 
@@ -126,7 +132,7 @@ class Masksembles(nn.Module):
     def forward(self, x: torch.Tensor, sample_idx=0, channel_dim: int = -1,
                 carries_samples: bool = False) -> torch.Tensor:
         if self.training:
-            return batch_split(x, self.bank, channel_dim)
+            return batch_split(x, self.bank, channel_dim, self.rows)
         return apply_row(x, self.bank, sample_idx, channel_dim,
                          carries_samples)
 
@@ -147,9 +153,10 @@ def _nhwc(shape: tuple[int, ...]) -> tuple[int, ...]:
     return tuple(shape)
 
 
-class BayesianDropout(nn.Module):
+class BayesianDropout(RowAware, nn.Module):
     """Always-on dropout on threefry masks (``bayes.py:43-64``): the mask
-    has x's own shape (of each sample, with ``carries_samples``)."""
+    has x's own shape (of each sample, with ``carries_samples``), and on one
+    rank's rows it is those rows of the global batch's mask."""
 
     def __init__(self, rate: float = 0.25):
         super().__init__()
@@ -168,7 +175,8 @@ class BayesianDropout(nn.Module):
         if carries_samples and tuple(seeds.shape) != (x.shape[0], 2):
             raise ValueError(f"x carries {x.shape[0]} samples; seeds must "
                              f"be ({x.shape[0]}, 2), got {tuple(seeds.shape)}")
-        keep = bernoulli(seeds, 1.0 - self.rate, self.mask_shape(base))
+        keep = bernoulli(seeds, 1.0 - self.rate, self.mask_shape(base),
+                         self.rows.row0)
         if len(base) == 4:                 # NHWC mask → the NCHW view
             keep = keep.movedim(-1, -3)
         y = (x.float() * dropout_scale(self.rate, x.dtype)).to(x.dtype)

@@ -43,6 +43,12 @@ seeds[s] or index s, as JAX's ``lax.map`` fallback
 (``masked_matmul.py:407-411``) runs one single kernel per sample. On the
 card every fused head makes one ``_xs`` launch for the S samples; an
 unfused one masks sample s of x under seeds[s] or row s.
+
+On one rank's rows of a data-sharded batch (``nn.rows``) every site hands
+its kernels ``row0``: the global row of x's first row for a head, the hash
+row ``b0·H·W`` of its first pixel for a conv site (``image_row0``), so the
+masks are those rows of the global batch's masks; the Masksembles training
+split is the global batch's.
 """
 
 from __future__ import annotations
@@ -58,7 +64,7 @@ from bayestpu_torch.core.quant import (dequantize_int8, fake_quant, int8_step,
 from bayestpu_torch.kernels.masked_conv import (
     bank_conv_inference, bank_conv_int8_inference, conv_int8_fused,
     dropout_conv, dropout_conv_inference, dropout_conv_int8_inference,
-    conv_geometry, mask_apply_nhwc)
+    conv_geometry, image_row0, mask_apply_nhwc)
 from bayestpu_torch.kernels.masked_matmul import (
     bank_matmul_inference, bank_matmul_int8_inference, dropout_matmul,
     dropout_matmul_inference, dropout_matmul_int8_inference, matmul_f32)
@@ -67,9 +73,10 @@ from bayestpu_torch.nn.bayes import (BayesianDropout, apply_row, batch_split,
 from bayestpu_torch.nn.layers import (_Conv, _int8_conv_on_mxu, dot,
                                       lecun_normal_, maybe_quant, quant_dot,
                                       quant_operands, xla_conv, xla_conv_int8)
+from bayestpu_torch.nn.rows import RowAware
 
 
-class BayesDense(nn.Module):
+class BayesDense(RowAware, nn.Module):
     def __init__(self, in_features: int, features: int,
                  bayes: BayesConfig = BayesConfig(), use_bias: bool = True,
                  fused: bool = True, quant: QuantConfig | None = None,
@@ -119,13 +126,13 @@ class BayesDense(nn.Module):
             if steps:
                 y = dropout_matmul_int8_inference(
                     x.contiguous(), kernel.contiguous(), seeds,
-                    self.bayes.rate, *steps)
+                    self.bayes.rate, *steps, row0=self.rows.row0)
             else:
                 mm = (dropout_matmul if self.training
                       else dropout_matmul_inference)
                 y = mm(x.to(self.dtype).contiguous(),
                        kernel.to(self.dtype).contiguous(), seeds,
-                       self.bayes.rate)
+                       self.bayes.rate, row0=self.rows.row0)
         return y + maybe_quant(self.bias, q) if self.bias is not None else y
 
     def _bank_head(self, x: torch.Tensor, sample_idx, int8: bool
@@ -134,7 +141,8 @@ class BayesDense(nn.Module):
         dtypes (f32 compute)."""
         x, kernel, steps = quant_operands(x, self.kernel, self.quant, int8)
         if self.training:
-            return matmul_f32(batch_split(x, self.bank), kernel)
+            return matmul_f32(batch_split(x, self.bank, rows=self.rows),
+                              kernel)
         if steps:
             return bank_matmul_int8_inference(
                 x.contiguous(), kernel.contiguous(), self.bank, sample_idx,
@@ -157,7 +165,7 @@ def _masked_conv_fuse_worthwhile(in_ch: int) -> bool:
     return in_ch >= MASKED_CONV_FUSE_MIN_CH
 
 
-class BayesConvInput(nn.Module):
+class BayesConvInput(RowAware, nn.Module):
     """Dropout on a conv input, generated and applied in one pass
     (``fused.py:123-151``): ``dropout_apply`` on the (N·H·W, C) view, in
     x's dtype; rate 0 is the identity. Unfused (``fused=False``) it is the
@@ -174,10 +182,11 @@ class BayesConvInput(nn.Module):
             return x
         if self.drop is not None:
             return self.drop(x, seeds)
-        return mask_apply_nhwc(x, seeds, self.rate).to(x.dtype)
+        row0 = image_row0(self.rows.row0, x.shape[-2], x.shape[-1])
+        return mask_apply_nhwc(x, seeds, self.rate, row0=row0).to(x.dtype)
 
 
-class BayesConv(_Conv):
+class BayesConv(RowAware, _Conv):
     """(Bayesian mask → conv) with the mask fused into the conv kernel
     (``fused.py:154-496``): ``kernel`` (OIHW), for Masksembles the bank
     buffer ``bank``, and with ``use_bias`` a ``bias`` (fake-quantized under
@@ -295,6 +304,8 @@ class BayesConv(_Conv):
             kb = torch.stack([epi_scale, bias_vec if bias_vec is not None
                               else torch.zeros_like(epi_scale)])
         epi = dict(bias=kb, act=act, out_step=out_step, stride=self.stride)
+        # the hash row of x's first pixel (of each sample's x)
+        row0 = image_row0(self.rows.row0, x.shape[-2], x.shape[-1])
         if quantize_x:
             # the float branches see the grid values the int8 ones consume
             xq, xs = quantize_int8(x, q)
@@ -303,7 +314,8 @@ class BayesConv(_Conv):
         done = False               # the epilogue ran in the kernel
         if self.masked:
             if train:
-                y = self._xla_conv(batch_split(x_f, self.bank, -3), kernel)
+                y = self._xla_conv(batch_split(x_f, self.bank, -3,
+                                               self.rows), kernel)
             elif int8_fused:
                 y = bank_conv_int8_inference(xq, wq, self.bank, sample_idx,
                                              xs, ws, self.padding, **epi)
@@ -325,17 +337,17 @@ class BayesConv(_Conv):
             elif int8_fused:
                 y = dropout_conv_int8_inference(
                     xq, wq, seeds, self.bayes.rate, xs, ws, self.padding,
-                    **epi)
+                    row0=row0, **epi)
                 done = True
             elif train:
                 y = dropout_conv(x_f.to(self.dtype), kernel.to(self.dtype),
                                  seeds, self.bayes.rate, self.padding,
-                                 self.stride)
+                                 self.stride, row0)
             else:
                 y = dropout_conv_inference(
                     x_f.to(self.dtype), kernel.to(self.dtype), seeds,
                     self.bayes.rate, self.padding, out_dtype=out_dtype,
-                    **epi)
+                    row0=row0, **epi)
                 done = True
         elif int8_fused and q.int8_det_pallas:
             y = conv_int8_fused(xq, wq, xs, ws, padding=self.padding, **epi)

@@ -53,6 +53,7 @@ import math
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -62,6 +63,7 @@ from bayestpu_torch.core.quant import (dequantize_int8, fake_quant,
 from bayestpu_torch.kernels.masked_conv import (conv2d_padded, conv_geometry,
                                                 conv_int8)
 from bayestpu_torch.kernels.masked_matmul import matmul_f32
+from bayestpu_torch.nn.rows import RowAware
 
 
 def lecun_normal_(param: torch.Tensor, fan_in: int,
@@ -152,7 +154,26 @@ class Dense(nn.Module):
         return y + maybe_quant(self.bias, self.bias_quant or q)
 
 
-class BatchNorm(nn.Module):
+class _AllReduceSum(torch.autograd.Function):
+    """The sum of a tensor over the ranks of ``group``, whose backward sums
+    the gradients over them too: every rank's loss reaches every rank's
+    share of the sum."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class BatchNorm(RowAware, nn.Module):
     """Flax ``nn.BatchNorm`` over dim 1 (channels of NCHW, features of
     (B, F)): running averages in eval mode, batch statistics in train mode.
 
@@ -161,6 +182,11 @@ class BatchNorm(nn.Module):
     0, and the running update ``m·running + (1−m)·batch`` under no_grad.
     ``momentum`` is Flax's (0.99 by default; ``ConvBN`` passes 0.9), which
     is 1 − ``nn.BatchNorm2d``'s, and the running variance is the biased one.
+    On one rank's rows of a data-sharded batch with the data axis's process
+    group (``nn.rows``) the statistics are the global batch's: the
+    per-channel sums of x and x² and the count, summed over the group
+    (``_AllReduceSum``, whose backward sums their gradients), as a sharded
+    ``jax.jit`` reduces them.
     """
 
     def __init__(self, features: int, epsilon: float = 1e-5,
@@ -190,8 +216,17 @@ class BatchNorm(nn.Module):
         if self.training:
             x = x.float()
             axes = [d for d in range(x.dim()) if d != 1]
-            mean = x.mean(axes)
-            var = torch.clamp_min((x * x).mean(axes) - mean * mean, 0.0)
+            if self.rows.group is None:
+                mean = x.mean(axes)
+                var = torch.clamp_min((x * x).mean(axes) - mean * mean, 0.0)
+            else:
+                c = x.shape[1]
+                total = _AllReduceSum.apply(torch.cat([
+                    x.sum(axes), (x * x).sum(axes),
+                    x.new_full((1,), x.numel() // c)]), self.rows.group)
+                mean = total[:c] / total[-1]
+                var = torch.clamp_min(total[c:2 * c] / total[-1] - mean * mean,
+                                      0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)

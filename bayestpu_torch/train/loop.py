@@ -15,22 +15,36 @@ from ``core.rng.step_seeds(seed, i, n_sites)`` (the JAX ``fold_in(key, i)``)
 and eval batch ``i`` from step ``EVAL_STEP0 + i``; an epoch's reshuffle is a
 pure function of (seed, epoch). Metrics stay on the device and are fetched
 once per epoch.
+
+Data-parallel training (``mesh``, an ``engine.sharding.Mesh``; its data
+axis) follows the JAX package's sharded step (``loop.py:315-328``), which
+computes what the step on the whole batch computes: every rank holds the
+whole batch and takes its rows, the masks keyed on their global rows, the
+BatchNorm statistics taken over the data axis; the gradients are summed
+over it and divided by its size before the clip and the optimizer, and
+the metrics are reduced so every rank sees the global ones. The replicas
+stay bit-identical.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Iterable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from bayestpu_torch.core.rng import EVAL_STEP0, step_seeds
 from bayestpu_torch.engine.engine import resolve_device
+from bayestpu_torch.engine.sharding import (DATA_AXIS, all_reduce, at_rows,
+                                            data_rows, replicate)
 from bayestpu_torch.interop.from_flax import (buffers_by_collection,
                                               to_flax_variables)
+from bayestpu_torch.nn.rows import Rows
 from bayestpu_torch.train.losses import (EEDConfig, _ce, eed_loss,
                                          multi_exit_accuracy)
 from bayestpu_torch.train.optim import (GradientTransformation,
@@ -73,8 +87,42 @@ def create_state(model: nn.Module, tx: GradientTransformation, seed: int,
     return TrainState(model, tx.init(dict(model.named_parameters())))
 
 
+class _DataShard:
+    """This rank's share of a data-parallel step: its rows of a batch, the
+    row context of the model, and the sums of the data axis (no mesh: the
+    whole batch and no collective)."""
+
+    def __init__(self, model: nn.Module, mesh):
+        self.model, self.mesh = model, mesh
+        self.size = 1 if mesh is None else mesh.shape[DATA_AXIS]
+        self.group = None if mesh is None else mesh.data_group
+
+    def rows(self, x: torch.Tensor, y: torch.Tensor):
+        """(x, y, the model's row context) of this rank's rows."""
+        if self.mesh is None:
+            return x, y, contextlib.nullcontext()
+        row0, n = data_rows(x.shape[0], self.mesh)
+        return (x[row0:row0 + n], y[row0:row0 + n],
+                at_rows(self.model, Rows(row0, x.shape[0], self.group)))
+
+    def mean(self, tensors: dict) -> dict:
+        """The means over the data axis of per-rank means (one all_reduce
+        of them all)."""
+        if self.mesh is None:
+            return tensors
+        names = list(tensors)
+        flat = torch.cat([tensors[k].reshape(-1).float() for k in names])
+        flat = all_reduce(flat, self.group) / self.size
+        out, i = {}, 0
+        for k in names:
+            n = tensors[k].numel()
+            out[k] = flat[i:i + n].view(tensors[k].shape).to(tensors[k].dtype)
+            i += n
+        return out
+
+
 def make_train_step(model: nn.Module, tx: GradientTransformation,
-                    eed_cfg: EEDConfig = EEDConfig()) -> Callable:
+                    eed_cfg: EEDConfig = EEDConfig(), mesh=None) -> Callable:
     """``step(state, x, y, seeds, lr_scale=1.0) → metrics``: one update of
     ``state`` in place (parameters, BN buffers, optimizer state, ``step``).
 
@@ -82,20 +130,25 @@ def make_train_step(model: nn.Module, tx: GradientTransformation,
     (n_sites, 2) int32 there (``step_seeds(seed, state.step, n_sites)``).
     ``lr_scale`` multiplies the updates (the plateau LR reduction). Metrics
     are 0-dim device tensors: ``loss``, ``grad_norm`` (the global norm
-    before the clip) and ``multi_exit_accuracy``.
+    before the clip) and ``multi_exit_accuracy``. With ``mesh`` x and y are
+    the whole batch on every rank of the data axis, each rank runs its rows
+    and the step is the whole batch's (see the module docstring).
     """
+    shard = _DataShard(model, mesh)
 
     def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
                    seeds: torch.Tensor, lr_scale: float = 1.0
                    ) -> dict[str, torch.Tensor]:
         model.train()
         params = dict(model.named_parameters())
-        out = model(x, seeds)
-        feats = (out.features if isinstance(out.features, torch.Tensor)
-                 else None)
-        loss = eed_loss(out.logits, y, feats, eed_cfg)
-        grads = dict(zip(params, torch.autograd.grad(
-            loss, list(params.values()))))
+        x, y, rows = shard.rows(x, y)
+        with rows:
+            out = model(x, seeds)
+            feats = (out.features if isinstance(out.features, torch.Tensor)
+                     else None)
+            loss = eed_loss(out.logits, y, feats, eed_cfg)
+            grads = shard.mean(dict(zip(params, torch.autograd.grad(
+                loss, list(params.values())))))
         with torch.no_grad():
             updates, state.opt_state = tx.update(grads, state.opt_state,
                                                  params)
@@ -103,34 +156,53 @@ def make_train_step(model: nn.Module, tx: GradientTransformation,
                 updates = {k: u * lr_scale for k, u in updates.items()}
             apply_updates(params, updates)
             state.step += 1
-            return {"loss": loss.detach(), "grad_norm": global_norm(grads),
-                    **multi_exit_accuracy(out.logits, y)}
+            m = shard.mean({"loss": loss.detach(),
+                            **multi_exit_accuracy(out.logits, y)})
+            return {"loss": m.pop("loss"), "grad_norm": global_norm(grads),
+                    **m}
 
     return train_step
 
 
-def make_eval_step(model: nn.Module, eed_cfg: EEDConfig = EEDConfig()
-                   ) -> Callable:
+def make_eval_step(model: nn.Module, eed_cfg: EEDConfig = EEDConfig(),
+                   mesh=None) -> Callable:
     """``eval_step(x, y, seeds) → metrics``: one stochastic pass of the model
     in eval mode (running BN statistics, one MC sample), its
     ``multi_exit_accuracy``, the EED loss ``val_eed`` and the final exit's
-    CE ``val_ce``. The model's mode is restored after."""
+    CE ``val_ce``. The model's mode is restored after. With ``mesh``, as
+    ``make_train_step``: each rank its rows, the metrics the whole
+    batch's."""
+    shard = _DataShard(model, mesh)
 
     @torch.no_grad()
     def eval_step(x: torch.Tensor, y: torch.Tensor, seeds: torch.Tensor
                   ) -> dict[str, torch.Tensor]:
         was_training = model.training
         model.eval()
+        x, y, rows = shard.rows(x, y)
         try:
-            out = model(x, seeds)
+            with rows:
+                out = model(x, seeds)
         finally:
             model.train(was_training)
         m = multi_exit_accuracy(out.logits, y)
         m["val_eed"] = eed_loss(out.logits, y, None, eed_cfg)
         m["val_ce"] = _ce(out.logits[-1], y)
-        return m
+        return shard.mean(m)
 
     return eval_step
+
+
+def _tensors_of(tree: Any) -> list[torch.Tensor]:
+    """Every tensor of a nest of dicts, tuples and lists (an optimizer
+    state), in a fixed order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tensors_of(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _tensors_of(v)]
+    return []
 
 
 def _to_device(x: Any, y: Any, dev: torch.device
@@ -181,14 +253,17 @@ def train_loop(model: nn.Module, state: TrainState,
     ``plateau_patience`` non-improving epochs. ``history`` is filled in
     place with per-epoch ``train_loss`` and ``val_metric`` lists.
 
-    Data-parallel training (``mesh``) and rolling checkpoints
-    (``checkpoint_dir``) are not ported yet and raise.
+    ``mesh`` (an ``engine.sharding.Mesh``) trains data-parallel over its
+    data axis: the mesh's first rank's parameters, BN buffers and optimizer
+    state are broadcast to every rank first; every rank then reads the same
+    batches (and the same permutation of a reshuffled epoch), runs its rows
+    of each (``make_train_step(mesh=...)``), and logs, and keeps the
+    history of, the global metrics; only the first rank calls ``log_fn``.
+
+    Rolling checkpoints (``checkpoint_dir``) are not ported yet and raise.
     """
     if val_mode not in ("acc", "eed", "ce"):
         raise ValueError(f"unknown val_mode {val_mode!r}")
-    if mesh is not None:
-        raise NotImplementedError("data-parallel training is not ported yet: "
-                                  "ROADMAP Queue 1 item 13")
     if checkpoint_dir is not None:
         raise NotImplementedError("checkpoints are not ported yet: ROADMAP "
                                   "Queue 1 item 14")
@@ -196,8 +271,13 @@ def train_loop(model: nn.Module, state: TrainState,
         raise ValueError("model must be state.model")
     dev = _device_of(model)
     n_sites = model.num_sites
-    train_step = make_train_step(model, tx, eed_cfg)
-    eval_step = make_eval_step(model, eed_cfg)
+    if mesh is not None:
+        replicate(model, mesh)
+        replicate(_tensors_of(state.opt_state), mesh)
+        if dist.is_initialized() and dist.get_rank() != mesh.first:
+            log_fn = _silent
+    train_step = make_train_step(model, tx, eed_cfg, mesh)
+    eval_step = make_eval_step(model, eed_cfg, mesh)
 
     best_metric, since_best = -float("inf"), 0
     best_params = {k: p.detach().clone()
@@ -281,6 +361,10 @@ def train_loop(model: nn.Module, state: TrainState,
     if val_batches is not None:
         _load_params(model, best_params)
     return state
+
+
+def _silent(msg: str) -> None:
+    """The log of a rank that is not the mesh's first."""
 
 
 def _load_params(model: nn.Module, params: dict[str, torch.Tensor]) -> None:

@@ -146,6 +146,20 @@ ends the run with a nonzero exit and no result line.
    plain versions at those shapes and timed beside the library call.
 15. step_vs_cpu — one training step at batch 8 on the card and on the CPU
    from one seeded init and the same seeds, in f32 and bf16.
+16. shard — sample-axis and data-parallel sharding (``engine.sharding``,
+   ``engine.distributed``): two gloo ranks on the one card (NCCL refuses
+   two ranks on one device; gloo runs ``all_reduce`` and ``broadcast`` on
+   CUDA tensors) serve the seeded ``vgg11_me`` bf16 at batch 128, S = 10:
+   the sharded predictive on the (1, 2) mesh against rank 0's local
+   spatial predict (each sample's logits bit-equal, the mean within
+   1e-6), on the (2, 1) mesh within CPU_REF_RTOL, with exactly 5
+   ``dropout_matmul_samples`` launches a sharded predict on each rank;
+   ``distributed_evaluate``; two f32 data-parallel steps at global batch
+   128 against rank 0's one-process steps (SHARD_STEP_RTOL of each
+   update's norm);
+   three bf16 steps whose replicas stay bit-identical. Then a one-rank
+   NCCL world runs the same predictive checks and the f32 steps. Also
+   ``--only shard``.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. ``--only kernels,conv,convert`` runs
@@ -164,10 +178,12 @@ counted.
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 MEM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor-core bf16
@@ -406,6 +422,15 @@ MATMUL_SHAPES = (("head", HEAD), ("ragged", RAGGED),
                  ("lenet_fc1", LENET_FC1),
                  ("lenet_small_head", {**LENET_HEAD, "M": LENET_SMALL}),
                  ("lenet_small_fc1", {**LENET_FC1, "M": LENET_SMALL}))
+
+
+# row0 (one rank's rows of a data-sharded batch): rows [ROW0, ROW0 +
+# ROW0_ROWS) of the head shape's 128, off every tile edge of the heads (8
+# and 16 rows); ROW0_WRAP, a row0 whose rows run past 2^32 and wrap
+ROW0, ROW0_ROWS, ROW0_WRAP = 40, 56, 2 ** 32 - 24
+# images [ROW0_IMAGE, ROW0_IMAGE + ROW0_IMAGES) of a conv batch of
+# ROW0_BATCH, at row0 = b0·H·W
+ROW0_BATCH, ROW0_IMAGE, ROW0_IMAGES = 8, 3, 4
 
 
 def emit(obj: dict) -> None:
@@ -995,7 +1020,118 @@ def phase_kernels() -> dict:
                          ("sweep_fc1", {**SWEEP_FC1, "S": NUM_MASKS})):
         _check_bank(mm, shape, label, gen, summary)
     _apply_shapes(mm, gen)
+    _row0_checks(mm, gen, summary)
     return summary
+
+
+def _row0_checks(mm, gen, summary: dict) -> None:
+    """Rows 1-5 (3x and 5x too) at ``row0`` > 0, as one rank of a
+    data-sharded batch runs them: the mask readout (x of ones, w = eye) of
+    rows [ROW0, ROW0 + ROW0_ROWS) of the head shape at row0 = ROW0
+    bit-equal to those rows of the launch on the whole tensor, and on
+    random x at row0 = ROW0 and ROW0_WRAP (rows past 2^32) against the
+    plain versions at the same row0 (float to KERNEL_RTOL of max|ref|,
+    int8 and ``dropout_apply`` bit for bit)."""
+    import torch
+    m_all, k, s = HEAD["M"], HEAD["K"], HEAD["S"]
+    part = slice(ROW0, ROW0 + ROW0_ROWS)
+    _, _, seeds = _inputs(HEAD, torch.float32, gen)
+    s0 = seeds[0].contiguous()
+    line = {"phase": "kernels", "check": "row0", **HEAD,
+            "rows": [ROW0, ROW0 + ROW0_ROWS], "wrap_row0": ROW0_WRAP}
+    for dtype in (torch.bfloat16, torch.float32, torch.int8):
+        i8 = dtype == torch.int8
+        ones = torch.ones(m_all, k, dtype=dtype, device="cuda")
+        eye = torch.eye(k, dtype=dtype, device="cuda")
+        ones3 = ones.expand(s, -1, -1).contiguous()
+        steps = (2.0 ** -7, 2.0 ** -7)
+        if i8:
+            runs = {
+                "dropout_matmul_int8": lambda x, r: mm.dropout_matmul_int8(
+                    x, eye, s0, RATE, *steps, r),
+                "dropout_matmul_int8_samples":
+                    lambda x, r: mm.dropout_matmul_int8_samples(
+                        x, eye, seeds, RATE, *steps, r),
+                "dropout_matmul_int8_xs":
+                    lambda x, r: mm.dropout_matmul_int8_inference(
+                        x, eye, seeds, RATE, *steps, r)}
+        else:
+            runs = {
+                "dropout_apply": lambda x, r: mm.dropout_apply(x, s0, RATE,
+                                                               r),
+                "dropout_matmul": lambda x, r: mm.dropout_matmul(
+                    x, eye, s0, RATE, r),
+                "dropout_matmul_samples": lambda x, r:
+                    mm.dropout_matmul_samples(x, eye, seeds, RATE, r),
+                "dropout_matmul_xs": lambda x, r:
+                    mm.dropout_matmul_inference(x, eye, seeds, RATE, r)}
+        same = {}
+        for name, run in runs.items():
+            xs = ones3 if name.endswith("_xs") else ones
+            whole = run(xs, 0)
+            got = run(xs[..., part, :].contiguous(), ROW0)
+            same[name] = torch.equal(got, whole[..., part, :])
+        check(all(same.values()), f"row0 readout {dtype}: {same}")
+        # values on random x at row0 against the plain versions
+        if i8:
+            x = torch.randint(-128, 128, (ROW0_ROWS, k), generator=gen,
+                              dtype=torch.int8).cuda()
+            w = torch.randint(-128, 128, (k, HEAD["N"]), generator=gen,
+                              dtype=torch.int8).cuda()
+            x3 = torch.randint(-128, 128, (s, ROW0_ROWS, k), generator=gen,
+                               dtype=torch.int8).cuda()
+        else:
+            x, w, _ = _inputs({**HEAD, "M": ROW0_ROWS}, dtype, gen)
+            x3 = torch.randn(s, ROW0_ROWS, k, generator=gen).to(dtype).cuda()
+        errs = {}
+        for r0 in (ROW0, ROW0_WRAP):
+            if i8:
+                pairs = {
+                    "dropout_matmul_int8": (
+                        mm.dropout_matmul_int8(x, w, s0, RATE, *steps, r0),
+                        mm.dropout_matmul_int8_plain(x, w, s0, RATE, *steps,
+                                                     r0)),
+                    "dropout_matmul_int8_samples": (
+                        mm.dropout_matmul_int8_samples(x, w, seeds, RATE,
+                                                       *steps, r0),
+                        mm.dropout_matmul_int8_samples_plain(
+                            x, w, seeds, RATE, *steps, r0)),
+                    "dropout_matmul_int8_xs": (
+                        mm.dropout_matmul_int8_inference(x3, w, seeds, RATE,
+                                                         *steps, r0),
+                        torch.stack([mm.dropout_matmul_int8_plain(
+                            x3[i], w, seeds[i], RATE, *steps, r0)
+                            for i in range(s)]))}
+            else:
+                pairs = {
+                    "dropout_apply": (mm.dropout_apply(x, s0, RATE, r0),
+                                      mm.dropout_apply_plain(x, s0, RATE,
+                                                             r0)),
+                    "dropout_matmul": (
+                        mm.dropout_matmul(x, w, s0, RATE, r0),
+                        mm.dropout_matmul_plain(x, w, s0, RATE, r0)),
+                    "dropout_matmul_samples": (
+                        mm.dropout_matmul_samples(x, w, seeds, RATE, r0),
+                        mm.dropout_matmul_samples_plain(x, w, seeds, RATE,
+                                                        r0)),
+                    "dropout_matmul_xs": (
+                        mm.dropout_matmul_inference(x3, w, seeds, RATE, r0),
+                        torch.stack([mm.dropout_matmul_plain(
+                            x3[i], w, seeds[i], RATE, r0)
+                            for i in range(s)]))}
+            for name, (got, want) in pairs.items():
+                err = (got - want).abs().max().item()
+                exact = i8 or name == "dropout_apply"
+                tol = 0.0 if exact else KERNEL_RTOL * max(
+                    1.0, want.abs().max().item())
+                check(err <= tol, f"{name} at row0 {r0} {dtype}: {err} > "
+                      f"{tol}")
+                errs[f"{name}@{r0}"] = err
+                summary[name]["max_abs_err"] = max(
+                    summary[name]["max_abs_err"], err)
+        line[str(dtype).split(".")[-1]] = {"readout_equal_whole": same,
+                                           "max_abs_err_vs_plain": errs}
+    emit(line)
 
 
 def _check_int8(mm, shape: dict, label: str, gen, summary: dict) -> None:
@@ -1538,6 +1674,97 @@ def _conv_readout(gen) -> None:
     emit(line)
 
 
+def _conv_row0(gen, summary: dict) -> None:
+    """Row 10 at ``row0`` = b0·H·W, as one rank of a data-sharded batch
+    runs it: the mask readout (x of ones, a 1x1 identity, VALID) of images
+    [b0, b0 + n) of a batch of ROW0_BATCH at block site 1 (16x16x64) at
+    that row0 bit-equal to those images of the launch on the whole batch,
+    for 10a (one sample, bf16 on the tensor cores, and f32 on the CUDA
+    cores), 10b (samples), 10c (int8, one and S samples), 10e (x carrying
+    the sample axis) and ``mask_apply_nhwc``; then block site 1's conv (3x3
+    SAME, the fold affine and relu) on random x at that row0 and at a
+    wrapping one against the plain versions (bf16 and f32 to CONV_RTOL of
+    max|ref|, int8 bit for bit)."""
+    import torch
+    from bayestpu_torch.kernels import masked_conv as mc
+    hw, c, f = CONV_SITES[0]
+    seeds = _inputs(dict(M=1, K=1, N=1, S=CONV_S), torch.float32, gen)[2]
+    s0 = seeds[0].contiguous()
+    part = slice(ROW0_IMAGE, ROW0_IMAGE + ROW0_IMAGES)
+    r0 = mc.image_row0(ROW0_IMAGE, hw, hw)
+    line = {"phase": "kernels", "kernel": "masked_conv", "check": "row0",
+            "x_nhwc": [ROW0_BATCH, hw, hw, c],
+            "images": [part.start, part.stop], "row0": r0}
+    same = {}
+    for dtype in (torch.bfloat16, torch.float32, torch.int8):
+        ones = _cl(torch.ones(ROW0_BATCH, c, hw, hw, dtype=dtype,
+                              device="cuda"))
+        eye = torch.eye(c, dtype=dtype, device="cuda")[:, :, None, None]
+        tag = str(dtype).split(".")[-1]
+        if dtype == torch.int8:
+            runs = {"10c": lambda x, r: mc.dropout_conv_int8(
+                        x, eye, s0, RATE, 1.0, 1.0, "VALID", row0=r),
+                    "10c_samples": lambda x, r: mc.dropout_conv_int8_samples(
+                        x, eye, seeds, RATE, 1.0, 1.0, "VALID", row0=r)}
+        else:
+            runs = {"10a": lambda x, r: mc.dropout_conv(
+                        x, eye, s0, RATE, "VALID", row0=r),
+                    "10b": lambda x, r: mc.dropout_conv_samples(
+                        x, eye, seeds, RATE, "VALID", row0=r),
+                    "10e": lambda x, r: mc.dropout_conv_inference(
+                        mc.stack_samples([x] * CONV_S), eye, seeds, RATE,
+                        "VALID", row0=r),
+                    "mask_apply": lambda x, r: mc.mask_apply_nhwc(
+                        x, s0, RATE, row0=r)}
+        for name, run in runs.items():
+            whole = run(ones, 0)
+            got = run(ones[part], r0)
+            same[f"{name}_{tag}"] = torch.equal(
+                got, whole[..., part, :, :, :])
+    check(all(same.values()), f"conv row0 readout: {same}")
+    line["readout_equal_whole"] = same
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32, torch.int8):
+        tag = str(dtype).split(".")[-1]
+        if dtype == torch.int8:
+            x = _cl(torch.randint(-128, 128, (ROW0_IMAGES, c, hw, hw),
+                                  generator=gen, dtype=torch.int8).cuda())
+            w = torch.randint(-128, 128, (f, c, 3, 3), generator=gen,
+                              dtype=torch.int8).cuda()
+        else:
+            x = _cl(torch.randn(ROW0_IMAGES, c, hw, hw,
+                                generator=gen).to(dtype).cuda())
+            w = (torch.randn(f, c, 3, 3, generator=gen)
+                 / (9 * c) ** 0.5).to(dtype).cuda()
+        affine = torch.stack([torch.rand(f, generator=gen) + 0.5,
+                              torch.randn(f, generator=gen)]).cuda()
+        epi = dict(bias=affine, act="relu")
+        for rr in (r0, ROW0_WRAP):
+            if dtype == torch.int8:
+                got = mc.dropout_conv_int8_samples(
+                    x, w, seeds, RATE, 2.0 ** -7, 2.0 ** -7, "SAME", **epi,
+                    row0=rr)
+                want = mc.stack_samples([mc.dropout_conv_int8_plain(
+                    x, w, seeds[i], RATE, 2.0 ** -7, 2.0 ** -7, "SAME",
+                    **epi, row0=rr) for i in range(CONV_S)])
+                name, tol = "dropout_conv_int8_samples", 0.0
+            else:
+                got = mc.dropout_conv_samples(x, w, seeds, RATE, "SAME",
+                                              **epi, row0=rr)
+                want = mc.stack_samples([mc.dropout_conv_plain(
+                    x, w, seeds[i], RATE, "SAME", **epi, row0=rr)
+                    for i in range(CONV_S)])
+                name = "dropout_conv_samples"
+                tol = CONV_RTOL * max(1.0, want.abs().max().item())
+            err = (got.float() - want.float()).abs().max().item()
+            check(err <= tol, f"{name} at row0 {rr} {tag}: {err} > {tol}")
+            errs[f"{name}_{tag}@{rr}"] = err
+            summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"],
+                                               err)
+    line["max_abs_err_vs_plain"] = errs
+    emit(line)
+
+
 def _conv_times(gen, summary: dict | None, sites=CONV_SITES,
                 convs=VGG_CONVS, stride: int = 1, label: str = "site",
                 names=None) -> None:
@@ -1806,6 +2033,7 @@ def phase_conv_kernels() -> dict:
     for label, (xshape, k, ff, padding, stride) in CONV_RAGGED.items():
         _conv_checks(label, xshape, k, ff, padding, stride, gen, summary)
     _conv_readout(gen)
+    _conv_row0(gen, summary)
     _conv_times(gen, summary)
     for hw, c, f in RESNET_SITES:
         for kname, (k, padding, _) in RESNET_CONVS.items():
@@ -4034,6 +4262,231 @@ def phase_convert(smi: str) -> dict:
     return {"launches": launch_counts()}
 
 
+# the shard phase: the seed of its model, data and MC seeds, the longest a
+# world may take, the f32 steps against one process, and the bf16 replica
+# steps; its worlds meet in a directory of the checkout
+SHARD_SEED, SHARD_TIMEOUT_S, SHARD_F32_STEPS, SHARD_BF16_STEPS = 15, 180, 2, 3
+# each parameter's update after the f32 steps within SHARD_STEP_RTOL of its
+# norm plus SHARD_STEP_ATOL. The f32 vgg11_me step at batch 128 is
+# ill-conditioned in BatchNorm's backward (E[x²] − E[x]² and its
+# gradient cancel): on the CPU (vgg11, rate 0, batch 128) the one-process
+# f32 step's gradients lie up to 1.4e-3 of a norm from the float64 step,
+# the data-parallel f32 step 6.4e-3 from the one-process one while both
+# float64 steps agree to 3e-7, and two steps' updates 1.7e-2 apart; so
+# 5e-2, which a wrong mask row, a missing division by the data axis or a
+# BatchNorm on local statistics misses by far (the CPU tests hold the
+# data-parallel step to the float64 step within 3e-4 at batch 8). ATOL:
+# the CPU tests' gradient floor (1e-5, for a bias that feeds a BatchNorm
+# and has a gradient of rounding noise alone) carried through SGD with
+# momentum 0.9 at LR 0.01 over two steps (at most 2.9 LR a gradient)
+SHARD_STEP_RTOL, SHARD_STEP_ATOL = 5e-2, 2.9 * 0.01 * 1e-5
+SHARD_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_shard"
+
+
+def _shard_rank(rank: int, world: int, workdir: str, backend: str) -> None:
+    """One rank of a shard-phase world on cuda:0; its results go to
+    ``workdir/rank<r>.json``. Rank 0's weights reach every rank by
+    ``replicate`` (each rank draws its own first)."""
+    import copy
+    import torch
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from bayestpu_torch.core.config import BayesConfig
+    from bayestpu_torch.core.rng import sample_seeds, step_seeds
+    from bayestpu_torch.engine import distributed, sampler, sharding
+    from bayestpu_torch.nn.zoo import get_model
+    from bayestpu_torch.train.loop import TrainState, make_train_step
+    from bayestpu_torch.train.optim import get_optimizer, get_recipe
+
+    distributed.initialize(f"file://{workdir}/rendezvous", world, rank,
+                           backend)
+    out: dict = {"rank": rank, "backend": backend}
+    gen = torch.Generator().manual_seed(SHARD_SEED)
+    x = torch.randn(BATCH, 32, 32, 3, generator=gen).cuda()
+    y = torch.randint(0, 10, (BATCH,), generator=gen).cuda()
+    meshes = {m: sharding.make_mesh(*m) for m in dict.fromkeys(
+        [(1, world), (world, 1)])}
+    sample_mesh, data_mesh = meshes[(1, world)], meshes[(world, 1)]
+
+    def model_of(dtype, seed):
+        m = get_model("vgg11_me", bayes=BayesConfig(rate=RATE), fused=True,
+                      dtype=dtype)
+        m.reset_parameters(torch.Generator().manual_seed(seed + rank))
+        return sharding.replicate(m.cuda(), sample_mesh)
+
+    model = model_of(torch.bfloat16, SHARD_SEED).eval()
+    seeds = sample_seeds(SHARD_SEED, SAMPLES, model.num_sites).cuda()
+    reset_counts()
+    with torch.inference_mode():
+        local = model(x, seeds).logits.float()
+        lp = torch.softmax(local, dim=-1)
+        lmean = lp.mean(0)
+        for (d, s), mesh in meshes.items():
+            before = launch_counts()
+            got = sharding.sharded_predictive(model, x, seeds, mesh)
+            torch.cuda.synchronize()
+            after = launch_counts()
+            blk, a, row0 = sharding.shard_logits(model, x, seeds, mesh)
+            ref = local[a:a + blk.shape[0], :, row0:row0 + blk.shape[-2]]
+            out[f"mesh_{d}x{s}"] = {
+                "logits_bit_equal_local": torch.equal(blk.float(), ref),
+                "logits_max_abs_err": (blk.float() - ref).abs().max().item(),
+                "max_abs_logit": ref.abs().max().item(),
+                "mean_max_abs_err": (got.probs - lmean).abs().max().item(),
+                "var_max_abs_err": (got.var - lp.var(0, correction=0)
+                                    ).abs().max().item(),
+                "num_samples": got.num_samples,
+                "launches": {k: after[k] - before[k] for k in after
+                             if after[k] != before[k]},
+                "p50_ms": host_ms(lambda m=mesh: sharding.sharded_predictive(
+                    model, x, seeds, m), 10)}
+        out["local_p50_ms"] = host_ms(
+            lambda: sampler.predictive(model, x, seeds), 10)
+        parts = distributed.eval_step_metrics(lmean[-1], y)
+        out["evaluate_local"] = {k: v.item() for k, v in
+                                 distributed.finalize_metrics(parts).items()}
+    out["evaluate"] = distributed.distributed_evaluate(
+        model, x, y, SAMPLES, sample_mesh, seed=SHARD_SEED)
+
+    # f32 data-parallel steps at global batch 128 against one process
+    xs = torch.randn(SHARD_F32_STEPS, BATCH, 32, 32, 3, generator=gen).cuda()
+    ys = torch.randint(0, 10, (SHARD_F32_STEPS, BATCH), generator=gen).cuda()
+    f32 = model_of(torch.float32, SHARD_SEED + 1)
+    one = copy.deepcopy(f32)
+    start = {k: p.detach().clone() for k, p in f32.named_parameters()}
+    tx = get_optimizer(get_recipe("vgg19", lr=0.01), 10)
+    for mdl, mesh in ((f32, data_mesh), (one, None)):
+        if mesh is None and rank != 0:
+            break
+        mdl.train()
+        state = TrainState(mdl, tx.init(dict(mdl.named_parameters())))
+        step = make_train_step(mdl, tx, mesh=mesh)
+        for i in range(SHARD_F32_STEPS):
+            step(state, xs[i], ys[i], step_seeds(SHARD_SEED, i,
+                                                 mdl.num_sites).cuda())
+    if rank == 0:
+        errs = {}
+        for (k, p), q in zip(f32.named_parameters(), one.parameters()):
+            du, dv = p.detach() - start[k], q.detach() - start[k]
+            errs[k] = ((du - dv).norm().item(), dv.norm().item())
+        share = {k: e / (SHARD_STEP_RTOL * n + SHARD_STEP_ATOL)
+                 for k, (e, n) in errs.items()}
+        worst = max(share, key=share.get)
+        rel = max((e / n, k) for k, (e, n) in errs.items()
+                  if SHARD_STEP_RTOL * n > SHARD_STEP_ATOL)
+        out["f32_steps"] = {"worst_param": worst,
+                            "worst_err_over_bound": share[worst],
+                            "worst_update_err": errs[worst][0],
+                            "worst_update_norm": errs[worst][1],
+                            "worst_rel_err_above_atol": rel[0],
+                            "worst_rel_err_param": rel[1]}
+    # bf16 steps: the replicas stay bit-identical
+    bf = model_of(torch.bfloat16, SHARD_SEED + 2).train()
+    state = TrainState(bf, tx.init(dict(bf.named_parameters())))
+    step = make_train_step(bf, tx, mesh=data_mesh)
+    for i in range(SHARD_BF16_STEPS):
+        step(state, xs[i % SHARD_F32_STEPS], ys[i % SHARD_F32_STEPS],
+             step_seeds(SHARD_SEED + 2, i, bf.num_sites).cuda())
+    flat = torch.cat([p.detach().reshape(-1) for p in bf.parameters()])
+    every = flat.new_zeros(world, flat.numel())
+    every[rank] = flat
+    sharding.all_reduce(every, torch.distributed.group.WORLD)
+    out["bf16_replicas_bit_identical"] = all(
+        torch.equal(every[r], every[0]) for r in range(world))
+    torch.cuda.synchronize()
+    out["launches"] = launch_counts()
+    torch.distributed.destroy_process_group()
+    with open(Path(workdir) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def _shard_world(world: int, backend: str) -> list:
+    """Run a ``world``-rank ``backend`` world of ``_shard_rank`` on the one
+    card; every rank's results. A rank that fails or a world that outlasts
+    SHARD_TIMEOUT_S fails the phase (its processes are ended)."""
+    import multiprocessing as mp
+    workdir = SHARD_DIR / backend
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_shard_rank,
+                         args=(r, world, str(workdir), backend))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SHARD_TIMEOUT_S
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 1.0))
+    late = [p for p in procs if p.is_alive()]
+    for p in late:
+        p.kill()
+        p.join()
+    check(not late, f"the {backend} world outlasted {SHARD_TIMEOUT_S} s")
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * world, f"the {backend} world's ranks exited {codes}")
+    outs = []
+    for r in range(world):
+        with open(workdir / f"rank{r}.json") as f:
+            outs.append(json.load(f))
+    return outs
+
+
+def phase_shard(smi: str) -> dict:
+    """The shard phase (16 in the list above). Returns ``launches``: rank 0
+    of the gloo world's launch counts, every launch of its sharded
+    predicts, evaluate and steps."""
+    launches = None
+    for world, backend in ((2, "gloo"), (1, "nccl")):
+        outs = _shard_world(world, backend)
+        r0 = outs[0]
+        for key in [k for k in r0 if k.startswith("mesh_")]:
+            d = int(key.split("_")[1].split("x")[0])
+            for o in outs:
+                got = o[key]
+                check(got["num_samples"] == SAMPLES,
+                      f"{backend} {key}: {got['num_samples']} samples")
+                check(got["launches"] == {"dropout_matmul_samples": 5},
+                      f"{backend} {key} launches {got['launches']}")
+                if d == 1:
+                    check(got["logits_bit_equal_local"]
+                          and got["mean_max_abs_err"] <= 1e-6
+                          and got["var_max_abs_err"] <= 1e-6,
+                          f"{backend} {key} against the local predict: "
+                          f"{got}")
+                else:
+                    check(got["logits_max_abs_err"]
+                          <= CPU_REF_RTOL * max(1.0, got["max_abs_logit"])
+                          and got["mean_max_abs_err"] <= CPU_REF_RTOL,
+                          f"{backend} {key} against the local predict: "
+                          f"{got}")
+        ev, ev_local = r0["evaluate"], r0["evaluate_local"]
+        check(all(o["evaluate"] == ev for o in outs)
+              and abs(ev["acc"] - ev_local["acc"]) <= 1.0 / BATCH
+              and abs(ev["nll"] - ev_local["nll"]) <= 1e-4 * max(
+                  1.0, ev_local["nll"])
+              and abs(ev["ece"] - ev_local["ece"]) <= 1e-4
+              and ev["n"] == BATCH,
+              f"{backend} distributed_evaluate {ev} against {ev_local}")
+        check(r0["f32_steps"]["worst_err_over_bound"] <= 1.0,
+              f"{backend} f32 data-parallel steps: {r0['f32_steps']}")
+        check(all(o["bf16_replicas_bit_identical"] for o in outs),
+              f"{backend} bf16 replicas differ")
+        line = {"phase": "shard", "backend": backend, "world": world,
+                "nvidia_smi": smi,
+                **{k: r0[k] for k in r0 if k.startswith("mesh_")},
+                "local_p50_ms": r0["local_p50_ms"],
+                "evaluate": ev, "evaluate_local": ev_local,
+                "f32_steps": r0["f32_steps"],
+                "bf16_replicas_bit_identical": True}
+        if backend == "gloo":
+            launches = r0["launches"]
+            line["p50_note"] = ("two ranks share one card: mechanics, not "
+                                "scaling")
+        emit(line)
+    return {"launches": launches}
+
+
 def phase_step_vs_cpu() -> None:
     """One training step of vgg11_me at batch 8 on the card and on the
     CPU (``_step_vs_cpu``)."""
@@ -4111,7 +4564,8 @@ def main(argv: list[str]) -> int:
     import bayestpu_torch  # noqa: F401  (fails outside a checkout)
 
     partial = {"kernels": phase_kernels, "conv": phase_conv_kernels,
-               "convert": lambda: phase_convert(smi)}
+               "convert": lambda: phase_convert(smi),
+               "shard": lambda: phase_shard(smi)}
     only = None
     if argv:
         check(len(argv) == 2 and argv[0] == "--only"
@@ -4123,11 +4577,6 @@ def main(argv: list[str]) -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_card()
     phase_build()
-    if only is not None:
-        for name in only:
-            partial[name]()
-        emit({"partial": only})
-        return 0
     seconds = {}
 
     def timed(name, fn, *args):
@@ -4137,6 +4586,12 @@ def main(argv: list[str]) -> int:
         print(f"chip_smoke: phase {name} took {seconds[name]:.1f} s",
               file=sys.stderr, flush=True)
         return out
+
+    if only is not None:
+        for name in only:
+            timed(name, partial[name])
+        emit({"partial": only})
+        return 0
 
     summary = timed("kernels", phase_kernels)
     summary.update(timed("conv", phase_conv_kernels))
@@ -4152,11 +4607,12 @@ def main(argv: list[str]) -> int:
     ln = timed("lenet", phase_lenet, smi)
     cv = timed("convert", phase_convert, smi)
     timed("step_vs_cpu", phase_step_vs_cpu)
+    sh = timed("shard", phase_shard, smi)
     emit({"phase": "seconds", **seconds})
     kernels = []
     for name, stats in summary.items():
         launches = sum(ph["launches"][name]
-                       for ph in (sl, tr, i8, an, mk, bl, rn, ln, cv))
+                       for ph in (sl, tr, i8, an, mk, bl, rn, ln, cv, sh))
         check(launches > 0, f"{name} was never launched on the main paths")
         conv = name in CONV_REPLACES
         kernels.append({"name": name, "route": "cuda",

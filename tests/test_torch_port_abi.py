@@ -151,3 +151,37 @@ def test_routine_follows_the_dtypes():
         assert tmc.staged_dtype(entry, i8) == torch.int8
     for w in (bf, f32, i8):
         assert tmc.staged_dtype("masked_conv", w) == w.dtype
+
+
+MC_MATMUL = ("bt_dropout_matmul", "bt_dropout_matmul_samples",
+             "bt_dropout_apply", "bt_dropout_matmul_int8",
+             "bt_dropout_matmul_int8_samples")
+
+
+@pytest.mark.parametrize("name", MC_MATMUL)
+def test_mc_entries_take_row0(name):
+    """Every hash-keyed matmul entry takes ``uint32_t row0`` (the global row
+    of x's first row) just before the stream, declared ``c_uint32``; the
+    bank entries, whose masks ignore the row, take none."""
+    params = dict((n, p) for _, n, p in ENTRIES)[name]
+    assert params[-2].split() == ["uint32_t", "row0"]
+    assert _build._SIGNATURES["masked_matmul"][name][-2] is ctypes.c_uint32
+    for bank in ("bt_bank_matmul", "bt_bank_matmul_samples"):
+        assert not any("row0" in p for p in dict(
+            (n, p) for _, n, p in ENTRIES)[bank])
+
+
+def test_conv_dims_carry_row0():
+    """The conv entries read row0 from ``dims[13]`` into the MC mask, as
+    the uint32 of the int32 the wrapper stores there; the wrapper stores
+    ``image_row0``'s value, wrapping past 2^31 into a negative int32."""
+    src = (CSRC / "masked_conv.cu").read_text()
+    assert src.count("static_cast<uint32_t>(dims[13])") == 2
+    r0 = tmc.image_row0(2 ** 20, 64, 64)        # 2^32: wraps to 0
+    assert r0 == 0 and tmc.image_row0(3, 16, 16) == 768
+    big = tmc.image_row0(2 ** 19 + 1, 64, 64)   # past 2^31
+    assert big == 2 ** 31 + 4096
+    for v in (0, 768, big, 2 ** 32 - 1, 2 ** 32 + 5):
+        bits = tmc.int32_bits(v)
+        assert -(2 ** 31) <= bits < 2 ** 31
+        assert ctypes.c_uint32(ctypes.c_int(bits).value).value == v % 2 ** 32

@@ -719,3 +719,101 @@ def test_bayes_conv_branches_match_flax(branch):
         np.testing.assert_array_equal(_np(got), want)
     else:
         np.testing.assert_allclose(_np(got), want, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------- row0: one rank's images
+
+# images [B0, B0 + NB) of a batch of N_ALL (one rank's rows of a data-sharded
+# batch): the port at row0 = image_row0(B0, H, W)
+N_ALL, B0, NB = 5, 2, 2
+
+
+@pytest.mark.parametrize("entry", [
+    "single_f32", "single_bf16", "samples_bf16", "xs_bf16", "int8",
+    "int8_samples", "int8_xs", "mask_apply"])
+def test_row0_images_equal_the_whole_launch(entry):
+    """Row 10 (and ``mask_apply_nhwc``) at ``row0 = b0·H·W`` on images
+    [b0, b0 + n) of the readout ``conv(ones, 1×1 identity)`` equals those
+    images of the JAX kernel's launch on the whole batch, bit for bit: the
+    mask row is JAX's ``(n0 + b)·hw + h·W + w``. The ``_xs`` entries carry
+    the sample axis, sample s on its own images at the same row0."""
+    h, w, c = 4, 3, 40
+    row0 = tmc.image_row0(B0, h, w)
+    seeds = torch.from_numpy(SEEDS)
+    part = slice(B0, B0 + NB)
+    int8 = entry.startswith("int8")
+    bf16 = entry.endswith("bf16")
+    ones = np.ones((N_ALL, h, w, c), np.int8 if int8 else np.float32)
+    eye = np.eye(c, dtype=ones.dtype)[None, None]
+    if entry == "mask_apply":
+        want = np.asarray(jmc.mask_apply_nhwc(
+            jnp.asarray(ones), jnp.asarray(SEEDS[1]), RATE, **I))[part]
+        got = tmc.mask_apply_nhwc(_x(ones[part]), seeds[1], RATE, row0=row0)
+        np.testing.assert_array_equal(_np(got), want)
+        return
+    if int8:
+        jx, jw = jnp.asarray(ones), jnp.asarray(eye)
+        tx, tw = _x(ones[part]), _w(eye)
+        args = (RATE, *STEPS, "VALID")
+        if entry == "int8":
+            want = jmc.dropout_conv_int8(jx, jw, jnp.asarray(SEEDS[0]), *args,
+                                         **I)
+            got = tmc.dropout_conv_int8(tx, tw, seeds[0], *args, row0=row0)
+        else:
+            want = jmc.dropout_conv_int8_samples(jx, jw, jnp.asarray(SEEDS),
+                                                 *args, **I)
+            if entry == "int8_xs":
+                tx = torch.stack([tx] * len(SEEDS))
+            got = tmc.dropout_conv_int8_inference(tx, tw, seeds, *args,
+                                                  row0=row0)
+    else:
+        dt = torch.bfloat16 if bf16 else torch.float32
+        jx, jw = _jx(ones, bf16), _jx(eye, bf16)
+        tx, tw = _x(ones[part], dt), _w(eye, dt)
+        if entry.startswith("single"):
+            want = jmc.dropout_conv(jx, jw, jnp.asarray(SEEDS[0]), RATE,
+                                    "VALID", **I)
+            got = tmc.dropout_conv(tx, tw, seeds[0], RATE, "VALID", row0=row0)
+        else:
+            want = jmc.dropout_conv_samples(jx, jw, jnp.asarray(SEEDS), RATE,
+                                            "VALID", **I)
+            if entry == "xs_bf16":
+                tx = torch.stack([tx] * len(SEEDS))
+            got = tmc.dropout_conv_inference(tx, tw, seeds, RATE, "VALID",
+                                             row0=row0)
+    want = np.asarray(jnp.asarray(want, jnp.float32))[..., part, :, :, :]
+    np.testing.assert_array_equal(_np(got), want)
+    assert 0 < np.count_nonzero(want) < want.size
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_row0_values_at_stride_2(int8):
+    """A 3×3 stride-2 SAME conv of random data with the epilogue (affine,
+    relu) at ``row0``: images [b0, b0 + n) of JAX's whole-batch samples
+    launch, int8 bit for bit, f32 to FLOAT_RTOL."""
+    x, w, affine = _data("same_s2")
+    x = np.concatenate([x, x[::-1] * 0.5, x * -1.5])[:N_ALL]
+    n, h, wd, c = x.shape
+    part = slice(B0, B0 + NB)
+    row0 = tmc.image_row0(B0, h, wd)
+    seeds = torch.from_numpy(SEEDS)
+    epi = dict(bias=affine, act="relu", stride=2)
+    tepi = dict(bias=torch.from_numpy(affine), act="relu", stride=2)
+    if int8:
+        xq, wq = _int8_data("same_s2")
+        xq = np.concatenate([xq, -xq, xq[::-1]])[:N_ALL]
+        want = jmc.dropout_conv_int8_samples(
+            jnp.asarray(xq), jnp.asarray(wq), jnp.asarray(SEEDS), RATE,
+            *STEPS, "SAME", **I, **epi)
+        got = tmc.dropout_conv_int8_samples(_x(xq[part]), _w(wq), seeds,
+                                            RATE, *STEPS, "SAME", **tepi,
+                                            row0=row0)
+        np.testing.assert_array_equal(_np(got),
+                                      np.asarray(want)[:, part])
+        return
+    want = jmc.dropout_conv_samples(jnp.asarray(x), jnp.asarray(w),
+                                    jnp.asarray(SEEDS), RATE, "SAME", **I,
+                                    **epi)
+    got = tmc.dropout_conv_samples(_x(x[part]), _w(w), seeds, RATE, "SAME",
+                                   **tepi, row0=row0)
+    _close(got, np.asarray(want)[:, part])

@@ -31,6 +31,7 @@ from bayestpu.nn.zoo import get_model as jax_get_model
 from bayestpu_torch.core import config as tconfig
 from bayestpu_torch.core.rng import sample_seeds
 from bayestpu_torch.engine import sampler as tsampler
+from bayestpu_torch.engine import sharding
 from bayestpu_torch.engine.engine import BayesEngine
 from bayestpu_torch.interop.from_flax import load_flax_variables
 from bayestpu_torch.metrics import ece as tece
@@ -294,9 +295,19 @@ def test_engine_guards(engine):
         BayesEngine(model, device="cpu").predict(x)
     with pytest.raises(ValueError, match="fit"):
         BayesEngine(model, device="cpu").init(0, x[:, :16])
-    with pytest.raises(NotImplementedError, match="sharding"):
-        BayesEngine(model, config=tconfig.EngineConfig(
-            mode=tconfig.SamplingMode.SHARDED), device="cpu")
+    # SHARDED runs as spatial on one process, as in JAX; a 1x1 mesh (no
+    # process group) serves the same predictive through the sharded path
+    want = eng.predict(x, seed=4, num_samples=3)
+    sharded = BayesEngine(eng.model, config=tconfig.EngineConfig(
+        mode=tconfig.SamplingMode.SHARDED), device="cpu")
+    sharded.ready = True
+    meshed = BayesEngine(eng.model, device="cpu", mesh=sharding.make_mesh())
+    meshed.ready = True
+    for got in (sharded.predict(x, seed=4, num_samples=3),
+                meshed.predict(x, seed=4, num_samples=3)):
+        assert got.num_samples == 3
+        torch.testing.assert_close(got.probs, want.probs, rtol=0, atol=1e-7)
+        torch.testing.assert_close(got.var, want.var, rtol=0, atol=1e-7)
 
 
 # -------------------------------------------------------------- guards
@@ -311,7 +322,9 @@ def test_import_pulls_in_no_jax():
             "bayestpu_torch.nn.convert, bayestpu_torch.nn.zoo.autobayes, "
             "bayestpu_torch.utils.timing, bayestpu_torch.metrics, "
             "bayestpu_torch.metrics.analysis, bayestpu_torch.native, "
-            "bayestpu_torch.engine.inference, bayestpu_torch.data.pipeline\n"
+            "bayestpu_torch.engine.inference, bayestpu_torch.data.pipeline, "
+            "bayestpu_torch.engine.sharding, bayestpu_torch.engine.distributed"
+            "\n"
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "
             "'bayestpu') or m.startswith(('jax.', 'flax.', 'optax.', "
             "'bayestpu.'))]\n"

@@ -165,8 +165,9 @@ def _seed_pair(tensors):
 def test_dropout_matmul_launch_arguments(monkeypatch, bf16):
     """``dropout_matmul`` hands ``bt_dropout_matmul`` x, w, the seed pair
     as one contiguous (1, 2) int32 and out, then M, K, N, thresh, the
-    dtype's scale and is_bf16 (``_build._SIGNATURES`` order), and counts
-    as ``dropout_matmul``; at rate 0 it launches nothing."""
+    dtype's scale, is_bf16 and row0 (``_build._SIGNATURES`` order; row0
+    taken modulo 2^32), and counts as ``dropout_matmul``; at rate 0 it
+    launches nothing."""
     calls = _recorder(monkeypatch)
     dt = torch.bfloat16 if bf16 else torch.float32
     x, w = _meta(5, 7, dtype=dt), _meta(7, 3, dtype=dt)
@@ -174,21 +175,23 @@ def test_dropout_matmul_launch_arguments(monkeypatch, bf16):
     out = tmm.dropout_matmul(x, w, seeds, RATE)
     assert out.shape == (5, 3) and out.dtype == torch.float32
     tmm.dropout_matmul(x, w, seeds, 0.0)
-    assert len(calls) == 1
+    tmm.dropout_matmul(x, w, seeds, RATE, row0=2 ** 32 + 6)
+    assert len(calls) == 2
     name, tensors, args, count = calls[0]
     assert (name, list(tensors), count) == (
         "dropout_matmul", ["x", "w", "seeds", "out"], None)
     assert _seed_pair(tensors) == ((1, 2), torch.int32, True)
     assert args == [5, 7, 3, tmm.keep_threshold(RATE),
-                    tmm.scale_of(RATE, dt), int(bf16)]
+                    tmm.scale_of(RATE, dt), int(bf16), 0]
+    assert calls[1][2] == args[:-1] + [6]
 
 
 def test_dropout_matmul_int8_launch_arguments(monkeypatch):
     """``dropout_matmul_int8`` hands ``bt_dropout_matmul_int8`` x_q, w_q,
     the seed pair as one contiguous (1, 2) int32 and out, then M, K, N,
-    thresh and out_scale (no dtype flag: int8 only; its K split is the
-    kernel's own constant), and counts as ``dropout_matmul_int8``; at rate 0
-    it launches nothing."""
+    thresh, out_scale and row0 (no dtype flag: int8 only; its K split is
+    the kernel's own constant), and counts as ``dropout_matmul_int8``; at
+    rate 0 it launches nothing."""
     calls = _recorder(monkeypatch)
     xq, wq = _meta(5, 7, dtype=torch.int8), _meta(7, 3, dtype=torch.int8)
     seeds = _meta(2, dtype=torch.int32)
@@ -201,7 +204,7 @@ def test_dropout_matmul_int8_launch_arguments(monkeypatch):
         "dropout_matmul_int8", ["x", "w", "seeds", "out"], None)
     assert _seed_pair(tensors) == ((1, 2), torch.int32, True)
     assert args == [5, 7, 3, tmm.keep_threshold(RATE),
-                    tmm.int8_out_scale(*STEPS, RATE)]
+                    tmm.int8_out_scale(*STEPS, RATE), 0]
 
 
 @pytest.mark.parametrize("call", ["float", "int8"])

@@ -268,8 +268,8 @@ def test_xs_stride_must_fit_int32():
 def test_xs_launch_passes_the_sample_stride(monkeypatch, bf16):
     """What the MC ``_xs`` launch hands the C entry
     ``bt_dropout_matmul_samples`` (``_build._SIGNATURES`` order: M, K, N,
-    S, x_stride, thresh, scale, is_bf16), and the counter it bumps; the
-    samples launch passes x_stride 0. ``_call`` is replaced here: the CPU
+    S, x_stride, thresh, scale, is_bf16, row0), and the counter it bumps;
+    the samples launch passes x_stride 0. ``_call`` is replaced here: the CPU
     has no kernel to call."""
     calls = []
     monkeypatch.setattr(tmm, "_call", lambda name, device, tensors, args,
@@ -284,7 +284,7 @@ def test_xs_launch_passes_the_sample_stride(monkeypatch, bf16):
     tmm._launch("dropout_matmul_samples", x3[0], w, seeds,
                 [0] + tmm._float_args(x3, RATE))
     assert out.shape == (3, 5, 2)
-    tail = [tmm.keep_threshold(RATE), tmm.scale_of(RATE, dt), int(bf16)]
+    tail = [tmm.keep_threshold(RATE), tmm.scale_of(RATE, dt), int(bf16), 0]
     assert calls == [
         ("dropout_matmul_samples", ["x", "w", "seeds", "out"],
          [5, 7, 2, 3, 35] + tail, "dropout_matmul_xs"),
@@ -352,7 +352,7 @@ def test_bank_float_xs_launch_passes_the_sample_stride(monkeypatch, bf16):
 
 def test_int8_xs_launch_passes_the_sample_stride(monkeypatch):
     """The int8 MC ``_xs`` launch: ``bt_dropout_matmul_int8_samples`` gets
-    M, K, N, S, x_stride, thresh, out_scale and counts as
+    M, K, N, S, x_stride, thresh, out_scale, row0 and counts as
     ``dropout_matmul_int8_xs``; the samples launch passes x_stride 0."""
     calls = _recorder(monkeypatch)
     xq3 = torch.ones(3, 5, 7, dtype=torch.int8)
@@ -360,7 +360,7 @@ def test_int8_xs_launch_passes_the_sample_stride(monkeypatch):
     seeds = torch.from_numpy(SEEDS)
     tail = tmm._int8_args(RATE, *STEPS)
     assert tail == [tmm.keep_threshold(RATE),
-                    tmm.int8_out_scale(*STEPS, RATE)]
+                    tmm.int8_out_scale(*STEPS, RATE), 0]
     out = tmm._launch("dropout_matmul_int8_samples", xq3, wq, seeds,
                       [tmm._x_stride(xq3)] + tail, "dropout_matmul_int8_xs")
     tmm._launch("dropout_matmul_int8_samples", xq3[0], wq, seeds, [0] + tail)

@@ -249,3 +249,90 @@ def test_build_hash_tracks_sources():
     assert path.name.startswith("libmasked_matmul-")
     assert _build.sources() == ["masked_conv", "masked_matmul"]
     assert _build._lib_path("masked_conv").name.startswith("libmasked_conv-")
+
+
+# ------------------------------------------------- row0: one rank's rows
+
+# rows [R0, R0 + ROWS) of an M_ALL-row readout; K odd, so a piece is ragged
+M_ALL, K_RO, R0, ROWS = 40, 37, 13, 19
+
+
+def _readout(kind, x, w, seeds, row0=None):
+    """The masked readout of row ``kind`` (1-5), the JAX kernel in the
+    interpreter (``row0`` None) or the port at ``row0``; (M, K) or (S, M,
+    K)."""
+    if row0 is None:
+        if kind == 1:
+            return np.asarray(jmm._dropout_apply(x, jnp.asarray(seeds[0]),
+                                                 0.3, 128, 128, **I))
+        if kind == 2:
+            return np.asarray(jmm.dropout_matmul(x, w, jnp.asarray(seeds[0]),
+                                                 0.3, **I))
+        if kind == 3:
+            return np.asarray(jmm.dropout_matmul_samples(
+                x, w, jnp.asarray(seeds), 0.3, **I))
+        if kind == 4:
+            return np.asarray(jmm.dropout_matmul_int8(
+                x, w, jnp.asarray(seeds[0]), 0.3, 0.5, 0.25, **I))
+        return np.asarray(jmm.dropout_matmul_int8_samples(
+            x, w, jnp.asarray(seeds), 0.3, 0.5, 0.25, **I))
+    sd = torch.from_numpy(seeds)
+    if kind == 1:
+        return tmm.dropout_apply(x, sd[0], 0.3, row0).numpy()
+    if kind == 2:
+        return tmm.dropout_matmul(x, w, sd[0], 0.3, row0).numpy()
+    if kind == 3:
+        return tmm.dropout_matmul_samples(x, w, sd, 0.3, row0).numpy()
+    if kind == 4:
+        return tmm.dropout_matmul_int8(x, w, sd[0], 0.3, 0.5, 0.25,
+                                       row0).numpy()
+    return tmm.dropout_matmul_int8_samples(x, w, sd, 0.3, 0.5, 0.25,
+                                           row0).numpy()
+
+
+@pytest.mark.parametrize("kind,bf16", [(1, False), (1, True), (2, False),
+                                       (2, True), (3, False), (3, True),
+                                       (4, False), (5, False)])
+def test_row0_rows_equal_the_whole_launch(kind, bf16):
+    """Rows 1-5 at ``row0 = r`` on rows [r, r + m) of a readout (x of ones,
+    w = eye(K)) equal those rows of the JAX kernel's launch on the whole
+    tensor, bit for bit: the mask is keyed on the global row. Row 3 (and
+    its ``_xs`` launch) and row 5 per sample; rows 4-5 in int8."""
+    int8 = kind >= 4
+    seeds = _seeds(3, seed=11)
+    if int8:
+        xa = np.ones((M_ALL, K_RO), np.int8)
+        wa = np.eye(K_RO, dtype=np.int8)
+        jx, jw = jnp.asarray(xa), jnp.asarray(wa)
+        tx, tw = torch.from_numpy(xa), torch.from_numpy(wa)
+    else:
+        xa = np.ones((M_ALL, K_RO), np.float32)
+        wa = np.eye(K_RO, dtype=np.float32)
+        jx, jw = _jax(xa, bf16), _jax(wa, bf16)
+        tx, tw = _torch(xa, bf16), _torch(wa, bf16)
+    want = _readout(kind, jx, jw, seeds)[..., R0:R0 + ROWS, :]
+    got = _readout(kind, tx[R0:R0 + ROWS].contiguous(), tw, seeds, R0)
+    np.testing.assert_array_equal(got, want)
+    assert 0 < np.count_nonzero(want) < want.size
+    if kind == 3:                                   # 3x: x carries S
+        x3 = tx[R0:R0 + ROWS].expand(3, ROWS, K_RO).contiguous()
+        got3 = tmm.dropout_matmul_inference(x3, tw, torch.from_numpy(seeds),
+                                            0.3, R0).numpy()
+        np.testing.assert_array_equal(got3, want)
+
+
+def test_row0_wraps_as_uint32():
+    """``row0`` is uint32 arithmetic, wrapping as JAX's row counters do:
+    rows past 2^32 hash as their residue, and row0 + 2^32 is row0."""
+    seeds = torch.from_numpy(_seeds(1, seed=13)[0])
+    r0 = 2 ** 32 - 3
+    got = tmm.keep_mask(seeds, 6, 9, 0.3, r0)
+    rows = jnp.asarray((np.arange(6, dtype=np.uint64) + r0) % 2 ** 32,
+                       jnp.uint32)[:, None]
+    bits = jmm._coord_bits(rows, jnp.arange(9, dtype=jnp.uint32)[None, :],
+                           jmm._seed_stream(jnp.int32(int(seeds[0])),
+                                            jnp.int32(int(seeds[1]))))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(bits) < jmm._keep_threshold(0.3))
+    assert torch.equal(tmm.keep_mask(seeds, 6, 9, 0.3, 5 + 2 ** 32),
+                       tmm.keep_mask(seeds, 6, 9, 0.3, 5))

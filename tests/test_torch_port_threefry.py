@@ -273,3 +273,47 @@ def test_bayes_site_mc_equals_jitted_jax():
     zero = tbayes.BayesSite(BayesConfig(rate=0.0), 24)
     xt = _nchw(x, torch.float32)
     assert not zero.stochastic and zero(xt, 0, None) is xt
+
+
+# ------------------------------------------------- row0: one rank's rows
+
+
+@pytest.mark.parametrize("shape,row0,rows", [
+    ((8, 5), 3, 4), ((6, 3, 3, 20), 2, 3), ((4, 1, 1, 20), 1, 2)])
+def test_row0_bits_are_the_global_slice(shape, row0, rows):
+    """``random_bits``/``bernoulli`` at ``row0`` on ``rows`` rows are rows
+    [row0, row0 + rows) of ``jax.random.bits``/``bernoulli`` over the
+    global shape, bit for bit, for one key and S keys at once: the flat
+    counters are the global array's."""
+    keys = [jax.random.key(s) for s in (2, 31)]
+    seeds = torch.from_numpy(np.stack([_seeds(k) for k in keys]))
+    local = (rows,) + shape[1:]
+    got = threefry.random_bits(seeds, local, row0)
+    got_b = threefry.bernoulli(seeds[1], 0.7, local, row0)
+    for s, key in enumerate(keys):
+        want = np.asarray(jax.random.bits(key, shape, jnp.uint32))
+        np.testing.assert_array_equal(got[s].numpy(),
+                                      want[row0:row0 + rows])
+    want_b = np.asarray(jax.random.bernoulli(keys[1], 0.7, shape))
+    np.testing.assert_array_equal(got_b.numpy(), want_b[row0:row0 + rows])
+
+
+@pytest.mark.parametrize("kind", ["dropout", "dropout2d"])
+def test_row0_site_is_the_global_slice(kind):
+    """A materialized site on images [2, 5) of a batch of 6 (one rank's
+    rows, ``nn.rows``) equals those images of the jitted Flax layer on the
+    whole batch, bit for bit."""
+    from bayestpu_torch.engine.sharding import at_rows
+    from bayestpu_torch.nn.rows import Rows
+    x = np.random.default_rng(12).normal(size=(6, 5, 4, 20)).astype(
+        np.float32)
+    jl, tl = {"dropout": (jbayes.BayesianDropout, tbayes.BayesianDropout),
+              "dropout2d": (jbayes.BayesianDropout2D,
+                            tbayes.BayesianDropout2D)}[kind]
+    want, seeds, _, _ = _flax_site(jl(rate=0.3), jnp.asarray(x),
+                                   jax.random.key(21))
+    site = tl(0.3)
+    with at_rows(site, Rows(2, 6)):
+        got = site(_nchw(x[2:5], torch.float32), torch.from_numpy(seeds))
+    assert site.rows == Rows()
+    np.testing.assert_array_equal(_nhwc(got), want[2:5])

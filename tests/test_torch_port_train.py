@@ -38,6 +38,7 @@ from bayestpu.train.optim import get_recipe as jax_get_recipe
 from bayestpu_torch.core.config import BayesConfig
 from bayestpu_torch.core.rng import EVAL_STEP0, sample_seeds, step_seeds
 from bayestpu_torch.data.datasets import get_dataset, iterate_batches
+from bayestpu_torch.engine.sharding import make_mesh
 from bayestpu_torch.interop.from_flax import (load_flax_variables,
                                               to_flax_variables)
 from bayestpu_torch.kernels import masked_matmul as tmm
@@ -491,9 +492,20 @@ def test_train_loop_early_stop_and_plateau():
 
 
 def test_train_loop_unported_options_raise():
+    """Checkpoints (item 14) raise; ``mesh`` is ported: a 1x1 mesh (no
+    process group) trains as the loop without one, bit for bit, and a mesh
+    larger than the process count is refused."""
     model, tx, state, ds = _sgd_state()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_loop(model, state, tx, _batches(ds), 0, 1, mesh=object())
+    ref_model, ref_tx, ref_state, _ = _sgd_state()
+    train_loop(model, state, tx, _batches(ds), 0, 1, mesh=make_mesh(),
+               log_fn=lambda s: None)
+    train_loop(ref_model, ref_state, ref_tx, _batches(ds), 0, 1,
+               log_fn=lambda s: None)
+    assert state.step == ref_state.step == 3
+    for (k, p), q in zip(model.named_parameters(), ref_model.parameters()):
+        assert torch.equal(p, q), k
+    with pytest.raises(ValueError, match="ranks"):
+        make_mesh(2, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_loop(model, state, tx, _batches(ds), 0, 1, checkpoint_dir="x")
     with pytest.raises(ValueError):
