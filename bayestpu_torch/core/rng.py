@@ -18,7 +18,10 @@ site, word)`` — the same hash the kernels use for their masks:
   ``sample_seeds``'s for every seed.
 
 The numbers differ from the JAX package's threefry keys; tests that compare
-the two packages feed the seeds captured from JAX instead.
+the two packages feed the seeds captured from JAX instead. JAX's key
+plumbing (``sample_keys``, ``step_key``, ``key_to_seeds``) has no
+counterpart: the port carries int seeds, and ``sample_seeds``,
+``step_seeds`` and ``fold_seed`` take those roles.
 """
 
 from __future__ import annotations

@@ -297,46 +297,44 @@ class BayesEngine:
         the JAX engine's XLA report (``engine.py:318-337``), measured
         rather than modelled: ``argument_size_in_bytes`` (the model's
         parameters and buffers, the input and the seeds),
-        ``output_size_in_bytes`` (the predictive), and on a card
-        ``temp_size_in_bytes`` (the peak of ``max_memory_allocated`` over
-        one eager predict above what was allocated before it, less the
-        outputs), ``device_ms`` and ``launches`` (every CUDA kernel of
+        ``output_size_in_bytes`` (the predictive), ``temp_size_in_bytes``
+        (the peak one eager predict allocates, less its outputs:
+        ``max_memory_allocated`` on a card, the live bytes of its ATen ops
+        on the CPU, ``utils.profiler.temp_bytes``), and on a card
+        ``device_ms`` and ``launches`` (every CUDA kernel of
         PROFILED_PREDICTS eager predicts under ``torch.profiler``, per
-        predict; the
-        profiler may miss the first launches of its window, so both can
-        read a little low). ``flops``, ``bytes_accessed`` and
-        ``generated_code_size_in_bytes`` are None: PyTorch has no cost
-        model that counts the port's own kernels. On a CPU engine the
-        memory and profiler fields are None too."""
+        predict; the profiler may miss the first launches of its window,
+        so both can read a little low; None on the CPU). ``flops`` counts
+        one predict's operations as ``utils.profiler.cost_report`` does
+        (the ATen ops PyTorch's flop counter sees plus the port's kernels'
+        recorded work); ``bytes_accessed`` is the arguments read once and
+        the outputs written once (a roofline's model, not a measurement);
+        ``generated_code_size_in_bytes`` is None: nothing is generated."""
         from torch.profiler import ProfilerActivity, profile
+
+        from bayestpu_torch.utils.profiler import (counted_call, nbytes,
+                                                   temp_bytes)
 
         s = sampler.num_effective_samples(self.bayes, num_samples)
         x = self._input(sample_input)
         seeds = self.seeds(0, s)
         fn = self._predict_fn()
 
-        def nbytes(ts) -> int:
-            return sum(t.numel() * t.element_size() for t in ts)
-
-        out = fn(x, seeds)
+        out, flops = counted_call(fn, x, seeds)
+        arg_b = nbytes([*self.model.parameters(), *self.model.buffers(), x,
+                        seeds])
+        out_b = nbytes(out[:3])
+        del out
         res: dict[str, Any] = {
-            "flops": None, "bytes_accessed": None,
+            "flops": flops, "bytes_accessed": arg_b + out_b,
             "generated_code_size_in_bytes": None,
-            "argument_size_in_bytes": nbytes(
-                [*self.model.parameters(), *self.model.buffers(), x, seeds]),
-            "output_size_in_bytes": nbytes(out[:3]),
-            "temp_size_in_bytes": None, "device_ms": None, "launches": None}
+            "argument_size_in_bytes": arg_b,
+            "output_size_in_bytes": out_b,
+            "temp_size_in_bytes": temp_bytes(fn, x, seeds) - out_b,
+            "device_ms": None, "launches": None}
         if self.device.type != "cuda":
             return res
-        del out
         dev = self.device
-        torch.cuda.synchronize(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        before = torch.cuda.memory_allocated(dev)
-        fn(x, seeds)
-        torch.cuda.synchronize(dev)
-        res["temp_size_in_bytes"] = (torch.cuda.max_memory_allocated(dev)
-                                     - before - res["output_size_in_bytes"])
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(PROFILED_PREDICTS):

@@ -91,3 +91,18 @@ def num_effective_samples(bayes: BayesConfig, num_samples: int | None = None
     if bayes.kind is DropoutKind.MASK:
         return bayes.num_masks
     return num_samples if num_samples is not None else bayes.num_samples
+
+
+def split_apply(backbone_fn, head_fn, x: torch.Tensor, seed: int,
+                num_samples: int, num_sites: int = 1) -> torch.Tensor:
+    """Run the deterministic ``backbone_fn(x)`` once and the stochastic
+    ``head_fn(cached, seeds_i, i)`` once per sample, stacked on a leading
+    sample axis (``sampler.py:143-155``, where the JAX package vmaps the
+    head over per-sample keys). ``seeds_i`` is sample i's (num_sites, 2)
+    int32 seeds of ``core.rng.sample_seeds(seed, …)`` on x's device, in
+    place of JAX's key."""
+    from bayestpu_torch.core.rng import sample_seeds
+    cached = backbone_fn(x)
+    seeds = sample_seeds(seed, num_samples, num_sites).to(x.device)
+    return torch.stack([head_fn(cached, seeds[i], i)
+                        for i in range(num_samples)])

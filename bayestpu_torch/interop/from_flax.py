@@ -55,17 +55,22 @@ def _fill(targets: dict[str, torch.Tensor], leaves: dict[str, Any],
             t.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
 
 
-def buffers_by_collection(model: nn.Module
-                          ) -> dict[str, dict[str, torch.Tensor]]:
-    """The model's buffers by dotted name, under their Flax collection:
-    ``batch_stats`` (always present) and, for a model with Masksembles
-    banks, ``masks``."""
+def by_collection(buffers: Mapping[str, torch.Tensor]
+                  ) -> dict[str, dict[str, torch.Tensor]]:
+    """Buffers by dotted name under their Flax collection: ``batch_stats``
+    (always present) and, when there is a Masksembles bank, ``masks``."""
     out: dict[str, dict[str, torch.Tensor]] = {"batch_stats": {}}
-    for name, t in model.named_buffers():
+    for name, t in buffers.items():
         coll = (MASKS_COLLECTION if name.rsplit(".", 1)[-1] == "bank"
                 else "batch_stats")
         out.setdefault(coll, {})[name] = t
     return out
+
+
+def buffers_by_collection(model: nn.Module
+                          ) -> dict[str, dict[str, torch.Tensor]]:
+    """The model's buffers by dotted name, under their Flax collection."""
+    return by_collection(dict(model.named_buffers()))
 
 
 def load_flax_variables(model: nn.Module,
@@ -96,13 +101,20 @@ def _nest(named: Mapping[str, torch.Tensor]) -> dict[str, Any]:
     return out
 
 
-def to_flax_variables(model: nn.Module) -> dict[str, Any]:
-    """The inverse of ``load_flax_variables``: ``{"params": …,
-    "batch_stats": …}``, with ``"masks"`` when the model has banks, as
-    nested dicts of f32 numpy arrays (copies), conv kernels back in HWIO —
-    what ``BayesEngine.attach`` takes, as the JAX training state's
-    ``variables()`` feeds the JAX engine."""
-    out = {"params": _nest(dict(model.named_parameters()))}
-    for coll, named in buffers_by_collection(model).items():
+def flax_variables(params: Mapping[str, torch.Tensor],
+                   buffers: Mapping[str, torch.Tensor]) -> dict[str, Any]:
+    """``{"params": …, "batch_stats": …}`` (with ``"masks"`` when there is
+    a bank) from a model's parameters and buffers by dotted name, as nested
+    dicts of f32 numpy arrays (copies), conv kernels in HWIO."""
+    out = {"params": _nest(params)}
+    for coll, named in by_collection(buffers).items():
         out[coll] = _nest(named)
     return out
+
+
+def to_flax_variables(model: nn.Module) -> dict[str, Any]:
+    """The inverse of ``load_flax_variables``: ``flax_variables`` of the
+    model's parameters and buffers — what ``BayesEngine.attach`` takes, as
+    the JAX training state's ``variables()`` feeds the JAX engine."""
+    return flax_variables(dict(model.named_parameters()),
+                          dict(model.named_buffers()))

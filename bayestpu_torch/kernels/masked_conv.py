@@ -97,9 +97,17 @@ launch_counts: dict[str, int] = {"dropout_conv": 0,
                                  "conv_int8_fused": 0}
 
 
+# The operations those launches did, by the same names: 2 for each product
+# that reads an input element (taps on the zero padding excluded), per
+# sample (``conv_macs``); what ``utils.profiler`` adds to the ATen ops that
+# PyTorch's flop counter sees, which does not see a ctypes launch.
+work_counts: dict[str, int] = dict.fromkeys(launch_counts, 0)
+
+
 def reset_launch_counts() -> None:
+    """Set every launch and work count to 0."""
     for name in launch_counts:
-        launch_counts[name] = 0
+        launch_counts[name] = work_counts[name] = 0
 
 
 # -------------------------------------------------------------- geometry
@@ -125,6 +133,22 @@ def geometry(h: int, w: int, kh: int, kw: int, padding, stride: int
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2; got {stride}")
     return conv_geometry(h, w, kh, kw, padding, stride)
+
+
+def _taps(size: int, k: int, lo: int, stride: int, out: int) -> int:
+    """(output position, tap) pairs along one axis that read an input
+    element, not the zero padding."""
+    return sum(0 <= o * stride + t - lo < size
+               for o in range(out) for t in range(k))
+
+
+def conv_macs(n: int, c: int, f: int, h: int, w: int, kh: int, kw: int,
+              g: Geom, stride: int) -> int:
+    """Products of one sample of a conv of n images (C, H, W) by (F, C, kh,
+    kw) that read an input element, the taps on the zero padding
+    excluded."""
+    return (n * c * f * _taps(h, kh, g.ph, stride, g.ho)
+            * _taps(w, kw, g.pw, stride, g.wo))
 
 
 def conv_geometry(h: int, w: int, kh: int, kw: int, padding, stride: int
@@ -550,6 +574,8 @@ def _launch(entry: str, counter: str, x: torch.Tensor, w: torch.Tensor,
             raise RuntimeError(f"{entry} kernel failed to launch: "
                                f"cudaError_t {rc}")
         launch_counts[counter] += 1
+        work_counts[counter] += 2 * num_samples * conv_macs(
+            n, c, f, h, wd, kh, kw, g, stride)
     return out.permute(0, 1, 4, 2, 3)
 
 

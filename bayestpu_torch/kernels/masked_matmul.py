@@ -85,9 +85,17 @@ launch_counts: dict[str, int] = {"dropout_matmul": 0,
                                  "bank_matmul_int8_xs": 0}
 
 
+# The operations those launches did, by the same names: 2·M·N·K a sample
+# for a matmul kernel (x (M, K), w (K, N)), M·K multiplies for
+# ``dropout_apply``; what ``utils.profiler`` adds to the ATen ops that
+# PyTorch's flop counter sees, which does not see a ctypes launch.
+work_counts: dict[str, int] = dict.fromkeys(launch_counts, 0)
+
+
 def reset_launch_counts() -> None:
+    """Set every launch and work count to 0."""
     for name in launch_counts:
-        launch_counts[name] = 0
+        launch_counts[name] = work_counts[name] = 0
 
 
 # ------------------------------------------------------------------ PRNG
@@ -286,6 +294,9 @@ def _call(name: str, device: torch.device, tensors: dict, args: list,
         raise RuntimeError(f"{name} kernel failed to launch: cudaError_t "
                            f"{rc}")
     launch_counts[count or name] += 1
+    work_counts[count or name] += (
+        2 * tensors["out"].numel() * tensors["w"].shape[0]
+        if "w" in tensors else tensors["x"].numel())
 
 
 def _launch(name: str, x: torch.Tensor, w: torch.Tensor,

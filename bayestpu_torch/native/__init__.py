@@ -115,6 +115,17 @@ def load() -> ctypes.CDLL:
         return lib
 
 
+def available() -> bool:
+    """Whether the library builds (or is built) and loads here. Only a
+    report: where it is False the native entry points raise, and nothing
+    falls back to their numpy twins."""
+    try:
+        load()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def augment_gather(src: np.ndarray, idx: np.ndarray, mean: np.ndarray,
                    std: np.ndarray, pad: int, seed: int, train: bool
                    ) -> np.ndarray:

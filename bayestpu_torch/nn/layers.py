@@ -444,3 +444,8 @@ def avg_pool(x: torch.Tensor, window: int | tuple[int, int],
     """VALID average pool of an NCHW tensor."""
     window = _pair(window)
     return F.avg_pool2d(x, window, _pair(strides) if strides else window)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """The mean over H and W of x (B, H, W, C): (B, C)."""
+    return torch.mean(x, dim=(1, 2))

@@ -38,7 +38,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from bayestpu_torch.core.rng import EVAL_STEP0, step_seeds
+from bayestpu_torch.core.rng import EVAL_STEP0, fold_seed, step_seeds
 from bayestpu_torch.engine.engine import resolve_device
 from bayestpu_torch.engine.sharding import (DATA_AXIS, all_reduce, at_rows,
                                             data_rows, replicate)
@@ -193,6 +193,58 @@ def make_eval_step(model: nn.Module, eed_cfg: EEDConfig = EEDConfig(),
     return eval_step
 
 
+def _mean_metrics(ms: list[dict]) -> dict[str, torch.Tensor]:
+    """The per-step metrics averaged over the steps, on the device."""
+    return {k: torch.stack([m[k].float() for m in ms]).mean() for k in ms[0]}
+
+
+def make_train_epoch(model: nn.Module, tx: GradientTransformation,
+                     eed_cfg: EEDConfig = EEDConfig(),
+                     augment_fn: Callable | None = None, mesh=None
+                     ) -> Callable:
+    """``epoch(state, xs, ys, seed, lr_scale=1.0) → metrics``: one
+    ``make_train_step`` per batch of the stacked ``xs`` (n, B, H, W, C) and
+    ``ys`` (n, B) on the model's device, step ``state.step + i`` on the
+    seeds of that step; returns JAX's epoch metrics (``loss``,
+    ``grad_norm``, ``multi_exit_accuracy``) averaged over the steps, on
+    the device. ``augment_fn(fold_seed(seed, step), x, i)`` transforms
+    batch i first (``i`` the index in the epoch, as in the JAX scan)."""
+    train_step = make_train_step(model, tx, eed_cfg, mesh)
+
+    def train_epoch(state: TrainState, xs: torch.Tensor, ys: torch.Tensor,
+                    seed: int, lr_scale: float = 1.0
+                    ) -> dict[str, torch.Tensor]:
+        n = len(xs)
+        seeds = step_seeds(seed, range(state.step, state.step + n),
+                           model.num_sites).to(_device_of(model))
+        ms = []
+        for i in range(n):
+            x = xs[i]
+            if augment_fn is not None:
+                x = augment_fn(fold_seed(seed, state.step), x, i)
+            ms.append(train_step(state, x, ys[i], seeds[i], lr_scale))
+        return _mean_metrics(ms)
+
+    return train_epoch
+
+
+def make_eval_epoch(model: nn.Module, eed_cfg: EEDConfig = EEDConfig(),
+                    mesh=None) -> Callable:
+    """``eval_epoch(xs, ys, seed) → metrics``: ``make_eval_step`` on each
+    stacked batch, batch i at step ``EVAL_STEP0 + i``, the metrics averaged
+    over the batches on the device."""
+    eval_step = make_eval_step(model, eed_cfg, mesh)
+
+    def eval_epoch(xs: torch.Tensor, ys: torch.Tensor, seed: int
+                   ) -> dict[str, torch.Tensor]:
+        seeds = step_seeds(seed, range(EVAL_STEP0, EVAL_STEP0 + len(xs)),
+                           model.num_sites).to(_device_of(model))
+        return _mean_metrics([eval_step(xs[i], ys[i], seeds[i])
+                              for i in range(len(xs))])
+
+    return eval_epoch
+
+
 def _tensors_of(tree: Any) -> list[torch.Tensor]:
     """Every tensor of a nest of dicts, tuples and lists (an optimizer
     state), in a fixed order."""
@@ -231,10 +283,15 @@ def train_loop(model: nn.Module, state: TrainState,
                eed_cfg: EEDConfig = EEDConfig(),
                patience: int = 10,
                val_mode: str = "acc",
+               augment_fn: Callable | None = None,
                mesh=None,
                checkpoint_dir: str | None = None,
+               checkpoint_every: int = 1,
+               start_epoch: int = 0,
+               best0: tuple[float, Any, int] | None = None,
                plateau_factor: float | None = None,
                plateau_patience: int = 10,
+               cache_data: bool = True,
                reshuffle: bool = False,
                history: dict | None = None,
                log_fn: Callable[[str], None] = print) -> TrainState:
@@ -242,83 +299,141 @@ def train_loop(model: nn.Module, state: TrainState,
     (``loop.py:241-487``). ``model`` is ``state.model``.
 
     ``train_batches``/``val_batches`` return fresh iterables of (x, y)
-    batches (numpy or torch). Batches of one shape are uploaded to the
-    device once and reused every epoch; with ``reshuffle`` the examples are
-    permuted each epoch by a pure function of (seed, epoch). ``val_mode``
-    selects the early-stop metric: ``acc`` (final-exit top-1), ``eed`` or
-    ``ce``. When it has not improved for ``patience`` epochs the loop stops;
-    with validation the best epoch's parameters are put back at the end
-    (the BN statistics stay those of the last step, as in the JAX loop).
-    ``plateau_factor`` multiplies the updates by that factor after
+    batches (numpy or torch). Batches of one shape are stacked on the device
+    and trained by ``make_train_epoch`` (JAX's epoch scan); with
+    ``cache_data`` (the default) they are uploaded once and reused every
+    epoch (``train_batches`` is then consumed once), and with ``reshuffle``
+    the cached examples are permuted each epoch by a pure function of
+    (seed, epoch); without ``cache_data`` ``train_batches`` is drawn and
+    uploaded every epoch, unshuffled, as in JAX. Batches of mixed shapes
+    run one ``make_train_step`` each (JAX's per-step path).
+    ``augment_fn(seed_of_step, x, index)`` transforms each training batch
+    on the device (``data.augment.random_crop_flip``); ``seed_of_step`` is
+    ``fold_seed(seed, step)``, and ``index`` is the batch's index in the
+    epoch on the stacked path and ``state.step`` on the per-step path, the
+    indices JAX's two paths pass.
+
+    ``val_mode`` selects the early-stop metric: ``acc`` (final-exit top-1),
+    ``eed`` or ``ce``. When it has not improved for ``patience`` epochs the
+    loop stops; with validation the best epoch's parameters are put back at
+    the end (the BN statistics stay those of the last step, as in the JAX
+    loop). ``plateau_factor`` multiplies the updates by that factor after
     ``plateau_patience`` non-improving epochs. ``history`` is filled in
     place with per-epoch ``train_loss`` and ``val_metric`` lists.
+
+    ``checkpoint_dir``: every ``checkpoint_every`` epochs (0: never) a full
+    checkpoint (``train.checkpoint.save_checkpoint``) is written there,
+    with the epoch and the early-stopping state in its ``aux``; at an early
+    stop it is written before the best parameters are put back. Without
+    validation its ``best_params`` are the live parameters. ``start_epoch``
+    and ``best0 = (best_metric, best_params, since_best)`` resume from such
+    a checkpoint's ``aux`` (``restore_checkpoint(with_aux=True)``): the
+    run then continues bit-identically to an uninterrupted one (the
+    plateau scale is not carried, as in JAX).
 
     ``mesh`` (an ``engine.sharding.Mesh``) trains data-parallel over its
     data axis: the mesh's first rank's parameters, BN buffers and optimizer
     state are broadcast to every rank first; every rank then reads the same
     batches (and the same permutation of a reshuffled epoch), runs its rows
     of each (``make_train_step(mesh=...)``), and logs, and keeps the
-    history of, the global metrics; only the first rank calls ``log_fn``.
+    history of, the global metrics; only the first rank calls ``log_fn``
+    and writes checkpoints, and the others wait for each write on a
+    ``broadcast``.
 
-    Rolling checkpoints (``checkpoint_dir``) are not ported yet and raise.
+    JAX's ``has_batch_stats`` (its pytree's BatchNorm collection) and
+    ``epoch_scan`` (its jitted scan) have no counterpart here: a port model
+    updates its own BatchNorm buffers, and an epoch is always the step
+    loop.
     """
     if val_mode not in ("acc", "eed", "ce"):
         raise ValueError(f"unknown val_mode {val_mode!r}")
-    if checkpoint_dir is not None:
-        raise NotImplementedError("checkpoints are not ported yet: ROADMAP "
-                                  "Queue 1 item 14")
     if model is not state.model:
         raise ValueError("model must be state.model")
     dev = _device_of(model)
     n_sites = model.num_sites
+    first = not (mesh is not None and dist.is_initialized()
+                 and dist.get_rank() != mesh.first)
     if mesh is not None:
         replicate(model, mesh)
         replicate(_tensors_of(state.opt_state), mesh)
-        if dist.is_initialized() and dist.get_rank() != mesh.first:
+        if not first:
             log_fn = _silent
     train_step = make_train_step(model, tx, eed_cfg, mesh)
+    train_epoch = make_train_epoch(model, tx, eed_cfg, augment_fn, mesh)
     eval_step = make_eval_step(model, eed_cfg, mesh)
 
-    best_metric, since_best = -float("inf"), 0
-    best_params = {k: p.detach().clone()
-                   for k, p in model.named_parameters()}
+    if best0 is not None:
+        best_metric, best_params, since_best = best0
+    else:
+        best_metric, since_best = -float("inf"), 0
+        best_params = _snapshot(model)
     lr_scale, since_plateau = 1.0, 0
     cached: tuple[torch.Tensor, torch.Tensor] | None = None
     if history is not None:
         history.setdefault("train_loss", [])
         history.setdefault("val_metric", [])
 
-    def epoch_batches(epoch: int) -> list:
-        """This epoch's (x, y) device batches."""
+    def epoch_batches(epoch: int):
+        """This epoch's stacked (xs, ys) on the device, or its list of
+        (x, y) device batches when their shapes differ."""
         nonlocal cached
         if cached is None:
             batches = list(train_batches())
             pairs = [_to_device(x, y, dev) for x, y in batches]
             if not batches or not _uniform(batches):
                 return pairs
-            cached = (torch.stack([x for x, _ in pairs]),
-                      torch.stack([y for _, y in pairs]))
+            stacked = (torch.stack([x for x, _ in pairs]),
+                       torch.stack([y for _, y in pairs]))
+            if not cache_data:
+                return stacked
+            cached = stacked
         xs, ys = cached
         if reshuffle:
             nb, bsz = xs.shape[:2]
+            # JAX: fold_in(fold_in(key, 0x51), epoch); the generator keeps
+            # the seed's low 32 bits, which hash all of (seed, epoch)
             gen = torch.Generator().manual_seed(
-                ((int(seed) << 32) + epoch) & 0x7FFFFFFFFFFFFFFF)
+                fold_seed(fold_seed(seed, 0x51), epoch))
             perm = torch.randperm(nb * bsz, generator=gen).to(dev)
             xs = xs.reshape((nb * bsz,) + xs.shape[2:])[perm].reshape(
                 xs.shape)
             ys = ys.reshape(-1)[perm].reshape(ys.shape)
-        return list(zip(xs, ys))
+        return xs, ys
 
-    for epoch in range(num_epochs):
+    def maybe_checkpoint(epoch: int) -> None:
+        if (checkpoint_dir is None or checkpoint_every <= 0
+                or (epoch + 1) % checkpoint_every):
+            return
+        if first:
+            from bayestpu_torch.train.checkpoint import save_checkpoint
+            save_checkpoint(checkpoint_dir, state, seed, aux={
+                "epoch": epoch, "best_metric": best_metric,
+                "since_best": since_best,
+                "best_params": (best_params if val_batches is not None
+                                else dict(model.named_parameters()))})
+        if mesh is not None and dist.is_initialized():
+            # the other ranks wait until the first has written
+            dist.broadcast(torch.zeros(1, device=dev), src=mesh.first)
+
+    for epoch in range(start_epoch, num_epochs):
         t0 = time.perf_counter()
-        batches = epoch_batches(epoch)
-        seeds = step_seeds(seed, range(state.step, state.step + len(batches)),
-                           n_sites).to(dev)
-        loss_sum = None
-        for i, (x, y) in enumerate(batches):
-            m = train_step(state, x, y, seeds[i], lr_scale)
-            loss_sum = m["loss"] if loss_sum is None else loss_sum + m["loss"]
-        ep_loss = (float(loss_sum) / len(batches)) if batches else 0.0
+        got = epoch_batches(epoch)
+        if isinstance(got, tuple):
+            ep_loss = float(train_epoch(state, *got, seed,
+                                        lr_scale)["loss"])
+        else:
+            seeds = step_seeds(seed, range(state.step,
+                                           state.step + len(got)),
+                               n_sites).to(dev)
+            loss_sum = None
+            for i, (x, y) in enumerate(got):
+                if augment_fn is not None:
+                    x = augment_fn(fold_seed(seed, state.step), x,
+                                   state.step)
+                m = train_step(state, x, y, seeds[i], lr_scale)
+                loss_sum = (m["loss"] if loss_sum is None
+                            else loss_sum + m["loss"])
+            ep_loss = (float(loss_sum) / len(got)) if got else 0.0
         msg = f"epoch {epoch}: loss {ep_loss:.4f}"
         if history is not None:
             history["train_loss"].append(ep_loss)
@@ -340,8 +455,7 @@ def train_loop(model: nn.Module, state: TrainState,
             if history is not None:
                 history["val_metric"].append(abs(val))
             if val > best_metric:
-                best_params = {k: p.detach().clone()
-                               for k, p in model.named_parameters()}
+                best_params = _snapshot(model)
                 best_metric, since_best, since_plateau = val, 0, 0
             else:
                 since_best += 1
@@ -354,13 +468,19 @@ def train_loop(model: nn.Module, state: TrainState,
                     log_fn(f"  plateau: lr scale → {lr_scale:.2e}")
                 if since_best >= patience:
                     log_fn(msg + "  (early stop)")
+                    maybe_checkpoint(epoch)
                     _load_params(model, best_params)
                     return state
         log_fn(msg + f"  ({time.perf_counter() - t0:.1f}s)")
+        maybe_checkpoint(epoch)
 
     if val_batches is not None:
         _load_params(model, best_params)
     return state
+
+
+def _snapshot(model: nn.Module) -> dict[str, torch.Tensor]:
+    return {k: p.detach().clone() for k, p in model.named_parameters()}
 
 
 def _silent(msg: str) -> None:

@@ -160,16 +160,26 @@ ends the run with a nonzero exit and no result line.
    three bf16 steps whose replicas stay bit-identical. Then a one-rank
    NCCL world runs the same predictive checks and the f32 steps. Also
    ``--only shard``.
+17. tools — the tooling (``phase_tools``): row 3's ``utils.profiler.
+   roofline`` at the head shape (its bound PERF.md's within 1%) and
+   ``bench.kernels`` at the head shape; then, counted, ``utils.timing.
+   scan_time_s`` of the flagship predict (a CUDA graph of k and 2k
+   predicts) between 0.95x the profiler's device time and the eager p50,
+   a 2-epoch ``lenet_me`` run stopped after epoch 0 and resumed from its
+   checkpoint bit-identical to the whole run, and ``cli.train`` →
+   ``cli.predict`` → ``cli.build`` on the card (their output in
+   ``build/chip_smoke_tools/cli.log``). Also ``--only tools``.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. ``--only kernels,conv,convert`` runs
 the card and build phases and then only the named phases (a quick check
 of a kernel change, or of the convert phase), and prints no result line.
-The kernels' launches are those of the nine main paths: the slice's
+The kernels' launches are those of the main paths: the slice's
 predicts, the 936 training steps, the int8 phase (QAT, BN re-estimation
 and int8 serving), the analysis phase, the mask phase (fine-tune and
 serving, bf16 and int8), the block phases, the resnet phase, the lenet
-phase and the convert phase (a replayed CUDA graph relaunches the
+phase, the convert phase, the shard phase and the tools phase's counted
+part (a replayed CUDA graph relaunches the
 kernels it captured without passing through their wrappers, so only the
 capture counts); the fake-quant evaluates are attribution and not
 counted.
@@ -185,11 +195,15 @@ import sys
 import time
 from pathlib import Path
 
-MEM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3 (NVIDIA data sheet)
-PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor-core bf16
-              "tfloat32": 495e12,   # dense tensor-core tf32
-              "float32": 67e12,     # f32 outside the tensor cores
-              "int8": 1979e12}      # dense tensor-core int8 (TOP/s)
+from bayestpu_torch.utils.profiler import PEAKS
+
+# the H100 SXM's data-sheet rates (``utils.profiler.PEAKS``): HBM3 bytes/s,
+# dense tensor-core bf16, tf32 and int8 (TOP/s), f32 outside the tensor cores
+MEM_BYTES_PER_S = PEAKS["h100"]["hbm"]
+PEAK_FLOPS = {"bfloat16": PEAKS["h100"]["bf16"],
+              "tfloat32": PEAKS["h100"]["tf32"],
+              "float32": PEAKS["h100"]["f32"],
+              "int8": PEAKS["h100"]["int8"]}
 SOURCE = "bayestpu_torch/csrc/masked_matmul.cu"
 REPLACES = {"dropout_matmul": "bayestpu/kernels/masked_matmul.py:113",
             "dropout_matmul_samples": "bayestpu/kernels/masked_matmul.py:286",
@@ -1372,13 +1386,6 @@ def _time_kernels(mm, x, x3, w, seeds, shape, dtype, line, summary,
             summary[name].update(t)
 
 
-def _conv_taps(size: int, k: int, lo: int, stride: int, out: int) -> int:
-    """(output position, tap) pairs along one axis that read an input
-    element, not the zero padding."""
-    return sum(0 <= o * stride + t - lo < size
-               for o in range(out) for t in range(k))
-
-
 def _conv_bound(name: str, x, w, s: int, out_bytes: int, padding="SAME",
                 stride: int = 1, mask_bytes: int = 0, kind: str | None = None
                 ) -> tuple[float, str]:
@@ -1395,8 +1402,7 @@ def _conv_bound(name: str, x, w, s: int, out_bytes: int, padding="SAME",
     n, c, h, wd = x.shape[-4:]          # x (S, N, C, H, W) carries S
     f, _, kh, kw = w.shape
     g = mc.geometry(h, wd, kh, kw, padding, stride)
-    macs = (n * c * f * _conv_taps(h, kh, g.ph, stride, g.ho)
-            * _conv_taps(wd, kw, g.pw, stride, g.wo))
+    macs = mc.conv_macs(n, c, f, h, wd, kh, kw, g, stride)
     nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
               + 2 * f * 4 + mask_bytes + s * n * g.ho * g.wo * f * out_bytes)
     if kind is None:
@@ -4487,6 +4493,215 @@ def phase_shard(smi: str) -> dict:
     return {"launches": launches}
 
 
+# the tools phase: row 3's bound at the head shape in PERF.md's kernel
+# table (ms), the share of it the roofline may miss, the least share of
+# the profiler's device time the graph timer may read, and its work files
+ROW3_BOUND_MS, ROW3_BOUND_RTOL, SCAN_DEVICE_FLOOR = 0.0000575, 0.01, 0.95
+TOOLS_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_tools"
+
+
+def _tools_scan(smi: str) -> dict:
+    """``scan_time_s`` of the flagship's spatial predict (vgg11_me bf16,
+    batch 128, S = 10, seeded weights), beside the profiler's device time
+    of one predict and the eager p50: the graph timer must read at least
+    SCAN_DEVICE_FLOOR of the device time (it replays every kernel, plus
+    the carry's add and the output's sums) and at most the eager p50 (it
+    takes the host's dispatch out)."""
+    import torch
+    from bayestpu_torch.core.config import BayesConfig
+    from bayestpu_torch.engine.engine import BayesEngine
+    from bayestpu_torch.nn.zoo import get_model
+    from bayestpu_torch.utils.timing import scan_time_s
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(BATCH, 32, 32, 3, generator=gen).cuda()
+    eng = BayesEngine(get_model("vgg11_me", bayes=BayesConfig(rate=RATE),
+                                fused=True, dtype=torch.bfloat16),
+                      device="cuda").init(0, x[:1].cpu())
+    seed = 11
+    fn, seeds = eng._predict_fn(), eng.seeds(seed, SAMPLES)
+    eng.predict(x, seed, SAMPLES)
+    eager_ms = host_ms(lambda: eng.predict(x, seed, SAMPLES), 30)
+    prof = _profile_predict(eng, x, seed, reps=10)
+    device = prof["device_ms_per_predict"]
+    check(isinstance(device, float), "the profiler saw no device time")
+    t0 = time.perf_counter()
+    scan = scan_time_s(lambda c: fn(x + c, seeds), torch.device("cuda"),
+                       min_diff_s=0.1)
+    scan_s = time.perf_counter() - t0
+    scan_ms = scan.median_s * 1e3
+    check(not scan.rtt_fallback, f"scan windows not positive: {scan}")
+    check(SCAN_DEVICE_FLOOR * device <= scan_ms <= eager_ms,
+          f"scan {scan_ms} ms outside [{SCAN_DEVICE_FLOOR} x device "
+          f"{device} ms, eager p50 {eager_ms} ms]")
+    return {"config": "vgg11_me_bf16_b128_s10", "scan_ms": scan_ms,
+            "scan_windows_ms": [w * 1e3 for w in scan.windows],
+            "scan_k": scan.k, "scan_seconds": scan_s,
+            "profiler_device_ms": device,
+            "profiler_launches": prof["kernel_launches_per_predict"],
+            "eager_p50_ms": eager_ms,
+            "scan_over_device": scan_ms / device}
+
+
+def _tools_resume(smi: str) -> dict:
+    """A 2-epoch ``lenet_me`` run on the card (bf16, the ``"lenet"``
+    recipe, 4,096 synthetic MNIST images at batch 128, validation,
+    reshuffle and ``random_crop_flip``), and the same run stopped after
+    epoch 0, restored from its checkpoint into a model of another init and
+    continued: parameters, buffers, optimizer state and step bit-identical
+    (cuDNN in its deterministic mode for both)."""
+    import torch
+    from bayestpu_torch.core.config import BayesConfig
+    from bayestpu_torch.data.augment import random_crop_flip
+    from bayestpu_torch.data.datasets import get_dataset, iterate_batches
+    from bayestpu_torch.nn.zoo import get_model
+    from bayestpu_torch.train.checkpoint import restore_checkpoint
+    from bayestpu_torch.train.loop import (_tensors_of, create_state,
+                                           train_loop)
+    from bayestpu_torch.train.optim import get_optimizer, get_recipe
+    ds = get_dataset("mnist", str(TOOLS_DIR / "no_data"), n_synth_train=4096,
+                     n_synth_test=512)
+    recipe = get_recipe("lenet")
+
+    def setup(seed):
+        model = get_model("lenet_me", bayes=BayesConfig(rate=RATE),
+                          fused=True, dtype=torch.bfloat16)
+        tx = get_optimizer(recipe, 4096 // recipe.batch_size)
+        return model, tx, create_state(model, tx, seed, ds.x_train[:8])
+
+    def run(model, state, tx, epochs, ckpt, **kw):
+        train_loop(model, state, tx, lambda: iterate_batches(
+            ds.x_train, ds.y_train, recipe.batch_size, seed=1), 5, epochs,
+            val_batches=lambda: iterate_batches(ds.x_test, ds.y_test, 256,
+                                                shuffle=False),
+            augment_fn=lambda s, xb, i: random_crop_flip(s, xb, 4, i),
+            reshuffle=True, checkpoint_dir=str(ckpt), log_fn=lambda m: None,
+            **kw)
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        model, tx, state = setup(0)
+        run(model, state, tx, 2, TOOLS_DIR / "whole")
+        m1, tx1, s1 = setup(0)
+        run(m1, s1, tx1, 1, TOOLS_DIR / "part")
+        m2, tx2, template = setup(3)
+        s2, seed, aux = restore_checkpoint(str(TOOLS_DIR / "part"),
+                                           template, with_aux=True)
+        run(m2, s2, tx2, 2, TOOLS_DIR / "rest", start_epoch=aux["epoch"] + 1,
+            best0=(aux["best_metric"], aux["best_params"],
+                   aux["since_best"]))
+        seconds = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = det
+    check(seed == 5 and s2.step == state.step == 2 * 4096 // 128,
+          f"resumed steps {s2.step} vs {state.step}")
+    worst = 0.0
+    pairs = (list(zip(model.parameters(), m2.parameters()))
+             + list(zip(model.buffers(), m2.buffers()))
+             + list(zip(_tensors_of(state.opt_state),
+                        _tensors_of(s2.opt_state))))
+    for a, b in pairs:
+        worst = max(worst, (a.float() - b.float()).abs().max().item())
+    check(worst == 0.0, f"resumed run differs from the whole run by {worst}")
+    check(next(model.parameters()).is_cuda, "the resume ran off the card")
+    return {"config": "lenet_me_bf16_b128_2_epochs", "steps": state.step,
+            "compared_tensors": len(pairs), "max_abs_diff": worst,
+            "seconds": seconds}
+
+
+def _tools_cli(smi: str) -> dict:
+    """``cli.train`` (``lenet_me``, ``--fused``, 1 epoch at batch 64 of
+    synthetic MNIST) → ``cli.predict`` → ``cli.build`` in this process, on
+    the card by default (no ``--device``); their own output goes to
+    ``TOOLS_DIR/cli.log``."""
+    import contextlib
+    import math
+    from bayestpu_torch.cli import build, predict, train
+    common = ["--model", "lenet_me", "--dataset", "mnist", "--dropout_type",
+              "mc", "--mc_samples", "3", "--fused", "--data_dir",
+              str(TOOLS_DIR / "no_data")]
+    out = str(TOOLS_DIR / "ckpt")
+    t0 = time.perf_counter()
+    with open(TOOLS_DIR / "cli.log", "w") as log, \
+            contextlib.redirect_stdout(log):
+        tr = train.main(common + ["--epochs", "1", "--batch_size", "64",
+                                  "--out", out])
+        pr = predict.main(common + ["--load_model", out])
+        bd = build.main(common + ["--load_model", out, "--output_dir",
+                                  str(TOOLS_DIR / "build_prj")])
+    seconds = time.perf_counter() - t0
+    check(Path(out + "_last").is_dir(), "cli.train wrote no <out>_last")
+    for name, rep in (("train", tr), ("temporal", pr["temporal"]),
+                      ("spatial", pr["spatial"])):
+        check(all(math.isfinite(v) for v in rep.values()
+                  if isinstance(v, float)), f"cli {name}: {rep}")
+        check(0.0 <= rep["acc"] <= 1.0, f"cli {name} acc {rep['acc']}")
+    check(bd["strategy_mode"] == "spatial" and bd["flops"] > 0
+          and bd["temp_size_in_bytes"] > 0 and bd["launches"] > 0,
+          f"cli build report {bd}")
+    return {"train_acc": tr["acc"], "train_ece_hist": tr["ece_hist"],
+            "predict_spatial_acc": pr["spatial"]["acc"],
+            "predict_temporal_acc": pr["temporal"]["acc"],
+            "build_compile_seconds": bd["compile_seconds"],
+            "build_device_ms": bd["device_ms"],
+            "build_launches": bd["launches"], "build_flops": bd["flops"],
+            "build_temp_bytes": bd["temp_size_in_bytes"],
+            "seconds": seconds}
+
+
+def phase_tools(smi: str) -> dict:
+    """The tooling (ROADMAP Queue 1 item 14) on the card: row 3's roofline
+    at the head shape (its bound PERF.md's ROW3_BOUND_MS within
+    ROW3_BOUND_RTOL, its work 2·S·M·N·K from the wrapper's count) and
+    ``bench.kernels`` at the head shape, uncounted (kernel benches); then,
+    counted, the graph timer on the flagship predict (``_tools_scan``), a
+    resumed ``lenet_me`` run (``_tools_resume``) and the CLIs
+    (``_tools_cli``). Also ``--only tools``."""
+    import math
+    import torch
+    from bayestpu_torch.bench.kernels import bench_shape
+    from bayestpu_torch.kernels import masked_matmul as mm
+    from bayestpu_torch.utils.profiler import roofline
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    TOOLS_DIR.mkdir(parents=True)
+    gen = torch.Generator().manual_seed(3)
+    m, k, n = 128, 512, 10
+    x = torch.randn(m, k, generator=gen).bfloat16().cuda()
+    w = (torch.randn(k, n, generator=gen) / k ** 0.5).bfloat16().cuda()
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (SAMPLES, 2), generator=gen,
+                          dtype=torch.int64).to(torch.int32).cuda()
+    t0 = time.perf_counter()
+    roof = roofline(lambda a, b, s: mm.dropout_matmul_samples(a, b, s, RATE),
+                    x, w, seeds, mxu_dtype="bf16")
+    roof_s = time.perf_counter() - t0
+    bound_ms = roof["speed_of_light_s"] * 1e3
+    check(roof["chip"] == "h100" and roof["bound"] == "memory",
+          f"row 3 roofline {roof}")
+    check(abs(bound_ms - ROW3_BOUND_MS) <= ROW3_BOUND_RTOL * ROW3_BOUND_MS,
+          f"row 3 bound {bound_ms} ms, PERF.md {ROW3_BOUND_MS}")
+    flops = roof["achieved_tflops"] * 1e12 * roof["seconds"]
+    check(abs(flops - 2 * SAMPLES * m * n * k) <= 1e-6 * flops,
+          f"row 3 work {flops} != 2·S·M·N·K")
+    emit({"phase": "tools_roofline", "card": smi, "kernel":
+          "dropout_matmul_samples", "shape": [SAMPLES, m, k, n], **roof,
+          "bound_ms": bound_ms, "perf_md_bound_ms": ROW3_BOUND_MS,
+          "wall_seconds": roof_s})
+    t0 = time.perf_counter()
+    bench = bench_shape(m, k, n, "cuda", min_diff_s=0.02)
+    check(all(math.isfinite(v) and v > 0 for key, v in bench.items()
+              if key.endswith("_ms")), f"bench.kernels {bench}")
+    emit({"phase": "tools_bench_kernels", "card": smi, **bench,
+          "wall_seconds": time.perf_counter() - t0})
+    reset_counts()
+    emit({"phase": "tools_scan", "card": smi, **_tools_scan(smi)})
+    emit({"phase": "tools_resume", "card": smi, **_tools_resume(smi)})
+    emit({"phase": "tools_cli", "card": smi, **_tools_cli(smi)})
+    launches = launch_counts()
+    emit({"phase": "tools", "card": smi, "launches": launches})
+    return {"launches": launches}
+
+
 def phase_step_vs_cpu() -> None:
     """One training step of vgg11_me at batch 8 on the card and on the
     CPU (``_step_vs_cpu``)."""
@@ -4565,7 +4780,8 @@ def main(argv: list[str]) -> int:
 
     partial = {"kernels": phase_kernels, "conv": phase_conv_kernels,
                "convert": lambda: phase_convert(smi),
-               "shard": lambda: phase_shard(smi)}
+               "shard": lambda: phase_shard(smi),
+               "tools": lambda: phase_tools(smi)}
     only = None
     if argv:
         check(len(argv) == 2 and argv[0] == "--only"
@@ -4608,11 +4824,12 @@ def main(argv: list[str]) -> int:
     cv = timed("convert", phase_convert, smi)
     timed("step_vs_cpu", phase_step_vs_cpu)
     sh = timed("shard", phase_shard, smi)
+    tl = timed("tools", phase_tools, smi)
     emit({"phase": "seconds", **seconds})
     kernels = []
     for name, stats in summary.items():
         launches = sum(ph["launches"][name]
-                       for ph in (sl, tr, i8, an, mk, bl, rn, ln, cv, sh))
+                       for ph in (sl, tr, i8, an, mk, bl, rn, ln, cv, sh, tl))
         check(launches > 0, f"{name} was never launched on the main paths")
         conv = name in CONV_REPLACES
         kernels.append({"name": name, "route": "cuda",

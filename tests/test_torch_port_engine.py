@@ -323,7 +323,18 @@ def test_import_pulls_in_no_jax():
             "bayestpu_torch.utils.timing, bayestpu_torch.metrics, "
             "bayestpu_torch.metrics.analysis, bayestpu_torch.native, "
             "bayestpu_torch.engine.inference, bayestpu_torch.data.pipeline, "
-            "bayestpu_torch.engine.sharding, bayestpu_torch.engine.distributed"
+            "bayestpu_torch.engine.sharding, bayestpu_torch.engine.distributed, "
+            "bayestpu_torch.train.checkpoint, bayestpu_torch.data.augment, "
+            "bayestpu_torch.utils.profiler, bayestpu_torch.utils.rundb, "
+            "bayestpu_torch.interop.torch_import, "
+            "bayestpu_torch.interop.keras_import, bayestpu_torch.cli, "
+            "bayestpu_torch.cli.common, bayestpu_torch.cli.train, "
+            "bayestpu_torch.cli.predict, bayestpu_torch.cli.analyze, "
+            "bayestpu_torch.cli.build, bayestpu_torch.cli.sweep, "
+            "bayestpu_torch.cli.figures, bayestpu_torch.cli.time_cost, "
+            "bayestpu_torch.cli.verify_accuracy, bayestpu_torch.bench, "
+            "bayestpu_torch.bench.kernels, bayestpu_torch.bench.scaling, "
+            "bayestpu_torch.bench.timing"
             "\n"
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "
             "'bayestpu') or m.startswith(('jax.', 'flax.', 'optax.', "

@@ -27,6 +27,7 @@ from bayestpu_torch.core.rng import fold_seed
 from bayestpu_torch.engine.engine import BayesEngine
 from bayestpu_torch.nn.convert import (MCDropoutModel, Sequential,
                                        convert_to_bayesian, lenet_specs)
+from bayestpu_torch.utils.profiler import cost_report
 from bayestpu_torch.utils.timing import measure_windows, paired_compare
 
 BAYES = BayesConfig(rate=0.25, num_bayes_layers=3, num_samples=4)
@@ -154,14 +155,20 @@ def test_cost_analysis_keys_and_sizes(jax_keys):
     x = _x()
     rep = eng.cost_analysis(x)
     assert set(rep) == jax_keys["cost_analysis"] | {"device_ms", "launches"}
-    for k in ("flops", "bytes_accessed", "generated_code_size_in_bytes",
-              "temp_size_in_bytes", "device_ms", "launches"):
+    for k in ("generated_code_size_in_bytes", "device_ms", "launches"):
         assert rep[k] is None, k
+    assert rep["temp_size_in_bytes"] > 0
     m = eng.model
     want = sum(t.numel() * 4 for t in (*m.parameters(), *m.buffers()))
     assert rep["argument_size_in_bytes"] == want + x.size * 4 + 4 * 3 * 2 * 4
     # probs and var (E, B, C), entropy (E, B), f32
     assert rep["output_size_in_bytes"] == 4 * (2 * 40 + 4)
+    assert rep["bytes_accessed"] == (rep["argument_size_in_bytes"]
+                                     + rep["output_size_in_bytes"])
+    # the operations of one predict, as utils.profiler counts them
+    seeds = eng.seeds(0, 4)
+    want = cost_report(eng._predict_fn(), torch.from_numpy(x), seeds)
+    assert rep["flops"] == want["flops"] > 0
 
 
 def test_cuda_entry_points_raise_without_a_card():

@@ -491,10 +491,10 @@ def test_train_loop_early_stop_and_plateau():
     assert "early stop" in logs[-1]
 
 
-def test_train_loop_unported_options_raise():
-    """Checkpoints (item 14) raise; ``mesh`` is ported: a 1x1 mesh (no
-    process group) trains as the loop without one, bit for bit, and a mesh
-    larger than the process count is refused."""
+def test_train_loop_unported_options_raise(tmp_path):
+    """Checkpoints are ported: ``checkpoint_dir`` writes one; ``mesh`` is
+    ported: a 1x1 mesh (no process group) trains as the loop without one,
+    bit for bit, and a mesh larger than the process count is refused."""
     model, tx, state, ds = _sgd_state()
     ref_model, ref_tx, ref_state, _ = _sgd_state()
     train_loop(model, state, tx, _batches(ds), 0, 1, mesh=make_mesh(),
@@ -506,8 +506,9 @@ def test_train_loop_unported_options_raise():
         assert torch.equal(p, q), k
     with pytest.raises(ValueError, match="ranks"):
         make_mesh(2, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_loop(model, state, tx, _batches(ds), 0, 1, checkpoint_dir="x")
+    train_loop(model, state, tx, _batches(ds), 0, 1,
+               checkpoint_dir=str(tmp_path / "ck"), log_fn=lambda s: None)
+    assert (tmp_path / "ck" / "checkpoint.pt").is_file()
     with pytest.raises(ValueError):
         train_loop(model, state, tx, _batches(ds), 0, 1, val_mode="bogus")
 
