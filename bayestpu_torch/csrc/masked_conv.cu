@@ -2,22 +2,20 @@
 // interface.
 //
 // Replaces the two Pallas TPU kernels of bayestpu/kernels/masked_conv.py
-// with two routines:
-//   conv_mma_kernel<T, T, HashMask|NoMask>  <- _masked_conv_kernel
-//        (:371-417), launched by _launch_masked (:473-510), for bf16 x with
-//        bf16 w and int8 x with int8 w: dropout_conv, dropout_conv_samples,
-//        dropout_conv_inference (x carrying the sample axis included),
-//        conv_fused and the int8 twins dropout_conv_int8{,_samples},
-//        conv_int8_fused. An implicit GEMM on the tensor cores.
-//   conv_mma_kernel<TX, float, BankMask>    <- _bank_conv_kernel (:430-467),
-//   conv_mma_kernel<int8_t, int8_t, BankMask>  launched by _launch_bank
-//        (:513-560): bank_conv{,_samples} (TX bf16 or f32; f32 products
-//        as three TF32 ones) and bank_conv_int8{,_samples}, and both on an
-//        x that carries the sample axis (the _xs entries; JAX's lax.map of
-//        the single kernel, :845-851 and :1070-1076). The same routine.
-//   conv_kernel<TX, TW, HashMask|NoMask>    <- _masked_conv_kernel, for an
-//        f32 x or an f32 w in the MC convs (bf16 products would round
-//        them), on the CUDA cores.
+// with one routine, conv_mma_kernel<TX, TS, Mask> (x of type TX, staged and
+// multiplied as TS), an implicit GEMM on the tensor cores:
+//   <T, T, HashMask|NoMask>      <- _masked_conv_kernel (:371-417),
+//   <TX, float, HashMask|NoMask>    launched by _launch_masked (:473-510):
+//        dropout_conv, dropout_conv_samples, dropout_conv_inference (x
+//        carrying the sample axis included) and conv_fused, bf16 x with
+//        bf16 w in bf16, any f32 operand in f32 (three TF32 products); the
+//        int8 twins dropout_conv_int8{,_samples}, conv_int8_fused in int8.
+//   <TX, float, BankMask>        <- _bank_conv_kernel (:430-467),
+//   <int8_t, int8_t, BankMask>      launched by _launch_bank (:513-560):
+//        bank_conv{,_samples} (TX bf16 or f32; three TF32 products) and
+//        bank_conv_int8{,_samples}, and both on an x that carries the
+//        sample axis (the _xs entries; JAX's lax.map of the single kernel,
+//        :845-851 and :1070-1076).
 // Each computes, for every sample s, out[s] = epilogue(conv(x_s ⊙ mask_s,
 // w)) with x NHWC (N, H, W, C), out (S, N, Ho, Wo, F), stride 1 or 2 and
 // any zero padding (the caller resolves XLA's SAME, VALID or explicit pairs
@@ -38,10 +36,10 @@
 //     when n > 1 (JAX selects the row as a max over a where, which clips a
 //     negative entry to 0); the int8 kernels keep x where the value > 0.5;
 //   - NoMask: x as it is (conv_fused, conv_int8_fused).
-// Products accumulate in f32 (float kernels; bf16 products are exact, the
-// bank kernels' f32 products come to about 2^-22 of each from three TF32
-// ones) or int32 (int8 x int8, exact). The epilogue (affine_of, epi_y,
-// store_y), in f32 and in _epi_apply's order, with the roundings that the
+// Products accumulate in f32 (float kernels; bf16 products are exact, f32
+// ones come to about 2^-22 of each from three TF32 ones) or int32 (int8 x
+// int8, exact). The epilogue (affine_of, epi_y, store_y), in f32 and in
+// _epi_apply's order, with the roundings that the
 // JAX kernel has on XLA's CPU backend (the reference the tests hold the
 // port to; measured there on every element): with the (2, F) affine, y =
 // fma(acc, scale[f], bias[f]) for the float kernels and y = fma(f32(acc),
@@ -58,9 +56,9 @@
 // -> 128, 128x8x8x128 -> 256, 128x4x4x256 -> 512, 128x2x2x512 -> 512, 3x3)
 // one sample at site 1 is 4.44 GFLOP of products that read an input element
 // against 2-5 MB of bf16 traffic: operations bound, 0.0045 ms at the 989
-// TFLOP/s of bf16 tensor cores (half that at the 1,979 TOP/s of int8); the
-// float bank kernels' three TF32 products 0.027 ms at 495 TFLOP/s, where
-// f32 multiply-adds outside the tensor cores would take 0.066 ms at 67.
+// TFLOP/s of bf16 tensor cores (half that at the 1,979 TOP/s of int8); an
+// f32 route's three TF32 products 0.027 ms at 495 TFLOP/s, where f32
+// multiply-adds outside the tensor cores would take 0.066 ms at 67.
 //
 // The tensor-core routine (conv_mma_kernel) is an implicit GEMM: M = output
 // pixels, N = F, K = KH·KW·C, in the order (channel chunk, tap, channel). A
@@ -73,11 +71,13 @@
 // (halo included), masked ONCE per element as it is staged, so every tap
 // reads the masked value from there and the mask runs once per staged
 // element; the raw x of the next chunk is loaded into registers, in x's own
-// type, while this chunk's products run. The staged type is x's for the MC
-// and int8 convs, and f32 for the float bank convs: the masked value
-// __fmul_rn(f32(x), b) exactly as JAX forms it. The weights come from the
-// (KH·KW, F, Cp) copy the wrapper builds (K contiguous, C zero-padded to Cp,
-// a multiple of 32 bytes; f32 for the float bank convs) by cp.async,
+// type, while this chunk's products run. The staged type is bf16 for an MC
+// conv of bf16 x and w, int8 for the int8 convs, and f32 for every other
+// float conv (the f32 route): the masked value as JAX forms it (an MC x
+// times the scale rounded to x's type, a bank x __fmul_rn(f32(x), b)),
+// widened exactly. The weights come from the (KH·KW, F, Cp) copy the
+// wrapper builds (K contiguous, C zero-padded to Cp, a multiple of 32 bytes,
+// in the staged type: a bf16 w widened exactly) by cp.async,
 // double-buffered over the chunks (in groups of up to 9 taps, so a larger
 // window streams too). Fragments come from shared memory by ldmatrix; the
 // 32-byte rows are XOR-swizzled, conflict-free. ldmatrix's b16 matrices hand
@@ -98,11 +98,9 @@
 // a block, not 64, halve the masking, which every channel tile repeats for
 // its pixels.
 //
-// The CUDA-core routine (conv_kernel) is the first port's: a block owns up
-// to 64 pixels by 64 channels of one sample, stages the masked patch widened
-// to f32 and the chunk's weights, and each of 256 threads accumulates a 4 x
-// 4 register tile with scalar multiply-adds. It serves the f32 and
-// mixed-type MC convs alone.
+// A block's patch holds at most MAX_PATCH_ROWS positions; a window and
+// stride whose 8 x 8 tile needs more (7 x 7 at stride 2: 21 x 21) take a
+// smaller tile of the same routine (make_mma_geom).
 #include <cstddef>
 #include <cstdint>
 #include <type_traits>
@@ -114,13 +112,6 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int BM = 64;            // output pixels of a block, at most
-constexpr int BN = 64;            // output channels of a block
-constexpr int RM = 4;             // pixels of a thread
-constexpr int RN = 4;             // channels of a thread
-constexpr int TM = BM / RM;       // 16 thread rows
-constexpr int TN = BN / RN;       // 16 thread columns
 constexpr int MAX_SMEM = 200 * 1024;
 
 // the tensor-core routine
@@ -130,6 +121,9 @@ constexpr int KB = 32;            // bytes of one mma k step, of a chunk and
                                   // of a staged row
 constexpr int TAP_GROUP = 9;      // taps of weights staged at a time
 constexpr int MAXV = 3;           // patch vectors of a thread, at most
+constexpr int MMA_BM = 64;        // output pixels of a block, at most
+// staged patch rows (two vectors each) of a block, at most
+constexpr int MAX_PATCH_ROWS = MAXV * MMA_THREADS / 2;
 // the f32 total of a thread's 2 x 4 tiles, in shared memory on the f32
 // (three-pass TF32) route: 32 KiB a block
 constexpr int TOTAL_BYTES = 2 * 4 * 4 * MMA_THREADS * 4;
@@ -288,7 +282,7 @@ struct BankMask {
 
 struct Geom {
   int N, H, W, C, F, KH, KW, st, pt, pl, Ho, Wo, S;
-  int TH, TW, NB, BC, PH, PW;  // tile: NB images x TH x TW outputs
+  int TH, TW, NB, PH, PW;      // tile: NB images x TH x TW outputs
   int tiles_h, tiles_w;
   long long xstride;           // elements from x_s to x_{s+1}; 0: shared x
 };
@@ -363,128 +357,6 @@ __device__ __forceinline__ void store_y2(const Epi& e, float y0, float y1,
   } else {
     *reinterpret_cast<char2*>(static_cast<int8_t*>(out) + i) =
         make_char2(int8_of(e, y0), int8_of(e, y1));
-  }
-}
-
-// ------------------------------------------------ the CUDA-core routine
-
-template <typename TX, typename TW, typename Mask>
-__global__ void __launch_bounds__(THREADS)
-    conv_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
-                Mask mask, void* __restrict__ out, Geom g, Epi e) {
-  using V = float;
-  static_assert(std::is_same<V, typename Ld<TX>::V>::value &&
-                    std::is_same<V, typename Ld<TW>::V>::value,
-                "the CUDA-core routine is float");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  V* patch = reinterpret_cast<V*>(smem_raw);               // NB*PH*PW*BC
-  V* ws = patch + g.NB * g.PH * g.PW * g.BC;               // KH*KW*BC*BN
-
-  const int tid = threadIdx.x;
-  const int s = blockIdx.z;
-  x += s * g.xstride;
-  const int tw_i = blockIdx.x % g.tiles_w;
-  const int th_i = (blockIdx.x / g.tiles_w) % g.tiles_h;
-  const int tn_i = blockIdx.x / (g.tiles_w * g.tiles_h);
-  const int n0 = tn_i * g.NB, oh0 = th_i * g.TH, ow0 = tw_i * g.TW;
-  const int f0 = blockIdx.y * BN;
-  const int tpix = g.TH * g.TW;
-  const int bm = g.NB * tpix;
-  const int tr = tid / TN, tc = tid % TN;
-  mask.begin(s);
-
-  // this thread's pixels: offsets into the patch and validity
-  int pbase[RM];
-  bool pvalid[RM];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int p = tr + TM * i;
-    const int nb = p / tpix, ohl = (p / g.TW) % g.TH, owl = p % g.TW;
-    pvalid[i] = p < bm && n0 + nb < g.N && oh0 + ohl < g.Ho &&
-                ow0 + owl < g.Wo;
-    pbase[i] = pvalid[i]
-                   ? ((nb * g.PH + ohl * g.st) * g.PW + owl * g.st) * g.BC
-                   : 0;
-  }
-
-  V acc[RM][RN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j) acc[i][j] = V(0);
-
-  const uint32_t hw = static_cast<uint32_t>(g.H) * static_cast<uint32_t>(g.W);
-  const int taps = g.KH * g.KW;
-  const int patch_n = g.NB * g.PH * g.PW * g.BC;
-  const int w_n = taps * g.BC * BN;
-  const int ih0 = oh0 * g.st - g.pt, iw0 = ow0 * g.st - g.pl;
-  for (int c0 = 0; c0 < g.C; c0 += g.BC) {
-    // the masked input patch, each element hashed once
-    for (int i = tid; i < patch_n; i += THREADS) {
-      const int c = i % g.BC;
-      const int pos = i / g.BC;
-      const int pw = pos % g.PW, ph = (pos / g.PW) % g.PH,
-                nb = pos / (g.PW * g.PH);
-      const int n = n0 + nb, ih = ih0 + ph, iw = iw0 + pw, cg = c0 + c;
-      V v = V(0);
-      if (n < g.N && ih >= 0 && ih < g.H && iw >= 0 && iw < g.W &&
-          cg < g.C) {
-        const size_t off =
-            ((static_cast<size_t>(n) * g.H + ih) * g.W + iw) * g.C + cg;
-        const uint32_t row = static_cast<uint32_t>(n) * hw +
-                             static_cast<uint32_t>(ih * g.W + iw);
-        v = mask.apply(row, cg, Ld<TX>::load(x + off));
-      }
-      patch[i] = v;
-    }
-    // the chunk's weights for every tap: ws[(t * BC + c) * BN + f]
-    for (int i = tid; i < w_n; i += THREADS) {
-      const int f = i % BN;
-      const int c = (i / BN) % g.BC;
-      const int t = i / (BN * g.BC);
-      const int cg = c0 + c, fg = f0 + f;
-      ws[i] = (cg < g.C && fg < g.F)
-                  ? Ld<TW>::load(w + (static_cast<size_t>(t) * g.C + cg) *
-                                         g.F + fg)
-                  : V(0);
-    }
-    __syncthreads();
-    for (int t = 0; t < taps; ++t) {
-      const int toff = ((t / g.KW) * g.PW + t % g.KW) * g.BC;
-      const V* wt = ws + t * g.BC * BN + tc;
-      for (int c = 0; c < g.BC; ++c) {
-        V a[RM], b[RN];
-#pragma unroll
-        for (int i = 0; i < RM; ++i) a[i] = patch[pbase[i] + toff + c];
-#pragma unroll
-        for (int j = 0; j < RN; ++j) b[j] = wt[c * BN + TN * j];
-#pragma unroll
-        for (int i = 0; i < RM; ++i)
-#pragma unroll
-          for (int j = 0; j < RN; ++j)
-            acc[i][j] = __fmaf_rn(a[i], b[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    if (!pvalid[i]) continue;
-    const int p = tr + TM * i;
-    const int n = n0 + p / tpix, oh = oh0 + (p / g.TW) % g.TH,
-              ow = ow0 + p % g.TW;
-    const size_t obase =
-        (((static_cast<size_t>(s) * g.N + n) * g.Ho + oh) * g.Wo + ow) *
-        g.F;
-#pragma unroll
-    for (int j = 0; j < RN; ++j) {
-      const int f = f0 + tc + TN * j;
-      if (f >= g.F) continue;
-      float sc = 1.f, bi = 0.f;
-      affine_of<V>(e, g.F, f, &sc, &bi);
-      store_y(e, epi_y(e, acc[i][j], sc, bi), obase + f, out);
-    }
   }
 }
 
@@ -938,8 +810,6 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
 // dims: N, H, W, C, F, KH, KW, stride, pad_top, pad_left, Ho, Wo, S, and
 // row0 (the MC mask's row offset; the bank and mask-free routines ignore
 // it).
-// The output tile of a block: up to 8 x 8 outputs of NB images, 64 pixels
-// in all, fixed by the shape alone (never by S or the launch kind).
 int read_dims(const int* dims, int x_carries, Geom* g) {
   Geom& q = *g;
   q.N = dims[0]; q.H = dims[1]; q.W = dims[2]; q.C = dims[3]; q.F = dims[4];
@@ -950,63 +820,53 @@ int read_dims(const int* dims, int x_carries, Geom* g) {
   q.xstride = x_carries
                   ? static_cast<long long>(q.N) * q.H * q.W * q.C
                   : 0;
-  q.TW = q.Wo < 8 ? q.Wo : 8;
-  q.TH = q.Ho < 8 ? q.Ho : 8;
-  q.NB = BM / (q.TH * q.TW);
-  if (q.NB < 1) q.NB = 1;
-  if (q.NB > q.N) q.NB = q.N;
-  q.PH = (q.TH - 1) * q.st + q.KH;
-  q.PW = (q.TW - 1) * q.st + q.KW;
   return 0;
 }
 
-void set_tiles(Geom* g) {
-  g->tiles_h = (g->Ho + g->TH - 1) / g->TH;
-  g->tiles_w = (g->Wo + g->TW - 1) / g->TW;
+void set_patch(Geom* g) {
+  g->PH = (g->TH - 1) * g->st + g->KH;
+  g->PW = (g->TW - 1) * g->st + g->KW;
 }
 
-int make_geom(const int* dims, int x_carries, size_t elem, Geom* g,
-              size_t* smem) {
-  const int rc = read_dims(dims, x_carries, g);
-  if (rc != 0) return rc;
-  Geom& q = *g;
-  const int taps = q.KH * q.KW;
-  q.BC = 16;
-  while (q.BC > 1 && static_cast<size_t>(taps) * q.BC * BN * elem > 96 * 1024)
-    q.BC /= 2;
-  for (;;) {
-    *smem = (static_cast<size_t>(q.NB) * q.PH * q.PW * q.BC +
-             static_cast<size_t>(taps) * q.BC * BN) * elem;
-    if (*smem <= MAX_SMEM || q.NB == 1) break;
-    q.NB = (q.NB + 1) / 2;
-  }
-  if (*smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  set_tiles(g);
-  return 0;
-}
+int patch_rows(const Geom& g) { return g.NB * g.PH * g.PW; }
 
-// Shared memory of the tensor-core routine: two stages of weights (up to
-// TAP_GROUP taps of one chunk, 36 KiB each), one patch of at most MAXV
-// vectors a thread (384 rows, 12 KiB) and `extra` bytes (the f32 route's
-// total); NB shrinks until the patch fits. A patch row count past that
-// even at NB = 1 (a kernel window and stride over 8 x 8 outputs beyond 19
-// x 19 inputs, e.g. 7 x 7 at stride 2) is refused.
+// The output tile of a block, fixed by the shape alone (never by S or the
+// launch kind): up to 8 x 8 outputs of NB images, 64 pixels in all, NB
+// halved until the patch fits in MAX_PATCH_ROWS. Where it does not fit at
+// NB = 1 (a window and stride over 8 x 8 outputs beyond 19 x 19 inputs, as
+// 7 x 7 at stride 2), the tile's longer side is halved until it does, down
+// to one output: fewer pixels a block (the rest of its rows read patch
+// position 0 and are not stored). A window of more than MAX_PATCH_ROWS taps
+// fits no tile and is refused (the wrapper refuses it first, by name).
+// Shared memory: two stages of weights (up to TAP_GROUP taps of one chunk,
+// 36 KiB each), the patch (12 KiB at most) and `extra` bytes (the f32
+// route's total).
 int make_mma_geom(const int* dims, int x_carries, size_t extra, Geom* g,
                   size_t* smem) {
   const int rc = read_dims(dims, x_carries, g);
   if (rc != 0) return rc;
   Geom& q = *g;
-  q.BC = 0;
-  const int taps = q.KH * q.KW;
-  const size_t wbytes =
-      2 * static_cast<size_t>(taps < TAP_GROUP ? taps : TAP_GROUP) * MMA_BN *
-      KB;
-  while (2 * q.NB * q.PH * q.PW > MAXV * MMA_THREADS && q.NB > 1)
-    q.NB = (q.NB + 1) / 2;
-  if (2 * q.NB * q.PH * q.PW > MAXV * MMA_THREADS)
+  q.TW = q.Wo < 8 ? q.Wo : 8;
+  q.TH = q.Ho < 8 ? q.Ho : 8;
+  q.NB = MMA_BM / (q.TH * q.TW);
+  if (q.NB > q.N) q.NB = q.N;
+  set_patch(g);
+  while (patch_rows(q) > MAX_PATCH_ROWS && q.NB > 1) q.NB = (q.NB + 1) / 2;
+  while (patch_rows(q) > MAX_PATCH_ROWS && (q.TH > 1 || q.TW > 1)) {
+    if (q.TH >= q.TW)
+      q.TH = (q.TH + 1) / 2;
+    else
+      q.TW = (q.TW + 1) / 2;
+    set_patch(g);
+  }
+  if (patch_rows(q) > MAX_PATCH_ROWS)
     return static_cast<int>(cudaErrorInvalidValue);
-  *smem = wbytes + static_cast<size_t>(q.NB) * q.PH * q.PW * KB + extra;
-  set_tiles(g);
+  const int taps = q.KH * q.KW;
+  *smem = 2 * static_cast<size_t>(taps < TAP_GROUP ? taps : TAP_GROUP) *
+              MMA_BN * KB +
+          static_cast<size_t>(patch_rows(q)) * KB + extra;
+  q.tiles_h = (q.Ho + q.TH - 1) / q.TH;
+  q.tiles_w = (q.Wo + q.TW - 1) / q.TW;
   return 0;
 }
 
@@ -1020,31 +880,6 @@ int allow_smem(K kern, bool* set) {
   return 0;
 }
 
-dim3 grid_of(const Geom& g, int bn) {
-  const long long tiles_n = (g.N + g.NB - 1) / g.NB;
-  return dim3(static_cast<unsigned>(tiles_n * g.tiles_h * g.tiles_w),
-              (g.F + bn - 1) / bn, g.S);
-}
-
-template <typename TX, typename TW, typename Mask>
-int launch(const void* x, const void* w, const Mask& mask, void* out,
-           const int* dims, int x_carries, const Epi& e, void* stream) {
-  Geom g;
-  size_t smem = 0;
-  const int rc = make_geom(dims, x_carries, sizeof(typename Ld<TX>::V), &g,
-                           &smem);
-  if (rc == 1) return 0;               // nothing to compute
-  if (rc != 0) return rc;
-  auto* kern = conv_kernel<TX, TW, Mask>;
-  static bool smem_set = false;
-  const int err = allow_smem(kern, &smem_set);
-  if (err != 0) return err;
-  kern<<<grid_of(g, BN), THREADS, smem,
-         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const TX*>(x), static_cast<const TW*>(w), mask, out, g, e);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // x of type TX, wk (KH·KW, F, Cp) of the staged type TS with Cp = C
 // rounded up to 32 bytes of TS, zero-padded.
 template <typename TX, typename TS, typename Mask>
@@ -1055,7 +890,7 @@ int launch_mma(const void* x, const void* wk, const Mask& mask, void* out,
   const int rc = make_mma_geom(
       dims, x_carries, std::is_same<TS, float>::value ? TOTAL_BYTES : 0, &g,
       &smem);
-  if (rc == 1) return 0;
+  if (rc == 1) return 0;               // nothing to compute
   if (rc != 0) return rc;
   constexpr int CE = KB / static_cast<int>(sizeof(TS));
   const int Cp = (g.C + CE - 1) / CE * CE;
@@ -1065,15 +900,19 @@ int launch_mma(const void* x, const void* wk, const Mask& mask, void* out,
   static bool smem_set = false;
   const int err = allow_smem(kern, &smem_set);
   if (err != 0) return err;
-  kern<<<grid_of(g, MMA_BN), MMA_THREADS, smem,
-         static_cast<cudaStream_t>(stream)>>>(
+  const long long tiles_n = (g.N + g.NB - 1) / g.NB;
+  const dim3 grid(static_cast<unsigned>(tiles_n * g.tiles_h * g.tiles_w),
+                  (g.F + MMA_BN - 1) / MMA_BN, g.S);
+  kern<<<grid, MMA_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const TX*>(x), static_cast<const TS*>(wk), mask, out, g,
       e, Cp, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The float MC kernels: x and w each f32 or bf16; bf16 x with bf16 w on
-// the tensor cores, the rest on the CUDA cores.
+// The float MC kernels: bf16 x with bf16 w staged and multiplied in bf16;
+// any f32 operand makes the f32 route (the wrapper widens a bf16 w to f32
+// exactly; a bf16 x is masked in bf16, then widened), three TF32 products a
+// k step, as the float bank kernels.
 template <template <typename> class MaskT, typename Make>
 int launch_float(const void* x, const void* w, void* out, const int* dims,
                  int x_carries, const Epi& e, int x_bf16, int w_bf16,
@@ -1083,13 +922,10 @@ int launch_float(const void* x, const void* w, void* out, const int* dims,
     return launch_mma<B, B>(x, w, make(MaskT<B>{}), out, dims, x_carries, e,
                             stream);
   if (x_bf16)
-    return launch<B, float>(x, w, make(MaskT<B>{}), out, dims, x_carries, e,
-                            stream);
-  if (w_bf16)
-    return launch<float, B>(x, w, make(MaskT<float>{}), out, dims,
-                            x_carries, e, stream);
-  return launch<float, float>(x, w, make(MaskT<float>{}), out, dims,
-                              x_carries, e, stream);
+    return launch_mma<B, float>(x, w, make(MaskT<B>{}), out, dims,
+                                x_carries, e, stream);
+  return launch_mma<float, float>(x, w, make(MaskT<float>{}), out, dims,
+                                  x_carries, e, stream);
 }
 
 int masked_conv(const void* x, const void* w, const void* seeds,
@@ -1187,8 +1023,9 @@ int bank_conv_int8(const void* x, const void* w, const void* bank,
 // conv_int8_fused) and the keep threshold; x is (N, H, W, C), shared by
 // the S samples, or in the _xs entries (S, N, H, W, C), sample s of x
 // under seeds[s]. Their w is (KH·KW, F, Cp), Cp = C rounded up to 32
-// bytes of the type and zero-padded, where the tensor-core routine runs
-// (bf16 x with bf16 w, int8), and (KH, KW, C, F) otherwise. The bank
+// bytes of the staged type and zero-padded: bf16 for bf16 x with bf16 w
+// (Cp a multiple of 16), f32 for any other float pair (a multiple of 8),
+// int8 (a multiple of 32). The bank
 // entries take w (KH·KW, F, Cp) (f32 for the float ones, whatever x's
 // type, Cp a multiple of 8; int8 for the int8 ones, Cp a multiple of 32),
 // the f32 (num_masks, C) bank and an int index (single) or S int32

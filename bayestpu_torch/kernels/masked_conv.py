@@ -53,12 +53,14 @@ without a mask, as JAX does.
 
 Dispatch is by the tensors' device: CPU tensors take the plain version, CUDA
 tensors launch the kernel (or raise), any other device raises. Each launch
-adds one to its entry of ``launch_counts``. On the card the routine follows
-the dtypes (``tensor_core``): row 10 with bf16 x and w, or int8, and every
-bank conv run the tensor-core implicit GEMM of ``masked_conv.cu`` (the
-float bank convs stage the masked x and the weights in f32 and multiply
-them as three TF32 products); an f32 or mixed-type MC conv runs its
-CUDA-core routine.
+adds one to its entry of ``launch_counts``. On the card every entry runs the
+tensor-core implicit GEMM of ``masked_conv.cu``, staged in the type
+``staged_dtype`` names: an MC conv of bf16 x and w in bf16, the int8 convs
+in int8, and every other float conv (f32 or mixed-type MC, every float bank
+conv) in f32, the masked x and the weights multiplied as three TF32
+products (about 22 bits of each f32 product), summed in f32 a chunk of 8
+channels at a time. A kernel window of more than ``MAX_WINDOW_TAPS`` taps
+is refused on every device.
 """
 
 from __future__ import annotations
@@ -77,6 +79,10 @@ from bayestpu_torch.kernels.masked_matmul import (
     keep_threshold, map_samples, row_offset, scale_of)
 
 _FLOAT = (torch.float32, torch.bfloat16)
+# The largest kernel window (KH·KW taps) the conv kernels take: a block
+# stages at most 384 input positions (MAX_PATCH_ROWS of masked_conv.cu),
+# and at one output pixel its patch is the window itself.
+MAX_WINDOW_TAPS = 384
 
 # Launches of each CUDA kernel since the last reset; CPU calls do not count.
 # conv_fused / conv_int8_fused are row 10's kernels without a mask; the _xs
@@ -434,6 +440,10 @@ def _check(x: torch.Tensor, w: torch.Tensor, int8: bool) -> None:
     if n * h * wd >= 2 ** 32:
         raise ValueError("conv input too large for the 32-bit mask "
                          f"coordinate space: N·H·W = {n * h * wd} >= 2^32")
+    if w.shape[2] * w.shape[3] > MAX_WINDOW_TAPS:
+        raise ValueError(f"kernel window {w.shape[2]}x{w.shape[3]} has more "
+                         f"than MAX_WINDOW_TAPS = {MAX_WINDOW_TAPS} taps, "
+                         "the most a conv kernel stages")
     if w.device != x.device:
         raise ValueError(f"x and w must be on one device; got {x.device} "
                          f"and {w.device}")
@@ -493,34 +503,25 @@ def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
-def tensor_core(entry: str, x: torch.Tensor, w: torch.Tensor) -> bool:
-    """Whether ``bt_<entry>`` runs the tensor-core routine: the MC entries
-    (``masked_conv*``) with bf16 x and w, or int8, and every bank entry
-    (``bank_conv*``: int8 on the s8 tensor cores; float whatever the
-    dtypes, as three TF32 products of f32 operands). An f32 or mixed-type
-    MC conv runs the CUDA-core routine (bf16 or one TF32 product would
-    round its products)."""
-    return entry.startswith("bank_conv") or (
-        x.dtype == w.dtype and x.dtype in (torch.bfloat16, torch.int8))
+def staged_dtype(entry: str, x: torch.Tensor, w: torch.Tensor
+                 ) -> torch.dtype:
+    """The type ``bt_<entry>`` stages and multiplies x and w in, and reads
+    w in: bf16 for an MC entry (``masked_conv*``) with bf16 x and w, int8
+    for the int8 entries, and f32 for every other float pair and every
+    float bank entry (a bf16 w widened exactly), three TF32 products of the
+    f32 operands."""
+    if w.dtype == torch.int8 or (not entry.startswith("bank_conv")
+                                 and x.dtype == w.dtype):
+        return w.dtype
+    return torch.float32
 
 
-def staged_dtype(entry: str, w: torch.Tensor) -> torch.dtype:
-    """The type ``bt_<entry>`` reads w in: f32 for the float bank entries
-    (a bf16 w widens exactly), w's own for the others."""
-    if entry.startswith("bank_conv") and w.dtype != torch.int8:
-        return torch.float32
-    return w.dtype
-
-
-def conv_weights(w: torch.Tensor, mma: bool,
-                 dtype: torch.dtype | None = None) -> torch.Tensor:
-    """The OIHW w in the layout a routine reads: (KH·KW, F, Cp) in
-    ``dtype`` (default w's own) for the tensor-core one (K contiguous, C
-    zero-padded to Cp, a multiple of 32 bytes of ``dtype``), (KH, KW, C,
-    F) in w's type for the CUDA-core one."""
+def conv_weights(w: torch.Tensor, dtype: torch.dtype | None = None
+                 ) -> torch.Tensor:
+    """The OIHW w as the kernels read it: (KH·KW, F, Cp) in ``dtype``
+    (default w's own), K contiguous, C zero-padded to Cp, a multiple of 32
+    bytes of ``dtype``."""
     f, c, kh, kw = w.shape
-    if not mma:
-        return w.permute(2, 3, 1, 0).contiguous()
     dtype = w.dtype if dtype is None else dtype
     ce = 32 // dtype.itemsize
     wk = torch.zeros((kh * kw, f, -(-c // ce) * ce), dtype=dtype,
@@ -535,12 +536,12 @@ def _launch(entry: str, counter: str, x: torch.Tensor, w: torch.Tensor,
             row0: int = 0) -> torch.Tensor:
     """Launch ``bt_<entry>`` of ``masked_conv.cu`` on PyTorch's current
     stream: x (NCHW, channels_last; (S, N, C, H, W) for an _xs entry), the
-    OIHW w in the layout and type of the entry's routine (``conv_weights``,
-    ``staged_dtype``), the
-    entry's own ``head`` arguments (the mask tensors, or None, held here
-    while the kernel is launched, and ints), then the common tail; the MC
-    mask's ``row0`` rides in ``dims`` as its int32 bits. Returns (S, N, F,
-    Ho, Wo), each sample in channels_last memory."""
+    OIHW w in the layout and type the entry reads (``conv_weights``,
+    ``staged_dtype``), the entry's own ``head`` arguments (the mask
+    tensors, or None, held here while the kernel is launched, and ints),
+    then the common tail; the MC mask's ``row0`` rides in ``dims`` as its
+    int32 bits. Returns (S, N, F, Ho, Wo), each sample in channels_last
+    memory."""
     from bayestpu_torch.kernels import _build
 
     n, c, h, wd = x.shape[-4:]
@@ -553,8 +554,7 @@ def _launch(entry: str, counter: str, x: torch.Tensor, w: torch.Tensor,
         affine = affine_rows(bias, f)
         if affine is not None and affine.device != x.device:
             raise ValueError(f"bias must be on x's device {x.device}")
-        w_k = conv_weights(w, tensor_core(entry, x, w),
-                           staged_dtype(entry, w))
+        w_k = conv_weights(w, staged_dtype(entry, x, w))
         head = [a.contiguous() if isinstance(a, torch.Tensor) else a
                 for a in head]
         dims = (ctypes.c_int * 14)(n, h, wd, c, f, kh, kw, stride, g.ph,

@@ -42,11 +42,14 @@ ends the run with a nonzero exit and no result line.
    three deferred block sites of resnet18 at batch 128 (3x3 stride 2
    padded ((1, 1), (1, 1)) and the 1x1 stride-2 projection), the readout
    showing that the two convs of a block apply one mask, and the times of
-   the samples and _xs launches there, and row 10's CUDA-core
-   ``conv_kernel`` (the f32 MC conv) once at block site 1 beside cuDNN
-   f32. Every head check again at the resnet18_me head (N = 100), the
-   lenet_me head (M = 256, K = 100, N = 10) and lenet's fc_1 (K = 80, N =
-   100), rows 3 and 5 timed in bf16 at the first two.
+   the samples and _xs launches there; the 7x7 stride-2 window (x
+   8x32x32x64 -> 64, the smaller tile of ``make_mma_geom``) in every
+   routine, timed; row 10's f32 route (three TF32 products) at block site
+   1 in f32 and both mixed types (bf16 x with f32 w, f32 x with bf16 w),
+   checked and timed beside cuDNN f32. Every head check again at the
+   resnet18_me head (N = 100), the lenet_me head (M = 256, K = 100, N =
+   10) and lenet's fc_1 (K = 80, N = 100), rows 3 and 5 timed in bf16 at
+   the first two.
    ``dropout_apply`` (row 1) at the head and at the conv backward's
    (N·H·W, C) views of vgg11's block site 1 and resnet18's stage-1
    boundary, in f32 and bf16 x, timed beside ``torch.mul``; bit-equal to
@@ -344,8 +347,10 @@ CONV_SUMMARY_SITE = {"dropout_conv_int8": 1, "bank_conv_int8": 1,
 # the kernels redesigned for the tensor cores, whose registers, spills and
 # SASS tensor-core instructions the build phase reports (the int8 template
 # once for each mask policy and K split: rows 5 and 6 at split 1, rows 4
-# and 7 at 4; the conv template once for each staged type and mask policy,
-# the bank convs' three of them: bf16 and f32 x as tf32, int8)
+# and 7 at 4; the conv template once for each type of x, staged type and
+# mask policy: the bank convs' three, bf16 and f32 x as tf32 and int8, and
+# row 10's eight, HashMask and NoMask each in bf16, int8 and on the f32
+# route with bf16 and f32 x)
 MMA_KERNELS = ("conv_mma_kernel", "int8_samples_mma_kernel")
 # kernels redesigned on the CUDA cores, whose registers and spills the
 # build phase reports beside them (the chain template once for each
@@ -354,8 +359,7 @@ MMA_KERNELS = ("conv_mma_kernel", "int8_samples_mma_kernel")
 FMA_KERNELS = ("chain_samples_kernel", "dropout_apply_kernel")
 # every kernel of bayestpu_torch/csrc, as the profiler names it
 PORT_KERNELS = ("dropout_apply_kernel", "chain_samples_kernel",
-                "int8_samples_mma_kernel", "::conv_kernel<",
-                "::conv_mma_kernel<")
+                "int8_samples_mma_kernel", "::conv_mma_kernel<")
 # ragged geometries: x NHWC, kernel size, F (not a multiple of 8), padding,
 # stride. SAME at stride 2 is asymmetric (16 -> 8 pads (0, 1)).
 CONV_RAGGED = {"same_s2": ((3, 15, 16, 40), 3, 20, "SAME", 2),
@@ -370,6 +374,9 @@ CONV_RAGGED_IDXS = [2, -1, 5]               # bank indices: wrap, negative
 # orders over up to 9 * 512 = 4,608 terms, 9x the head's K, and a sum's
 # rounding error grows as the square root of its length: 3x KERNEL_RTOL
 CONV_RTOL = 3 * KERNEL_RTOL
+# the f32 MC conv's mask readout value (the f32 scale times 1) against the
+# scale: three TF32 products keep about 22 bits of an f32 product
+READOUT_F32_RTOL = 2.0 ** -22
 # a bf16 store: an f32 value a few ulps off may round to the neighbouring
 # bf16 value, one bf16 ulp (at most 2^-7 of the value)
 BF16_OUT_RTOL = 2.0 ** -7
@@ -397,8 +404,8 @@ ALEX_SHAPE, ALEX_CLASSES, ALEX_BATCH, ALEX_CPU_ROWS = (224, 224, 3), 1000, \
     32, 2
 # AlexNet's fused sites at batch 32: fc6 (row 3, x 32x6400 shared by the
 # samples), fc7 (row 3x, x (S, 32, 4096)) and, at n = 4, conv5 (row 10's
-# f32 samples launch on the CUDA-core conv_kernel: 12x12x384 -> 256, 3x3
-# SAME, the conv bias, no activation, f32 out): (H = W, C, F)
+# f32 samples launch, three TF32 products: 12x12x384 -> 256, 3x3 SAME, the
+# conv bias, no activation, f32 out): (H = W, C, F)
 ALEX_FC6 = dict(M=ALEX_BATCH, K=6400, N=4096, S=SAMPLES)
 ALEX_FC7 = dict(M=ALEX_BATCH, K=4096, N=4096, S=SAMPLES)
 ALEX_CONV5 = (12, 384, 256)
@@ -422,11 +429,19 @@ F32_TIMED = {"alexnet_fc6": ("dropout_matmul_samples",),
 # limit is CONV_RTOL, over 10x the largest. A bf16 or TF32 route would miss
 # it by orders of magnitude (bf16's unit roundoff is 2^-8).
 F32_CPU_RTOL = CONV_RTOL
-# calls a timing window of row 10 at conv5 (~13 ms each on an NVIDIA H100
-# 80GB HBM3 at 700 W: a window of 200 would take 2.6 s), and the least
+# calls a timing window of row 10 at conv5 (12.7 ms each on the CUDA cores
+# on an NVIDIA H100 80GB HBM3 at 700 W, before the f32 route moved to the
+# tensor cores), and the least
 # seconds of a ``benchmark`` window in the convert phase (with the
 # engine's default, 0.3 s, the phase ran 72 s on that card)
 CONV5_CALLS, COMPILED_WINDOW_S = 100, 0.1
+# row 10's f32 route before it moved to the tensor cores (the CUDA-core
+# conv_kernel; NVIDIA H100 80GB HBM3, 700 W, PERF.md's table): 10g at
+# block site 1 and 10A at conv5
+EARLIER_MS = {"site1": 0.446, "alexnet_conv5": 12.70}
+# the 7x7 window at stride 2 (x NHWC, F): its 8x8 tile's 21x21 patch is
+# past the 384 rows a block stages, so make_mma_geom takes a smaller tile
+CONV_WINDOW7 = ((8, 32, 32, 64), 64)
 # the shapes at which rows 2-5 are held against their plain versions: the
 # vgg11_me head, a ragged one, the resnet18_me and lenet heads, and the
 # lenet heads at batch LENET_SMALL, where the materialized lenet route
@@ -637,6 +652,7 @@ def _mma_report(rep: dict) -> dict:
 
 
 def phase_build() -> None:
+    import re
     from bayestpu_torch.kernels import _build
     rep = _build.build_all()
     regs = {name: [ln.strip() for ln in log.splitlines()
@@ -665,12 +681,32 @@ def phase_build() -> None:
     check(len(bank) == 3 and all(d.get("stack_frame") == 0
                                  for d in bank.values()),
           f"bank conv_mma_kernel instantiations {bank}")
+    # row 10's eight (HashMask and NoMask: bf16, int8, and the f32 route
+    # with f32 x and with bf16 x), the f32 route's six with the bank's two
+    # (mangled <float, float, ...> and <__nv_bfloat16, float, ...>)
+    mc = {n: d for n, d in report["kernels"].items()
+          if "conv_mma_kernel" in n and "BankMask" not in n}
+    f32_route = sorted(n for n in report["kernels"] if re.search(
+        r"conv_mma_kernelI(?:f|[0-9]+__nv_bfloat16)f", n))
+    emit({"phase": "conv_f32_route", "kernels": {
+        n: {k: report["kernels"][n].get(k) for k in (
+            "registers", "stack_frame", "spill_stores", "spill_loads",
+            "sass_tensor_core_ops")} for n in f32_route}})
+    check(len(mc) == 8 and len(f32_route) == 6
+          and all(d.get("stack_frame") == 0 for d in mc.values()),
+          f"MC conv_mma_kernel instantiations {sorted(mc)}, f32 route "
+          f"{f32_route}")
     if report["cuobjdump"]:
-        kinds = sorted("IMMA" if d["sass_tensor_core_ops"]["IMMA"] else
-                       "HMMA" if d["sass_tensor_core_ops"]["HMMA"] else "none"
-                       for d in bank.values())
+        def kind(d):
+            ops = d["sass_tensor_core_ops"]
+            return "IMMA" if ops["IMMA"] else "HMMA" if ops["HMMA"] else \
+                "none"
+        kinds = sorted(kind(d) for d in bank.values())
         check(kinds == ["HMMA", "HMMA", "IMMA"],
               f"bank conv_mma_kernel tensor-core instructions {kinds}")
+        kinds = sorted(kind(d) for d in mc.values())
+        check(kinds == ["HMMA"] * 6 + ["IMMA"] * 2,
+              f"MC conv_mma_kernel tensor-core instructions {kinds}")
 
 
 def _inputs(shape: dict, dtype, gen):
@@ -1394,9 +1430,10 @@ def _conv_bound(name: str, x, w, s: int, out_bytes: int, padding="SAME",
     once, S outputs written once, against 2 operations for each product
     that reads an input element (taps on the zero padding excluded) per
     sample, at the peak for the products' type (or ``kind``): bf16 or int8
-    tensor cores for the MC kernels, f32 outside them for an f32 or mixed
-    MC conv; the float bank kernels' f32 products as the three TF32
-    products they run, at the tf32 tensor cores' peak."""
+    tensor cores for bf16 or int8 operands; an f32 operand's f32 products
+    (f32 and mixed-type MC convs, every float bank conv) as the three TF32
+    products they run, at the tf32 tensor cores' peak; ``kind="float32"``
+    gives the bound of f32 multiply-adds outside the tensor cores."""
     import torch
     from bayestpu_torch.kernels import masked_conv as mc
     n, c, h, wd = x.shape[-4:]          # x (S, N, C, H, W) carries S
@@ -1407,9 +1444,8 @@ def _conv_bound(name: str, x, w, s: int, out_bytes: int, padding="SAME",
               + 2 * f * 4 + mask_bytes + s * n * g.ho * g.wo * f * out_bytes)
     if kind is None:
         kind = ("int8" if x.dtype == torch.int8 else
-                "tfloat32" if "bank" in name else
-                "bfloat16" if x.dtype == w.dtype == torch.bfloat16
-                else "float32")
+                "bfloat16" if "bank" not in name
+                and x.dtype == w.dtype == torch.bfloat16 else "tfloat32")
     passes = 3 if kind == "tfloat32" else 1
     t_bytes = nbytes / MEM_BYTES_PER_S
     t_ops = 2 * passes * s * macs / PEAK_FLOPS[kind]
@@ -1644,9 +1680,13 @@ def _conv_checks(label: str, xshape, k: int, f: int, padding, stride: int,
 
 def _conv_readout(gen) -> None:
     """The exact mask readout: x = ones, w = a 1x1 identity (VALID), so
-    sample s is the mask of seeds[s] times the dtype's scale; equal to the
-    plain version, its nonzero pattern that of ``dropout_apply`` (the
-    backward's mask) and of the int8 kernel."""
+    sample s is the mask of seeds[s] times the dtype's scale; its nonzero
+    pattern that of the plain version, of ``dropout_apply`` (the
+    backward's mask) and of the int8 kernel. In bf16 (exact products on
+    the tensor cores) it equals the plain version bit for bit; the f32
+    route's three TF32 products keep about 22 bits of each f32 product, so
+    its kept value, the f32 scale times 1, reads within READOUT_F32_RTOL
+    of the scale (1.3333334 reads 1.3333335, one ulp)."""
     import torch
     from bayestpu_torch.kernels import masked_conv as mc
     from bayestpu_torch.kernels import masked_matmul as mm
@@ -1668,13 +1708,20 @@ def _conv_readout(gen) -> None:
                                                   RATE)
                                for s in range(CONV_S)])
         vals = sorted(set(got.unique().tolist()))
-        ok = (torch.equal(got, want) and vals == [0.0, mm.scale_of(RATE,
-                                                                   dtype)]
+        scale = mm.scale_of(RATE, dtype)
+        exact = torch.equal(got, want) and vals == [0.0, scale]
+        if dtype == torch.bfloat16:
+            values_ok = exact
+        else:
+            values_ok = (len(vals) == 2 and vals[0] == 0.0 and abs(
+                vals[1] - scale) <= READOUT_F32_RTOL * scale)
+        ok = (values_ok and torch.equal(got != 0, want != 0)
               and torch.equal(got != 0, applied != 0)
               and torch.equal(got != 0, r8 != 0))
         check(ok, f"conv mask readout {dtype}: values {vals}")
         line[str(dtype).split(".")[-1]] = {
-            "readout_bit_exact": True, "values": vals,
+            "readout_bit_exact": exact, "values": vals,
+            "equals_plain_mask": True,
             "equals_dropout_apply_mask": True, "equals_int8_mask": True,
             "keep_fraction": (got != 0).float().mean().item()}
     emit(line)
@@ -1685,8 +1732,8 @@ def _conv_row0(gen, summary: dict) -> None:
     runs it: the mask readout (x of ones, a 1x1 identity, VALID) of images
     [b0, b0 + n) of a batch of ROW0_BATCH at block site 1 (16x16x64) at
     that row0 bit-equal to those images of the launch on the whole batch,
-    for 10a (one sample, bf16 on the tensor cores, and f32 on the CUDA
-    cores), 10b (samples), 10c (int8, one and S samples), 10e (x carrying
+    for 10a (one sample, bf16, and f32 on the three-TF32 route), 10b
+    (samples), 10c (int8, one and S samples), 10e (x carrying
     the sample axis) and ``mask_apply_nhwc``; then block site 1's conv (3x3
     SAME, the fold affine and relu) on random x at that row0 and at a
     wrapping one against the plain versions (bf16 and f32 to CONV_RTOL of
@@ -1773,9 +1820,9 @@ def _conv_row0(gen, summary: dict) -> None:
 
 def _conv_times(gen, summary: dict | None, sites=CONV_SITES,
                 convs=VGG_CONVS, stride: int = 1, label: str = "site",
-                names=None) -> None:
+                names=None, n: int = BATCH) -> None:
     """Times of rows 10 and 11 at the block-site shapes of a main path
-    (batch 128; vgg11's by default, 3x3, SAME, stride 1; each of
+    (batch ``n``, 128; vgg11's by default, 3x3, SAME, stride 1; each of
     ``convs`` at each of ``sites``), in the dtypes and with the epilogues
     the block-site models give them: the MC float kernels on bf16 x and w
     with the fold bias, the conv's activation and a bf16 store; the float
@@ -1795,14 +1842,15 @@ def _conv_times(gen, summary: dict | None, sites=CONV_SITES,
     back-to-back calls; ``library_ms`` one cuDNN ``F.conv2d`` of the
     pre-masked channels_last x (all samples in its batch; f32 with TF32
     off for the bank rows), which the port never calls; there is no
-    PyTorch int8 conv, so none for the int8 rows. The float bank rows also
-    give ``bound_f32_fma_ms``, their bound at the f32 peak outside the
-    tensor cores. The times at CONV_SUMMARY_SITE go into ``summary``
-    unless it is None."""
+    PyTorch int8 conv, so none for the int8 rows; cuDNN pads k // 2 on each
+    side, as torch's convs do, which at stride 2 shifts a SAME window by
+    one and times the same work. The float bank rows also give
+    ``bound_f32_fma_ms``, their bound at the f32 peak outside the tensor
+    cores. The times at CONV_SUMMARY_SITE go into ``summary`` unless it is
+    None."""
     import torch
     import torch.nn.functional as F
     from bayestpu_torch.kernels import masked_conv as mc
-    n = BATCH
     steps = (2.0 ** -7, 2.0 ** -7)
     for si, (hw, c, f), (kname, (k, padding, act)) in (
             (si, site, conv) for si, site in enumerate(sites)
@@ -2030,7 +2078,10 @@ def phase_conv_kernels() -> dict:
     of their shared mask, the MC launches of its ``dropout="layer"`` route
     at batch LENET_SMALL (``_resnet_small_checks``), and the times of the
     launches its block-site spatial predict makes there; row 10's f32
-    samples launch at AlexNet's conv5 (``_alex_conv5``)."""
+    samples launch at AlexNet's conv5 (``_alex_conv5``); the 7x7 window at
+    stride 2 (CONV_WINDOW7) checked in every routine and timed; row 10's
+    f32 route at block site 1 in f32 and both mixed types, checked and
+    timed (``_conv_f32_route``)."""
     import torch
     gen = torch.Generator().manual_seed(4321)
     summary = {name: {"max_abs_err": 0.0} for name in CONV_REPLACES}
@@ -2038,6 +2089,9 @@ def phase_conv_kernels() -> dict:
     _conv_checks("site1", (BATCH, hw, hw, c), 3, f, "SAME", 1, gen, summary)
     for label, (xshape, k, ff, padding, stride) in CONV_RAGGED.items():
         _conv_checks(label, xshape, k, ff, padding, stride, gen, summary)
+    (n7, hw7, _, c7), f7 = CONV_WINDOW7
+    _conv_checks("window7_s2", CONV_WINDOW7[0], 7, f7, "SAME", 2, gen,
+                 summary)
     _conv_readout(gen)
     _conv_row0(gen, summary)
     _conv_times(gen, summary)
@@ -2051,60 +2105,116 @@ def phase_conv_kernels() -> dict:
     _conv_times(gen, None, RESNET_SITES, RESNET_CONVS, 2, "resnet_site",
                 ("dropout_conv_samples", "bank_conv_samples",
                  "dropout_conv_xs", "bank_conv_xs"))
-    _conv_f32_time(gen)
+    _conv_times(gen, None, [(hw7, c7, f7)], {"7x7": (7, "SAME", "relu")},
+                2, "window7_s2_site",
+                ("dropout_conv", "dropout_conv_samples", "dropout_conv_int8",
+                 "bank_conv", "bank_conv_int8"), n7)
+    f32, bf16 = torch.float32, torch.bfloat16
+    hw1, c1, f1 = CONV_SITES[0]
+    _conv_f32_route(gen, "site1", (BATCH, hw1, hw1, c1), 3, f1, "SAME", 1,
+                    ((f32, f32), (bf16, f32), (f32, bf16)))
+    _conv_f32_route(gen, "window7_s2", CONV_WINDOW7[0], 7, f7, "SAME", 2,
+                    ((f32, f32),))
     _alex_conv5(gen, summary)
     return summary
 
 
-def _conv_f32_time(gen) -> None:
-    """Row 10's CUDA-core ``conv_kernel``, which the f32 (and mixed-type)
-    MC convs run and no served path here reaches, at vgg11's block site 1
-    (batch 128, 16x16x64 -> 128, 3x3 SAME, the fold bias and relu, f32
-    store): against its plain version to CONV_RTOL, then one round of
-    ``device_ms`` beside cuDNN f32 (TF32 off) on the pre-masked x, with its
-    bound at the f32 peak outside the tensor cores."""
+def _conv_f32_route(gen, label: str, xshape, k: int, f: int, padding,
+                    stride: int, mixes) -> None:
+    """Row 10's f32 route (``conv_mma_kernel<TX, float, HashMask or
+    NoMask>``: the masked x and w staged in f32, three TF32 products a k
+    step) at one geometry, for each (x dtype, w dtype) of ``mixes``: the
+    samples launch (CONV_S seeds, the (2, F) affine and relu), the single
+    one without an epilogue, the _xs launch on x carrying CONV_S samples
+    and ``conv_fused`` against their plain versions to CONV_RTOL, sample s
+    of the samples and _xs launches bit-equal to the single launch; then
+    the single launch as the f32 block site runs it (the (F,) bias and
+    relu, f32 store) timed in TIMING_ROUNDS rounds that alternate it with
+    cuDNN f32 (TF32 off) on the pre-masked x widened to f32, beside its
+    plain version, its bound at the tf32 tensor cores' peak and at the f32
+    one outside them, and (at block site 1 in f32) its time on the
+    CUDA-core routine before (EARLIER_MS)."""
     import torch
     import torch.nn.functional as F
     from bayestpu_torch.kernels import masked_conv as mc
-    hw, c, f = CONV_SITES[0]
-    x, w, aff, _, _ = _conv_data((BATCH, hw, hw, c), 3, f, torch.float32,
-                                 gen)
-    s0 = _inputs(dict(M=1, K=1, N=1, S=1), torch.float32, gen)[2][0]
-    s0 = s0.contiguous()
-    b = aff[1]
+    n, hw, _, c = xshape
+    seeds = _inputs(dict(M=1, K=1, N=1, S=CONV_S), torch.float32, gen)[2]
+    s0 = seeds[0].contiguous()
+    for xdt, wdt in mixes:
+        x, _, aff, _, _ = _conv_data(xshape, k, f, xdt, gen)
+        w = (torch.randn(f, c, k, k, generator=gen) / (k * k * c) ** 0.5
+             ).to(wdt).cuda()
+        x5 = _x5(xshape, xdt, gen)
+        b, geo = aff[1], dict(padding=padding, stride=stride)
+        mix = "_".join(str(d).split(".")[-1] for d in (xdt, wdt))
+        line = {"phase": "kernels", "kernel": "dropout_conv", "route":
+                "conv_mma_kernel f32 staging, three TF32 products",
+                "shape": label, "x_nhwc": list(xshape), "k": k, "F": f,
+                "padding": padding, "stride": stride, "mix": mix}
+        ys = mc.dropout_conv_samples(x, w, seeds, RATE, bias=aff,
+                                     act="relu", **geo)
+        rs = mc.stack_samples([mc.dropout_conv_plain(
+            x, w, seeds[s], RATE, padding, stride, aff, "relu")
+            for s in range(CONV_S)])
+        yx = mc.dropout_conv_inference(x5, w, seeds, RATE, bias=aff,
+                                       act="relu", **geo)
+        rx = mc.stack_samples([mc.dropout_conv_plain(
+            x5[s], w, seeds[s], RATE, padding, stride, aff, "relu")
+            for s in range(CONV_S)])
+        same = all(torch.equal(ys[s], mc.dropout_conv_inference(
+            x, w, seeds[s].contiguous(), RATE, bias=aff, act="relu", **geo))
+            and torch.equal(yx[s], mc.dropout_conv_inference(
+                x5[s], w, seeds[s].contiguous(), RATE, bias=aff,
+                act="relu", **geo)) for s in range(CONV_S))
+        check(same, f"f32 route {label} {mix}: sample s differs from the "
+              "single launch")
+        line["samples_equal_single_bitwise"] = same
+        for name, got, want in (
+                ("dropout_conv_samples", ys, rs),
+                ("dropout_conv_xs", yx, rx),
+                ("dropout_conv", mc.dropout_conv(x, w, s0, RATE, padding,
+                                                 stride),
+                 mc.dropout_conv_plain(x, w, s0, RATE, padding, stride)),
+                ("conv_fused", mc.conv_fused(x, w, aff, "relu", **geo),
+                 mc.conv_fused_plain(x, w, aff, "relu", **geo))):
+            err = (got - want).abs().max().item()
+            tol = CONV_RTOL * max(1.0, want.abs().max().item())
+            check(got.dtype == torch.float32 and err <= tol,
+                  f"{name} {label} {mix}: {err} > {tol}")
+            line[f"{name}_err"] = err
 
-    def kern():
-        return mc.dropout_conv_inference(x, w, s0, RATE, bias=b, act="relu")
+        def kern():
+            return mc.dropout_conv_inference(x, w, s0, RATE, bias=b,
+                                             act="relu", **geo)
 
-    got = kern()
-    want = mc.dropout_conv_plain(x, w, s0, RATE, "SAME", 1, b, "relu")
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    tol = CONV_RTOL * max(1.0, want.abs().max().item())
-    check(got.dtype == torch.float32 and err <= tol,
-          f"f32 dropout_conv site1: {err} > {tol}")
-    xm = _cl(mc._hash_masked(x, s0, RATE))
-    bound, by = _conv_bound("dropout_conv", x, w, 1, 4, kind="float32")
-    t = {"ms": device_ms(kern, 100),
-         "library_ms": device_ms(lambda: F.conv2d(xm, w, padding=1), 100),
-         "plain_ms": device_ms(lambda: mc.dropout_conv_plain(
-             x, w, s0, RATE, "SAME", 1, b, "relu"), 10),
-         "bound_ms": bound, "bound_by": by}
-    emit({"phase": "kernels", "kernel": "dropout_conv", "route":
-          "conv_kernel (CUDA cores)", "shape": "site1", "dtype": "float32",
-          "N": BATCH, "H": hw, "C": c, "F": f, "max_abs_err": err,
-          "tol": tol, **t, "ms_over_library": t["ms"] / t["library_ms"],
-          "ms_over_bound": t["ms"] / t["bound_ms"]})
+        xm = _cl(mc._hash_masked(x, s0, RATE).float())
+        wf = w.float()
+        t = _rounds({"ms": kern, "library_ms": lambda: F.conv2d(
+            xm, wf, stride=stride, padding=k // 2)}, TIMING_ROUNDS, 100)
+        t["plain_ms"] = device_ms(lambda: mc.dropout_conv_plain(
+            x, w, s0, RATE, padding, stride, b, "relu"), 10)
+        t["bound_ms"], t["bound_by"] = _conv_bound("dropout_conv", x, w, 1,
+                                                   4, padding, stride)
+        t["bound_f32_fma_ms"] = _conv_bound("dropout_conv", x, w, 1, 4,
+                                            padding, stride,
+                                            kind="float32")[0]
+        if mix == "float32_float32" and label in EARLIER_MS:
+            t["earlier_ms"] = EARLIER_MS[label]
+        line.update(t, ms_over_library=t["ms"] / t["library_ms"],
+                    ms_over_bound=t["ms"] / t["bound_ms"])
+        emit(line)
 
 
 def _alex_conv5(gen, summary: dict) -> None:
     """Row 10's f32 samples launch as AlexNet's conv5 site makes it at n
-    = 4 (the CUDA-core ``conv_kernel``; batch ALEX_BATCH, S = SAMPLES,
-    12x12x384 -> 256, 3x3 SAME, the conv bias, no activation, f32 store):
-    against its plain version to CONV_RTOL, sample s bit-equal to the
-    single launch, then timed in TIMING_ROUNDS rounds that alternate it
-    with cuDNN f32 (TF32 off) on the S pre-masked inputs folded into the
-    batch, beside its plain version and its bound."""
+    = 4 (the f32 route, three TF32 products; batch ALEX_BATCH, S =
+    SAMPLES, 12x12x384 -> 256, 3x3 SAME, the conv bias, no activation, f32
+    store): against its plain version to CONV_RTOL, sample s bit-equal to
+    the single launch, then timed in TIMING_ROUNDS rounds that alternate
+    it with cuDNN f32 (TF32 off) on the S pre-masked inputs folded into
+    the batch, beside its plain version, its bound at the tf32 tensor
+    cores' peak and at the f32 one outside them, and its time on the
+    CUDA-core routine before (EARLIER_MS)."""
     import torch
     import torch.nn.functional as F
     from bayestpu_torch.kernels import masked_conv as mc
@@ -2136,13 +2246,16 @@ def _alex_conv5(gen, summary: dict) -> None:
     # cuDNN's one call: the S pre-masked inputs folded into the batch
     xm = _cl(torch.cat([mc._hash_masked(x, seeds[s], RATE)
                         for s in range(SAMPLES)]))
-    bound, by = _conv_bound("dropout_conv_samples", x, w, SAMPLES, 4,
-                            kind="float32")
+    bound, by = _conv_bound("dropout_conv_samples", x, w, SAMPLES, 4)
     t = {**_rounds({"ms": kern, "library_ms": lambda: F.conv2d(
         xm, w, b, padding=1)}, TIMING_ROUNDS, CONV5_CALLS),
-         "plain_ms": device_ms(plain, 3), "bound_ms": bound, "bound_by": by}
+         "plain_ms": device_ms(plain, 3), "bound_ms": bound, "bound_by": by,
+         "bound_f32_fma_ms": _conv_bound("dropout_conv_samples", x, w,
+                                         SAMPLES, 4, kind="float32")[0],
+         "earlier_ms": EARLIER_MS["alexnet_conv5"]}
     emit({"phase": "kernels", "kernel": "dropout_conv_samples",
-          "route": "conv_kernel (CUDA cores)", "shape": "alexnet_conv5",
+          "route": "conv_mma_kernel f32 staging, three TF32 products",
+          "shape": "alexnet_conv5",
           "dtype": "float32", "N": ALEX_BATCH, "H": hw, "C": c, "F": f,
           "S": SAMPLES, "max_abs_err": err, "tol": tol,
           "samples_equal_single_bitwise": same, **t,

@@ -7,8 +7,8 @@ per function, of the same arity and the same kinds (a pointer ``c_void_p``,
 ``int`` ``c_int``, ``uint32_t`` ``c_uint32``, ``float`` ``c_float``,
 ``const int*`` ``POINTER(c_int)``). A wrong argtype cuts a pointer or an
 int silently on the card, where no test of this machine reaches. Also the
-layouts the conv wrapper hands the kernels (``conv_weights``) and its
-choice of routine by dtypes (``tensor_core``), which the C side mirrors.
+layout the conv wrapper hands the kernels (``conv_weights``) and the type
+it stages by dtypes (``staged_dtype``), which the C side mirrors.
 """
 
 import ctypes
@@ -105,20 +105,16 @@ def test_parser_reads_pointer_and_scalar_kinds():
 
 @pytest.mark.parametrize("dtype,staged,ce", [
     (torch.bfloat16, None, 16), (torch.int8, None, 32),
-    (torch.float32, None, None), (torch.bfloat16, torch.float32, 8),
+    (torch.float32, None, 8), (torch.bfloat16, torch.float32, 8),
     (torch.float32, torch.float32, 8)])
 def test_conv_weight_layouts(dtype, staged, ce):
-    """The OIHW kernel as each routine reads it: (KH·KW, F, Cp) with C
-    zero-padded to 32 bytes of the staged type for the tensor-core one (8
-    f32 channels for the float bank convs, a bf16 w widened exactly),
-    (KH, KW, C, F) for the CUDA-core one."""
+    """The OIHW kernel as the conv kernels read it: (KH·KW, F, Cp) with C
+    zero-padded to 32 bytes of the staged type (16 bf16, 32 int8 or 8 f32
+    channels; an f32 w in its own type, a bf16 w widened exactly for the
+    f32 route)."""
     g = torch.Generator().manual_seed(0)
     w = torch.randint(-100, 100, (5, 35, 3, 2), generator=g).to(dtype)
-    if ce is None:
-        wk = tmc.conv_weights(w, False)
-        assert torch.equal(wk, w.permute(2, 3, 1, 0))
-        return
-    wk = tmc.conv_weights(w, True, staged)
+    wk = tmc.conv_weights(w, staged)
     assert wk.dtype == (staged or dtype)
     cp = -(-35 // ce) * ce
     assert wk.shape == (6, 5, cp) and wk.is_contiguous()
@@ -130,27 +126,33 @@ def test_conv_weight_layouts(dtype, staged, ce):
 
 
 def test_routine_follows_the_dtypes():
+    """Every entry runs the tensor-core routine; the dtypes pick the type
+    it stages and multiplies in, as ``launch_float`` and ``bank_conv`` of
+    masked_conv.cu pick its instantiation: bf16 only for an MC conv of
+    bf16 x and w, int8 for int8, f32 (three TF32 products) for every other
+    float pair, MC or bank."""
     bf, f32, i8 = (torch.empty(1, dtype=d) for d in
                    (torch.bfloat16, torch.float32, torch.int8))
-    assert tmc.tensor_core("masked_conv", bf, bf)
-    assert tmc.tensor_core("masked_conv_xs", bf, bf)
-    assert tmc.tensor_core("masked_conv_int8", i8, i8)
-    assert tmc.tensor_core("masked_conv_int8_xs", i8, i8)
-    assert not tmc.tensor_core("masked_conv", f32, f32)
-    assert not tmc.tensor_core("masked_conv", bf, f32)
-    assert not tmc.tensor_core("masked_conv", f32, bf)
-    # every bank entry: int8 on the s8 tensor cores, float (whatever the
-    # dtypes) as three TF32 products of w in f32
+    for entry in ("masked_conv", "masked_conv_xs"):
+        assert tmc.staged_dtype(entry, bf, bf) == torch.bfloat16
+        for x, w in ((f32, f32), (bf, f32), (f32, bf)):
+            assert tmc.staged_dtype(entry, x, w) == torch.float32
+    for entry in ("masked_conv_int8", "masked_conv_int8_xs"):
+        assert tmc.staged_dtype(entry, i8, i8) == torch.int8
+    # every float bank entry, whatever the dtypes: three TF32 products of
+    # w in f32; int8 on the s8 tensor cores
     for x, w in ((bf, f32), (f32, f32), (bf, bf), (f32, bf)):
         for entry in ("bank_conv", "bank_conv_samples", "bank_conv_xs"):
-            assert tmc.tensor_core(entry, x, w)
-            assert tmc.staged_dtype(entry, w) == torch.float32
+            assert tmc.staged_dtype(entry, x, w) == torch.float32
     for entry in ("bank_conv_int8", "bank_conv_int8_samples",
                   "bank_conv_int8_xs"):
-        assert tmc.tensor_core(entry, i8, i8)
-        assert tmc.staged_dtype(entry, i8) == torch.int8
-    for w in (bf, f32, i8):
-        assert tmc.staged_dtype("masked_conv", w) == w.dtype
+        assert tmc.staged_dtype(entry, i8, i8) == torch.int8
+    # the C side: an f32 operand takes the f32 route, only bf16 x with bf16
+    # w the bf16 one, and no CUDA-core routine is left
+    src = (CSRC / "masked_conv.cu").read_text()
+    assert "launch_mma<B, float>(x, w, make(MaskT<B>{})" in src
+    assert "launch_mma<float, float>(x, w, make(MaskT<float>{})" in src
+    assert "conv_kernel<" not in src.replace("conv_mma_kernel<", "")
 
 
 MC_MATMUL = ("bt_dropout_matmul", "bt_dropout_matmul_samples",
