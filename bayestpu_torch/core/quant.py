@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from bayestpu_torch.core.config import QuantConfig
+from bayestpu_torch.utils.profiler import span
 
 
 def _round_ap_rnd(x: torch.Tensor) -> torch.Tensor:
@@ -117,15 +118,17 @@ def int8_conv2d(x_q: torch.Tensor, w_q: torch.Tensor,
     """Exact int8 convolution → int32: x_q (B, C, H, W) int8, w_q (O, C, KH,
     KW) int8, symmetric zero ``padding``. PyTorch has no int8 convolution,
     so this is an im2col of the padded input (``Tensor.unfold`` views,
-    flattened in (C, KH, KW) order as the OIHW kernel) times ``int_mm``; the
-    result (B, O, Ho, Wo) is the JAX package's ``conv_general_dilated(...,
+    flattened in (C, KH, KW) order as the OIHW kernel and materialised: the
+    span ``quant.im2col``) times ``int_mm``; the result (B, O, Ho, Wo) is
+    the JAX package's ``conv_general_dilated(...,
     preferred_element_type=int32)``."""
     b = x_q.shape[0]
     o, c, kh, kw = w_q.shape
     ph, pw = padding
-    xp = F.pad(x_q.permute(0, 2, 3, 1), (0, 0, pw, pw, ph, ph))
-    cols = xp.unfold(1, kh, stride[0]).unfold(2, kw, stride[1])
-    ho, wo = cols.shape[1], cols.shape[2]
-    acc = int_mm(cols.reshape(b * ho * wo, c * kh * kw),
-                 w_q.reshape(o, c * kh * kw).t())
+    with span("quant.im2col", x_q.is_cuda):
+        xp = F.pad(x_q.permute(0, 2, 3, 1), (0, 0, pw, pw, ph, ph))
+        cols = xp.unfold(1, kh, stride[0]).unfold(2, kw, stride[1])
+        ho, wo = cols.shape[1], cols.shape[2]
+        cols = cols.reshape(b * ho * wo, c * kh * kw).contiguous()
+    acc = int_mm(cols, w_q.reshape(o, c * kh * kw).t())
     return acc.reshape(b, ho, wo, o).permute(0, 3, 1, 2)

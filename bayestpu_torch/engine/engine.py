@@ -38,6 +38,7 @@ from bayestpu_torch.metrics.ece import eval_metrics
 from bayestpu_torch.metrics.entropy import (mean_predictive_entropy,
                                             random_noise_data,
                                             random_noise_like)
+from bayestpu_torch.utils.profiler import NO_SPAN, count, graph_spans, span
 
 # the seed of the OOD noise generator (the JAX engine's jax.random.key(99))
 NOISE_SEED = 99
@@ -175,7 +176,8 @@ class BayesEngine:
             self.autotune(sample_input, s)
         x = self._input(sample_input)
         t0 = time.perf_counter()
-        graph = (_Graph.capture(self._predict_fn(), x, self.seeds(0, s))
+        graph = (_Graph.capture(self._predict_fn(), x, self.seeds(0, s),
+                                _has_device_spans(self.model))
                  if self.device.type == "cuda" else None)
         dt = time.perf_counter() - t0
         self._graphs[(tuple(x.shape), s)] = graph
@@ -194,27 +196,42 @@ class BayesEngine:
         shape and S were compiled on a card replays the captured graph and
         returns copies of its outputs. With a mesh the sharded predictive
         runs (ahead of any captured graph, as in JAX), over S padded to a
-        multiple of the sample axis, which it reports."""
+        multiple of the sample axis, which it reports. Under a profiler a
+        predictive records the spans ``engine.predict``, ``engine.seeds``
+        and, replayed, ``engine.launch`` and ``engine.outputs``; the
+        counters ``engine.graph_replays`` and ``engine.eager_predicts``
+        always count (``utils.profiler``)."""
         if not self.ready:
             raise RuntimeError("engine not initialized: call init()/attach()")
-        x = self._input(x)
         if sample_idx is not None:
             if sample_idx < 0:
                 raise ValueError(f"sample_idx must be >= 0; got {sample_idx}")
+            x = self._input(x)
             seeds = self.seeds(seed, sample_idx + 1)[sample_idx]
             return torch.softmax(self.model(x, seeds, sample_idx).logits,
                                  dim=-1)
-        s = sampler.num_effective_samples(self.bayes, num_samples)
-        if self.mesh is not None:
-            return sharding.sharded_predictive(
-                self.model, x,
-                self.seeds(seed, sharding.padded_samples(s, self.mesh)),
-                self.mesh)
-        graph = self._graphs.get((tuple(x.shape), s))
-        if graph is not None:
-            return graph.replay(x, sample_seeds(seed, s,
-                                                self.model.num_sites))
-        return self._predict_fn()(x, self.seeds(seed, s))
+        with span("engine.predict", self.device.type == "cuda") as root:
+            x = self._input(x)
+            s = sampler.num_effective_samples(self.bayes, num_samples)
+            graph = (None if self.mesh is not None
+                     else self._graphs.get((tuple(x.shape), s)))
+            if graph is not None:
+                count("engine.graph_replays")
+                with span("engine.seeds"):
+                    seeds = sample_seeds(seed, s, self.model.num_sites)
+                if graph.timed and root is not NO_SPAN:   # spans record
+                    graph = graph.instrumented()
+                return graph.replay(x, seeds, root)
+            count("engine.eager_predicts")
+            n = (s if self.mesh is None
+                 else sharding.padded_samples(s, self.mesh))
+            with span("engine.seeds"):
+                seeds = self.seeds(seed, n)
+            root.stop_clock()
+            if self.mesh is not None:
+                return sharding.sharded_predictive(self.model, x, seeds,
+                                                   self.mesh)
+            return self._predict_fn()(x, seeds)
 
     def _noise_for(self, x: torch.Tensor, dataset: str | None
                    ) -> torch.Tensor:
@@ -374,16 +391,30 @@ class BayesEngine:
                 "rtt_fallback": False}
 
 
+def _has_device_spans(model: torch.nn.Module) -> bool:
+    """Whether the model's predict holds device-timed spans: those of its
+    quantization (``quant.*``), in any layer with a ``QuantConfig``."""
+    return any(getattr(m, "quant", None) is not None
+               for m in model.modules())
+
+
 class _Graph:
     """A predict captured in a CUDA graph, with its static input, seed and
-    output buffers."""
+    output buffers. A ``timed`` predict holds device-timed spans: while
+    spans record, ``predict`` replays its ``instrumented`` twin, captured
+    at the first such replay with the spans' events as graph nodes
+    (``utils.profiler.graph_spans``); otherwise this graph, which has
+    none."""
 
     def __init__(self, graph, x: torch.Tensor, seeds: torch.Tensor,
-                 out: Predictive):
+                 out: Predictive, fn=None, timed: bool = False, spans=None):
         self.graph, self.x, self.seeds, self.out = graph, x, seeds, out
+        self.fn, self.timed, self.spans = fn, timed, spans
+        self._twin: _Graph | None = None
 
     @classmethod
-    def capture(cls, fn, x: torch.Tensor, seeds: torch.Tensor) -> "_Graph":
+    def capture(cls, fn, x: torch.Tensor, seeds: torch.Tensor,
+                timed: bool = False, spans=None) -> "_Graph":
         """``fn(x, seeds)`` run twice on a side stream, then captured on
         copies of x and seeds."""
         x, seeds = x.clone(), seeds.clone()
@@ -397,13 +428,28 @@ class _Graph:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             out = fn(x, seeds)
-        return cls(graph, x, seeds, out)
+        return cls(graph, x, seeds, out, fn, timed, spans)
 
-    def replay(self, x: torch.Tensor, seeds: torch.Tensor) -> Predictive:
+    def instrumented(self) -> "_Graph":
+        """The twin whose device spans are graph nodes."""
+        if self._twin is None:
+            with graph_spans() as spans:
+                self._twin = _Graph.capture(self.fn, self.x, self.seeds,
+                                            spans=spans)
+        return self._twin
+
+    def replay(self, x: torch.Tensor, seeds: torch.Tensor,
+               root=NO_SPAN) -> Predictive:
         """Copy x and the (host) seeds into the buffers, replay, and copy
-        the outputs out before the next replay overwrites them."""
-        self.x.copy_(x)
-        self.seeds.copy_(seeds)
-        self.graph.replay()
-        return Predictive(self.out.probs.clone(), self.out.var.clone(),
-                          self.out.entropy.clone(), self.out.num_samples)
+        the outputs out before the next replay overwrites them. ``root``'s
+        device clock stops just before the launch."""
+        with span("engine.launch") as launch:
+            self.x.copy_(x)
+            self.seeds.copy_(seeds)
+            root.stop_clock()
+            self.graph.replay()
+        if self.spans is not None:
+            self.spans.replayed(launch)
+        with span("engine.outputs"):
+            return Predictive(self.out.probs.clone(), self.out.var.clone(),
+                              self.out.entropy.clone(), self.out.num_samples)

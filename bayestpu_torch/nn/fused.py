@@ -74,6 +74,7 @@ from bayestpu_torch.nn.layers import (_Conv, _int8_conv_on_mxu, dot,
                                       lecun_normal_, maybe_quant, quant_dot,
                                       quant_operands, xla_conv, xla_conv_int8)
 from bayestpu_torch.nn.rows import RowAware
+from bayestpu_torch.utils.profiler import span
 
 
 class BayesDense(RowAware, nn.Module):
@@ -284,7 +285,10 @@ class BayesConv(RowAware, _Conv):
         int8_exec = quantize_x and _int8_conv_on_mxu(in_ch, q, spatial)
         int8_fused = int8_exec and self.fusable
         if q is not None:
-            kernel = fake_quant(kernel, q)
+            with span("quant.weights", x.is_cuda):
+                kernel = fake_quant(kernel, q)
+                if quantize_x:
+                    wq, ws = quantize_int8(kernel, q)
         if x.dtype == torch.int8 and q is None:
             raise ValueError("int8-residency input requires a quant config "
                              "on the consuming BayesConv")
@@ -308,9 +312,9 @@ class BayesConv(RowAware, _Conv):
         row0 = image_row0(self.rows.row0, x.shape[-2], x.shape[-1])
         if quantize_x:
             # the float branches see the grid values the int8 ones consume
-            xq, xs = quantize_int8(x, q)
-            wq, ws = quantize_int8(kernel, q)
-            x_f = xq.float() * xs
+            with span("quant.inputs", x.is_cuda):
+                xq, xs = quantize_int8(x, q)
+                x_f = xq.float() * xs
         done = False               # the epilogue ran in the kernel
         if self.masked:
             if train:
@@ -368,7 +372,8 @@ class BayesConv(RowAware, _Conv):
             if out_step is not None:
                 if defer_int8:
                     return fake_quant(y, unsigned(q)).to(torch.bfloat16)
-                return quantize_int8(y, q)[0]
+                with span("quant.inputs", y.is_cuda):
+                    return quantize_int8(y, q)[0]
             if out_dtype is not None:
                 y = y.to(out_dtype)
         # QuantAct on the fake-quant model, after a fused kernel too

@@ -64,6 +64,7 @@ from bayestpu_torch.kernels.masked_conv import (conv2d_padded, conv_geometry,
                                                 conv_int8)
 from bayestpu_torch.kernels.masked_matmul import matmul_f32
 from bayestpu_torch.nn.rows import RowAware
+from bayestpu_torch.utils.profiler import span
 
 
 def lecun_normal_(param: torch.Tensor, fan_in: int,
@@ -97,8 +98,10 @@ def quant_operands(x: torch.Tensor, kernel: torch.Tensor,
     (an int8 x is already on the grid and passes through), else
     ``(x, fake-quantized kernel, None)`` with an int8 x dequantized."""
     if int8:
-        xq, xs = quantize_int8(x, q)
-        wq, ws = quantize_int8(kernel, q)
+        with span("quant.inputs", x.is_cuda):
+            xq, xs = quantize_int8(x, q)
+        with span("quant.weights", x.is_cuda):
+            wq, ws = quantize_int8(kernel, q)
         return xq, wq, (xs, ws)
     if x.dtype == torch.int8:
         if q is None:
@@ -336,8 +339,10 @@ class Conv(_Conv):
                         x.shape[-3], q, x.shape[-2])))
                     and (x.dtype == torch.int8 or self.quant_input))
         if use_int8:
-            xq, xs = quantize_int8(x, q)
-            wq, ws = quantize_int8(self.kernel, q)
+            with span("quant.inputs", x.is_cuda):
+                xq, xs = quantize_int8(x, q)
+            with span("quant.weights", x.is_cuda):
+                wq, ws = quantize_int8(self.kernel, q)
             y = xla_conv_int8(xq, wq, self.padding, self.stride).float() * (
                 xs * ws)
         else:

@@ -49,6 +49,7 @@ from bayestpu_torch.train.losses import (EEDConfig, _ce, eed_loss,
                                          multi_exit_accuracy)
 from bayestpu_torch.train.optim import (GradientTransformation,
                                         apply_updates, global_norm)
+from bayestpu_torch.utils.profiler import span
 
 
 @dataclasses.dataclass
@@ -133,33 +134,43 @@ def make_train_step(model: nn.Module, tx: GradientTransformation,
     before the clip) and ``multi_exit_accuracy``. With ``mesh`` x and y are
     the whole batch on every rank of the data axis, each rank runs its rows
     and the step is the whole batch's (see the module docstring).
+    Spans (``utils.profiler``): ``train.step`` around ``train.forward``,
+    ``train.backward`` (the EED loss and the gradients) and
+    ``train.update`` (the optimizer chain and the update).
     """
     shard = _DataShard(model, mesh)
 
     def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
                    seeds: torch.Tensor, lr_scale: float = 1.0
                    ) -> dict[str, torch.Tensor]:
-        model.train()
-        params = dict(model.named_parameters())
-        x, y, rows = shard.rows(x, y)
-        with rows:
-            out = model(x, seeds)
-            feats = (out.features if isinstance(out.features, torch.Tensor)
-                     else None)
-            loss = eed_loss(out.logits, y, feats, eed_cfg)
-            grads = shard.mean(dict(zip(params, torch.autograd.grad(
-                loss, list(params.values())))))
-        with torch.no_grad():
-            updates, state.opt_state = tx.update(grads, state.opt_state,
-                                                 params)
-            if lr_scale != 1.0:
-                updates = {k: u * lr_scale for k, u in updates.items()}
-            apply_updates(params, updates)
-            state.step += 1
-            m = shard.mean({"loss": loss.detach(),
-                            **multi_exit_accuracy(out.logits, y)})
-            return {"loss": m.pop("loss"), "grad_norm": global_norm(grads),
-                    **m}
+        dev = x.is_cuda
+        with span("train.step", dev):
+            model.train()
+            params = dict(model.named_parameters())
+            x, y, rows = shard.rows(x, y)
+            with rows:
+                with span("train.forward", dev):
+                    out = model(x, seeds)
+                with span("train.backward", dev):
+                    feats = (out.features
+                             if isinstance(out.features, torch.Tensor)
+                             else None)
+                    loss = eed_loss(out.logits, y, feats, eed_cfg)
+                    grads = shard.mean(dict(zip(params, torch.autograd.grad(
+                        loss, list(params.values())))))
+            with torch.no_grad():
+                with span("train.update", dev):
+                    updates, state.opt_state = tx.update(
+                        grads, state.opt_state, params)
+                    if lr_scale != 1.0:
+                        updates = {k: u * lr_scale
+                                   for k, u in updates.items()}
+                    apply_updates(params, updates)
+                state.step += 1
+                m = shard.mean({"loss": loss.detach(),
+                                **multi_exit_accuracy(out.logits, y)})
+                return {"loss": m.pop("loss"),
+                        "grad_norm": global_norm(grads), **m}
 
     return train_step
 

@@ -8,7 +8,9 @@ roofline (counterpart of ``bayestpu/utils/profiler.py``).
   keys, counted rather than taken from a compiler's cost model;
 - ``measure``: the per-call time (``utils.timing.pipelined_s``);
 - ``roofline``: measured time against the least time the card could take
-  for the call's operations and bytes, at the peaks of ``PEAKS``.
+  for the call's operations and bytes, at the peaks of ``PEAKS``;
+- ``span(name, device=False)`` and ``count(name, n=1)``: the program's own
+  spans and counters, read back with ``span_log()`` and ``counters()``.
 
 The operations of a call are PyTorch's ``FlopCounterMode`` count of the
 ATen ops it runs plus the work the port's kernel wrappers record where they
@@ -17,12 +19,30 @@ launch (``work_counts`` of ``kernels.masked_matmul`` and
 through ctypes, and on the CPU, where the wrappers run their plain
 versions, it counts those. So a kernel's roofline reads the same
 operations whatever runs it.
+
+Spans record only while a ``torch.profiler`` is active in the process
+(``trace`` among others); otherwise ``span`` costs one check and returns
+the shared ``NO_SPAN``. A recorded span opens ``record_function(name)``,
+so it lands in the exported trace on the profiler's clock with the
+kernels it launched eagerly, and appends a ``SpanRecord`` to a bounded
+log: its parent, its root (one a request or a training step) and the
+host's clock at entry and exit. ``device=True`` adds a timing event on the
+current CUDA stream at entry and at exit (or at ``stop_clock()``), whose
+difference ``span_log()`` resolves. A device span entered while a stream
+is captured into a CUDA graph under ``graph_spans`` records its events as
+graph nodes: each replay of the graph yields one record a captured span
+(``GraphSpans``). Counters are plain integers and always count.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
+import itertools
 import os
+import threading
+import time
 from typing import Any, Callable
 
 import torch
@@ -224,3 +244,206 @@ def roofline(fn: Callable, *args: Any, iters: int = 20,
                        "mxu_dtype allows (a faster type than mxu_dtype, or "
                        "data served from cache rather than memory)")
     return out
+
+
+# ------------------------------------------------------------------ spans
+
+# the records the log keeps; the oldest go first
+LOG_SPANS = 1 << 16
+
+
+@dataclasses.dataclass
+class SpanRecord:
+    """One span as it ran. ``parent`` is the id of the span it ran inside
+    (None for a root), ``root`` its root's id; ``start_ns`` and ``end_ns``
+    are the host's ``perf_counter_ns`` at entry and exit (None for a span
+    replayed inside a CUDA graph); ``device_ms`` is the card's time between
+    the span's two events (None for a host span, or on the CPU)."""
+
+    name: str
+    id: int
+    parent: int | None
+    root: int
+    start_ns: int | None
+    end_ns: int | None
+    device_ms: float | None = None
+    # the (start, stop) events of a device span not yet resolved
+    events: tuple | None = dataclasses.field(default=None, repr=False)
+
+    @property
+    def host_ms(self) -> float | None:
+        if self.start_ns is None:
+            return None
+        return (self.end_ns - self.start_ns) / 1e6
+
+
+_recording = torch.autograd._profiler_enabled
+_log: collections.deque = collections.deque(maxlen=LOG_SPANS)
+_counters: collections.Counter = collections.Counter()
+_ids = itertools.count(1)
+_local = threading.local()
+_unsettled: set = set()        # ``GraphSpans`` replayed and not yet read
+
+
+def _open_spans() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+def _event(external: bool) -> torch.cuda.Event:
+    ev = torch.cuda.Event(enable_timing=True, external=external)
+    ev.record()
+    return ev
+
+
+class _NoSpan:
+    """What ``span`` returns while nothing records."""
+
+    def __enter__(self) -> "_NoSpan":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+    def stop_clock(self) -> None:
+        return None
+
+
+NO_SPAN = _NoSpan()
+
+
+class _Span:
+    """A recorded span (see the module docstring)."""
+
+    def __init__(self, name: str, device: bool):
+        self.name, self.device = name, device
+
+    def __enter__(self) -> "_Span":
+        stack = _open_spans()
+        up = stack[-1] if stack else None
+        if up is None:
+            # read earlier roots' graph replays before this root's clocks
+            # start, so that its spans do not hold that work
+            for spans in list(_unsettled):
+                spans.settle()
+        self.id = next(_ids)
+        self.parent = up.id if up is not None else None
+        self.root = up.root if up is not None else self.id
+        self._rf = torch.profiler.record_function(self.name)
+        self._rf.__enter__()
+        self.start = self.stop = self.graph = None
+        if self.device and torch.cuda.is_available():
+            if torch.cuda.is_current_stream_capturing():
+                # events become graph nodes only for a ``graph_spans``
+                self.graph = getattr(_local, "graph", None)
+                if self.graph is not None:
+                    self.start = _event(True)
+            else:
+                self.start = _event(False)
+        stack.append(self)
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def stop_clock(self) -> None:
+        """Stop the span's device clock here rather than at its exit."""
+        if self.start is not None and self.stop is None:
+            self.stop = _event(self.graph is not None)
+
+    def __exit__(self, *exc) -> None:
+        t1 = time.perf_counter_ns()
+        self.stop_clock()
+        _open_spans().pop()
+        self._rf.__exit__(*exc)
+        if self.graph is not None:
+            self.graph.spans.append(self)
+        else:
+            _log.append(SpanRecord(
+                self.name, self.id, self.parent, self.root, self.t0, t1,
+                events=None if self.start is None else (self.start,
+                                                        self.stop)))
+
+
+def span(name: str, device: bool = False):
+    """A span named ``name`` around the ``with`` body; ``device`` times it
+    on the card as well (pass whether the work is on a card)."""
+    if not _recording():
+        return NO_SPAN
+    return _Span(name, device)
+
+
+class GraphSpans:
+    """The device spans captured into one CUDA graph (``graph_spans``).
+    Their events are graph nodes, which every replay records again: call
+    ``replayed(up)`` after a replay, with ``up`` the span open at it (the
+    parent of the captured spans that had none in the graph); ``settle``
+    reads that replay's times into the log, and runs when the next root
+    span opens, before any next replay of the graph, or in ``span_log``."""
+
+    def __init__(self):
+        self.spans: list[_Span] = []     # in the order they exited
+        self._pending: tuple | None = None
+
+    def replayed(self, up: _Span) -> None:
+        if self.spans:
+            self._pending = (up.id, up.root)
+            _unsettled.add(self)
+
+    def settle(self) -> None:
+        if self._pending is None:
+            return
+        parent, root = self._pending
+        self._pending = None
+        _unsettled.discard(self)
+        # the last span to exit holds the last event the graph records
+        self.spans[-1].stop.synchronize()
+        ids = {sp.id: next(_ids) for sp in self.spans}
+        for sp in self.spans:
+            _log.append(SpanRecord(sp.name, ids[sp.id],
+                                   ids.get(sp.parent, parent), root, None,
+                                   None, sp.start.elapsed_time(sp.stop)))
+
+
+@contextlib.contextmanager
+def graph_spans():
+    """Collect the device spans entered while the ``with`` body captures a
+    CUDA graph; yields their ``GraphSpans``."""
+    spans = GraphSpans()
+    prev = getattr(_local, "graph", None)
+    _local.graph = spans
+    try:
+        yield spans
+    finally:
+        _local.graph = prev
+
+
+def count(name: str, n: int = 1) -> None:
+    _counters[name] += n
+
+
+def counters() -> dict[str, int]:
+    return dict(_counters)
+
+
+def span_log() -> list[SpanRecord]:
+    """The recorded spans, oldest first, with their device times resolved
+    (which waits for the card to reach the last event)."""
+    for spans in list(_unsettled):
+        spans.settle()
+    for rec in _log:
+        if rec.events is not None:
+            start, stop = rec.events
+            stop.synchronize()
+            rec.device_ms = start.elapsed_time(stop)
+            rec.events = None
+    return list(_log)
+
+
+def reset_spans() -> None:
+    """Empty the span log and zero the counters."""
+    for spans in list(_unsettled):
+        spans._pending = None
+    _unsettled.clear()
+    _log.clear()
+    _counters.clear()

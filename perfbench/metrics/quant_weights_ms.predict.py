@@ -1,0 +1,9 @@
+"""quant_weights_ms.predict: the card's ms a traced request in the program's
+device spans ``quant.weights`` (each kernel fake-quantized and put on the
+int8 grid), timed by event nodes inside the replayed graph."""
+
+from perfbench.spans import per_root
+
+
+def read(run):
+    return per_root(run, "engine.predict", "quant.weights", "device")
