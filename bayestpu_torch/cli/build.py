@@ -32,6 +32,8 @@ import argparse
 import json
 import os
 
+import torch
+
 from bayestpu_torch.cli import common
 from bayestpu_torch.core.config import EngineConfig, SamplingMode
 from bayestpu_torch.data.datasets import get_dataset
@@ -101,12 +103,16 @@ def main(argv=None) -> dict:
     report["requested_strategy"] = a.build_strategy
     # the port's routing knobs behind these numbers (the JAX report lists
     # the TPU's block sizes here); its VGG runs the entry block unchunked
-    from bayestpu_torch.nn.fused import MASKED_CONV_FUSE_MIN_CH
+    from bayestpu_torch.nn.fused import (MASKED_CONV_FUSE_MIN_CH,
+                                         det_int8_on_kernel)
     q = getattr(model, "quant", None)
     report["kernel_mapping"] = {
         "masked_conv_fused_min_in_ch": MASKED_CONV_FUSE_MIN_CH,
         "int8_conv_min_ch": getattr(q, "int8_conv_min_ch", None),
-        "int8_det_pallas": getattr(q, "int8_det_pallas", None),
+        # the route of a deterministic int8 conv that a fused kernel takes
+        "int8_det_conv": None if q is None or not q.int8_infer else (
+            "conv_int8_fused" if det_int8_on_kernel(q, torch.device(a.device))
+            else "int8_conv2d"),
         "entry_block_batch_chunk": None,
     }
 

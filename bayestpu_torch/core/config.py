@@ -51,7 +51,14 @@ class InsertStrategy(str, enum.Enum):
 @dataclasses.dataclass(frozen=True)
 class QuantConfig:
     """Fixed-point quantization operating point (QKeras
-    ``quantized_bits(total_bits, integer_bits, alpha=1)`` semantics)."""
+    ``quantized_bits(total_bits, integer_bits, alpha=1)`` semantics).
+
+    ``int8_det_pallas`` is the JAX package's routing of a deterministic
+    int8 conv that a fused kernel takes (``conv_int8_fused`` rather than
+    XLA's int8 conv and epilogue), and the port follows it on the CPU,
+    where the tests hold it to JAX. On a CUDA device such a conv always
+    runs ``conv_int8_fused``, whatever this says (``nn.fused.BayesConv``).
+    """
 
     total_bits: int = 8
     integer_bits: int = 0

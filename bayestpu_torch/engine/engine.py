@@ -38,7 +38,8 @@ from bayestpu_torch.metrics.ece import eval_metrics
 from bayestpu_torch.metrics.entropy import (mean_predictive_entropy,
                                             random_noise_data,
                                             random_noise_like)
-from bayestpu_torch.utils.profiler import NO_SPAN, count, graph_spans, span
+from bayestpu_torch.utils.profiler import (NO_SPAN, count, device_events,
+                                          graph_spans, span)
 
 # the seed of the OOD noise generator (the JAX engine's jax.random.key(99))
 NOISE_SEED = 99
@@ -357,8 +358,7 @@ class BayesEngine:
             for _ in range(PROFILED_PREDICTS):
                 fn(x, seeds)
             torch.cuda.synchronize(dev)
-        evs = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
+        evs = device_events(prof)
         res["device_ms"] = sum(e.self_device_time_total
                                for e in evs) / PROFILED_PREDICTS / 1e3
         res["launches"] = sum(e.count for e in evs) / PROFILED_PREDICTS

@@ -524,8 +524,9 @@ def conv_weights(w: torch.Tensor, dtype: torch.dtype | None = None
     f, c, kh, kw = w.shape
     dtype = w.dtype if dtype is None else dtype
     ce = 32 // dtype.itemsize
-    wk = torch.zeros((kh * kw, f, -(-c // ce) * ce), dtype=dtype,
-                     device=w.device)
+    cp = -(-c // ce) * ce
+    wk = (torch.empty if cp == c else torch.zeros)(
+        (kh * kw, f, cp), dtype=dtype, device=w.device)
     wk[:, :, :c] = w.permute(2, 3, 0, 1).reshape(kh * kw, f, c)
     return wk
 

@@ -74,7 +74,7 @@ from bayestpu_torch.nn.layers import (_Conv, _int8_conv_on_mxu, dot,
                                       lecun_normal_, maybe_quant, quant_dot,
                                       quant_operands, xla_conv, xla_conv_int8)
 from bayestpu_torch.nn.rows import RowAware
-from bayestpu_torch.utils.profiler import span
+from bayestpu_torch.utils.profiler import count, span
 
 
 class BayesDense(RowAware, nn.Module):
@@ -166,6 +166,14 @@ def _masked_conv_fuse_worthwhile(in_ch: int) -> bool:
     return in_ch >= MASKED_CONV_FUSE_MIN_CH
 
 
+def det_int8_on_kernel(q: QuantConfig, device: torch.device) -> bool:
+    """Whether a deterministic int8 conv that a fused kernel takes runs
+    ``conv_int8_fused`` on ``device`` (else ``int8_conv2d``): always on a
+    card, on the CPU only under ``q.int8_det_pallas``, as the JAX package
+    routes it."""
+    return device.type == "cuda" or q.int8_det_pallas
+
+
 class BayesConvInput(RowAware, nn.Module):
     """Dropout on a conv input, generated and applied in one pass
     (``fused.py:123-151``): ``dropout_apply`` on the (N·H·W, C) view, in
@@ -214,8 +222,17 @@ class BayesConv(RowAware, _Conv):
       kernel, never cast) or ``bank_conv_int8_inference``; unfused, ``x ·
       row`` then the conv.
     - no mask: the conv (``F.conv2d``, the JAX package's XLA conv) with the
-      epilogue in PyTorch, int8 × int8 for a wide int8 input, or with
-      ``quant.int8_det_pallas`` ``conv_int8_fused``.
+      epilogue in PyTorch, or int8 × int8 for a wide int8 input. An int8
+      conv that a fused kernel takes (stride 1 or 2, at least
+      ``MASKED_CONV_FUSE_MIN_CH`` input channels) runs ``conv_int8_fused``
+      on the card, the epilogue and an int8 output inside the kernel; on
+      the CPU it does so only under ``quant.int8_det_pallas``, as the JAX
+      package routes it, and else runs ``int8_conv2d`` (im2col and
+      ``torch._int_mm``) with the epilogue in PyTorch. The two round the
+      epilogue differently (one fused multiply-add against two roundings),
+      so the route follows the device and no knob picks it on the card.
+      The counters ``quant.conv_kernel`` and ``quant.conv_im2col`` count
+      the two int8 routes as a forward runs them.
 
     A fused branch applies the bias to the f32 accumulator and emits int8
     in the kernel whatever ``defer_int8`` says; the PyTorch path rounds a
@@ -292,7 +309,6 @@ class BayesConv(RowAware, _Conv):
         if x.dtype == torch.int8 and q is None:
             raise ValueError("int8-residency input requires a quant config "
                              "on the consuming BayesConv")
-        x_f = dequantize_int8(x, q) if x.dtype == torch.int8 else x
         # conv bias (fake-quantized), times the BN scale, plus the BN shift
         bias_vec = None if self.bias is None else maybe_quant(self.bias, q)
         if epi_scale is not None and bias_vec is not None:
@@ -311,56 +327,68 @@ class BayesConv(RowAware, _Conv):
         # the hash row of x's first pixel (of each sample's x)
         row0 = image_row0(self.rows.row0, x.shape[-2], x.shape[-1])
         if quantize_x:
-            # the float branches see the grid values the int8 ones consume
             with span("quant.inputs", x.is_cuda):
                 xq, xs = quantize_int8(x, q)
-                x_f = xq.float() * xs
+
+        def floats() -> torch.Tensor:
+            # x as a float branch reads it (the int8 ones read xq alone): on
+            # the grid the int8 branches consume when x is quantized
+            if quantize_x:
+                with span("quant.inputs", x.is_cuda):
+                    return xq.float() * xs
+            return dequantize_int8(x, q) if x.dtype == torch.int8 else x
+
         done = False               # the epilogue ran in the kernel
         if self.masked:
             if train:
-                y = self._xla_conv(batch_split(x_f, self.bank, -3,
+                y = self._xla_conv(batch_split(floats(), self.bank, -3,
                                                self.rows), kernel)
             elif int8_fused:
                 y = bank_conv_int8_inference(xq, wq, self.bank, sample_idx,
                                              xs, ws, self.padding, **epi)
                 done = True
             elif self.fusable:
-                y = bank_conv_inference(x_f, kernel, self.bank, sample_idx,
-                                        self.padding, **epi)
+                y = bank_conv_inference(floats(), kernel, self.bank,
+                                        sample_idx, self.padding, **epi)
                 done = True
             else:
                 y = self._xla_conv(apply_row(
-                    x_f, self.bank, sample_idx, -3,
-                    carries_samples=x_f.dim() == 5), kernel)
+                    floats(), self.bank, sample_idx, -3,
+                    carries_samples=x.dim() == 5), kernel)
         elif self.stochastic:
             if seeds is None:
                 raise ValueError("an MC conv site needs its seeds")
             if self.drop is not None:
                 y = self._xla_conv(self.drop(
-                    x_f, seeds, carries_samples=x_f.dim() == 5), kernel)
+                    floats(), seeds, carries_samples=x.dim() == 5), kernel)
             elif int8_fused:
                 y = dropout_conv_int8_inference(
                     xq, wq, seeds, self.bayes.rate, xs, ws, self.padding,
                     row0=row0, **epi)
                 done = True
             elif train:
-                y = dropout_conv(x_f.to(self.dtype), kernel.to(self.dtype),
-                                 seeds, self.bayes.rate, self.padding,
-                                 self.stride, row0)
+                y = dropout_conv(floats().to(self.dtype),
+                                 kernel.to(self.dtype), seeds,
+                                 self.bayes.rate, self.padding, self.stride,
+                                 row0)
             else:
                 y = dropout_conv_inference(
-                    x_f.to(self.dtype), kernel.to(self.dtype), seeds,
+                    floats().to(self.dtype), kernel.to(self.dtype), seeds,
                     self.bayes.rate, self.padding, out_dtype=out_dtype,
                     row0=row0, **epi)
                 done = True
-        elif int8_fused and q.int8_det_pallas:
-            y = conv_int8_fused(xq, wq, xs, ws, padding=self.padding, **epi)
+        elif int8_fused and det_int8_on_kernel(q, x.device):
+            count("quant.conv_kernel")
+            y = conv_int8_fused(
+                xq.contiguous(memory_format=torch.channels_last), wq, xs, ws,
+                padding=self.padding, **epi)
             done = True
         elif int8_exec:
+            count("quant.conv_im2col")
             y = xla_conv_int8(xq, wq, self.padding, self.stride).float() * (
                 xs * ws)
         else:
-            y = self._xla_conv(x_f, kernel)
+            y = self._xla_conv(floats(), kernel)
         if not done:
             # the epilogue of the paths that did not fuse it (``:465-496``)
             if epi_scale is not None:

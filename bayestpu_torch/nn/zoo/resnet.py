@@ -13,7 +13,9 @@ model's call order.
   first block of every stage but the first at stride 2, the 3×3 convs
   padded ((1, 1), (1, 1)) as torch's ``padding=1`` (``_P3``), a 1×1
   ``downsample`` ``ConvBN`` where the stride or the width changes, then
-  ``relu(y + residual)``.
+  ``relu(y + residual)``. In the int8 model every conv of a block but the
+  last emits int8 (``emit_int8``): its only consumer, the next conv,
+  quantizes on the same grid, so the values are those of a float output.
 - ``n_exits > 1``: an exit head after each stage but the last (relu, a
   cascade of stride-2 ``ConvBN(act="relu", act_quant=True)`` up to the
   last stage's width, an exact dequantize when the cascade ends in int8,
@@ -112,12 +114,15 @@ class _Block(nn.Module):
         (an unfused site draws one mask a conv)."""
         convs = [m for name, m in self.named_children()
                  if name != "downsample"]
+        # every conv but the last ends in relu and feeds only the next,
+        # which quantizes it on the same grid: in the int8 model it emits
+        # int8 itself (the same values; on the card from its kernel)
         if self.has_site:
             # the kernels read NHWC; unfold for the site, which masks each
             # sample's own rows
             x = x.contiguous(memory_format=torch.channels_last)
             xin = x.unflatten(0, (carry, -1)) if carry else x
-            y = convs[0](xin, act="relu", seeds=seeds,
+            y = convs[0](xin, act="relu", emit_int8=True, seeds=seeds,
                          sample_idx=sample_idx)
             residual = self.downsample(
                 xin, seeds=seeds if proj_seeds is None else proj_seeds,
@@ -125,11 +130,12 @@ class _Block(nn.Module):
             if y.dim() == 5:
                 y, residual = y.flatten(0, 1), residual.flatten(0, 1)
         else:
-            y = convs[0](x, act="relu")
+            y = convs[0](x, act="relu", emit_int8=True)
             residual = (self.downsample(x) if self.downsample is not None
                         else x)
         for i, conv in enumerate(convs[1:], 1):
-            y = conv(y, act="relu" if i < len(convs) - 1 else None)
+            last = i == len(convs) - 1
+            y = conv(y, act=None if last else "relu", emit_int8=not last)
         return torch.relu(y + residual)
 
 

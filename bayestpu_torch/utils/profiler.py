@@ -76,6 +76,16 @@ def trace(logdir: str):
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
+def device_events(prof) -> list:
+    """The device rows of a ``torch.profiler`` run's ``key_averages()``:
+    kernels, copies and memsets. Left out are the device ranges of
+    ``record_function`` annotations (every recorded ``span`` opens one),
+    which span the gaps between their kernels as well."""
+    return [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def kernel_work() -> int:
     """The operations the port's kernels have recorded since their counts
     were last reset."""

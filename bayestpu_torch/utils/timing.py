@@ -309,12 +309,13 @@ def _nodes_per_call(step_fn: Callable, device: torch.device) -> int:
     one call adds to a captured graph, from ``torch.profiler`` over three
     calls."""
     from torch.profiler import ProfilerActivity, profile
+
+    from bayestpu_torch.utils.profiler import device_events
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _loop(step_fn, torch.zeros((), device=device), 3)
         torch.cuda.synchronize(device)
-    n = sum(e.count for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA"))
+    n = sum(e.count for e in device_events(prof))
     return max(n // 3, 1)
 
 

@@ -42,7 +42,9 @@ ends the run with a nonzero exit and no result line.
    three deferred block sites of resnet18 at batch 128 (3x3 stride 2
    padded ((1, 1), (1, 1)) and the 1x1 stride-2 projection), the readout
    showing that the two convs of a block apply one mask, and the times of
-   the samples and _xs launches there; the 7x7 stride-2 window (x
+   the samples and _xs launches there; ``conv_int8_fused`` at every
+   geometry of the int8 resnet18_me's and vgg11_me's deterministic convs
+   (batch 128, f32 and int8 store, bit for bit); the 7x7 stride-2 window (x
    8x32x32x64 -> 64, the smaller tile of ``make_mma_geom``) in every
    routine, timed; row 10's f32 route (three TF32 products) at block site
    1 in f32 and both mixed types (bf16 x with f32 w, f32 x with bf16 w),
@@ -75,10 +77,12 @@ ends the run with a nonzero exit and no result line.
 8. qat, int8 — the int8 operating point as ``bench.py`` builds it: 6 epochs
    of QAT (``QuantConfig(8, 0)``, cosine LR 0.01) from the trained float
    weights, BatchNorm re-estimated, then the weights served on the int8
-   model (five ``dropout_matmul_int8_samples`` launches per spatial
-   predict) and on the fake-quant model: acc, ECE, NLL, aPE, aPE_ood, the
-   bench's gate against the bf16 point, launch counts, spatial against
-   temporal, the card against the CPU on 8 rows, the int8 and bf16 spatial
+   model (five ``dropout_matmul_int8_samples`` and 11 ``conv_int8_fused``
+   launches per spatial predict) and on the fake-quant model: acc, ECE,
+   NLL, aPE, aPE_ood, the bench's gate against the bf16 point, launch
+   counts, spatial against temporal, the card against the CPU on 8 rows
+   (every int8 model's CPU twin takes the card's conv route,
+   ``_card_route``), the int8 and bf16 spatial
    p50 in turns, and the int8 predict profiled by kernel group.
 9. analysis — the paper's analysis battery and the rest of int8
    (``phase_analysis``): ``FullAnalysis`` on the trained bf16 vgg11_me
@@ -105,7 +109,8 @@ ends the run with a nonzero exit and no result line.
    against temporal, the card against the CPU on 8 rows, acc (≥ 0.5), ECE,
    NLL, aPE, aPE_ood, times and a profiled predict; and the same weights
    on the int8 model under ``INT8_Q`` (no QAT): five
-   ``bank_matmul_int8_samples`` launches per spatial predict, 20
+   ``bank_matmul_int8_samples`` and 11 ``conv_int8_fused`` launches per
+   spatial predict, 20
    ``bank_matmul_int8`` per temporal one, spatial and temporal
    bit-identical, the card against the CPU, acc and ECE, the int8 and bf16
    spatial p50 in turns.
@@ -122,7 +127,10 @@ ends the run with a nonzero exit and no result line.
    resnet18_me of the JAX bench's BASELINE config 5 and its bf16 twin,
    the block-site resnet18 (MC and Masksembles, bf16) served with exact
    launch counts, spatial against temporal and the card against the CPU,
-   two profiled predicts, short bf16 fine-tunes of resnet18_me and the
+   two profiled predicts, the int8 resnet18_me in f32 compute served and
+   held bit for bit against the CPU port on the card's conv route (every
+   deterministic int8 conv on ``conv_int8_fused``, none through im2col),
+   short bf16 fine-tunes of resnet18_me and the
    block-site resnet18 (launches per step; the loss falls), and one
    resnet18_me training step at batch 8 against the CPU.
 13. lenet   — the LeNet family on MNIST shapes (``phase_lenet``): the
@@ -198,7 +206,7 @@ import sys
 import time
 from pathlib import Path
 
-from bayestpu_torch.utils.profiler import PEAKS
+from bayestpu_torch.utils.profiler import PEAKS, device_events
 
 # the H100 SXM's data-sheet rates (``utils.profiler.PEAKS``): HBM3 bytes/s,
 # dense tensor-core bf16, tf32 and int8 (TOP/s), f32 outside the tensor cores
@@ -297,6 +305,12 @@ INT8_GATE = {"acc_gap_max": 0.01, "ece_ratio_max": 2.0, "ape_ratio_min": 0.5}
 # |delta|_2 <= INT8_CPU_STEPS * 2^-7, against the widest column of the five
 # heads' quantized kernels (measured: bit-identical)
 INT8_CPU_STEPS = 4
+# the deterministic int8 convs that a forward of each int8 model runs
+# through conv_int8_fused on the card (those a fused kernel takes: stride 1
+# or 2, at least 32 input channels): vgg11_me's (MC or Masksembles, any
+# head) 11, the block-site vgg11's 3, resnet18_me's 25 (19 in the
+# backbone, 6 in the exit cascades); lenet_me has none
+VGG11_ME_INT8_CONVS, BLOCK_INT8_CONVS, RESNET_INT8_CONVS = 11, 3, 25
 # Masksembles (bench.py:723-739): vgg11_me with BayesConfig(kind=MASK,
 # num_masks=4, scale=2.0); S = num_masks. Its heads at batch 128, and a
 # ragged shape whose indices wrap and include a negative one.
@@ -337,6 +351,23 @@ RESNET_P3 = ((1, 1), (1, 1))
 # with none
 VGG_CONVS = {"3x3": (3, "SAME", "relu")}
 RESNET_CONVS = {"3x3": (3, RESNET_P3, "relu"), "1x1": (1, "SAME", None)}
+# every geometry at which the int8 models' deterministic convs run
+# conv_int8_fused on the card, at batch 128: (H = W, C, F, kernel, stride,
+# padding). resnet18_me's blocks (3x3 at stride 1 and 2, the 1x1 stride-2
+# projection) and exit cascades (3x3 at stride 2); vgg11_me's backbone
+# from block 2 on (SAME) and its exit cascades (stride 2)
+INT8_MODEL_CONVS = {
+    "resnet18_me": [
+        (32, 64, 64, 3, 1, RESNET_P3), (16, 128, 128, 3, 1, RESNET_P3),
+        (8, 256, 256, 3, 1, RESNET_P3), (4, 512, 512, 3, 1, RESNET_P3),
+        (32, 64, 128, 3, 2, RESNET_P3), (16, 128, 256, 3, 2, RESNET_P3),
+        (8, 256, 512, 3, 2, RESNET_P3), (32, 64, 128, 1, 2, "SAME"),
+        (16, 128, 256, 1, 2, "SAME"), (8, 256, 512, 1, 2, "SAME")],
+    "vgg11_me": [
+        (8, 128, 256, 3, 1, "SAME"), (8, 256, 256, 3, 1, "SAME"),
+        (4, 256, 512, 3, 1, "SAME"), (4, 512, 512, 3, 1, "SAME"),
+        (2, 512, 512, 3, 1, "SAME"), (8, 128, 256, 3, 2, RESNET_P3),
+        (4, 256, 512, 3, 2, RESNET_P3)]}
 # the site whose time the kernels line reports: the first at which the main
 # path launches the kernel (on the int8 model block 1's site runs the float
 # kernel, so the int8 single kernels start at block 2; the _xs launches,
@@ -538,8 +569,7 @@ def device_ms(fn, iters: int, windows: int = 3, seen: list | None = None
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        evs = [ev for ev in prof.key_averages()
-               if str(ev.device_type).endswith("CUDA")]
+        evs = device_events(prof)
         us = sum(ev.self_device_time_total for ev in evs)
         records = sum(ev.count for ev in evs
                       if any(k in ev.key for k in PORT_KERNELS))
@@ -2075,8 +2105,10 @@ def phase_conv_kernels() -> dict:
     the mask readout, and at the four site shapes the main path's epilogues
     against the plain versions, then the times; then the same checks at
     resnet18's three deferred sites (both convs, batch 128), the readout
-    of their shared mask, the MC launches of its ``dropout="layer"`` route
-    at batch LENET_SMALL (``_resnet_small_checks``), and the times of the
+    of their shared mask, ``conv_int8_fused`` at the int8 models' conv
+    geometries (``_int8_model_convs``), the MC launches of resnet18's
+    ``dropout="layer"`` route at batch LENET_SMALL
+    (``_resnet_small_checks``), and the times of the
     launches its block-site spatial predict makes there; row 10's f32
     samples launch at AlexNet's conv5 (``_alex_conv5``); the 7x7 window at
     stride 2 (CONV_WINDOW7) checked in every routine and timed; row 10's
@@ -2100,6 +2132,7 @@ def phase_conv_kernels() -> dict:
             _conv_checks(f"resnet_{hw}x{hw}x{c}_{kname}_s2",
                          (BATCH, hw, hw, c), k, f, padding, 2, gen, summary)
     _resnet_readout(gen)
+    _int8_model_convs(gen)
     _resnet_small_checks(gen)
     # as the block-site resnet18's spatial predict launches them
     _conv_times(gen, None, RESNET_SITES, RESNET_CONVS, 2, "resnet_site",
@@ -2117,6 +2150,40 @@ def phase_conv_kernels() -> dict:
                     ((f32, f32),))
     _alex_conv5(gen, summary)
     return summary
+
+
+def _int8_model_convs(gen) -> None:
+    """``conv_int8_fused`` at every geometry of INT8_MODEL_CONVS, batch
+    BATCH, against ``dropout_conv_int8_plain`` (rate 0) on the same card
+    inputs bit for bit: the BatchNorm affine with an f32 store (a block's
+    last conv, the projection) and with relu and the int8 store (every
+    other conv of a block, the exit cascades)."""
+    import torch
+    from bayestpu_torch.kernels import masked_conv as mc
+    steps = (2.0 ** -7, 2.0 ** -7)
+    for model, shapes in INT8_MODEL_CONVS.items():
+        for hw, c, f, k, stride, padding in shapes:
+            _, _, aff, xq, wq = _conv_data((BATCH, hw, hw, c), k, f,
+                                           torch.float32, gen)
+            where = f"{model}_{hw}x{hw}x{c}_to_{f}_k{k}_s{stride}"
+            line = {"phase": "conv", "kernel": "conv_int8_fused",
+                    "shape": where, "N": BATCH, "H": hw, "C": c, "F": f,
+                    "kernel_size": k, "stride": stride,
+                    "padding": str(padding)}
+            for out, dtype, epi in (
+                    ("f32", torch.float32, dict(bias=aff)),
+                    ("int8", torch.int8, dict(bias=aff, act="relu",
+                                              out_step=steps[0]))):
+                got = mc.conv_int8_fused(xq, wq, *steps, padding=padding,
+                                         stride=stride, **epi)
+                want = mc.dropout_conv_int8_plain(xq, wq, None, 0.0, *steps,
+                                                  padding, stride, **epi)
+                same = got.dtype == want.dtype == dtype and torch.equal(
+                    got, want)
+                check(same, f"conv_int8_fused {where} {out} out: not "
+                      f"bit-equal to its plain version")
+                line[f"{out}_out_bit_equal"] = same
+            emit(line)
 
 
 def _conv_f32_route(gen, label: str, xshape, k: int, f: int, padding,
@@ -2465,10 +2532,10 @@ def phase_slice() -> dict:
 
 def _profile_rows(prof, reps: int) -> list:
     """(ms per rep, launches per rep, kernel name) of every CUDA kernel
-    seen by the profiler (not the CPU ops), largest first."""
+    seen by the profiler (not the CPU ops, nor the device ranges of the
+    program's spans: ``device_events``), largest first."""
     rows = [(ev.self_device_time_total / reps / 1e3, ev.count // reps, ev.key)
-            for ev in prof.key_averages()
-            if str(ev.device_type).endswith("CUDA")]
+            for ev in device_events(prof)]
     return sorted(rows, reverse=True)
 
 
@@ -2875,7 +2942,8 @@ def phase_int8(tr: dict) -> dict:
     x_te, y_te = ds.x_test[:2000], ds.y_test[:2000]
     served, side = {}, {}
     for name, eng, want in (
-            ("int8", i8, counts(dropout_matmul_int8_samples=10)),
+            ("int8", i8, counts(dropout_matmul_int8_samples=10,
+                                conv_int8_fused=2 * VGG11_ME_INT8_CONVS)),
             ("fake_quant", fq, counts(dropout_matmul_samples=10))):
         t = time.perf_counter()
         mets, launched = _launched(lambda: eng.evaluate(
@@ -2894,9 +2962,12 @@ def phase_int8(tr: dict) -> dict:
     x = xs[0]
     p_sp, sp_launches = _launched(lambda: i8.predict(x, seed, SAMPLES))
     p_tm, tm_launches = _launched(lambda: i8_tm.predict(x, seed, SAMPLES))
-    check(sp_launches == counts(dropout_matmul_int8_samples=5),
+    check(sp_launches == counts(dropout_matmul_int8_samples=5,
+                                conv_int8_fused=VGG11_ME_INT8_CONVS),
           f"int8 spatial predict launches {sp_launches}")
-    check(tm_launches == counts(dropout_matmul_int8=5 * SAMPLES),
+    check(tm_launches == counts(
+        dropout_matmul_int8=5 * SAMPLES,
+        conv_int8_fused=VGG11_ME_INT8_CONVS * SAMPLES),
           f"int8 temporal predict launches {tm_launches}")
     for name, p in (("spatial", p_sp.probs), ("temporal", p_tm.probs)):
         check(p.shape == (5, BATCH, 10) and bool(torch.isfinite(p).all()),
@@ -2909,7 +2980,8 @@ def phase_int8(tr: dict) -> dict:
         sd = i8.seeds(seed, SAMPLES)
         l_sp = sampler.mc_logits(i8.model, x, sd, SamplingMode.SPATIAL)
         l_tm = sampler.mc_logits(i8.model, x, sd, SamplingMode.TEMPORAL)
-        cpu = BayesEngine(build(int8_q), device="cpu").attach(variables)
+        cpu = BayesEngine(_card_route(build(int8_q)),
+                          device="cpu").attach(variables)
         l_cpu = sampler.mc_logits(cpu.model, x[:8].cpu(), sd.cpu(),
                                   SamplingMode.SPATIAL)
     # the main path: QAT, BN re-estimation and int8 serving; the fake-quant
@@ -3241,8 +3313,11 @@ def phase_analysis(tr: dict, i8: dict, smi: str) -> dict:
                              dtype=torch.bfloat16, quant=int8_q, **kw)
         out = _block_serve(
             f"int8_{name}", build, i8["variables"],
-            dict(dropout_matmul_int8_samples=5),
-            dict(dropout_matmul_int8=5 * SAMPLES), x, SPATIAL_TEMPORAL_ATOL,
+            dict(dropout_matmul_int8_samples=5,
+                 conv_int8_fused=VGG11_ME_INT8_CONVS),
+            dict(dropout_matmul_int8=5 * SAMPLES,
+                 conv_int8_fused=VGG11_ME_INT8_CONVS * SAMPLES), x,
+            SPATIAL_TEMPORAL_ATOL,
             _int8_cpu_tol(int8_q, 1.0 / (1.0 - RATE)), SAMPLES, False, 5)
         eng = out.pop("engine")
         seen = {}
@@ -3262,7 +3337,8 @@ def phase_analysis(tr: dict, i8: dict, smi: str) -> dict:
                   f"mixed-head residency {seen}")
         mets, launched = _launched(lambda: eng.evaluate(
             x_te, y_te, seed=0, num_samples=SAMPLES))
-        check(launched == counts(dropout_matmul_int8_samples=5),
+        check(launched == counts(dropout_matmul_int8_samples=5,
+                                 conv_int8_fused=VGG11_ME_INT8_CONVS),
               f"int8 {name} evaluate launches {launched}")
         check(all(np.isfinite(v) for v in mets.values()),
               f"int8 {name} metrics {mets}")
@@ -3352,7 +3428,9 @@ def phase_mask(tr: dict) -> dict:
                          dtype=torch.bfloat16, quant=quant)
 
     def engine(quant=None, mode=SamplingMode.SPATIAL, device="cuda"):
-        return BayesEngine(build(quant), config=EngineConfig(mode=mode),
+        model = build(quant)
+        return BayesEngine(model if device == "cuda" else _card_route(model),
+                           config=EngineConfig(mode=mode),
                            device=device).attach(variables)
 
     ds, xs, ys = tr["ds"], tr["xs"], tr["ys"]
@@ -3464,13 +3542,17 @@ def phase_mask(tr: dict) -> dict:
     mets8, ev8_launches = _launched(lambda: i8.evaluate(
         x_te, y_te, seed=0, ood_check=True, dataset="cifar10"))
     eval8_s = time.perf_counter() - t
-    check(ev8_launches == counts(bank_matmul_int8_samples=10),
+    check(ev8_launches == counts(bank_matmul_int8_samples=10,
+                                 conv_int8_fused=2 * VGG11_ME_INT8_CONVS),
           f"int8 Masksembles evaluate launches {ev8_launches}")
     p8_sp, sp8_launches = _launched(lambda: i8.predict(x, seed))
     p8_tm, tm8_launches = _launched(lambda: i8_tm.predict(x, seed))
-    check(sp8_launches == counts(bank_matmul_int8_samples=5),
+    check(sp8_launches == counts(bank_matmul_int8_samples=5,
+                                 conv_int8_fused=VGG11_ME_INT8_CONVS),
           f"int8 Masksembles spatial predict launches {sp8_launches}")
-    check(tm8_launches == counts(bank_matmul_int8=5 * s_mask),
+    check(tm8_launches == counts(bank_matmul_int8=5 * s_mask,
+                                 conv_int8_fused=VGG11_ME_INT8_CONVS
+                                 * s_mask),
           f"int8 Masksembles temporal predict launches {tm8_launches}")
     with torch.inference_mode():
         l8_sp = sampler.mc_logits(i8.model, x, sd, SamplingMode.SPATIAL)
@@ -3560,15 +3642,17 @@ def _block_serve(name: str, build, variables, want_sp: dict, want_tm: dict,
     ``exits`` exits over ``classes`` classes) finite and summing to 1, the
     per-sample logits of the two mappings within ``st_tol``, for
     Masksembles ``predict(sample_idx=i)`` equal to sample i, and the first
-    ``cpu_rows`` rows against the same model on the CPU within
-    ``cpu_tol_fn(cpu_model, cpu_logits)``."""
+    ``cpu_rows`` rows against the same model on the CPU (its int8 convs on
+    the card's route, ``_card_route``) within ``cpu_tol_fn(cpu_model,
+    cpu_logits)``."""
     import torch
     from bayestpu_torch.core.config import EngineConfig, SamplingMode
     from bayestpu_torch.engine import sampler
     from bayestpu_torch.engine.engine import BayesEngine
 
     def engine(mode, device="cuda"):
-        eng = BayesEngine(build(), config=EngineConfig(mode=mode),
+        model = build() if device == "cuda" else _card_route(build())
+        eng = BayesEngine(model, config=EngineConfig(mode=mode),
                           device=device)
         return (eng.attach(variables) if variables is not None
                 else eng.init(0, x[:1].cpu()))
@@ -3647,6 +3731,20 @@ def _int8_cpu_tol(quant, rescale: float):
         torch.linalg.vector_norm(fake_quant(h.kernel, quant), dim=0)
         .max().item() for h in model.modules()
         if isinstance(h, BayesDense)) * rescale
+
+
+def _card_route(model):
+    """``model`` with ``int8_det_pallas`` in every layer's quantization: on
+    the CPU each deterministic int8 conv that the card runs through
+    ``conv_int8_fused`` takes that route too (its plain version), so the
+    card's int8 model is held against the same arithmetic."""
+    import dataclasses
+    from bayestpu_torch.core.config import QuantConfig
+    for m in model.modules():
+        q = getattr(m, "quant", None)
+        if isinstance(q, QuantConfig) and q.int8_infer:
+            m.quant = dataclasses.replace(q, int8_det_pallas=True)
+    return model
 
 
 def _block_finetune(model, xs, ys, epochs: int, lr: float, want: dict,
@@ -3840,23 +3938,28 @@ def phase_block(tr: dict) -> dict:
     for name, cfg, variables, quant, samples, want_sp, want_tm, rescale in (
             ("mc_int8", cfg_mc, v_mc, int8_q, s_mc,
              dict(dropout_conv_samples=1, dropout_conv_int8_xs=3,
-                  dropout_matmul_int8_xs=1),
+                  dropout_matmul_int8_xs=1, conv_int8_fused=BLOCK_INT8_CONVS),
              dict(dropout_conv=s_mc, dropout_conv_int8=3 * s_mc,
-                  dropout_matmul_int8=s_mc), 1.0 / (1.0 - RATE)),
+                  dropout_matmul_int8=s_mc,
+                  conv_int8_fused=BLOCK_INT8_CONVS * s_mc),
+             1.0 / (1.0 - RATE)),
             ("mask_int8", cfg_mask, v_mask, int8_q, s_mask,
              dict(bank_conv_samples=1, bank_conv_int8_xs=3,
-                  bank_matmul_int8_xs=1),
+                  bank_matmul_int8_xs=1, conv_int8_fused=BLOCK_INT8_CONVS),
              dict(bank_conv=s_mask, bank_conv_int8=3 * s_mask,
-                  bank_matmul_int8=s_mask), 1.0),
+                  bank_matmul_int8=s_mask,
+                  conv_int8_fused=BLOCK_INT8_CONVS * s_mask), 1.0),
             ("mc_int8_min_ch32", cfg_mc, v_mc, int8_q32, s_mc,
              dict(dropout_conv_int8_samples=1, dropout_conv_int8_xs=3,
-                  dropout_matmul_int8_xs=1),
-             dict(dropout_conv_int8=4 * s_mc, dropout_matmul_int8=s_mc),
+                  dropout_matmul_int8_xs=1, conv_int8_fused=BLOCK_INT8_CONVS),
+             dict(dropout_conv_int8=4 * s_mc, dropout_matmul_int8=s_mc,
+                  conv_int8_fused=BLOCK_INT8_CONVS * s_mc),
              1.0 / (1.0 - RATE)),
             ("mask_int8_min_ch32", cfg_mask, v_mask, int8_q32, s_mask,
              dict(bank_conv_int8_samples=1, bank_conv_int8_xs=3,
-                  bank_matmul_int8_xs=1),
-             dict(bank_conv_int8=4 * s_mask, bank_matmul_int8=s_mask), 1.0)):
+                  bank_matmul_int8_xs=1, conv_int8_fused=BLOCK_INT8_CONVS),
+             dict(bank_conv_int8=4 * s_mask, bank_matmul_int8=s_mask,
+                  conv_int8_fused=BLOCK_INT8_CONVS * s_mask), 1.0)):
         t0 = time.perf_counter()
         d = _block_serve(name, model_fn(cfg, quant), variables, want_sp,
                          want_tm, x, CPU_REF_RTOL, int8_tol(rescale),
@@ -3887,9 +3990,11 @@ def phase_resnet(smi: str) -> dict:
 
     (a) int8 ``resnet18_me``, the JAX bench's BASELINE config 5
         (``bench.py:741-748``: fused, MC rate 0.25, S = 10, bf16 compute,
-        ``int8_infer``): 4 ``dropout_matmul_int8_samples`` launches a
-        spatial predict (the four exit heads; the backbone runs once), 40
-        ``dropout_matmul_int8`` a temporal one; spatial against temporal,
+        ``int8_infer``): 4 ``dropout_matmul_int8_samples`` and 25
+        ``conv_int8_fused`` launches a spatial predict (the four exit
+        heads, every deterministic int8 conv; the backbone runs once), 40
+        ``dropout_matmul_int8`` and 250 ``conv_int8_fused`` a temporal one;
+        spatial against temporal,
         the card against the CPU on rows 0-7 within INT8_CPU_STEPS grid
         steps; p50s and samples/s; a profiled predict by kernel group.
     (b) its bf16 twin: 4 ``dropout_matmul_samples`` / 40
@@ -3911,7 +4016,9 @@ def phase_resnet(smi: str) -> dict:
         the (N·H·W, C) views of the deferred sites, 131072 x 64 at the
         stage-1 boundary); the loss falls in both.
     (f) one ``resnet18_me`` training step at batch 8, card against CPU
-        (``_step_vs_cpu``), after the launches are read."""
+        (``_step_vs_cpu``), after the launches are read.
+    (g) the int8 ``resnet18_me`` in f32 compute, served, bit for bit
+        against the CPU port on the card's route (``_resnet_int8_exact``)."""
     import torch
     from bayestpu_torch.core.config import (BayesConfig, DropoutKind,
                                             QuantConfig)
@@ -3942,8 +4049,10 @@ def phase_resnet(smi: str) -> dict:
     block = dict(dropout="block")
     serving = (
         ("resnet18_me_int8", model_fn("resnet18_me", mc_cfg, int8_q),
-         dict(dropout_matmul_int8_samples=4),
-         dict(dropout_matmul_int8=4 * s_mc), _int8_cpu_tol(
+         dict(dropout_matmul_int8_samples=4,
+              conv_int8_fused=RESNET_INT8_CONVS),
+         dict(dropout_matmul_int8=4 * s_mc,
+              conv_int8_fused=RESNET_INT8_CONVS * s_mc), _int8_cpu_tol(
              int8_q, 1.0 / (1.0 - RATE)), s_mc, False, 4, True),
         ("resnet18_me_bf16", model_fn("resnet18_me", mc_cfg),
          dict(dropout_matmul_samples=4), dict(dropout_matmul=4 * s_mc),
@@ -3972,6 +4081,8 @@ def phase_resnet(smi: str) -> dict:
             emit({"phase": "resnet_profile", "config": name, "card": smi,
                   "what": "spatial predict, profiled",
                   **_profile_predict(eng, x, 11, reps=5, samples=samples)})
+    emit({"phase": "resnet_int8_exact", "card": smi,
+          **_resnet_int8_exact()})
     for name, build, want in (
             ("resnet18_me", model_fn("resnet18_me", mc_cfg),
              dict(dropout_matmul=4, dropout_apply=8)),
@@ -3994,6 +4105,86 @@ def phase_resnet(smi: str) -> dict:
                  ["exit1.linear.kernel", "exit2.linear.kernel",
                   "exit3.linear.kernel", "linear.kernel"])
     return {"launches": launches}
+
+
+def _resnet_int8_exact() -> dict:
+    """(g) The int8 ``resnet18_me`` served in f32 compute
+    (``BayesEngine.compile``, a CUDA graph) at batch BATCH, S = SAMPLES,
+    seeded weights and BatchNorm statistics: RESNET_INT8_CONVS
+    ``conv_int8_fused`` launches and ``quant.conv_kernel`` counts a
+    forward, ``quant.conv_im2col`` none; the replayed predict equal to the
+    eager one; the MC logits equal to the CPU port's on the card's route
+    (``_card_route``) bit for bit. Two
+    float steps ahead of the int8 arithmetic would round differently on
+    the two devices and are made exact: x on a grid of 1/16 within ±4, so
+    that the stem's sums of grid products are exact in f32 in any order,
+    and every BatchNorm variance set so that ``var + epsilon`` is 1 (its
+    ``rsqrt`` is not correctly rounded on the card)."""
+    import copy
+
+    import torch
+    from bayestpu_torch.core.config import BayesConfig, QuantConfig
+    from bayestpu_torch.engine import sampler
+    from bayestpu_torch.engine.engine import BayesEngine
+    from bayestpu_torch.nn.layers import BatchNorm
+    from bayestpu_torch.nn.zoo import get_model
+    from bayestpu_torch.utils import profiler
+    gen = torch.Generator().manual_seed(2 ** 31 + 977)
+    x = (torch.randn(BATCH, 32, 32, 3, generator=gen) * 16).round().clamp(
+        -64, 64) / 16
+    model = get_model("resnet18_me", bayes=BayesConfig(rate=RATE),
+                      fused=True, dtype=torch.float32,
+                      quant=QuantConfig(8, 0, int8_infer=True),
+                      num_classes=RESNET_CLASSES)
+    model.reset_parameters(torch.Generator().manual_seed(21))
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                f = m.var.shape[0]
+                m.scale.copy_(torch.rand(f, generator=gen) + 0.5)
+                m.bias.copy_(0.2 * torch.randn(f, generator=gen))
+                m.mean.copy_(0.2 * torch.randn(f, generator=gen))
+                m.var.fill_(1.0 - torch.tensor(m.epsilon).item())
+                check(bool((m.var + m.epsilon == 1.0).all()),
+                      "BatchNorm var + epsilon is not 1 in f32")
+    cpu_model = _card_route(copy.deepcopy(model)).eval()
+    eng = BayesEngine(model, device="cuda")
+    eng.ready = True
+    xc = x.cuda()
+    profiler.reset_spans()
+    _, compiled = _launched(lambda: eng.compile(xc, SAMPLES))
+    n = compiled["conv_int8_fused"]
+    check(n > 0 and n % RESNET_INT8_CONVS == 0
+          and profiler.counters().get("quant.conv_kernel") == n
+          and "quant.conv_im2col" not in profiler.counters(),
+          f"resnet18_me int8 f32 compile: {n} conv_int8_fused launches, "
+          f"counters {profiler.counters()}")
+    seed = 11
+    seeds = eng.seeds(seed, SAMPLES)
+    p = eng.predict(xc, seed, SAMPLES)
+    profiler.reset_spans()
+    with torch.inference_mode():
+        (logits, eager), eager_launches = _launched(lambda: (
+            sampler.mc_logits(model, xc, seeds),
+            sampler.predictive(model, xc, seeds)))
+    check(eager_launches["conv_int8_fused"] == 2 * RESNET_INT8_CONVS
+          and profiler.counters().get("quant.conv_kernel")
+          == 2 * RESNET_INT8_CONVS,
+          f"resnet18_me int8 f32 eager forwards: {eager_launches}, "
+          f"counters {profiler.counters()}")
+    with torch.inference_mode():
+        want = sampler.mc_logits(cpu_model, x, seeds.cpu())
+    replay_equal = torch.equal(p.probs, eager.probs)
+    got = logits.cpu()
+    cpu_equal = torch.equal(got, want)
+    check(replay_equal and cpu_equal and not torch.equal(want[0], want[1]),
+          f"resnet18_me int8 f32: replay equal to eager {replay_equal}, "
+          f"card equal to CPU {cpu_equal} (max abs "
+          f"{(got - want).abs().max().item()})")
+    return {"config": "resnet18_me_int8_f32", "batch": BATCH,
+            "samples": SAMPLES, "compile_conv_int8_fused": n,
+            "forward_conv_int8_fused": RESNET_INT8_CONVS,
+            "replay_equal_eager": replay_equal, "logits_equal_cpu": cpu_equal}
 
 
 def _check_threefry(smi: str) -> None:

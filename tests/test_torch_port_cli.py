@@ -161,7 +161,7 @@ def test_build_cli_degrades_under_mem_limit(trained, tmp_path):
     assert rep["flops"] > 0 and rep["mem_limit"] == 1
     assert rep["requested_strategy"] == "latency"
     assert set(rep["kernel_mapping"]) == {
-        "masked_conv_fused_min_in_ch", "int8_conv_min_ch", "int8_det_pallas",
+        "masked_conv_fused_min_in_ch", "int8_conv_min_ch", "int8_det_conv",
         "entry_block_batch_chunk"}
     eng = _engine(out)
     want = ({"strategy_mode", "degraded_to_resource", "mem_limit",

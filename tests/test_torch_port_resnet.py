@@ -266,6 +266,67 @@ def test_resnet18_me_int8_matches_jax(me_vars, name):
     assert not torch.equal(spatial[0], spatial[1])
 
 
+@pytest.mark.parametrize("name", ["f32", "bf16"])
+def test_resnet18_me_int8_kernel_route_matches_jax(me_vars, name):
+    """The int8 resnet18_me with ``int8_det_pallas`` on both sides, on the
+    inputs and head keys of ``test_resnet18_me_int8_matches_jax``: every
+    deterministic int8 conv runs ``conv_int8_fused`` (the epilogue one
+    fused multiply-add, int8 stored by the producer inside a block), the
+    route every such conv takes on the card. f32 compute: bit-equal to
+    JAX's Pallas kernel in the interpreter; bf16: within two grid steps,
+    as the XLA route."""
+    from bayestpu_torch.utils import profiler
+    x, variables, _ = me_vars
+    jdt, tdt = DTYPES[name]
+    jq = JQuant(8, 0, int8_infer=True, int8_det_pallas=True)
+    jm = jax_get_model("resnet18_me", bayes=JMC, fused=True, dtype=jdt,
+                       quant=jq)
+    want, seeds = _capture(jm, variables, x,
+                           sample_keys(jax.random.key(7), 2),
+                           ("dropout_matmul_int8_inference",))
+    tq = QuantConfig(8, 0, int8_infer=True, int8_det_pallas=True)
+    model = _port("resnet18_me", variables, dtype=tdt, quant=tq)
+    xt, st = torch.from_numpy(x), torch.from_numpy(seeds)
+    profiler.reset_spans()
+    with torch.inference_mode():
+        spatial = tsampler.mc_logits(model, xt, st)
+    # the backbone's 19 int8 convs and the exits' 6, none through im2col
+    assert profiler.counters().get("quant.conv_kernel") == 25
+    assert "quant.conv_im2col" not in profiler.counters()
+    if name == "f32":
+        np.testing.assert_array_equal(spatial.numpy(), want)
+    else:
+        assert _grid_steps(spatial.numpy(), want, model) <= 2.0
+    assert not torch.equal(spatial[0], spatial[1])
+
+
+@pytest.mark.parametrize("det_pallas", [False, True])
+@pytest.mark.parametrize("block", ["layer1_0", "layer2_0"])
+def test_resnet18_me_int8_block_emits_int8(me_vars, block, det_pallas):
+    """Inside a block of the int8 resnet18_me (CPU, both int8 routes, an
+    identity block and a projection one), ``convbn1`` emits int8 equal bit
+    for bit to ``quantize_int8`` of the f32 output the same conv gives
+    without ``emit_int8``; the block's output equals the one built from
+    those f32 outputs."""
+    from bayestpu_torch.core.quant import quantize_int8
+    x, variables, _ = me_vars
+    q = QuantConfig(8, 0, int8_infer=True, int8_det_pallas=det_pallas)
+    model = _port("resnet18_me", variables, quant=q)
+    blk = getattr(model, block)
+    with torch.inference_mode():
+        h = model.stem(torch.from_numpy(x).permute(0, 3, 1, 2))
+        if block == "layer2_0":
+            h = model.layer1_1(model.layer1_0(h))
+        y8 = blk.convbn1(h, act="relu", emit_int8=True)
+        y32 = blk.convbn1(h, act="relu")
+        residual = h if blk.downsample is None else blk.downsample(h)
+        want = torch.relu(blk.convbn2(y32) + residual)
+        got = blk(h)
+    assert y8.dtype == torch.int8 and y32.dtype == torch.float32
+    assert torch.equal(y8, quantize_int8(y32, q)[0])
+    assert torch.equal(got, want)
+
+
 def test_resnet18_me_mask_logits_match_jax(me_vars):
     """Masksembles per-mask logits (indices 0, 2 and 5, which wraps to 1)
     against JAX's applies with ``sample_idx=i``, f32, rtol/atol 1e-5; the

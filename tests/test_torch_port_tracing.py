@@ -277,3 +277,24 @@ def test_a_graph_without_captured_spans_adds_nothing():
     spans.replayed(SimpleNamespace(id=1, root=1))
     spans.settle()
     assert profiler.span_log() == []
+
+
+def test_device_events_leave_out_the_spans_device_ranges():
+    """A recorded span's ``record_function`` lands on the card as a device
+    range over the gaps between its kernels too; ``device_events`` keeps
+    the kernels, copies and memsets alone, and no CPU row."""
+    def row(key, device, annotation):
+        return SimpleNamespace(key=key, device_type=f"DeviceType.{device}",
+                               is_user_annotation=annotation)
+
+    rows = [row("engine.predict", "CPU", True),
+            row("engine.predict", "CUDA", True),
+            row("conv_mma_kernel", "CUDA", False),
+            row("Memcpy HtoD", "CUDA", False), row("aten::mul", "CPU", False)]
+    prof = SimpleNamespace(key_averages=lambda: rows)
+    assert [e.key for e in profiler.device_events(prof)] == [
+        "conv_mma_kernel", "Memcpy HtoD"]
+    with profile() as prof:
+        with profiler.span("quant.inputs"):
+            torch.ones(4).mul(2)
+    assert profiler.device_events(prof) == []
