@@ -393,8 +393,11 @@ class BayesEngine:
 
 def _has_device_spans(model: torch.nn.Module) -> bool:
     """Whether the model's predict holds device-timed spans: those of its
-    quantization (``quant.*``), in any layer with a ``QuantConfig``."""
+    quantization (``quant.*``), in any layer with a ``QuantConfig``, and
+    those of a model that says it has some (``device_spans``: the ResNets'
+    ``resnet.stem`` and ``sites.conv``)."""
     return any(getattr(m, "quant", None) is not None
+               or getattr(m, "device_spans", False)
                for m in model.modules())
 
 

@@ -232,7 +232,9 @@ class BayesConv(RowAware, _Conv):
       epilogue differently (one fused multiply-add against two roundings),
       so the route follows the device and no knob picks it on the card.
       The counters ``quant.conv_kernel`` and ``quant.conv_im2col`` count
-      the two int8 routes as a forward runs them.
+      the two int8 routes as a forward runs them, and
+      ``sites.conv_launches`` each fused masked conv (MC or Masksembles),
+      one launch of its kernel on the card.
 
     A fused branch applies the bias to the f32 accumulator and emits int8
     in the kernel whatever ``defer_int8`` says; the PyTorch path rounds a
@@ -339,6 +341,8 @@ class BayesConv(RowAware, _Conv):
             return dequantize_int8(x, q) if x.dtype == torch.int8 else x
 
         done = False               # the epilogue ran in the kernel
+        if self.fusable and (self.stochastic or (self.masked and not train)):
+            count("sites.conv_launches")      # a masked-conv kernel runs
         if self.masked:
             if train:
                 y = self._xla_conv(batch_split(floats(), self.bank, -3,

@@ -431,23 +431,30 @@ def _pair(v: int | tuple[int, int]) -> tuple[int, int]:
 
 
 def max_pool(x: torch.Tensor, window: int | tuple[int, int],
-             strides: int | tuple[int, int] | None = None) -> torch.Tensor:
-    """VALID max pool of an NCHW tensor. An int8 tensor on the grid pools
-    as int8 by a windowed ``amax`` (``F.max_pool2d`` has no int8 kernel on
-    CUDA) over the NHWC view, so channels_last memory stays channels_last;
-    the max of grid values stays on the grid."""
+             strides: int | tuple[int, int] | None = None,
+             padding: int | tuple[int, int] = 0) -> torch.Tensor:
+    """Max pool of an NCHW tensor, VALID or padded by ``padding`` on each
+    side with elements that never win (-inf; the int8 minimum, which wins
+    only where the window holds it anyway). An int8 tensor on the grid
+    pools as int8 by a windowed ``amax`` (``F.max_pool2d`` has no int8
+    kernel on CUDA) over the NHWC view, so channels_last memory stays
+    channels_last; the max of grid values stays on the grid."""
     window = _pair(window)
     strides = _pair(strides) if strides else window
+    ph, pw = _pair(padding)
     if x.dtype == torch.int8:
+        if ph or pw:
+            x = F.pad(x, (pw, pw, ph, ph), value=-128)
         return x.permute(0, 2, 3, 1).unfold(1, window[0], strides[0]).unfold(
             2, window[1], strides[1]).amax(dim=(-2, -1)).permute(0, 3, 1, 2)
-    return F.max_pool2d(x, window, strides)
+    return F.max_pool2d(x, window, strides, (ph, pw))
 
 
-def avg_pool(x: torch.Tensor, window: int | tuple[int, int],
+def avg_pool(x: torch.Tensor, window: int | tuple[int, int] | None,
              strides: int | tuple[int, int] | None = None) -> torch.Tensor:
-    """VALID average pool of an NCHW tensor."""
-    window = _pair(window)
+    """VALID average pool of an NCHW tensor; ``window`` None pools the
+    whole H×W."""
+    window = tuple(x.shape[-2:]) if window is None else _pair(window)
     return F.avg_pool2d(x, window, _pair(strides) if strides else window)
 
 

@@ -8,8 +8,12 @@ the seeds and ``sample_idx`` forms): seeds (n_sites, 2) for one sample or
 (S, n_sites, 2) for the spatial mapping, the MC sites numbered in the JAX
 model's call order.
 
-- The CIFAR stem is a 3×3 ``ConvBN`` on the raw image (``quant_input=
-  False``) with no relu; stages of ``BasicBlock`` (or ``Bottleneck``), the
+- The CIFAR stem (``stem="cifar"``, the default) is a 3×3 ``ConvBN`` on
+  the raw image (``quant_input=False``) with no relu. The ImageNet stem
+  (``stem="imagenet"``; He et al., Table 1, which the JAX package does not
+  have) is a 7×7 stride-2 ``ConvBN`` padded by 3, relu, then a 3×3
+  stride-2 max pool padded by 1, and every classifier pools globally over
+  the final H×W. Then stages of ``BasicBlock`` (or ``Bottleneck``), the
   first block of every stage but the first at stride 2, the 3×3 convs
   padded ((1, 1), (1, 1)) as torch's ``padding=1`` (``_P3``), a 1×1
   ``downsample`` ``ConvBN`` where the stride or the width changes, then
@@ -19,9 +23,9 @@ model's call order.
 - ``n_exits > 1``: an exit head after each stage but the last (relu, a
   cascade of stride-2 ``ConvBN(act="relu", act_quant=True)`` up to the
   last stage's width, an exact dequantize when the cascade ends in int8,
-  ``avg_pool(min(4, H))``, ``BayesDense``); then the final
-  ``avg_pool(relu(out))`` and ``linear``. ``dropout_exit`` puts the site
-  before each exit's and the final linear.
+  ``avg_pool(min(4, H))`` or the global pool, ``BayesDense``); then the
+  final ``avg_pool(relu(out))`` and ``linear``. ``dropout_exit`` puts the
+  site before each exit's and the final linear.
 - ``dropout="block"`` puts a site after stages 1 … n-1,
   ``dropout="layer"`` after every block but the very last
   (``resnet.py:205-248``). With ``fused=True`` and one exit
@@ -40,6 +44,13 @@ model's call order.
   conv in one ``_xs`` launch, never S folded into the batch, which would
   shift the rows of the mask). ``fused=False`` (the JAX default) makes the
   MC heads unfused too (``BayesianDropout`` then the dense).
+
+Under a profiler the stem (with its pool) is the device span
+``resnet.stem`` and each deferred site's two convs the device span
+``sites.conv`` (``utils.profiler``); the counter ``sites.rows`` adds the
+rows the layers after the first site run on (S·N) as a forward starts the
+carry, and ``nn.fused.BayesConv`` counts each fused masked conv in
+``sites.conv_launches``.
 
 Like the JAX ``ResNet18`` (``resnet.py:176-189``), it takes no
 ``quant_overrides``: the keyword is a ``TypeError``.
@@ -64,10 +75,11 @@ from bayestpu_torch.core.config import BayesConfig, DropoutKind, QuantConfig
 from bayestpu_torch.core.quant import dequantize_int8
 from bayestpu_torch.nn.bayes import BayesSite
 from bayestpu_torch.nn.fused import BayesDense
-from bayestpu_torch.nn.layers import ConvBN, avg_pool
+from bayestpu_torch.nn.layers import ConvBN, avg_pool, max_pool
 from bayestpu_torch.nn.multiexit import ExitOutputs, stack_exits
 from bayestpu_torch.nn.zoo.registry import register_model
 from bayestpu_torch.nn.zoo.sites import SiteModel, flatten_nhwc
+from bayestpu_torch.utils.profiler import count, span
 
 # torch's Conv2d(k=3, padding=1): symmetric, also at stride 2
 # (``bayestpu/nn/zoo/resnet.py:36-40``)
@@ -122,11 +134,12 @@ class _Block(nn.Module):
             # sample's own rows
             x = x.contiguous(memory_format=torch.channels_last)
             xin = x.unflatten(0, (carry, -1)) if carry else x
-            y = convs[0](xin, act="relu", emit_int8=True, seeds=seeds,
-                         sample_idx=sample_idx)
-            residual = self.downsample(
-                xin, seeds=seeds if proj_seeds is None else proj_seeds,
-                sample_idx=sample_idx)
+            with span("sites.conv", x.is_cuda):
+                y = convs[0](xin, act="relu", emit_int8=True, seeds=seeds,
+                             sample_idx=sample_idx)
+                residual = self.downsample(
+                    xin, seeds=seeds if proj_seeds is None else proj_seeds,
+                    sample_idx=sample_idx)
             if y.dim() == 5:
                 y, residual = y.flatten(0, 1), residual.flatten(0, 1)
         else:
@@ -167,13 +180,15 @@ def bottleneck(in_ch: int, planes: int, stride: int, dtype: torch.dtype,
 
 
 class _ExitHead(nn.Module):
-    """relu, the stride-2 cascade to ``channels[-1]``, avg_pool(min(4, H)),
-    then the ``BayesDense`` head ``linear`` (``resnet.py:137-173``)."""
+    """relu, the stride-2 cascade to ``channels[-1]``, avg_pool(min(4, H))
+    (with ``global_pool`` over the whole H×W), then the ``BayesDense``
+    head ``linear`` (``resnet.py:137-173``)."""
 
     def __init__(self, in_ch: int, spatial: int, channels: Sequence[int],
                  num_classes: int, bayes: BayesConfig | None,
                  dtype: torch.dtype, fused: bool,
-                 quant: QuantConfig | None = None):
+                 quant: QuantConfig | None = None,
+                 global_pool: bool = False):
         super().__init__()
         self.quant = quant
         for i, ch in enumerate(channels):
@@ -181,8 +196,9 @@ class _ExitHead(nn.Module):
                 in_ch, ch, (3, 3), (2, 2), padding=_P3, dtype=dtype,
                 quant=quant))
             in_ch, spatial = ch, _down(spatial)
-        self.pool = min(4, spatial)
-        width = in_ch * (spatial // self.pool) ** 2
+        # None: global
+        self.pool = None if global_pool else min(4, spatial)
+        width = in_ch * (1 if global_pool else spatial // self.pool) ** 2
         self.linear = BayesDense(
             width, num_classes,
             bayes=bayes or BayesConfig(kind=DropoutKind.NONE), fused=fused,
@@ -208,7 +224,12 @@ class _ExitHead(nn.Module):
 class ResNet18(SiteModel):
     """ResNet-18 with {1, 4} exits and configurable Bayesian sites
     (``resnet.py:176-272``); ``input_shape`` (H, W, C) fixes the dense
-    widths, which Flax infers from the first input."""
+    widths, which Flax infers from the first input. ``stem`` is "cifar"
+    or "imagenet" (see the module docstring)."""
+
+    # the stem's and the deferred sites' device spans (``engine`` captures
+    # a timed twin of a served graph for them)
+    device_spans = True
 
     def __init__(self, bayes: BayesConfig = BayesConfig(),
                  num_classes: int = 100, n_exits: int = 4,
@@ -217,8 +238,12 @@ class ResNet18(SiteModel):
                  stage_planes: Sequence[int] = (64, 128, 256, 512),
                  block: str = "basic", quant: QuantConfig | None = None,
                  dtype: torch.dtype = torch.float32, fused: bool = False,
-                 input_shape: tuple[int, int, int] = (32, 32, 3)):
+                 input_shape: tuple[int, int, int] = (32, 32, 3),
+                 stem: str = "cifar"):
         super().__init__()
+        if stem not in ("cifar", "imagenet"):
+            raise ValueError(f"stem must be 'cifar' or 'imagenet'; got "
+                             f"{stem!r}")
         if dropout not in (None, "block", "layer"):
             raise ValueError(f"dropout must be None, 'block' or 'layer'; "
                              f"got {dropout!r}")
@@ -231,8 +256,17 @@ class ResNet18(SiteModel):
         make = basic_block if block == "basic" else bottleneck
         expansion = 1 if block == "basic" else 4
         h, _, c = input_shape
-        self.stem = ConvBN(c, stage_planes[0], (3, 3), padding=_P3,
-                           dtype=dtype, quant=quant, quant_input=False)
+        self.imagenet = stem == "imagenet"
+        if self.imagenet:
+            # 7×7/2 padded by 3, then the 3×3/2 pool padded by 1: each
+            # ceil(h / 2)
+            self.stem = ConvBN(c, stage_planes[0], (7, 7), (2, 2),
+                               padding=((3, 3), (3, 3)), dtype=dtype,
+                               quant=quant, quant_input=False)
+            h = _down(_down(h))
+        else:
+            self.stem = ConvBN(c, stage_planes[0], (3, 3), padding=_P3,
+                               dtype=dtype, quant=quant, quant_input=False)
         c = stage_planes[0]
         # the Bayesian sites in JAX call order: each deferred block site
         # (both of its convs: one site fused, one each unfused), each
@@ -279,14 +313,16 @@ class ResNet18(SiteModel):
                 head = _ExitHead(c, h, tuple(stage_planes[s + 1:]),
                                  num_classes,
                                  bayes if dropout_exit else None, dtype,
-                                 fused, quant)
+                                 fused, quant, self.imagenet)
                 self.add_module(exit_name, head)
                 sites.append(head.linear)
             self._stages.append((names, stage_site, exit_name))
-        self.pool = min(4, h)
+        # None: global
+        self.pool = None if self.imagenet else min(4, h)
         final_bayes = bayes if dropout_exit else dataclasses.replace(
             bayes, kind=DropoutKind.NONE)
-        self.linear = BayesDense(c * (h // self.pool) ** 2, num_classes,
+        width = c * (1 if self.imagenet else h // self.pool) ** 2
+        self.linear = BayesDense(width, num_classes,
                                  bayes=final_bayes, fused=fused, quant=quant,
                                  dtype=dtype)
         sites.append(self.linear)
@@ -304,7 +340,12 @@ class ResNet18(SiteModel):
             # a deterministic head broadcasts over the sample axis
             return y.expand(sample_shape + tuple(y.shape[-2:]))
 
-        out = self.stem(x.permute(0, 3, 1, 2))   # NHWC → NCHW
+        with span("resnet.stem", x.is_cuda):
+            if self.imagenet:
+                out = max_pool(self.stem(x.permute(0, 3, 1, 2), act="relu"),
+                               3, 2, 1)
+            else:
+                out = self.stem(x.permute(0, 3, 1, 2))   # NHWC → NCHW
         for names, stage_site, exit_name in self._stages:
             for name, after in names:
                 blk = getattr(self, name)
@@ -314,6 +355,8 @@ class ResNet18(SiteModel):
                     s2 = self.site_seeds(blk.downsample.conv, seeds)
                 out = blk(out, s1, idx, carry, s2)
                 if blk.has_site and sample_shape:
+                    if carry is None:
+                        count("sites.rows", out.shape[0])
                     carry = sample_shape[0]   # the site returned S samples
                 if after is not None:
                     out, carry = self.run_site(getattr(self, after), out,

@@ -19,6 +19,7 @@ from torch import nn
 from bayestpu_torch.nn.bayes import BayesSite
 from bayestpu_torch.nn.fused import BayesDense
 from bayestpu_torch.nn.layers import BatchNorm, Dense, _Conv
+from bayestpu_torch.utils.profiler import count
 
 
 class SiteModel(nn.Module):
@@ -89,8 +90,9 @@ class SiteModel(nn.Module):
         leading axis holds S·N rows when ``carry`` = S (the activations
         carry the sample axis): the site gets them as (S, N, …), never S
         folded into the batch, which would shift the rows of its mask. A
-        site that returns S samples of an x without them starts the carry.
-        Returns the output with S folded into the batch, and the carry."""
+        site that returns S samples of an x without them starts the carry
+        (and adds its S·N rows to the counter ``sites.rows``). Returns the
+        output with S folded into the batch, and the carry."""
         y_in = y.unflatten(0, (carry, -1)) if carry else y
         kw = dict(seeds=self.site_seeds(site, seeds),
                   sample_idx=idx)
@@ -98,6 +100,8 @@ class SiteModel(nn.Module):
             kw["carries_samples"] = carry is not None
         out = site(y_in, **kw)
         if out.dim() > y_in.dim():
+            if carry is None:
+                count("sites.rows", out.shape[0] * out.shape[1])
             carry = out.shape[0]
         elif carry is None:
             return out, None

@@ -88,6 +88,7 @@ from bayestpu_torch.nn.layers import (BatchNorm, ConvBN, Dense, QuantAct,
 from bayestpu_torch.nn.multiexit import ExitOutputs, stack_exits
 from bayestpu_torch.nn.zoo.registry import register_model
 from bayestpu_torch.nn.zoo.sites import SiteModel, flatten_nhwc
+from bayestpu_torch.utils.profiler import count
 
 CFGS: dict[str, list] = {
     "vgg11": [64, "M", 128, "M", 256, 256, "M", 512, 512, "M", 512, 512, "M"],
@@ -313,6 +314,8 @@ class VGG(SiteModel):
             out = block(out, self.site_seeds(block.conv_site, seeds),
                         idx, carry)
             if block.has_site and sample_shape:
+                if carry is None:
+                    count("sites.rows", out.shape[0])
                 carry = sample_shape[0]   # the site returned S samples
             if site_name is not None:
                 if out.dtype == torch.int8:

@@ -351,6 +351,16 @@ RESNET_P3 = ((1, 1), (1, 1))
 # with none
 VGG_CONVS = {"3x3": (3, "SAME", "relu")}
 RESNET_CONVS = {"3x3": (3, RESNET_P3, "relu"), "1x1": (1, "SAME", None)}
+# resnet50's block sites at ImageNet shapes (``stem="imagenet"``), as the
+# bf16 model launches them at batch 128: (H = W of the input, C, F, stride,
+# activation, whether x carries the sample axis). The first block of
+# stages 2-4: its 1x1 convbn1 (stride 1, relu) and its 1x1 downsample
+# (stride 2, no activation) read one masked input; stage 2's is the
+# samples launch, stages 3 and 4 take an x that carries S (_xs)
+RESNET50_SITE_CONVS = [
+    (56, 256, 128, 1, "relu", False), (56, 256, 512, 2, None, False),
+    (28, 512, 256, 1, "relu", True), (28, 512, 1024, 2, None, True),
+    (14, 1024, 512, 1, "relu", True), (14, 1024, 2048, 2, None, True)]
 # every geometry at which the int8 models' deterministic convs run
 # conv_int8_fused on the card, at batch 128: (H = W, C, F, kernel, stride,
 # padding). resnet18_me's blocks (3x3 at stride 1 and 2, the 1x1 stride-2
@@ -2106,7 +2116,9 @@ def phase_conv_kernels() -> dict:
     against the plain versions, then the times; then the same checks at
     resnet18's three deferred sites (both convs, batch 128), the readout
     of their shared mask, ``conv_int8_fused`` at the int8 models' conv
-    geometries (``_int8_model_convs``), the MC launches of resnet18's
+    geometries (``_int8_model_convs``), the bf16 MC launches of resnet50's
+    six ImageNet block-site convs (``_resnet50_site_convs``), the MC
+    launches of resnet18's
     ``dropout="layer"`` route at batch LENET_SMALL
     (``_resnet_small_checks``), and the times of the
     launches its block-site spatial predict makes there; row 10's f32
@@ -2133,6 +2145,7 @@ def phase_conv_kernels() -> dict:
                          (BATCH, hw, hw, c), k, f, padding, 2, gen, summary)
     _resnet_readout(gen)
     _int8_model_convs(gen)
+    _resnet50_site_convs(gen)
     _resnet_small_checks(gen)
     # as the block-site resnet18's spatial predict launches them
     _conv_times(gen, None, RESNET_SITES, RESNET_CONVS, 2, "resnet_site",
@@ -2184,6 +2197,50 @@ def _int8_model_convs(gen) -> None:
                       f"bit-equal to its plain version")
                 line[f"{out}_out_bit_equal"] = same
             emit(line)
+
+
+def _resnet50_site_convs(gen) -> None:
+    """``dropout_conv_samples`` and ``dropout_conv_xs`` in bf16 at the six
+    RESNET50_SITE_CONVS geometries, batch BATCH, CONV_S samples, with the
+    served model's epilogue (the folded BatchNorm's (F,) bias, relu on
+    convbn1, a bf16 store) and with an f32 store, against the plain
+    versions on the same card inputs (BF16_OUT_RTOL and CONV_RTOL), and
+    sample s bit-equal to the single launch on seeds[s] (and x[s])."""
+    import torch
+    from bayestpu_torch.kernels import masked_conv as mc
+    bf16 = torch.bfloat16
+    seeds = _inputs(dict(M=1, K=1, N=1, S=CONV_S), torch.float32, gen)[2]
+    for hw, c, f, stride, act, carries in RESNET50_SITE_CONVS:
+        xshape = (BATCH, hw, hw, c)
+        x, w, aff, _, _ = _conv_data(xshape, 1, f, bf16, gen)
+        if carries:
+            x = _x5(xshape, bf16, gen)
+        xs = list(x) if carries else [x] * CONV_S
+        name = "dropout_conv_xs" if carries else "dropout_conv_samples"
+        where = f"resnet50_{hw}x{hw}x{c}_to_{f}_s{stride}"
+        line = {"phase": "conv", "kernel": name, "shape": where, "N": BATCH,
+                "H": hw, "C": c, "F": f, "stride": stride, "act": act,
+                "samples": CONV_S}
+        same = True
+        for out, rtol in ((bf16, BF16_OUT_RTOL), (None, CONV_RTOL)):
+            epi = dict(bias=aff[1], act=act, out_dtype=out, stride=stride)
+            got = mc.dropout_conv_inference(x, w, seeds, RATE, "SAME", **epi)
+            want = mc.stack_samples([mc.dropout_conv_plain(
+                xs[s], w, seeds[s], RATE, "SAME", row0=0, **epi)
+                for s in range(CONV_S)])
+            err = (got.float() - want.float()).abs().max().item()
+            tol = rtol * max(1.0, want.float().abs().max().item())
+            tag = "bf16" if out is not None else "f32"
+            check(got.dtype == (out or torch.float32) and err <= tol,
+                  f"{name} {where} {tag} out: {err} > {tol}")
+            line[f"{tag}_out_err"] = err
+            same &= all(torch.equal(got[s], mc.dropout_conv_inference(
+                xs[s], w, seeds[s].contiguous(), RATE, "SAME", **epi))
+                for s in range(CONV_S))
+        check(same, f"{name} {where}: a sample differs from its single "
+              "launch")
+        line["samples_equal_single_bitwise"] = same
+        emit(line)
 
 
 def _conv_f32_route(gen, label: str, xshape, k: int, f: int, padding,

@@ -218,6 +218,8 @@ READERS = {
                                  "device"),
     "quant_inputs_ms.predict": ("engine.predict", "quant.inputs", "device"),
     "quant_im2col_ms.predict": ("engine.predict", "quant.im2col", "device"),
+    "stem_ms.predict": ("engine.predict", "resnet.stem", "device"),
+    "site_convs_ms.predict": ("engine.predict", "sites.conv", "device"),
     "train_forward_ms.train": ("train.step", "train.forward", "device"),
     "train_backward_ms.train": ("train.step", "train.backward", "device"),
     "train_update_ms.train": ("train.step", "train.update", "device"),
