@@ -2,8 +2,10 @@
 // interface.
 //
 // Replaces the two Pallas TPU kernels of bayestpu/kernels/masked_conv.py
-// with one routine, conv_mma_kernel<TX, TS, Mask> (x of type TX, staged and
-// multiplied as TS), an implicit GEMM on the tensor cores:
+// with two routines: conv_mma_kernel_1x1<Mask> for a bf16 conv with a 1x1
+// window (below), and conv_mma_kernel<TX, TS, Mask> (x of type TX, staged
+// and multiplied as TS), an implicit GEMM on the tensor cores, for every
+// other conv:
 //   <T, T, HashMask|NoMask>      <- _masked_conv_kernel (:371-417),
 //   <TX, float, HashMask|NoMask>    launched by _launch_masked (:473-510):
 //        dropout_conv, dropout_conv_samples, dropout_conv_inference (x
@@ -101,12 +103,45 @@
 // A block's patch holds at most MAX_PATCH_ROWS positions; a window and
 // stride whose 8 x 8 tile needs more (7 x 7 at stride 2: 21 x 21) take a
 // smaller tile of the same routine (make_mma_geom).
+//
+// The 1x1 routine (conv_mma_kernel_1x1). launch_mma sends it an MC conv
+// (HashMask) of bf16 x and w with a 1x1 window, no padding, stride 1 or 2
+// (at stride 2 H even and at most 64 output columns), C a multiple of 8 and
+// at most 1,024, and x 16-byte aligned (takes_1x1); the shape and the types
+// decide, never S or the launch kind, so every launch kind of one shape runs
+// one tile and one K order. A mask-free bf16 conv (conv_fused, NoMask) keeps
+// the implicit GEMM: no model path runs one at 1x1. Such a conv is a GEMM (M
+// = output pixels, K = C, N = F) whose output row reads one input pixel, (n,
+// oh·st, ow·st): no halo at stride 2. Where the implicit GEMM re-stages and
+// re-hashes its pixels' input for every 128-channel tile of F (and its 15 x
+// 15 patches at stride 2 hold 3.5x the pixels read), this routine masks each
+// element it reads once a sample, whatever F is: an item of 64 output pixels
+// (at stride 2, R = 64 / Wo whole output rows) of one sample keeps its whole
+// K, masked, in shared memory (A, up to 128 KiB) while the F tiles walk over
+// it. Persistent blocks (one an SM, clusters of 4) split the work by warp
+// role: a producer warp streams the weights' 64-channel k chunks through a
+// ring of up to 8 stages by TMA, each load multicast to the 4 blocks of a
+// cluster (a weight byte leaves L2 once for 4 items); two stager warpgroups
+// fetch each item's A by TMA (128-byte swizzled, as wgmma reads it) into one
+// of up to 3 buffers, one item ahead, and mask it in place (the factored
+// hash of prng.cuh, 13 integer operations an element); two consumer
+// warpgroups run wgmma m64n64k16 from shared memory, 64 channels of F each,
+// with the same two-level sum (a 64-channel chunk from zero on the tensor
+// core, then added to the f32 total), and the epilogue above. The S items of
+// one pixel tile are neighbours in the schedule, so a shared x is read from
+// memory about once. What bounds it at resnet50's six block-site convs
+// (batch 128, S = 10, 263 GFLOP each, 0.27 ms at the bf16 peak; 1.95 ms for
+// the six by bytes, the S bf16 outputs): the integer issue of the hash, 2.25
+// G evaluations, ~1.3 ms at stage 2's convbn1 alone, and the tensor pipe
+// drained after each chunk, where the two-level sum reads the partial.
 #include <cstddef>
 #include <cstdint>
 #include <type_traits>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cudaTypedefs.h>
 
 #include "prng.cuh"
 
@@ -222,6 +257,10 @@ struct HashMask {
   uint32_t stream;
   __device__ __forceinline__ void begin(int s) {
     stream = bayestpu::seed_stream(seeds[2 * s], seeds[2 * s + 1]);
+  }
+  // the row's key of the factored hash (prng.cuh), for the 1x1 routine
+  __device__ __forceinline__ uint32_t row_key(uint32_t row) const {
+    return bayestpu::row_key(bayestpu::row_term(row0 + row, stream));
   }
   __device__ __forceinline__ V apply(uint32_t row, int c, V v) const {
     const uint32_t bits =
@@ -805,6 +844,536 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
   }
 }
 
+// ------------------------------------------------- the 1x1 routine (wgmma)
+
+// (The file's header describes the routine.) A, the masked input of an
+// item, is K-major: 128-byte rows of 64 channels, one 8 KiB chunk of 64
+// rows a k chunk, 128-byte swizzled; a ring stage is the same for 128
+// output channels of the weights. The ring runs on across the F tiles and
+// the items, so a tile's epilogue overlaps the next tile's loads.
+constexpr int PW_CONSUMERS = 256;            // two warpgroups
+constexpr int PW_STAGERS = 256;              // two warpgroups
+constexpr int PW_PRODUCER = PW_CONSUMERS + PW_STAGERS;   // its first thread
+constexpr int PW_THREADS = PW_PRODUCER + 32;  // and the producer warp
+constexpr int PW_CLUSTER = 4;                // blocks sharing a weight load
+constexpr int PW_BM = 64;                    // output pixels of an item
+constexpr int PW_BN = 128;                   // output channels of an F tile
+constexpr int PW_KC = 64;                    // channels of a k chunk
+constexpr int PW_CHUNK = PW_BM * PW_KC * 2;  // bytes of A a chunk: 8 KiB
+constexpr int PW_STAGE = PW_BN * PW_KC * 2;  // bytes of a ring stage: 16 KiB
+constexpr int PW_SLICE = PW_BN / PW_CLUSTER;  // rows a block loads a stage
+constexpr int PW_MAX_KP = 1024;              // A at most 128 KiB
+constexpr int PW_MAX_SMEM = 227 * 1024;      // a block's, at most
+constexpr int PW_MAX_STAGES = 8;             // ring stages, at most
+constexpr int PW_MAX_NBUF = 3;               // A buffers, at most
+constexpr uint32_t NO_PIXEL = 0xFFFFFFFFu;
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the stagers' own barrier (named barrier 1)
+__device__ __forceinline__ void stagers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(PW_STAGERS) : "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// arrive on the barrier and expect `bytes` of TMA writes in this phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// if `pred`, arrive on the barrier at the same offset in block `cta` of the
+// cluster (predicated inside, so no branch sits between wgmma operations)
+__device__ __forceinline__ void mbar_arrive_at(uint32_t bar, uint32_t cta,
+                                               bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .b32 ra;\n"
+      "setp.ne.b32 p, %2, 0;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "@p mbarrier.arrive.shared::cluster.b64 _, [ra];\n"
+      "}\n" ::"r"(bar),
+      "r"(cta), "r"(static_cast<uint32_t>(pred))
+      : "memory");
+}
+
+// wait for the phase of the given parity to complete (the loop inside, so
+// no branch sits between wgmma operations)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// rows r0 .. r0 + PW_SLICE - 1, channels c0 .. c0 + 63 of the (F, Cp)
+// weights to shared address `dst` of every block of the cluster, each
+// block's barrier `bar` counting the bytes (zeros past F and Cp)
+__device__ __forceinline__ void tma_multicast(uint32_t dst,
+                                              const CUtensorMap* map,
+                                              uint32_t bar, int c0, int r0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(bar),
+      "h"(static_cast<uint16_t>((1u << PW_CLUSTER) - 1))
+      : "memory");
+}
+
+// a box of x's tensor map at coordinates c (innermost first) to shared
+// address `dst`, the barrier `bar` counting its bytes (zeros outside x)
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int rank,
+                                         const int (&c)[3]) {
+  const uint64_t m = reinterpret_cast<uint64_t>(map);
+  if (rank == 2) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+        "l"(m), "r"(c[0]), "r"(c[1]), "r"(bar)
+        : "memory");
+  } else {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+        "l"(m), "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(bar)
+        : "memory");
+  }
+}
+
+// the 16-byte unit j of row r of a 128-byte-swizzled tile whose base is
+// 1024-byte aligned: bits 4-6 of the offset xor bits 7-9 (TMA's
+// CU_TENSOR_MAP_SWIZZLE_128B)
+__device__ __forceinline__ int sw128(int r, int j) {
+  return r * 128 + ((j ^ (r & 7)) << 4);
+}
+
+// the wgmma descriptor of a K-major tile at shared address `addr`: 128-byte
+// rows, 128-byte swizzle, 8-row groups 1024 bytes apart; a k step of 16
+// channels further on is addr + 32
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accesses of d across the asynchronous
+// wgmma that writes it
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A (64 x 16) · B (64 x 16)^T, bf16 -> f32; scale_d 0: d = A · B^T.
+// Element (row, col) of d: row = 16·(warp % 4) + lane/4 (+8 for the odd
+// pairs), col = 8·(i / 4) + 2·(lane % 4) + i % 2, for d[i].
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The 32 epilogue values y of a consumer thread's part of an F tile, at out:
+// y[4·nb + 2·half + k] is row rlo + 8·half (rows from element `base` on, F
+// apart; none at or past nrows), column fw + 8·nb + k. Where the thread's
+// columns are all in F and F is even, pairs in one store each; at the
+// tile's edge element by element.
+__device__ __forceinline__ void store_tile_1x1(const Epi& e,
+                                               const float (&y)[32],
+                                               void* out, size_t base,
+                                               long long nrows, int rlo,
+                                               int fw, int F) {
+  if (F % 2 == 0 && fw + 57 < F) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = rlo + 8 * half;
+      if (r >= nrows) continue;
+      const size_t o = base + static_cast<size_t>(r) * F + fw;
+      if (e.out_kind == OUT_BF16) {
+        auto* d = static_cast<__nv_bfloat16*>(out) + o;
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb)
+          *reinterpret_cast<__nv_bfloat162*>(d + 8 * nb) =
+              __floats2bfloat162_rn(y[4 * nb + 2 * half],
+                                    y[4 * nb + 2 * half + 1]);
+      } else if (e.out_kind == OUT_F32) {
+        auto* d = static_cast<float*>(out) + o;
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb)
+          *reinterpret_cast<float2*>(d + 8 * nb) =
+              make_float2(y[4 * nb + 2 * half], y[4 * nb + 2 * half + 1]);
+      } else {
+        auto* d = static_cast<int8_t*>(out) + o;
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb)
+          *reinterpret_cast<char2*>(d + 8 * nb) =
+              make_char2(int8_of(e, y[4 * nb + 2 * half]),
+                         int8_of(e, y[4 * nb + 2 * half + 1]));
+      }
+    }
+    return;
+  }
+  float ys[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) ys[i] = y[i];
+#pragma unroll 1
+  for (int i = 0; i < 32; ++i) {
+    const int r = rlo + 8 * ((i >> 1) & 1), f = fw + 8 * (i >> 2) + (i & 1);
+    if (r < nrows && f < F)
+      store_y(e, ys[i], base + static_cast<size_t>(r) * F + f, out);
+  }
+}
+
+// A stager's vectors of A: 16-byte unit cv of row r, for r = sid / kv +
+// (PW_STAGERS / kv)·i and cv = sid % kv carried along (kv vectors a row);
+// with kv dividing PW_STAGERS, cv stays the thread's own.
+struct VecWalk {
+  int r, cv, kv;
+  __device__ __forceinline__ VecWalk(int sid, int kv_)
+      : r(sid / kv_), cv(sid % kv_), kv(kv_) {}
+  __device__ __forceinline__ bool more() const { return r < PW_BM; }
+  __device__ __forceinline__ void next() {
+    r += PW_STAGERS / kv;
+    cv += PW_STAGERS % kv;
+    if (cv >= kv) {
+      cv -= kv;
+      ++r;
+    }
+  }
+};
+
+// A persistent block's work: items t = blockIdx.x + j·gridDim.x, j < J, an
+// item one sample s = t % S of pixel tile t / S (64 output pixels; at
+// stride 2, R output rows), so the S items of one tile run side by side
+// and a shared x is read from memory about once. An item past the
+// tiles·S real ones has no rows: its block masks and stores nothing but
+// keeps its part in the cluster's weight loads.
+//
+// The block's warps split the work: two consumer warpgroups run the
+// products and the epilogue; two stager warpgroups stage each item's A
+// into one of `nbuf` buffers (one thread fetches it by TMA an item ahead;
+// each thread then masks its vectors of it in place); one producer warp
+// keeps the weights' ring full.
+template <typename Mask>
+__global__ void __cluster_dims__(PW_CLUSTER, 1, 1)
+    __launch_bounds__(PW_THREADS, 1)
+    conv_mma_kernel_1x1(const __grid_constant__ CUtensorMap xmap,
+                        const __grid_constant__ CUtensorMap wmap, Mask mask,
+                        void* __restrict__ out, Geom g, Epi e, int R,
+                        int stages, int nbuf, int J) {
+  using B = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the swizzled tiles start at a 1024-byte boundary
+  unsigned char* sm =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const int nkc = (g.C + PW_KC - 1) / PW_KC;   // k chunks
+  const int abytes = nkc * PW_CHUNK;
+  unsigned char* A = sm;                       // nbuf x abytes
+  unsigned char* ring = A + nbuf * abytes;     // stages x PW_STAGE
+  // each buffer's rows: input pixel (NO_PIXEL: none) and hash key
+  uint2* rows = reinterpret_cast<uint2*>(ring + stages * PW_STAGE);
+  // barriers: a ring stage's full (its TMA bytes are in) and empty (the
+  // cluster's consumers are done with it); an A buffer's full (staged) and
+  // empty (the consumers are done with it)
+  const uint32_t full0 = smem_addr(rows + PW_MAX_NBUF * PW_BM);
+  const uint32_t empty0 = full0 + 8 * stages;
+  const uint32_t afull0 = empty0 + 8 * stages;
+  const uint32_t aempty0 = afull0 + 8 * PW_MAX_NBUF;
+  const uint32_t araw0 = aempty0 + 8 * PW_MAX_NBUF;   // its TMA bytes in
+
+  const int tid = threadIdx.x;
+  const long long M = static_cast<long long>(g.N) * g.Ho * g.Wo;
+  // items a sample: 64 output pixels each at stride 1; at stride 2, R
+  // output rows (R·Wo pixels) of the N·Ho a sample, across images
+  const long long orows = static_cast<long long>(g.N) * g.Ho;
+  const long long items =
+      (R > 0 ? (orows + R - 1) / R : (M + PW_BM - 1) / PW_BM) * g.S;
+  const int nft = (g.F + PW_BN - 1) / PW_BN;
+
+  if (tid == PW_PRODUCER) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(full0 + 8 * i, 1);
+      mbar_init(empty0 + 8 * i, 2 * PW_CLUSTER);   // 2 warpgroups a block
+    }
+    for (int i = 0; i < nbuf; ++i) {
+      mbar_init(afull0 + 8 * i, PW_STAGERS);
+      mbar_init(aempty0 + 8 * i, 2);
+      mbar_init(araw0 + 8 * i, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();   // the barriers of every block
+
+  // item j's sample, first output pixel m0 and pixels (none past the
+  // end), and the coordinates of its A box in x's tensor map (channel 0)
+  auto item = [&](int j, int* s, long long* m0, int* nrows, int (&c)[3]) {
+    const long long t = blockIdx.x + static_cast<long long>(j) * gridDim.x;
+    *s = static_cast<int>(t % g.S);
+    const long long k = t / g.S;
+    c[0] = c[1] = c[2] = 0;
+    if (t >= items) {
+      *m0 = M;
+      *nrows = 0;
+    } else if (R == 0) {
+      *m0 = k * PW_BM;
+      *nrows = static_cast<int>(M - *m0 < PW_BM ? M - *m0 : PW_BM);
+      c[1] = static_cast<int>((g.xstride ? *s * M : 0) + *m0);
+    } else {
+      // output row q of the sample reads input row 2q of its N·H (H even)
+      const long long q0 = k * R;
+      *m0 = q0 * g.Wo;
+      *nrows = static_cast<int>(orows - q0 < R ? orows - q0 : R) * g.Wo;
+      c[2] = static_cast<int>(
+          (g.xstride ? static_cast<long long>(*s) * g.N * g.H : 0) + 2 * q0);
+    }
+  };
+
+  if (tid >= PW_PRODUCER) {
+    // the producer: one lane keeps the ring full, `stages` chunks ahead of
+    // the cluster's slowest consumer, the same units for every item
+    if (tid == PW_PRODUCER) {
+      const int r0 = static_cast<int>(cluster_rank()) * PW_SLICE;
+      const uint32_t ring0 = smem_addr(ring);
+      int st = 0, ph = 0;
+      bool used = false;   // the ring has gone round once
+      for (int j = 0; j < J; ++j) {
+        for (int ft = 0; ft < nft; ++ft) {
+          for (int kc = 0; kc < nkc; ++kc) {
+            if (used) mbar_wait(empty0 + 8 * st, ph ^ 1);
+            mbar_expect_tx(full0 + 8 * st, PW_STAGE);
+            tma_multicast(ring0 + st * PW_STAGE + r0 * 128, &wmap,
+                          full0 + 8 * st, kc * PW_KC, ft * PW_BN + r0);
+            if (++st == stages) {
+              st = 0;
+              ph ^= 1;
+              used = true;
+            }
+          }
+        }
+      }
+    }
+  } else if (tid >= PW_CONSUMERS) {
+    // the stagers: item j into A buffer j % nbuf, once the consumers are
+    // done with the item before in it; item j + 1's TMA is in flight while
+    // item j is masked
+    const int sid = tid - PW_CONSUMERS;
+    const int kv = nkc * (PW_KC / 8);          // 16-byte vectors of a row
+    // item j's A, raw, into buffer j % nbuf by TMA, once the consumers are
+    // done with the buffer (one thread)
+    const int abox = (R > 0 ? R * g.Wo : PW_BM) * 128;   // bytes a chunk
+    auto fetch = [&](int j) {
+      const int b = j % nbuf;
+      if (j >= nbuf) mbar_wait(aempty0 + 8 * b, (j / nbuf - 1) & 1);
+      int s, nrows;
+      long long m0;
+      int xc[3];
+      item(j, &s, &m0, &nrows, xc);
+      mbar_expect_tx(araw0 + 8 * b, abox * nkc);
+      for (int kc = 0; kc < nkc; ++kc) {
+        xc[0] = kc * PW_KC;
+        tma_load(smem_addr(A + b * abytes + kc * PW_CHUNK), &xmap,
+                 araw0 + 8 * b, R > 0 ? 3 : 2, xc);
+      }
+    };
+    if (sid == 0) fetch(0);
+    uint32_t key1[8], key2[8];
+    int keyed_cv = -1;
+    for (int j = 0; j < J; ++j) {
+      const int b = j % nbuf;
+      // the item's row table: input pixel and hash key of each output
+      int s, nrows;
+      long long m0;
+      int xc[3];
+      item(j, &s, &m0, &nrows, xc);
+      uint2* rt = rows + b * PW_BM;
+      stagers_sync();   // every stager is done with the slot's last rows
+      if (sid < PW_BM) {
+        uint2 row = make_uint2(NO_PIXEL, 0u);
+        if (sid < nrows) {   // then m < 2^32: N·H·W is
+          const uint32_t m = static_cast<uint32_t>(m0 + sid);
+          const uint32_t hw = static_cast<uint32_t>(g.Ho) * g.Wo;
+          const uint32_t n = m / hw, q = m % hw;
+          const uint32_t Wo = static_cast<uint32_t>(g.Wo);
+          row.x = (n * g.H + (q / Wo) * g.st) * g.W + (q % Wo) * g.st;
+          mask.begin(s);
+          row.y = mask.row_key(row.x);
+        }
+        rt[sid] = row;
+      }
+      stagers_sync();
+      mbar_wait(araw0 + 8 * b, (j / nbuf) & 1);
+      // masked in place, each element once: kept values times the scale,
+      // rounded to bf16, two to a word
+      unsigned char* Ab = A + b * abytes;
+#pragma unroll 1
+      for (VecWalk v(sid, kv); v.more(); v.next()) {
+        const int r = v.r, cv = v.cv;
+        const uint2 row = rt[r];
+        const int c = cv * 8;
+        if (row.x == NO_PIXEL || c >= g.C) continue;   // zeros stay
+        if (cv != keyed_cv) {
+          keyed_cv = cv;
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            key1[k] = bayestpu::col_key1(static_cast<uint32_t>(c + k));
+            key2[k] = bayestpu::col_key2(static_cast<uint32_t>(c + k));
+          }
+        }
+        uint4* p = reinterpret_cast<uint4*>(Ab + (cv >> 3) * PW_CHUNK +
+                                            sw128(r, cv & 7));
+        uint4 w4 = *p;
+        uint32_t* w = reinterpret_cast<uint32_t*>(&w4);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const bool lo = bayestpu::keyed_bits(row.y, key1[2 * k],
+                                               key2[2 * k]) < mask.thresh;
+          const bool hi = bayestpu::keyed_bits(row.y, key1[2 * k + 1],
+                                               key2[2 * k + 1]) <
+                          mask.thresh;
+          const __nv_bfloat162 sc2 = __floats2bfloat162_rn(
+              __fmul_rn(__uint_as_float(w[k] << 16), mask.scale),
+              __fmul_rn(__uint_as_float(w[k] & 0xFFFF0000u), mask.scale));
+          w[k] = *reinterpret_cast<const uint32_t*>(&sc2) &
+                 ((lo ? 0x0000FFFFu : 0u) | (hi ? 0xFFFF0000u : 0u));
+        }
+        *p = w4;
+      }
+      fence_proxy_async();   // generic-proxy writes, for wgmma to read
+      mbar_arrive(afull0 + 8 * b);
+      if (sid == 0 && j + 1 < J) fetch(j + 1);
+    }
+  } else {
+    // the consumers: the F tiles over A; per k chunk, the tensor core sums
+    // 64 channels from zero (part), then that partial is added to the f32
+    // total (tot), so a sum over K rounds like an f32 sum
+    const int lane = tid & 31, warp = tid >> 5, wg = warp >> 2;
+    const uint32_t b0 = smem_addr(ring) + wg * (PW_BN / 2) * 128;
+    const int rlo = (warp & 3) * 16 + (lane >> 2);   // rows rlo, rlo + 8
+    float part[32], tot[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) part[i] = tot[i] = 0.f;
+    int st = 0, ph = 0;                  // the ring's stage and phase
+    for (int j = 0; j < J; ++j) {
+      const int b = j % nbuf;
+      mbar_wait(afull0 + 8 * b, (j / nbuf) & 1);
+      int s, nrows;
+      long long m0;
+      int xc[3];
+      item(j, &s, &m0, &nrows, xc);
+      const uint32_t a0 = smem_addr(A + b * abytes);
+      for (int ft = 0; ft < nft; ++ft) {
+        for (int kc = 0; kc < nkc; ++kc) {
+          mbar_wait(full0 + 8 * st, ph);
+          const uint32_t as = a0 + kc * PW_CHUNK;
+          const uint32_t bs = b0 + st * PW_STAGE;
+          fence_regs(part);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < PW_KC / 16; ++kk)
+            wgmma_m64n64k16(part, sw128_desc(as + kk * 32),
+                            sw128_desc(bs + kk * 32), kk);
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(part);
+          // the warpgroup is done with the stage: tell every producer
+          mbar_arrive_at(empty0 + 8 * st,
+                         static_cast<uint32_t>(tid & (PW_CLUSTER - 1)),
+                         (tid & 127) < PW_CLUSTER);
+          if (++st == stages) {
+            st = 0;
+            ph ^= 1;
+          }
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            tot[i] = kc == 0 ? part[i] : __fadd_rn(tot[i], part[i]);
+        }
+        // the warpgroup is done with A after the item's last products
+        if (ft + 1 == nft && (tid & 127) == 0) mbar_arrive(aempty0 + 8 * b);
+        // the epilogue of F tile ft, as conv_mma_kernel's
+        const int fw = ft * PW_BN + wg * (PW_BN / 2) + (lane & 3) * 2;
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb) {
+          const int f = fw + nb * 8;
+          float sc[2] = {1.f, 1.f}, bi[2] = {0.f, 0.f};
+#pragma unroll
+          for (int k = 0; k < 2; ++k)
+            if (f + k < g.F) affine_of<float>(e, g.F, f + k, &sc[k], &bi[k]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            tot[nb * 4 + i] =
+                epi_y(e, tot[nb * 4 + i], sc[i & 1], bi[i & 1]);
+        }
+        store_tile_1x1(e, tot, out, (static_cast<size_t>(s) * M + m0) * g.F,
+                       nrows, rlo, fw, g.F);
+      }
+    }
+  }
+  __syncwarp();
+  cluster_sync();   // no block leaves while a peer may still signal it
+}
+
 // ---------------------------------------------------------------- launch
 
 // dims: N, H, W, C, F, KH, KW, stride, pad_top, pad_left, Ho, Wo, S, and
@@ -871,21 +1440,193 @@ int make_mma_geom(const int* dims, int x_carries, size_t extra, Geom* g,
 }
 
 template <typename K>
-int allow_smem(K kern, bool* set) {
+int allow_smem(K kern, bool* set, int limit = MAX_SMEM) {
   if (*set) return 0;                  // once per instantiation
   const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
   if (err != cudaSuccess) return static_cast<int>(err);
   *set = true;
   return 0;
 }
 
+// The 1x1 routine's shapes: a 1x1 window with no padding (every output
+// reads an input pixel), C a multiple of 8 (x's TMA rows) and of at most
+// PW_MAX_KP channels (its A tile), x 16-byte aligned and under 2^31 pixels
+// (TMA coordinates are int32), and at stride 2 H even (x's TMA map) and at
+// most PW_BM output columns (an item's row).
+bool takes_1x1(const Geom& g, const void* x) {
+  return g.KH == 1 && g.KW == 1 && g.pt == 0 && g.pl == 0 &&
+         (g.Ho - 1) * g.st < g.H && (g.Wo - 1) * g.st < g.W &&
+         (g.C + PW_KC - 1) / PW_KC * PW_KC <= PW_MAX_KP && g.C % 8 == 0 &&
+         reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         (g.st == 1 || (g.Wo <= PW_BM && g.H % 2 == 0)) &&
+         static_cast<long long>(g.N) * g.H * g.W * (g.xstride ? g.S : 1) <
+             (1LL << 31);
+}
+
+// The TMA map of the weights wk (1, F, Cp) bf16: boxes of 64 channels by
+// PW_SLICE rows, 128-byte swizzled, zeros past F and Cp. The encoder,
+// cuTensorMapEncodeTiled, is found through the CUDA runtime (no link to
+// libcuda); a host call, so a captured launch replays the map it was given.
+int tensor_map_encoder(PFN_cuTensorMapEncodeTiled_v12000* out) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (fn == nullptr || q != cudaDriverEntryPointSuccess)
+      return static_cast<int>(cudaErrorNotSupported);
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  *out = encode;
+  return 0;
+}
+
+int weight_map(const void* wk, int F, int Cp, CUtensorMap* map) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  const int err = tensor_map_encoder(&encode);
+  if (err != 0) return err;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(Cp),
+                              static_cast<cuuint64_t>(F)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(Cp) * 2};
+  const cuuint32_t box[2] = {PW_KC, PW_SLICE};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(wk), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The TMA map of x (N, H, W, C) bf16, or (S, N, H, W, C) where it carries
+// the samples: at stride 1 the (pixels, C) matrix, boxes of 64 channels by
+// 64 pixels; at stride 2 (channel, column, row of the N·H or S·N·H), boxes
+// of 64 channels by Wo columns by R rows, every other column and row (H is
+// even, so the rows a sample reads are the even ones, across its images).
+// 128-byte swizzled, zeros past C and x's edges.
+int x_map(const void* x, const Geom& g, int R, CUtensorMap* map) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  const int err = tensor_map_encoder(&encode);
+  if (err != 0) return err;
+  const cuuint64_t imgs = static_cast<cuuint64_t>(g.N) * (g.xstride ? g.S : 1);
+  const cuuint64_t row = static_cast<cuuint64_t>(g.C) * 2;   // bytes
+  CUresult r;
+  if (R == 0) {
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(g.C),
+                                imgs * g.H * g.W};
+    const cuuint64_t strides[1] = {row};
+    const cuuint32_t box[2] = {PW_KC, PW_BM};
+    const cuuint32_t elem[2] = {1, 1};
+    r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x),
+               dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  } else {
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(g.C),
+                                static_cast<cuuint64_t>(g.W), imgs * g.H};
+    const cuuint64_t strides[2] = {row, row * g.W};
+    const cuuint32_t box[3] = {PW_KC, static_cast<cuuint32_t>(g.Wo * g.st),
+                               static_cast<cuuint32_t>(R * g.st)};
+    const cuuint32_t elem[3] = {1, static_cast<cuuint32_t>(g.st),
+                                static_cast<cuuint32_t>(g.st)};
+    r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x),
+               dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  }
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// conv_mma_kernel_1x1 on bf16 x and wk (1, F, Cp), Cp = C rounded up to 16:
+// one persistent block an SM, as many clusters as fit at once. Shared
+// memory: the A buffers (C rounded up to 64, 128 bytes a row of 64
+// channels; two where four ring stages still fit beside them, so up to C =
+// 512), the ring (as many stages as fit, up to PW_MAX_STAGES), the row
+// tables and the ring's barriers, plus 1 KiB to align A.
+template <typename Mask>
+int launch_1x1(const void* x, const void* wk, const Mask& mask, void* out,
+               const Geom& g, const Epi& e, void* stream) {
+  const int Cp = (g.C + 15) / 16 * 16;
+  // output rows an item at stride 2 (R·Wo pixels, at most 64); 0: the
+  // items are 64 pixels of the flat (pixels, C) view
+  const int R = g.st == 1 ? 0 : PW_BM / g.Wo;
+  const size_t a_bytes =
+      static_cast<size_t>((g.C + PW_KC - 1) / PW_KC) * PW_CHUNK;
+  const size_t fixed = 1024 + PW_MAX_NBUF * PW_BM * sizeof(uint2) +
+                       3 * PW_MAX_NBUF * sizeof(uint64_t);
+  const size_t per_stage = PW_STAGE + 2 * sizeof(uint64_t);
+  int nbuf = PW_MAX_NBUF;   // the most A buffers beside 4 stages, else 1
+  while (nbuf > 1 && fixed + nbuf * a_bytes + 4 * per_stage > PW_MAX_SMEM)
+    --nbuf;
+  int stages =
+      static_cast<int>((PW_MAX_SMEM - fixed - nbuf * a_bytes) / per_stage);
+  if (stages > PW_MAX_STAGES) stages = PW_MAX_STAGES;
+  if (stages < 2) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = fixed + nbuf * a_bytes + stages * per_stage;
+  CUtensorMap map, xm;
+  int err = weight_map(wk, g.F, Cp, &map);
+  if (err == 0) err = x_map(x, g, R, &xm);
+  if (err != 0) return err;
+  auto* kern = conv_mma_kernel_1x1<Mask>;
+  // the attribute once; the clusters that fit at once for each smem size
+  static bool smem_set = false;
+  static size_t occ_smem = 0;
+  static int occ_clusters = 0;
+  err = allow_smem(kern, &smem_set, PW_MAX_SMEM);
+  if (err != 0) return err;
+  if (occ_smem != smem) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(PW_CLUSTER);
+    cfg.blockDim = dim3(PW_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    int n = 0;
+    const cudaError_t r = cudaOccupancyMaxActiveClusters(
+        &n, reinterpret_cast<const void*>(kern), &cfg);
+    if (r != cudaSuccess) return static_cast<int>(r);
+    if (n < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    occ_smem = smem;
+    occ_clusters = n;
+  }
+  const long long M = static_cast<long long>(g.N) * g.Ho * g.Wo;
+  const long long items =
+      (R > 0 ? (static_cast<long long>(g.N) * g.Ho + R - 1) / R
+             : (M + PW_BM - 1) / PW_BM) *
+      g.S;
+  long long clusters = (items + PW_CLUSTER - 1) / PW_CLUSTER;
+  if (clusters > occ_clusters) clusters = occ_clusters;
+  const long long blocks = clusters * PW_CLUSTER;
+  const long long J = (items + blocks - 1) / blocks;
+  if (J > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  kern<<<static_cast<unsigned>(blocks), PW_THREADS, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+      xm, map, mask, out, g, e, R, stages, nbuf, static_cast<int>(J));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // x of type TX, wk (KH·KW, F, Cp) of the staged type TS with Cp = C
-// rounded up to 32 bytes of TS, zero-padded.
+// rounded up to 32 bytes of TS, zero-padded. An MC conv of bf16 x and w at
+// a shape that takes_1x1 takes runs the 1x1 routine, every other conv the
+// implicit GEMM; the shape and the types decide, never S or the launch
+// kind.
 template <typename TX, typename TS, typename Mask>
 int launch_mma(const void* x, const void* wk, const Mask& mask, void* out,
                const int* dims, int x_carries, const Epi& e, void* stream) {
   Geom g;
+  if constexpr (std::is_same<TS, __nv_bfloat16>::value &&
+                std::is_same<Mask, HashMask<__nv_bfloat16>>::value) {
+    const int rc = read_dims(dims, x_carries, &g);
+    if (rc == 1) return 0;             // nothing to compute
+    if (rc != 0) return rc;
+    if (takes_1x1(g, x)) return launch_1x1(x, wk, mask, out, g, e, stream);
+  }
   size_t smem = 0;
   const int rc = make_mma_geom(
       dims, x_carries, std::is_same<TS, float>::value ? TOTAL_BYTES : 0, &g,

@@ -54,4 +54,36 @@ __host__ __device__ __forceinline__ uint32_t coord_bits(uint32_t grow,
   return row_bits(row_term(grow, stream), gcol);
 }
 
+// coord_bits factored for a kernel that masks many rows of the same
+// columns: keyed_bits(row_key(rterm), col_key1(gcol), col_key2(gcol)) ==
+// row_bits(rterm, gcol). A logical shift distributes over xor, so the first
+// xorshift of mix(rterm ^ gcol) splits into a row's and a column's part; and
+// since (y ^ y >> 16) >> 16 == y >> 16, the last xorshift of the first mix
+// cancels against the first one of the second, leaving that mix's input
+// xored with the column's key2. 13 operations an element, not 20.
+__host__ __device__ __forceinline__ uint32_t row_key(uint32_t rterm) {
+  return rterm ^ (rterm >> 16);
+}
+
+__host__ __device__ __forceinline__ uint32_t col_key1(uint32_t gcol) {
+  return gcol ^ (gcol >> 16);
+}
+
+__host__ __device__ __forceinline__ uint32_t col_key2(uint32_t gcol) {
+  const uint32_t h = gcol * 0x165667B1u;
+  return h ^ (h >> 16);
+}
+
+__host__ __device__ __forceinline__ uint32_t keyed_bits(uint32_t rkey,
+                                                        uint32_t key1,
+                                                        uint32_t key2) {
+  uint32_t x = (rkey ^ key1) * 0x7FEB352Du;
+  x ^= x >> 15;
+  x = (x * 0x846CA68Bu) ^ key2;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  return x ^ (x >> 16);
+}
+
 }  // namespace bayestpu

@@ -72,6 +72,7 @@ import torch
 import torch.nn.functional as F
 
 from bayestpu_torch.core.quant import _round_ap_rnd, int8_conv2d
+from bayestpu_torch.utils.profiler import count
 from bayestpu_torch.kernels.masked_matmul import (
     _check_carried, _check_rate_seeds, bank_index, bank_indices,
     bank_out_scale, dropout_apply, dropout_apply_plain,
@@ -503,6 +504,86 @@ def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
+# conv_mma_kernel_1x1 of masked_conv.cu: its output pixels an item and its
+# largest C; conv_mma_kernel's output channels a block, and the patch rows
+# and output pixels a block stages and computes at most
+POINTWISE_BM = 64
+POINTWISE_MAX_C = 1024
+MMA_BN = 128
+MMA_PATCH_ROWS = 384
+MMA_BM = 64
+# the MC entries, whose kernels hash a mask
+_HASHED = ("masked_conv", "masked_conv_xs", "masked_conv_int8",
+           "masked_conv_int8_xs")
+
+
+def takes_pointwise(entry: str, x: torch.Tensor, w: torch.Tensor, g: Geom,
+                    stride: int, hashed: bool) -> bool:
+    """Whether ``bt_<entry>`` runs the 1x1 routine
+    (``conv_mma_kernel_1x1``, ``takes_1x1`` of masked_conv.cu): an MC
+    launch (``hashed``: a hash mask from seeds; ``conv_fused`` has none),
+    x and w staged in bf16, a 1x1 window with no padding (every output
+    reads an input pixel), C a multiple of 8 and of at most POINTWISE_MAX_C
+    channels rounded up to 64, x 16-byte aligned and under 2^31 pixels
+    (its TMA map), and at stride 2 H even (the map's rows) and at most
+    POINTWISE_BM output columns (an item's row of pixels); every other
+    conv runs ``conv_mma_kernel``."""
+    h, wd, c = x.shape[-2], x.shape[-1], x.shape[-3]
+    return (hashed and staged_dtype(entry, x, w) == torch.bfloat16
+            and x.numel() // c < 2 ** 31
+            and w.shape[2] == w.shape[3] == 1 and g.ph == g.pw == 0
+            and (g.ho - 1) * stride < h and (g.wo - 1) * stride < wd
+            and c % 8 == 0 and -(-c // 64) * 64 <= POINTWISE_MAX_C
+            and x.data_ptr() % 16 == 0
+            and (stride == 1 or (g.wo <= POINTWISE_BM and h % 2 == 0)))
+
+
+def _mma_tile(n: int, kh: int, kw: int, ho: int, wo: int, stride: int
+              ) -> tuple[int, int, int, int]:
+    """``make_mma_geom``'s tile of output rows and columns and the patch it
+    reads: (TH, TW, PH, PW)."""
+    th, tw = min(ho, 8), min(wo, 8)
+    nb = min(MMA_BM // (th * tw), n)
+
+    def patch():
+        return (th - 1) * stride + kh, (tw - 1) * stride + kw
+    ph, pw = patch()
+    while nb * ph * pw > MMA_PATCH_ROWS and nb > 1:
+        nb = (nb + 1) // 2
+    while nb * ph * pw > MMA_PATCH_ROWS and (th > 1 or tw > 1):
+        if th >= tw:
+            th = (th + 1) // 2
+        else:
+            tw = (tw + 1) // 2
+        ph, pw = patch()
+    return th, tw, ph, pw
+
+
+def _inside(size: int, out: int, tile: int, patch: int, stride: int,
+            lo: int) -> int:
+    """Patch positions along one axis, summed over the tiles, that fall
+    inside the input."""
+    return sum(min(i * tile * stride - lo + patch, size)
+               - max(i * tile * stride - lo, 0)
+               for i in range(-(-out // tile)))
+
+
+def mask_hashes(n: int, h: int, w: int, c: int, f: int, kh: int, kw: int,
+                g: Geom, stride: int, samples: int, pointwise: bool) -> int:
+    """The mask evaluations of one MC launch of ``samples`` samples, as its
+    kernel tiles the conv. The 1x1 routine masks each input element it reads
+    once a sample: ``samples·n·Ho·Wo·C``.
+    ``conv_mma_kernel`` masks, in each 128-channel tile of F, every position
+    of its blocks' patches (the halo included) that lies inside the input,
+    each of C channels."""
+    if pointwise:
+        return samples * n * g.ho * g.wo * c
+    th, tw, ph, pw = _mma_tile(n, kh, kw, g.ho, g.wo, stride)
+    return (samples * -(-f // MMA_BN) * n * c
+            * _inside(h, g.ho, th, ph, stride, g.ph)
+            * _inside(w, g.wo, tw, pw, stride, g.pw))
+
+
 def staged_dtype(entry: str, x: torch.Tensor, w: torch.Tensor
                  ) -> torch.dtype:
     """The type ``bt_<entry>`` stages and multiplies x and w in, and reads
@@ -577,6 +658,13 @@ def _launch(entry: str, counter: str, x: torch.Tensor, w: torch.Tensor,
         launch_counts[counter] += 1
         work_counts[counter] += 2 * num_samples * conv_macs(
             n, c, f, h, wd, kh, kw, g, stride)
+        hashed = entry in _HASHED and head[0] is not None
+        pointwise = takes_pointwise(entry, x, w, g, stride, hashed)
+        if pointwise:
+            count("conv.pointwise_launches")
+        if hashed:
+            count("conv.mask_hashes", mask_hashes(
+                n, h, wd, c, f, kh, kw, g, stride, num_samples, pointwise))
     return out.permute(0, 1, 4, 2, 3)
 
 

@@ -400,7 +400,8 @@ MMA_KERNELS = ("conv_mma_kernel", "int8_samples_mma_kernel")
 FMA_KERNELS = ("chain_samples_kernel", "dropout_apply_kernel")
 # every kernel of bayestpu_torch/csrc, as the profiler names it
 PORT_KERNELS = ("dropout_apply_kernel", "chain_samples_kernel",
-                "int8_samples_mma_kernel", "::conv_mma_kernel<")
+                "int8_samples_mma_kernel", "::conv_mma_kernel<",
+                "::conv_mma_kernel_1x1<")
 # ragged geometries: x NHWC, kernel size, F (not a multiple of 8), padding,
 # stride. SAME at stride 2 is asymmetric (16 -> 8 pads (0, 1)).
 CONV_RAGGED = {"same_s2": ((3, 15, 16, 40), 3, 20, "SAME", 2),
@@ -695,6 +696,12 @@ def phase_build() -> None:
     import re
     from bayestpu_torch.kernels import _build
     rep = _build.build_all()
+    # the ptxas report comes only from this build: a library that an earlier
+    # process built (the card tests, a benchmark run) leaves it without one
+    check(rep["built"] == sorted(_build.sources()),
+          f"libraries built before this run, so ptxas reports none for them: "
+          f"{sorted(set(_build.sources()) - set(rep['built']))}; remove "
+          f"{_build.BUILD_DIR} and run chip_smoke.py first")
     regs = {name: [ln.strip() for ln in log.splitlines()
                    if "registers" in ln or "spill" in ln]
             for name, log in rep["ptxas"].items()}
@@ -723,9 +730,14 @@ def phase_build() -> None:
           f"bank conv_mma_kernel instantiations {bank}")
     # row 10's eight (HashMask and NoMask: bf16, int8, and the f32 route
     # with f32 x and with bf16 x), the f32 route's six with the bank's two
-    # (mangled <float, float, ...> and <__nv_bfloat16, float, ...>)
+    # (mangled <float, float, ...> and <__nv_bfloat16, float, ...>); and the
+    # 1x1 routine's one (HashMask), on wgmma (HGMMA)
     mc = {n: d for n, d in report["kernels"].items()
-          if "conv_mma_kernel" in n and "BankMask" not in n}
+          if "conv_mma_kernelI" in n and "BankMask" not in n}
+    pointwise = {n: d for n, d in report["kernels"].items()
+                 if "conv_mma_kernel_1x1" in n}
+    check(len(pointwise) == 1, f"conv_mma_kernel_1x1 instantiations "
+          f"{sorted(pointwise)}")
     f32_route = sorted(n for n in report["kernels"] if re.search(
         r"conv_mma_kernelI(?:f|[0-9]+__nv_bfloat16)f", n))
     emit({"phase": "conv_f32_route", "kernels": {
@@ -747,6 +759,9 @@ def phase_build() -> None:
         kinds = sorted(kind(d) for d in mc.values())
         check(kinds == ["HMMA"] * 6 + ["IMMA"] * 2,
               f"MC conv_mma_kernel tensor-core instructions {kinds}")
+        check(all(d["sass_tensor_core_ops"]["HGMMA"] > 0
+                  for d in pointwise.values()),
+              f"conv_mma_kernel_1x1 without HGMMA: {pointwise}")
 
 
 def _inputs(shape: dict, dtype, gen):
@@ -2146,6 +2161,8 @@ def phase_conv_kernels() -> dict:
     _resnet_readout(gen)
     _int8_model_convs(gen)
     _resnet50_site_convs(gen)
+    _pointwise_times(gen)
+    _resnet50_forward_counters(gen)
     _resnet_small_checks(gen)
     # as the block-site resnet18's spatial predict launches them
     _conv_times(gen, None, RESNET_SITES, RESNET_CONVS, 2, "resnet_site",
@@ -2241,6 +2258,105 @@ def _resnet50_site_convs(gen) -> None:
               "launch")
         line["samples_equal_single_bitwise"] = same
         emit(line)
+
+
+def _pointwise_times(gen) -> None:
+    """The 1x1 routine (``conv_mma_kernel_1x1``) timed by CUDA events
+    over back-to-back calls (``events_ms``; below ~0.5 ms a call they time
+    the host's dispatch) and by the profiler's device time (``ms``): row
+    10R, the six RESNET50_SITE_CONVS launches as the resnet50 blocks
+    predict makes them (batch BATCH, SAMPLES samples; stage 2's a samples
+    launch, stages 3 and 4 on an x that carries the samples; the folded
+    BatchNorm's (F,) bias, relu on convbn1, a bf16 store), and row 10r's
+    three 1x1 stride-2 launches at RESNET_SITES (samples at site 1, _xs at
+    sites 2 and 3, no activation); each beside its bound (the larger of
+    its operations at the bf16 peak and its bytes, the pixels it reads
+    once, the S outputs written once, at the HBM rate), cuDNN on the
+    pre-masked input
+    at batch S·N (which the port never calls) and the mask evaluations
+    its launch implies (``mask_hashes``)."""
+    import torch
+    import torch.nn.functional as F
+    from bayestpu_torch.kernels import masked_conv as mc
+    from bayestpu_torch.utils import profiler
+    bf16 = torch.bfloat16
+    seeds = _inputs(dict(M=1, K=1, N=1, S=SAMPLES), torch.float32, gen)[2]
+    convs = [("resnet50", hw, c, f, stride, act, carries)
+             for hw, c, f, stride, act, carries in RESNET50_SITE_CONVS]
+    convs += [("resnet18", hw, c, f, 2, None, i > 0)
+              for i, (hw, c, f) in enumerate(RESNET_SITES)]
+    total = 0.0
+    for model, hw, c, f, stride, act, carries in convs:
+        x, w, aff, _, _ = _conv_data((BATCH, hw, hw, c), 1, f, bf16, gen)
+        if carries:
+            x = torch.randn(SAMPLES, BATCH, hw, hw, c, generator=gen).to(
+                bf16).cuda().permute(0, 1, 4, 2, 3)
+        epi = dict(bias=aff[1], act=act, out_dtype=bf16, stride=stride)
+        before = dict(profiler.counters())
+        mc.dropout_conv_inference(x, w, seeds, RATE, "SAME", **epi)
+        after = profiler.counters()
+        launched = {k: after.get(k, 0) - before.get(k, 0)
+                    for k in ("conv.pointwise_launches", "conv.mask_hashes")}
+        check(launched["conv.pointwise_launches"] == 1,
+              f"{model} {hw}x{hw}x{c} -> {f}: not on the 1x1 routine")
+        run = lambda: mc.dropout_conv_inference(  # noqa: E731
+            x, w, seeds, RATE, "SAME", **epi)
+        ms, dev = cuda_ms(run, 10), device_ms(run, 20)
+        xm = _cl(torch.cat([mc._hash_masked(x[s] if carries else x,
+                                            seeds[s], RATE)
+                            for s in range(SAMPLES)]))
+        lib = cuda_ms(lambda: F.conv2d(xm, w, stride=stride), 10)
+        ho = (hw - 1) // stride + 1
+        ops = 2 * SAMPLES * BATCH * ho * ho * c * f
+        # the input pixels the conv reads (one in four at stride 2), the
+        # S outputs and w, each once
+        nbytes = 2 * (BATCH * ho * ho * c * (SAMPLES if carries else 1)
+                      + SAMPLES * BATCH * ho * ho * f + f * c)
+        bound = max(ops / PEAK_FLOPS["bfloat16"],
+                    nbytes / MEM_BYTES_PER_S) * 1e3
+        if model == "resnet50":
+            total += ms
+        emit({"phase": "conv", "kernel": "conv_mma_kernel_1x1",
+              "model": model, "shape": f"{hw}x{hw}x{c}_to_{f}_s{stride}",
+              "launch": "dropout_conv_xs" if carries else
+              "dropout_conv_samples", "events_ms": ms, "ms": dev,
+              "bound_ms": bound,
+              "tflops": ops / ms / 1e9, "library_ms": lib,
+              "mask_hashes": launched["conv.mask_hashes"]})
+        del xm
+    emit({"phase": "conv", "kernel": "conv_mma_kernel_1x1",
+          "resnet50_six_events_ms": total})
+
+
+def _resnet50_forward_counters(gen) -> None:
+    """One eager spatial predict of the resnet50 blocks model (ImageNet
+    stem, block sites, bf16, batch BATCH, SAMPLES samples; the model's own
+    initial weights) on the card, and the program's counters of it: six
+    fused masked convs, all on the 1x1 routine, and the mask evaluations
+    their launches imply."""
+    import torch
+    from bayestpu_torch.core.config import BayesConfig
+    from bayestpu_torch.engine.engine import BayesEngine
+    from bayestpu_torch.nn.zoo import get_model
+    from bayestpu_torch.utils import profiler
+    model = get_model("resnet50", bayes=BayesConfig(rate=RATE), fused=True,
+                      dtype=torch.bfloat16, num_classes=1000,
+                      input_shape=(224, 224, 3), n_exits=1, stem="imagenet",
+                      dropout="block").cuda().eval()
+    engine = BayesEngine(model, model.bayes, device="cuda")
+    engine.ready = True
+    x = torch.randn(BATCH, 224, 224, 3, generator=gen).cuda()
+    profiler.reset_spans()
+    engine.predict(x, seed=7, num_samples=SAMPLES).probs.cpu()
+    counts = {k: v for k, v in profiler.counters().items()
+              if k.startswith(("conv.", "sites."))}
+    emit({"phase": "conv", "model": "resnet50_blocks", "batch": BATCH,
+          "samples": SAMPLES, "counters": counts})
+    check(counts.get("sites.conv_launches") == 6
+          and counts.get("conv.pointwise_launches") == 6,
+          f"resnet50 blocks forward counters {counts}")
+    del engine, model
+    torch.cuda.empty_cache()
 
 
 def _conv_f32_route(gen, label: str, xshape, k: int, f: int, padding,

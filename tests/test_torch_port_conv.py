@@ -817,3 +817,80 @@ def test_row0_values_at_stride_2(int8):
     got = tmc.dropout_conv_samples(_x(x[part]), _w(w), seeds, RATE, "SAME",
                                    **tepi, row0=row0)
     _close(got, np.asarray(want)[:, part])
+
+
+# ------------------------------------------- row 10: the 1x1 routine's route
+
+
+def test_pointwise_route_follows_the_shape_and_dtypes():
+    """``takes_pointwise`` mirrors ``takes_1x1`` of masked_conv.cu: an MC
+    conv of bf16 x and w with a 1x1 window, no padding and C a multiple of
+    8 (at most 1024) takes the 1x1 routine at stride 1 or 2 (at stride 2
+    with H even and at most 64 output columns); a larger window, padding,
+    C off the multiple of 8, an f32 or mixed operand, a mask-free conv
+    (``conv_fused``), int8 and every bank conv take ``conv_mma_kernel``."""
+    bf = torch.bfloat16
+
+    def takes(entry, shape, k=1, padding="SAME", stride=1, xdt=bf, wdt=bf,
+              hashed=True):
+        n, c, h, w = shape
+        x = torch.zeros(n, c, h, w, dtype=xdt).contiguous(
+            memory_format=torch.channels_last)
+        wt = torch.zeros(8, c, k, k, dtype=wdt)
+        g = tmc.geometry(h, w, k, k, padding, stride)
+        return tmc.takes_pointwise(entry, x, wt, g, stride, hashed)
+
+    for entry in ("masked_conv", "masked_conv_xs"):
+        assert takes(entry, (2, 256, 56, 56))
+        assert takes(entry, (2, 1024, 14, 14), stride=2)
+        assert takes(entry, (2, 40, 8, 7), padding="VALID", stride=2)
+        assert not takes(entry, (2, 40, 9, 8), stride=2)
+        assert not takes(entry, (2, 40, 8, 8), k=3)
+        assert not takes(entry, (2, 40, 8, 8), padding=((0, 1), (0, 1)))
+        assert not takes(entry, (2, 36, 8, 8))
+        assert not takes(entry, (2, 1032, 8, 8))
+        assert not takes(entry, (1, 8, 4, 130), stride=2)
+        assert not takes(entry, (2, 40, 8, 8), xdt=torch.float32)
+        assert not takes(entry, (2, 40, 8, 8), wdt=torch.float32)
+    assert not takes("masked_conv", (2, 256, 56, 56), hashed=False)
+    assert not takes("masked_conv_int8", (2, 40, 8, 8), xdt=torch.int8,
+                     wdt=torch.int8)
+    assert not takes("bank_conv_samples", (2, 40, 8, 8))
+
+
+@pytest.mark.parametrize("case", ["pointwise_s2", "patch_1x1_s2",
+                                  "patch_3x3_s1", "resnet50_downsample"])
+def test_mask_hashes_counts_by_hand(case):
+    """``mask_hashes``, the ``conv.mask_hashes`` counter's arithmetic,
+    against counts made by hand. The 1x1 routine masks each element it
+    reads once a sample; ``conv_mma_kernel`` masks the in-image positions of
+    every block's patch (its halo at stride 2 included) once for each
+    128-channel tile of F."""
+    def count(n, h, w, c, f, k, padding, stride, samples, pointwise):
+        g = tmc.geometry(h, w, k, k, padding, stride)
+        return tmc.mask_hashes(n, h, w, c, f, k, k, g, stride, samples,
+                               pointwise)
+
+    if case == "pointwise_s2":
+        # 3 samples x 3 images x 3 x 3 output pixels x 40 channels
+        assert count(3, 6, 6, 40, 10, 1, "SAME", 2, 3, True) == 3240
+    elif case == "patch_1x1_s2":
+        # 2 tiles of F=256 x 2 x 2 blocks of 8 x 8 outputs, each reading a
+        # 15 x 15 patch inside the 32 x 32 image, x 16 channels
+        assert count(1, 32, 32, 16, 256, 1, "SAME", 2, 1, False) == 28800
+        # the same conv on the 1x1 routine: 16 x 16 pixels x 16 channels
+        assert count(1, 32, 32, 16, 256, 1, "SAME", 2, 1, True) == 4096
+    elif case == "patch_3x3_s1":
+        # one block holds both images (2 x 6 x 5 outputs); its 8 x 7 patch
+        # reaches past the image by the SAME pad, so the 6 x 5 pixels of
+        # each image, x 33 channels, x 3 samples, one tile of F = 13
+        assert count(2, 6, 5, 33, 13, 3, "SAME", 1, 3, False) == 5940
+    else:
+        # resnet50's stage-2 downsample (56 x 56 x 256 -> 512, stride 2,
+        # batch 128, S = 10): the implicit GEMM's 4 tiles of F x 4 x 4
+        # blocks whose 15-row patches keep 15, 15, 15 and 8 rows (and
+        # columns) inside the image; the 1x1 routine's 28 x 28 pixels once
+        old = 10 * 4 * 128 * (15 + 15 + 15 + 8) ** 2 * 256
+        assert count(128, 56, 56, 256, 512, 1, "SAME", 2, 10, False) == old
+        assert count(128, 56, 56, 256, 512, 1, "SAME", 2, 10, True) == (
+            10 * 128 * 28 * 28 * 256)
