@@ -21,6 +21,8 @@ import torch
 from bayestpu_torch.kernels import _build
 from bayestpu_torch.kernels import masked_conv as tmc
 
+from port_threads import thread_budget  # noqa: F401
+
 CSRC = Path(_build.__file__).resolve().parent.parent / "csrc"
 KINDS = {"int": ctypes.c_int, "uint32_t": ctypes.c_uint32,
          "float": ctypes.c_float}

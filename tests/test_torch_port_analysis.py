@@ -48,6 +48,7 @@ from bayestpu_torch.metrics import analysis as tanalysis
 from bayestpu_torch.metrics import flops as tflops
 from bayestpu_torch.metrics import kde as tkde
 from bayestpu_torch.nn.zoo import get_model
+from port_threads import thread_budget  # noqa: F401
 from test_torch_port_threefry import capture_site_keys
 
 RATE = 0.25

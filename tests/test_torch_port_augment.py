@@ -33,17 +33,7 @@ from bayestpu_torch.train.loop import (create_state, make_eval_epoch,
                                        make_train_step, train_loop)
 from bayestpu_torch.train.optim import get_optimizer, get_recipe
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for this module, restored after it: the suite
-    runs several test processes on the box's cores, and these small
-    training steps slow down by two orders of magnitude when their
-    threads compete for them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from port_threads import thread_budget  # noqa: F401
 
 
 @pytest.mark.parametrize("pad,index,key", [(4, 0, 0), (4, 5, 3), (2, 7, 11)])

@@ -28,6 +28,7 @@ from bayestpu_torch.core.config import BayesConfig, DropoutKind, QuantConfig
 from bayestpu_torch.engine import sampler as tsampler
 from bayestpu_torch.interop.from_flax import load_flax_variables
 from bayestpu_torch.nn.zoo import available_models, get_model
+from port_threads import thread_budget  # noqa: F401
 from test_torch_port_threefry import capture_site_keys
 
 RATE = 0.25

@@ -27,6 +27,8 @@ from bayestpu.kernels import masked_matmul as jmm
 from bayestpu_torch.kernels import mask_bank as tbank
 from bayestpu_torch.kernels import masked_matmul as tmm
 
+from port_threads import thread_budget  # noqa: F401
+
 I = dict(interpret=True)
 # M, K, N: the vgg11_me head, and a ragged one (no multiple of any block)
 SHAPES = [(128, 512, 10), (37, 150, 13)]

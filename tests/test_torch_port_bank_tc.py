@@ -40,6 +40,8 @@ from bayestpu.kernels import mask_bank as jbank
 from bayestpu.kernels import masked_conv as jmc
 from bayestpu_torch.kernels import masked_conv as tmc
 
+from port_threads import thread_budget  # noqa: F401
+
 CONV_RTOL = 3e-5                 # chip_smoke.py's CONV_RTOL, of max|ref|
 FLOAT_RTOL = 1e-5
 STEPS = (2.0 ** -7, 2.0 ** -6)

@@ -49,6 +49,8 @@ from bayestpu_torch.nn import layers as tlayers
 from bayestpu_torch.nn.zoo import get_model
 from bayestpu_torch.train.losses import eed_loss
 
+from port_threads import thread_budget  # noqa: F401
+
 RATE = 0.25
 MC, JMC = BayesConfig(rate=RATE), JBayes(rate=RATE)
 MASK = BayesConfig(kind=DropoutKind.MASK, num_masks=4, scale=2.0)

@@ -88,17 +88,7 @@ from bayestpu_torch.train.checkpoint import (FILE, load_best,  # noqa: E402
                                              save_checkpoint)
 from bayestpu_torch.train.loop import train_loop  # noqa: E402
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for this module, restored after it: the suite
-    runs several test processes on the box's cores, and these small
-    training steps slow down by two orders of magnitude when their
-    threads compete for them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from port_threads import thread_budget  # noqa: E402,F401
 
 
 def _assert_same(a, b, path="opt_state"):

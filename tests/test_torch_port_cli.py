@@ -30,24 +30,14 @@ from bayestpu_torch.data.datasets import get_dataset
 from bayestpu_torch.engine.engine import BayesEngine
 from bayestpu_torch.train.checkpoint import restore_variables
 
+from port_threads import thread_budget  # noqa: F401
+
 CLIS = ["train", "predict", "analyze", "build", "sweep", "figures",
         "time_cost", "verify_accuracy"]
 ARGS = ["--model", "lenet_me", "--dataset", "mnist", "--dropout_type", "mc",
         "--mc_samples", "3", "--data_dir", "/nonexistent", "--device", "cpu"]
 REPO = Path(__file__).resolve().parents[1]
 EVAL_KEYS = {"acc", "nll", "mse", "ece_hist", "ece_ew10", "aPE", "aPE_ood"}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for this module, restored after it: the suite
-    runs several test processes on the box's cores, and these small
-    training steps slow down by two orders of magnitude when their
-    threads compete for them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -27,6 +27,8 @@ from bayestpu.kernels import mask_bank as jbank
 from bayestpu_torch.kernels import masked_conv as tmc
 from bayestpu_torch.kernels import masked_matmul as tmm
 
+from port_threads import thread_budget  # noqa: F401
+
 I = dict(interpret=True)
 RATE = 0.25
 FLOAT_RTOL = 1e-5

@@ -34,6 +34,7 @@ import torch
 from bayestpu.kernels import masked_conv as jmc
 from bayestpu_torch.kernels import masked_conv as tmc
 from bayestpu_torch.kernels import masked_matmul as tmm
+from port_threads import thread_budget  # noqa: F401
 from test_torch_port_bank_tc import split_tf32, three_pass_conv
 
 RATE = 0.25

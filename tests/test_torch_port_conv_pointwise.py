@@ -28,6 +28,8 @@ from bayestpu_torch.kernels import masked_conv as tmc
 from bayestpu_torch.kernels import masked_matmul as tmm
 from bayestpu_torch.utils import profiler
 
+from port_threads import thread_budget  # noqa: F401
+
 RATE = 0.25
 BF16_RTOL = 2.0 ** -8
 CONV_RTOL = 3e-5

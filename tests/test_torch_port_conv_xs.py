@@ -26,6 +26,8 @@ import torch
 from bayestpu.kernels import masked_conv as jmc
 from bayestpu_torch.kernels import masked_conv as tmc
 
+from port_threads import thread_budget  # noqa: F401
+
 RATE = 0.25
 FLOAT_RTOL = 1e-5
 STEPS = (2.0 ** -7, 2.0 ** -6)

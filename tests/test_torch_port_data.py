@@ -8,6 +8,8 @@ import pytest
 from bayestpu.data import datasets as jds
 from bayestpu_torch.data import datasets as tds
 
+from port_threads import thread_budget  # noqa: F401
+
 NO_DIR = "/nonexistent"
 
 

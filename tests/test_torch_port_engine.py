@@ -39,6 +39,8 @@ from bayestpu_torch.metrics import entropy as tentropy
 from bayestpu_torch.nn import multiexit as tmultiexit
 from bayestpu_torch.nn.zoo import get_model
 
+from port_threads import thread_budget  # noqa: F401
+
 REPO = Path(__file__).resolve().parent.parent
 S = 3
 RATE = 0.25

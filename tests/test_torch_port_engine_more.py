@@ -30,6 +30,8 @@ from bayestpu_torch.nn.convert import (MCDropoutModel, Sequential,
 from bayestpu_torch.utils.profiler import cost_report
 from bayestpu_torch.utils.timing import measure_windows, paired_compare
 
+from port_threads import thread_budget  # noqa: F401
+
 BAYES = BayesConfig(rate=0.25, num_bayes_layers=3, num_samples=4)
 CPU = torch.device("cpu")
 FAST = dict(iters=2, min_diff_s=0.0)

@@ -37,6 +37,8 @@ from bayestpu.kernels import masked_matmul as jmm
 from bayestpu_torch.kernels import masked_matmul as tmm
 from bayestpu_torch.kernels.mask_bank import generation_wrapper
 
+from port_threads import thread_budget  # noqa: F401
+
 RATE = 0.25
 RTOL = 1e-5                     # of max|ref|: chip_smoke.py's KERNEL_RTOL
 STEPS = (2.0 ** -7, 2.0 ** -5)

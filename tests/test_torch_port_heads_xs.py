@@ -34,6 +34,8 @@ from bayestpu.kernels import mask_bank as jbank
 from bayestpu.kernels import masked_matmul as jmm
 from bayestpu_torch.kernels import masked_matmul as tmm
 
+from port_threads import thread_budget  # noqa: F401
+
 RATE = 0.25
 STEPS = (2.0 ** -7, 2.0 ** -5)
 # M, K, N of one sample: ragged, no multiple of any block

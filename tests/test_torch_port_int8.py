@@ -44,6 +44,8 @@ from bayestpu_torch.nn import layers as tlayers
 from bayestpu_torch.nn.zoo import get_model
 from bayestpu_torch.train.losses import eed_loss
 
+from port_threads import thread_budget  # noqa: F401
+
 I = dict(interpret=True)
 RATE = 0.25
 STEP = 2.0 ** -7

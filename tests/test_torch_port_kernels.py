@@ -17,6 +17,8 @@ from bayestpu.kernels import masked_matmul as jmm
 from bayestpu_torch.kernels import _build
 from bayestpu_torch.kernels import masked_matmul as tmm
 
+from port_threads import thread_budget  # noqa: F401
+
 I = dict(interpret=True)
 RAGGED = [(37, 45, 19), (130, 200, 9)]    # M, K, N: not multiples of blocks
 

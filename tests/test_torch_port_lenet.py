@@ -43,6 +43,7 @@ from bayestpu_torch.nn.zoo import available_models, get_model
 from bayestpu_torch.train.loop import create_state, make_train_step
 from bayestpu_torch.train.losses import eed_loss
 from bayestpu_torch.train.optim import get_optimizer, get_recipe
+from port_threads import thread_budget  # noqa: F401
 from test_torch_port_threefry import _seeds, capture_site_keys
 
 RATE = 0.25

@@ -53,6 +53,8 @@ from bayestpu_torch.train.loop import (bn_reestimate, create_state,
                                        make_train_step, train_loop)
 from bayestpu_torch.train.optim import get_optimizer, get_recipe
 
+from port_threads import thread_budget  # noqa: F401
+
 MASK = BayesConfig(kind=DropoutKind.MASK, num_masks=4, scale=2.0)
 JMASK = JBayes(kind=JKind.MASK, num_masks=4, scale=2.0)
 Q8, INT8_Q = QuantConfig(8, 0), QuantConfig(8, 0, int8_infer=True)

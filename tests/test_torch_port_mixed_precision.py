@@ -38,6 +38,7 @@ from bayestpu_torch.core.config import BayesConfig, QuantConfig
 from bayestpu_torch.interop.from_flax import load_flax_variables
 from bayestpu_torch.nn import layers as tlayers
 from bayestpu_torch.nn.zoo import get_model
+from port_threads import thread_budget  # noqa: F401
 from test_torch_port_int8 import _perturb
 
 RATE = 0.25

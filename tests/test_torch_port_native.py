@@ -28,6 +28,8 @@ from bayestpu_torch import native
 from bayestpu_torch.data import pipeline as tpipe
 from bayestpu_torch.metrics import kde as tkde
 
+from port_threads import thread_budget  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 MEAN = np.array([0.49, 0.48, 0.45], np.float32)
 STD = np.array([0.25, 0.24, 0.26], np.float32)

@@ -20,6 +20,8 @@ from bayestpu.train import optim as joptim
 from bayestpu_torch.train import losses as tlosses
 from bayestpu_torch.train import optim as toptim
 
+from port_threads import thread_budget  # noqa: F401
+
 CFGS = [tlosses.EEDConfig(),
         tlosses.EEDConfig(use_eed=False),
         tlosses.EEDConfig(loss_output="KL"),

@@ -23,6 +23,8 @@ from bayestpu_torch.core import quant as tq
 from bayestpu_torch.core.config import QuantConfig
 from bayestpu_torch.nn import layers as tlayers
 
+from port_threads import thread_budget  # noqa: F401
+
 CONFIGS = [(8, 0, True), (8, 0, False), (8, 1, True), (4, 0, True)]
 
 

@@ -39,6 +39,7 @@ from bayestpu_torch.interop.from_flax import (load_flax_variables,
                                               to_flax_variables)
 from bayestpu_torch.nn.zoo import get_model
 from bayestpu_torch.train.losses import eed_loss
+from port_threads import thread_budget  # noqa: F401
 from test_torch_port_threefry import capture_site_keys
 
 RATE = 0.25

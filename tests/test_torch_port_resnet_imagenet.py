@@ -30,6 +30,8 @@ from bayestpu_torch.nn.layers import max_pool
 from bayestpu_torch.nn.zoo import get_model
 from bayestpu_torch.utils import profiler
 
+from port_threads import thread_budget  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))

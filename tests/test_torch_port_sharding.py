@@ -257,6 +257,8 @@ if __name__ == "__main__":
 
 import pytest  # noqa: E402
 
+from port_threads import thread_budget  # noqa: E402,F401
+
 
 def _capture(jm, variables, x, key, num):
     """JAX's spatial per-sample logits (S, E, B, C) of ``num`` samples

@@ -24,6 +24,8 @@ from bayestpu_torch.core import threefry
 from bayestpu_torch.core.config import BayesConfig
 from bayestpu_torch.nn import bayes as tbayes
 
+from port_threads import thread_budget  # noqa: F401
+
 SHAPES = [(3, 5), (4, 1, 1, 20), (7, 13, 13, 3), (2, 9, 9, 20)]
 RATES = [0.1, 0.25, 0.3, 1 / 3]
 DTYPES = {"f32": (jnp.float32, torch.float32),

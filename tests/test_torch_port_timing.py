@@ -18,6 +18,8 @@ import bench.timing as jbench_timing
 from bayestpu_torch.bench import timing as tbench_timing
 from bayestpu_torch.utils import timing as T
 
+from port_threads import thread_budget  # noqa: F401
+
 CPU = torch.device("cpu")
 
 

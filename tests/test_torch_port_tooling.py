@@ -4,10 +4,12 @@ roofline's keys), ``interop.torch_import`` and ``interop.keras_import``
 (on a state dict and an ``.h5`` file written here: nothing is fetched, and
 the JAX package's keras test needs TensorFlow, which this environment
 lacks), and the public names of ROADMAP 14h (``sampler.split_apply``,
-``layers.global_avg_pool``, ``native.available``).
+``layers.global_avg_pool``, ``native.available``), and the thread budget
+every port test module takes from ``port_threads``.
 """
 
 import json
+import os
 import re
 from pathlib import Path
 
@@ -38,6 +40,8 @@ from bayestpu_torch.kernels import masked_matmul as mm
 from bayestpu_torch.nn.layers import global_avg_pool
 from bayestpu_torch.nn.zoo import get_model
 from bayestpu_torch.utils import profiler, rundb
+
+from port_threads import thread_budget  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -346,3 +350,13 @@ def test_native_available_reports(monkeypatch, tmp_path):
     monkeypatch.setattr(native, "SOURCES", (bad,))
     assert native.available() is False
     assert native._lib is None
+
+
+# ------------------------------------------------------- the test budget
+
+
+def test_thread_budget_is_cores_over_workers():
+    """Inside a port test module torch runs on this process's share of the
+    cores: ``os.cpu_count()`` over the xdist workers, at least 1."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    assert torch.get_num_threads() == max(1, (os.cpu_count() or 1) // workers)

@@ -28,6 +28,8 @@ from bayestpu_torch.train.loop import TrainState, make_train_step
 from bayestpu_torch.utils import profiler
 from bayestpu_torch.utils.profiler import SpanRecord
 
+from port_threads import thread_budget  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))

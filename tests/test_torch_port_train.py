@@ -50,6 +50,8 @@ from bayestpu_torch.train.loop import (bn_reestimate, create_state,
 from bayestpu_torch.train.optim import (apply_updates, get_optimizer,
                                         get_recipe)
 
+from port_threads import thread_budget  # noqa: F401
+
 RATE = 0.25
 I = dict(interpret=True)
 DTYPES = {"f32": (jnp.float32, torch.float32),

@@ -23,6 +23,7 @@ from bayestpu.nn.zoo import get_model as jax_get_model
 from bayestpu_torch.core.config import BayesConfig, DropoutKind
 from bayestpu_torch.interop.from_flax import load_flax_variables
 from bayestpu_torch.nn.zoo import available_models, get_model
+from port_threads import thread_budget  # noqa: F401
 from test_torch_port_threefry import capture_site_keys
 
 RATE = 0.25
