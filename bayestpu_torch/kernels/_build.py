@@ -34,6 +34,8 @@ _CONV_TAIL = [_P, _P, ctypes.POINTER(ctypes.c_int), _F, _I, _I, _F, _I, _I,
               _P]
 # argtypes of every exported C function, by source name
 _SIGNATURES: dict[str, dict[str, list]] = {
+    # y, bias (or null), residual (or null), out, rows, C, relu, stream
+    "epilogue": {"bt_bias_act_bf16": [_P, _P, _P, _P, _I, _I, _I, _P]},
     "masked_matmul": {
         # x, w, seeds, out, M, K, N, thresh, scale, is_bf16, row0, stream
         "bt_dropout_matmul": [_P, _P, _P, _P, _I, _I, _I, _U32, _F, _I, _U32,

@@ -61,6 +61,7 @@ from torch import nn
 from bayestpu_torch.core.config import BayesConfig, DropoutKind, QuantConfig
 from bayestpu_torch.core.quant import (dequantize_int8, fake_quant, int8_step,
                                        quantize_int8, unsigned)
+from bayestpu_torch.kernels.epilogue import bias_act_bf16
 from bayestpu_torch.kernels.masked_conv import (
     bank_conv_inference, bank_conv_int8_inference, conv_int8_fused,
     dropout_conv, dropout_conv_inference, dropout_conv_int8_inference,
@@ -72,7 +73,8 @@ from bayestpu_torch.nn.bayes import (BayesianDropout, apply_row, batch_split,
                                      make_bank)
 from bayestpu_torch.nn.layers import (_Conv, _int8_conv_on_mxu, dot,
                                       lecun_normal_, maybe_quant, quant_dot,
-                                      quant_operands, xla_conv, xla_conv_int8)
+                                      quant_operands, xla_conv_int8,
+                                      xla_conv_raw)
 from bayestpu_torch.nn.rows import RowAware
 from bayestpu_torch.utils.profiler import count, span
 
@@ -204,7 +206,8 @@ class BayesConv(RowAware, _Conv):
     ``fold_bias`` feeds the epilogue).
 
     ``forward(x, seeds=, sample_idx=, fold_scale=, fold_bias=, act=,
-    act_quant=, emit_int8=, defer_int8=)`` follows the JAX branches:
+    act_quant=, emit_int8=, defer_int8=, residual=)`` follows the JAX
+    branches:
 
     - MC at rate > 0, fused (stride 1 or 2, SAME/VALID/explicit padding, at
       least ``MASKED_CONV_FUSE_MIN_CH`` input channels): training →
@@ -222,7 +225,11 @@ class BayesConv(RowAware, _Conv):
       kernel, never cast) or ``bank_conv_int8_inference``; unfused, ``x ·
       row`` then the conv.
     - no mask: the conv (``F.conv2d``, the JAX package's XLA conv) with the
-      epilogue in PyTorch, or int8 × int8 for a wide int8 input. An int8
+      epilogue in PyTorch, or int8 × int8 for a wide int8 input. In a bf16
+      float model at inference the epilogue of every conv whose kernel did
+      not run it (no mask, an unfused site) is one pass over the conv's
+      bf16 output, ``kernels.epilogue.bias_act_bf16``: a kernel on the
+      card. An int8
       conv that a fused kernel takes (stride 1 or 2, at least
       ``MASKED_CONV_FUSE_MIN_CH`` input channels) runs ``conv_int8_fused``
       on the card, the epilogue and an int8 output inside the kernel; on
@@ -237,8 +244,11 @@ class BayesConv(RowAware, _Conv):
       one launch of its kernel on the card.
 
     A fused branch applies the bias to the f32 accumulator and emits int8
-    in the kernel whatever ``defer_int8`` says; the PyTorch path rounds a
-    bf16 conv to bf16 before the bias, as XLA does. ``seeds`` (2,) or (S,
+    in the kernel whatever ``defer_int8`` says; the other paths round a
+    bf16 conv to bf16 before the bias, as XLA does. ``residual`` (a
+    residual block's last conv, bf16) makes the output ``relu(y +
+    residual)`` inside that one pass, and is taken only where
+    ``joins_residual`` says so. ``seeds`` (2,) or (S,
     2) and ``sample_idx`` (an int or S indices) select one sample or S, as
     the kernels' ``_inference`` entries do; x of shape (S, N, C, H, W)
     carries the sample axis (one ``_xs`` launch; sample s of an unfused
@@ -280,15 +290,26 @@ class BayesConv(RowAware, _Conv):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
+    @property
+    def joins_residual(self) -> bool:
+        """Whether ``forward`` takes ``residual=``: a bf16 float conv
+        without a mask at inference, whose one-pass epilogue adds it; the
+        caller adds it after every other conv."""
+        return (self.dtype == torch.bfloat16 and not self.training
+                and self.quant is None
+                and not (self.masked or self.stochastic))
+
     def _xla_conv(self, x: torch.Tensor, kernel: torch.Tensor
                   ) -> torch.Tensor:
-        return xla_conv(x, kernel, self.padding, self.stride, self.dtype)
+        """The conv in ``dtype``, not widened (``xla_conv_raw``)."""
+        return xla_conv_raw(x, kernel, self.padding, self.stride, self.dtype)
 
     def forward(self, x: torch.Tensor, *, seeds: torch.Tensor | None = None,
                 sample_idx=0, fold_scale: torch.Tensor | None = None,
                 fold_bias: torch.Tensor | None = None, act: str | None = None,
                 act_quant: bool = False, emit_int8: bool = False,
-                defer_int8: bool = False) -> torch.Tensor:
+                defer_int8: bool = False,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
         train = self.training
         in_ch, spatial = x.shape[-3], x.shape[-2]
         kernel = self.kernel
@@ -319,6 +340,9 @@ class BayesConv(RowAware, _Conv):
             bias_vec = fold_bias if bias_vec is None else bias_vec + fold_bias
         out_step = (int8_step(q) if int8_mode and act == "relu"
                     and (act_quant or emit_int8) else None)
+        if residual is not None and not self.joins_residual:
+            raise ValueError("a residual joins only a bf16 float conv "
+                             "without a mask at inference")
         out_dtype = (torch.bfloat16 if self.dtype == torch.bfloat16
                      and not train and q is None else None)
         kb = bias_vec
@@ -393,8 +417,14 @@ class BayesConv(RowAware, _Conv):
                 xs * ws)
         else:
             y = self._xla_conv(floats(), kernel)
+        if not done and out_dtype is not None:
+            # a bf16 float model at inference (no quant: no BN scale, no
+            # int8 store): the conv's bf16 output, the bias, relu and the
+            # residual's relu(y + residual) in one pass
+            return bias_act_bf16(y, bias_vec, act, residual)
         if not done:
             # the epilogue of the paths that did not fuse it (``:465-496``)
+            y = y.float()
             if epi_scale is not None:
                 y = y * epi_scale[:, None, None]
             if bias_vec is not None:
@@ -406,8 +436,6 @@ class BayesConv(RowAware, _Conv):
                     return fake_quant(y, unsigned(q)).to(torch.bfloat16)
                 with span("quant.inputs", y.is_cuda):
                     return quantize_int8(y, q)[0]
-            if out_dtype is not None:
-                y = y.to(out_dtype)
         # QuantAct on the fake-quant model, after a fused kernel too
         if (out_step is None and act_quant and q is not None
                 and act is not None):

@@ -16,10 +16,12 @@ f32. ``ConvBN``'s conv is ``nn.fused.BayesConv``, the port of the JAX
 ``BayesConv`` that ``ConvBN`` wraps: at inference a conv without a site
 folds BN into the kernel in f32, casts it to bf16, rounds the conv output
 to bf16, then adds the f32 bias, applies the relu and stores bf16
-(``bayestpu/nn/fused.py:274-278,326-343,465-474``). In training it
-convolves the bf16 casts of x and the unfolded kernel, upcasts the output
-to f32 and applies BN with batch statistics, so activations stay f32
-between layers (``layers.py:238-246``, ``fused.py:223-241``).
+(``bayestpu/nn/fused.py:274-278,326-343,465-474``): everything after the
+conv, with a residual block's ``relu(y + residual)``, in one pass
+(``kernels.epilogue``). In training it convolves the bf16 casts of x and
+the unfolded kernel, upcasts the output to f32 and applies BN with batch
+statistics, so activations stay f32 between layers (``layers.py:238-246``,
+``fused.py:223-241``).
 
 With a ``QuantConfig`` the layers follow the JAX package's quantized
 branches (``layers.py:58-83,163-178``, ``fused.py:269-496`` with no mask):
@@ -270,14 +272,20 @@ def _folded(conv):
 
 
 @_folded
-def xla_conv(x: torch.Tensor, kernel: torch.Tensor, padding, stride: int,
-             dtype: torch.dtype) -> torch.Tensor:
+def xla_conv_raw(x: torch.Tensor, kernel: torch.Tensor, padding,
+                 stride: int, dtype: torch.dtype) -> torch.Tensor:
     """The JAX package's XLA conv (``fused.py:223-241``, ``layers.py:
-    138-153``): operands cast to ``dtype``, a bf16 conv rounded to bf16, f32
-    out."""
+    138-153``): operands cast to ``dtype``, out in ``dtype`` (a bf16 conv
+    rounded to bf16)."""
     g = conv_geometry(x.shape[2], x.shape[3], kernel.shape[2],
                       kernel.shape[3], padding, stride)
-    return conv2d_padded(x.to(dtype), kernel.to(dtype), g, stride).float()
+    return conv2d_padded(x.to(dtype), kernel.to(dtype), g, stride)
+
+
+def xla_conv(x: torch.Tensor, kernel: torch.Tensor, padding, stride: int,
+             dtype: torch.dtype) -> torch.Tensor:
+    """``xla_conv_raw`` widened to f32."""
+    return xla_conv_raw(x, kernel, padding, stride, dtype).float()
 
 
 @_folded
@@ -389,8 +397,8 @@ class ConvBN(nn.Module):
     def forward(self, x: torch.Tensor, act: str | None = None,
                 act_quant: bool = False, emit_int8: bool = False,
                 defer_int8: bool = False,
-                seeds: torch.Tensor | None = None, sample_idx=0
-                ) -> torch.Tensor:
+                seeds: torch.Tensor | None = None, sample_idx=0,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
         """``act_quant``: an unsigned fake-quant (QuantAct) follows the
         relu, or in the int8 model the epilogue emits int8. ``emit_int8``
         (int8 model, relu): emit int8 without ``act_quant``; every
@@ -398,8 +406,12 @@ class ConvBN(nn.Module):
         (int8 model, unfused conv): emit the grid value in bf16 instead; the
         caller's max pool commutes with the grid rounding and re-quantizes
         after it (``fused.py:476-483``). ``seeds``/``sample_idx`` feed the
-        site: see ``BayesConv``."""
+        site: see ``BayesConv``. ``residual`` (where
+        ``conv.joins_residual``): a residual block's last conv returns
+        ``relu(y + residual)``."""
         if self.training:
+            if residual is not None:
+                raise ValueError("a residual joins only at inference")
             y = self.bn(self.conv(x, seeds=seeds, sample_idx=sample_idx))
             if act == "relu":
                 y = torch.relu(y)
@@ -410,7 +422,7 @@ class ConvBN(nn.Module):
         return self.conv(x, seeds=seeds, sample_idx=sample_idx,
                          fold_scale=inv, fold_bias=shift, act=act,
                          act_quant=act_quant, emit_int8=emit_int8,
-                         defer_int8=defer_int8)
+                         defer_int8=defer_int8, residual=residual)
 
 
 class QuantAct(nn.Module):

@@ -17,9 +17,11 @@ model's call order.
   first block of every stage but the first at stride 2, the 3×3 convs
   padded ((1, 1), (1, 1)) as torch's ``padding=1`` (``_P3``), a 1×1
   ``downsample`` ``ConvBN`` where the stride or the width changes, then
-  ``relu(y + residual)``. In the int8 model every conv of a block but the
-  last emits int8 (``emit_int8``): its only consumer, the next conv,
-  quantizes on the same grid, so the values are those of a float output.
+  ``relu(y + residual)``, inside the last conv's one-pass epilogue where
+  it takes a residual (``BayesConv.joins_residual``: a bf16 float model at
+  inference). In the int8 model every conv of a block but the last emits
+  int8 (``emit_int8``): its only consumer, the next conv, quantizes on the
+  same grid, so the values are those of a float output.
 - ``n_exits > 1``: an exit head after each stage but the last (relu, a
   cascade of stride-2 ``ConvBN(act="relu", act_quant=True)`` up to the
   last stage's width, an exact dequantize when the cascade ends in int8,
@@ -146,10 +148,12 @@ class _Block(nn.Module):
             y = convs[0](x, act="relu", emit_int8=True)
             residual = (self.downsample(x) if self.downsample is not None
                         else x)
-        for i, conv in enumerate(convs[1:], 1):
-            last = i == len(convs) - 1
-            y = conv(y, act=None if last else "relu", emit_int8=not last)
-        return torch.relu(y + residual)
+        for conv in convs[1:-1]:
+            y = conv(y, act="relu", emit_int8=True)
+        last = convs[-1]
+        if last.conv.joins_residual and residual.dtype == torch.bfloat16:
+            return last(y, residual=residual)
+        return torch.relu(last(y) + residual)
 
 
 def basic_block(in_ch: int, planes: int, stride: int, dtype: torch.dtype,

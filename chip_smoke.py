@@ -48,7 +48,11 @@ ends the run with a nonzero exit and no result line.
    8x32x32x64 -> 64, the smaller tile of ``make_mma_geom``) in every
    routine, timed; row 10's f32 route (three TF32 products) at block site
    1 in f32 and both mixed types (bf16 x with f32 w, f32 x with bf16 w),
-   checked and timed beside cuDNN f32. Every head check again at the
+   checked and timed beside cuDNN f32. The one-pass bf16 epilogue of the
+   convs without a mask (``epilogue``: ``bf16_epilogue_kernel``) at the
+   resnet50 block-site model's ten epilogue shapes, bit for bit against
+   its plain version, timed beside its bound and the plain op chain; also
+   ``--only epilogue``. Every head check again at the
    resnet18_me head (N = 100), the lenet_me head (M = 256, K = 100, N =
    10) and lenet's fc_1 (K = 80, N = 100), rows 3 and 5 timed in bf16 at
    the first two.
@@ -193,7 +197,10 @@ phase, the convert phase, the shard phase and the tools phase's counted
 part (a replayed CUDA graph relaunches the
 kernels it captured without passing through their wrappers, so only the
 capture counts); the fake-quant evaluates are attribution and not
-counted.
+counted. The one-pass bf16 epilogue (``bias_act_bf16``) is counted with
+the masked kernels: every exact launch dict of a bf16 float model at
+inference lists its launches, one for each conv without a site
+(VGG11_ME_CONVS and the constants beside it) in every forward.
 """
 
 from __future__ import annotations
@@ -311,6 +318,16 @@ INT8_CPU_STEPS = 4
 # head) 11, the block-site vgg11's 3, resnet18_me's 25 (19 in the
 # backbone, 6 in the exit cascades); lenet_me has none
 VGG11_ME_INT8_CONVS, BLOCK_INT8_CONVS, RESNET_INT8_CONVS = 11, 3, 25
+# the convs whose epilogue a forward of each bf16 float model at inference
+# runs as one bias_act_bf16 launch (every conv without a site or a quant
+# config): vgg11_me's 14 (8 in the backbone, 6 in the exit cascades), 2
+# under QUANTIZE_LATE (block0's and block1's), the block-site vgg11's 4,
+# vgg19_me's 22 (16 and 6), resnet18_me's 26 (20 and 6), resnet18's 14
+# with block or layer sites (its 6 site convs run the masked kernels),
+# lenet's 1 at 3 Bayesian layers
+VGG11_ME_CONVS, QUANTIZE_LATE_CONVS, BLOCK_CONVS = 14, 2, 4
+VGG19_ME_CONVS, RESNET18_ME_CONVS, RESNET18_SITE_CONVS = 22, 26, 14
+LENET_NB3_CONVS = 1
 # Masksembles (bench.py:723-739): vgg11_me with BayesConfig(kind=MASK,
 # num_masks=4, scale=2.0); S = num_masks. Its heads at batch 128, and a
 # ragged shape whose indices wrap and include a negative one.
@@ -327,6 +344,10 @@ MASK_ODD_K = dict(M=37, K=45, N=19, S=6)
 MASK_EPOCHS, MASK_LR = 2, 0.01
 # rows 10 and 11 of the kernel table: the masked convs of masked_conv.cu
 CONV_SOURCE = "bayestpu_torch/csrc/masked_conv.cu"
+# the one-pass bf16 epilogue replaces no TPU kernel: XLA fuses it there
+EPILOGUE_SOURCE = "bayestpu_torch/csrc/epilogue.cu"
+EPILOGUE_REPLACES = {"bias_act_bf16": "none (XLA's fusion of "
+                                      "bayestpu/nn/fused.py:465-474)"}
 CONV_REPLACES = {
     name: f"bayestpu/kernels/masked_conv.py:{line}"
     for names, line in (
@@ -361,6 +382,18 @@ RESNET50_SITE_CONVS = [
     (56, 256, 128, 1, "relu", False), (56, 256, 512, 2, None, False),
     (28, 512, 256, 1, "relu", True), (28, 512, 1024, 2, None, True),
     (14, 1024, 512, 1, "relu", True), (14, 1024, 2048, 2, None, True)]
+# the epilogues of the resnet50 block-site model's 47 convs that cuDNN
+# runs, at batch 128 and S = 10 (stages 2-4 on 1,280 rows): (rows, H = W,
+# C, activation, whether the residual joins, convs of a forward at the
+# shape). The stem; stage 1's convbn1 and convbn2, its convbn3, the first
+# block's downsample; then in stages 2-4 the relu convs (all but the first
+# block's masked convbn1) and the blocks' last convs
+RESNET50_EPILOGUES = [
+    (128, 112, 64, "relu", False, 1), (128, 56, 64, "relu", False, 6),
+    (128, 56, 256, None, True, 3), (128, 56, 256, None, False, 1),
+    (1280, 28, 128, "relu", False, 7), (1280, 28, 512, None, True, 4),
+    (1280, 14, 256, "relu", False, 11), (1280, 14, 1024, None, True, 6),
+    (1280, 7, 512, "relu", False, 5), (1280, 7, 2048, None, True, 3)]
 # every geometry at which the int8 models' deterministic convs run
 # conv_int8_fused on the card, at batch 128: (H = W, C, F, kernel, stride,
 # padding). resnet18_me's blocks (3x3 at stride 1 and 2, the 1x1 stride-2
@@ -396,12 +429,14 @@ MMA_KERNELS = ("conv_mma_kernel", "int8_samples_mma_kernel")
 # kernels redesigned on the CUDA cores, whose registers and spills the
 # build phase reports beside them (the chain template once for each
 # staging policy: rows 2 and 3 share one kernel and its chain, and so do
-# rows 8 and 9; row 1 once for each type of x)
-FMA_KERNELS = ("chain_samples_kernel", "dropout_apply_kernel")
+# rows 8 and 9; row 1 once for each type of x; the one-pass bf16 epilogue
+# once for each of bias, relu and residual)
+FMA_KERNELS = ("chain_samples_kernel", "dropout_apply_kernel",
+               "bf16_epilogue_kernel")
 # every kernel of bayestpu_torch/csrc, as the profiler names it
 PORT_KERNELS = ("dropout_apply_kernel", "chain_samples_kernel",
                 "int8_samples_mma_kernel", "::conv_mma_kernel<",
-                "::conv_mma_kernel_1x1<")
+                "::conv_mma_kernel_1x1<", "bf16_epilogue_kernel")
 # ragged geometries: x NHWC, kernel size, F (not a multiple of 8), padding,
 # stride. SAME at stride 2 is asymmetric (16 -> 8 pads (0, 1)).
 CONV_RAGGED = {"same_s2": ((3, 15, 16, 40), 3, 20, "SAME", 2),
@@ -514,17 +549,21 @@ def check(cond: bool, what: str) -> None:
 
 
 def launch_counts() -> dict:
-    """The launch counters of every kernel wrapper, matmul and conv."""
+    """The launch counters of every kernel wrapper: matmul, conv and the
+    one-pass bf16 epilogue."""
+    from bayestpu_torch.kernels import epilogue as ep
     from bayestpu_torch.kernels import masked_conv as mc
     from bayestpu_torch.kernels import masked_matmul as mm
-    return {**mm.launch_counts, **mc.launch_counts}
+    return {**mm.launch_counts, **mc.launch_counts, **ep.launch_counts}
 
 
 def reset_counts() -> None:
+    from bayestpu_torch.kernels import epilogue as ep
     from bayestpu_torch.kernels import masked_conv as mc
     from bayestpu_torch.kernels import masked_matmul as mm
     mm.reset_launch_counts()
     mc.reset_launch_counts()
+    ep.reset_launch_counts()
 
 
 def counts(**nonzero: int) -> dict:
@@ -2333,7 +2372,8 @@ def _resnet50_forward_counters(gen) -> None:
     stem, block sites, bf16, batch BATCH, SAMPLES samples; the model's own
     initial weights) on the card, and the program's counters of it: six
     fused masked convs, all on the 1x1 routine, and the mask evaluations
-    their launches imply."""
+    their launches imply; 47 launches of the one-pass bf16 epilogue
+    (``launch_counts``), the route's 47 passes, 16 with the residual."""
     import torch
     from bayestpu_torch.core.config import BayesConfig
     from bayestpu_torch.engine.engine import BayesEngine
@@ -2347,16 +2387,78 @@ def _resnet50_forward_counters(gen) -> None:
     engine.ready = True
     x = torch.randn(BATCH, 224, 224, 3, generator=gen).cuda()
     profiler.reset_spans()
+    reset_counts()
     engine.predict(x, seed=7, num_samples=SAMPLES).probs.cpu()
+    epilogues = launch_counts()["bias_act_bf16"]
     counts = {k: v for k, v in profiler.counters().items()
-              if k.startswith(("conv.", "sites."))}
+              if k.startswith(("conv.", "sites.", "epilogue."))}
     emit({"phase": "conv", "model": "resnet50_blocks", "batch": BATCH,
-          "samples": SAMPLES, "counters": counts})
+          "samples": SAMPLES, "counters": counts,
+          "bias_act_bf16_launches": epilogues})
     check(counts.get("sites.conv_launches") == 6
-          and counts.get("conv.pointwise_launches") == 6,
-          f"resnet50 blocks forward counters {counts}")
+          and counts.get("conv.pointwise_launches") == 6
+          and epilogues == 47
+          and counts.get("epilogue.launches") == 47
+          and counts.get("epilogue.residual_launches") == 16,
+          f"resnet50 blocks forward counters {counts}, "
+          f"{epilogues} bias_act_bf16 launches")
     del engine, model
     torch.cuda.empty_cache()
+
+
+def phase_epilogue() -> dict:
+    """The one-pass bf16 epilogue (``kernels.epilogue.bias_act_bf16``,
+    ``bf16_epilogue_kernel``) at each RESNET50_EPILOGUES shape with its
+    activation and residual: bit-equal to its plain version on the same
+    card inputs; its time by CUDA events over back-to-back calls
+    (``events_ms``) and by the profiler's device time (``ms``) beside its
+    bound (4 bytes an element, 6 with the residual, at the HBM rate) and
+    the plain version's time, which is the PyTorch op chain the kernel
+    replaced (widen, bias, relu, round, and the residual's add and relu;
+    no one PyTorch call computes the epilogue); then their sums over the
+    47 convs of one forward, which it returns as the kernel's summary (the
+    ``kernels`` line). Also ``--only epilogue``."""
+    import torch
+    from bayestpu_torch.kernels import epilogue as ep
+    gen = torch.Generator(device="cuda").manual_seed(2025)
+    bf16 = torch.bfloat16
+    total = dict.fromkeys(("ms", "events_ms", "plain_ms", "bound_ms"), 0.0)
+    for rows, hw, c, act, with_res, convs in RESNET50_EPILOGUES:
+        def nhwc():
+            return torch.randn(rows, hw, hw, c, generator=gen,
+                               device="cuda").to(bf16).permute(0, 3, 1, 2)
+        y = nhwc()
+        res = nhwc() if with_res else None
+        bias = torch.randn(c, generator=gen, device="cuda") * 0.5
+        before = ep.launch_counts["bias_act_bf16"]
+        same = torch.equal(ep.bias_act_bf16(y, bias, act, res),
+                           ep.bias_act_bf16_plain(y, bias, act, res))
+        where = f"{rows}x{hw}x{hw}x{c}"
+        check(same and ep.launch_counts["bias_act_bf16"] == before + 1,
+              f"bias_act_bf16 {where}: not bit-equal to its plain version")
+        fn = lambda: ep.bias_act_bf16(y, bias, act, res)  # noqa: E731
+        plain = lambda: ep.bias_act_bf16_plain(  # noqa: E731
+            y, bias, act, res)
+        line = {"events_ms": cuda_ms(fn, 20), "ms": device_ms(fn, 50),
+                "plain_ms": cuda_ms(plain, 5),
+                "bound_ms": y.numel() * (6 if with_res else 4)
+                / MEM_BYTES_PER_S * 1e3}
+        for k in total:
+            total[k] += convs * line[k]
+        emit({"phase": "epilogue", "kernel": "bf16_epilogue_kernel",
+              "shape": where, "act": act, "residual": with_res,
+              "convs": convs, "bit_equal": same, **line,
+              "tb_per_s": y.numel() * (6 if with_res else 4)
+              / line["ms"] / 1e9})
+        del y, res
+    emit({"phase": "epilogue", "kernel": "bf16_epilogue_kernel",
+          "resnet50_forward": total})
+    torch.cuda.empty_cache()
+    # bit-equal at every shape (checked above); no one library call
+    # computes the epilogue, so plain_ms is the op chain it replaced
+    return {"bias_act_bf16": {**total, "max_abs_err": 0.0,
+                              "bound_by": "bytes", "library_ms": None,
+                              "shape": "resnet50_blocks forward, 47 convs"}}
 
 
 def _conv_f32_route(gen, label: str, xshape, k: int, f: int, padding,
@@ -2645,13 +2747,17 @@ def phase_slice() -> dict:
     launches = launch_counts()
     n_heads = sp.model.num_sites
     check(n_heads == 5, f"vgg11_me has {n_heads} MC sites")
-    check(after_sp == counts(dropout_matmul_samples=5),
+    check(after_sp == counts(dropout_matmul_samples=5,
+                             bias_act_bf16=VGG11_ME_CONVS),
           f"spatial predict launches {after_sp}")
     check(after_tm == counts(dropout_matmul=5 * SAMPLES,
-                             dropout_matmul_samples=5),
+                             dropout_matmul_samples=5,
+                             bias_act_bf16=(1 + SAMPLES) * VGG11_ME_CONVS),
           f"temporal predict launches {after_tm}")
     check(launches == counts(dropout_matmul=10 * SAMPLES,
-                             dropout_matmul_samples=5),
+                             dropout_matmul_samples=5,
+                             bias_act_bf16=(1 + 2 * SAMPLES)
+                             * VGG11_ME_CONVS),
           f"host loop launches {launches}")
 
     for name, p in (("spatial", p_sp.probs), ("temporal", p_tm.probs),
@@ -2979,7 +3085,8 @@ def phase_train() -> dict:
     loop_s = time.perf_counter() - t
     loop_launches = launch_counts()
     check(loop_launches == counts(dropout_matmul=5 * (nb + n_val),
-                                  dropout_apply=10 * nb),
+                                  dropout_apply=10 * nb,
+                                  bias_act_bf16=VGG11_ME_CONVS * n_val),
           f"train_loop launches {loop_launches}")
     check(state2.step == nb and len(hist["train_loss"]) == 1
           and np.isfinite(hist["train_loss"][0]),
@@ -3001,7 +3108,8 @@ def phase_train() -> dict:
     pred = eng.predict(x_te[:BATCH], 0, SAMPLES)
     torch.cuda.synchronize()
     serve_launches = launch_counts()
-    check(serve_launches == counts(dropout_matmul_samples=5),
+    check(serve_launches == counts(dropout_matmul_samples=5,
+                                   bias_act_bf16=VGG11_ME_CONVS),
           f"spatial predict of the trained weights {serve_launches}")
     check(pred.probs.shape == (5, BATCH, 10)
           and bool(torch.isfinite(pred.probs).all()), "trained predictive")
@@ -3358,7 +3466,8 @@ def phase_analysis(tr: dict, i8: dict, smi: str) -> dict:
     n_batches = -(-ANALYSIS_TEST // ANALYSIS_BATCH)
     flagship_launches = launch_counts()
     check(flagship_launches == counts(
-        dropout_matmul_samples=5 * n_batches * n_runs),
+        dropout_matmul_samples=5 * n_batches * n_runs,
+        bias_act_bf16=VGG11_ME_CONVS * n_batches * n_runs),
         f"analysis launches {flagship_launches} over {n_runs} collections")
     check(rep.preds.shape == (5, ANALYSIS_TEST, 10)
           and bool(np.isfinite(rep.preds).all()), "analysis predictions")
@@ -3484,12 +3593,14 @@ def phase_analysis(tr: dict, i8: dict, smi: str) -> dict:
         def build(kw=kw):
             return get_model("vgg11_me", bayes=mc_cfg, fused=True,
                              dtype=torch.bfloat16, quant=int8_q, **kw)
+        floats = QUANTIZE_LATE_CONVS if name == "quantize_late" else 0
         out = _block_serve(
             f"int8_{name}", build, i8["variables"],
             dict(dropout_matmul_int8_samples=5,
-                 conv_int8_fused=VGG11_ME_INT8_CONVS),
+                 conv_int8_fused=VGG11_ME_INT8_CONVS, bias_act_bf16=floats),
             dict(dropout_matmul_int8=5 * SAMPLES,
-                 conv_int8_fused=VGG11_ME_INT8_CONVS * SAMPLES), x,
+                 conv_int8_fused=VGG11_ME_INT8_CONVS * SAMPLES,
+                 bias_act_bf16=floats * SAMPLES), x,
             SPATIAL_TEMPORAL_ATOL,
             _int8_cpu_tol(int8_q, 1.0 / (1.0 - RATE)), SAMPLES, False, 5)
         eng = out.pop("engine")
@@ -3511,7 +3622,8 @@ def phase_analysis(tr: dict, i8: dict, smi: str) -> dict:
         mets, launched = _launched(lambda: eng.evaluate(
             x_te, y_te, seed=0, num_samples=SAMPLES))
         check(launched == counts(dropout_matmul_int8_samples=5,
-                                 conv_int8_fused=VGG11_ME_INT8_CONVS),
+                                 conv_int8_fused=VGG11_ME_INT8_CONVS,
+                                 bias_act_bf16=floats),
               f"int8 {name} evaluate launches {launched}")
         check(all(np.isfinite(v) for v in mets.values()),
               f"int8 {name} metrics {mets}")
@@ -3665,11 +3777,14 @@ def phase_mask(tr: dict) -> dict:
     ones, one_launches = _launched(lambda: [
         sp.predict(x, seed, sample_idx=i) for i in range(s_mask)])
     check(p_sp.num_samples == s_mask, f"S {p_sp.num_samples} != num_masks")
-    check(sp_launches == counts(bank_matmul_samples=5),
+    check(sp_launches == counts(bank_matmul_samples=5,
+                                bias_act_bf16=VGG11_ME_CONVS),
           f"Masksembles spatial predict launches {sp_launches}")
-    check(tm_launches == counts(bank_matmul=5 * s_mask),
+    check(tm_launches == counts(bank_matmul=5 * s_mask,
+                                bias_act_bf16=VGG11_ME_CONVS * s_mask),
           f"Masksembles temporal predict launches {tm_launches}")
-    check(one_launches == counts(bank_matmul=5 * s_mask),
+    check(one_launches == counts(bank_matmul=5 * s_mask,
+                                 bias_act_bf16=VGG11_ME_CONVS * s_mask),
           f"Masksembles one-mask predicts launches {one_launches}")
     for name, p in (("spatial", p_sp.probs), ("temporal", p_tm.probs)):
         check(p.shape == (5, BATCH, 10) and bool(torch.isfinite(p).all()),
@@ -3701,7 +3816,8 @@ def phase_mask(tr: dict) -> dict:
     mets, ev_launches = _launched(lambda: sp.evaluate(
         x_te, y_te, seed=0, ood_check=True, dataset="cifar10"))
     eval_s = time.perf_counter() - t
-    check(ev_launches == counts(bank_matmul_samples=10),
+    check(ev_launches == counts(bank_matmul_samples=10,
+                                bias_act_bf16=2 * VGG11_ME_CONVS),
           f"Masksembles evaluate launches {ev_launches}")
     check(all(np.isfinite(v) for v in mets.values()),
           f"Masksembles metrics finite {mets}")
@@ -4039,10 +4155,13 @@ def phase_block(tr: dict) -> dict:
     check(model_fn(cfg_mc)().num_sites == 5 and
           model_fn(cfg_mask)().num_sites == 0, "block-site vgg11 sites")
     mc_sp = dict(dropout_conv_samples=1, dropout_conv_xs=3,
-                 dropout_matmul_xs=1)
-    mc_tm = dict(dropout_conv=4 * s_mc, dropout_matmul=s_mc)
-    mask_sp = dict(bank_conv_samples=1, bank_conv_xs=3, bank_matmul_xs=1)
-    mask_tm = dict(bank_conv=4 * s_mask, bank_matmul=s_mask)
+                 dropout_matmul_xs=1, bias_act_bf16=BLOCK_CONVS)
+    mc_tm = dict(dropout_conv=4 * s_mc, dropout_matmul=s_mc,
+                 bias_act_bf16=BLOCK_CONVS * s_mc)
+    mask_sp = dict(bank_conv_samples=1, bank_conv_xs=3, bank_matmul_xs=1,
+                   bias_act_bf16=BLOCK_CONVS)
+    mask_tm = dict(bank_conv=4 * s_mask, bank_matmul=s_mask,
+                   bias_act_bf16=BLOCK_CONVS * s_mask)
     # ---- the main path, counted: (a)-(d)
     reset_counts()
     t0 = time.perf_counter()
@@ -4228,14 +4347,22 @@ def phase_resnet(smi: str) -> dict:
               conv_int8_fused=RESNET_INT8_CONVS * s_mc), _int8_cpu_tol(
              int8_q, 1.0 / (1.0 - RATE)), s_mc, False, 4, True),
         ("resnet18_me_bf16", model_fn("resnet18_me", mc_cfg),
-         dict(dropout_matmul_samples=4), dict(dropout_matmul=4 * s_mc),
+         dict(dropout_matmul_samples=4, bias_act_bf16=RESNET18_ME_CONVS),
+         dict(dropout_matmul=4 * s_mc,
+              bias_act_bf16=RESNET18_ME_CONVS * s_mc),
          float_tol, s_mc, False, 4, False),
         ("resnet18_block_mc", model_fn("resnet18", mc_cfg, **block),
-         dict(dropout_conv_samples=2, dropout_conv_xs=4),
-         dict(dropout_conv=6 * s_mc), float_tol, s_mc, False, 1, True),
+         dict(dropout_conv_samples=2, dropout_conv_xs=4,
+              bias_act_bf16=RESNET18_SITE_CONVS),
+         dict(dropout_conv=6 * s_mc,
+              bias_act_bf16=RESNET18_SITE_CONVS * s_mc),
+         float_tol, s_mc, False, 1, True),
         ("resnet18_block_mask", model_fn("resnet18", mask_cfg, **block),
-         dict(bank_conv_samples=2, bank_conv_xs=4),
-         dict(bank_conv=6 * s_mask), float_tol, s_mask, True, 1, False))
+         dict(bank_conv_samples=2, bank_conv_xs=4,
+              bias_act_bf16=RESNET18_SITE_CONVS),
+         dict(bank_conv=6 * s_mask,
+              bias_act_bf16=RESNET18_SITE_CONVS * s_mask),
+         float_tol, s_mask, True, 1, False))
     # ---- the main path, counted: (a)-(e)
     reset_counts()
     for (name, build, want_sp, want_tm, cpu_tol, samples, mask, exits,
@@ -4511,10 +4638,14 @@ def phase_lenet(smi: str) -> dict:
     routes = (
         ("lenet_nb3_fused", model_fn("lenet", bayes=BayesConfig(
             rate=RATE, num_bayes_layers=3)), x[:LENET_SMALL],
-         dict(dropout_matmul_xs=2), dict(dropout_matmul=2 * SAMPLES), 1,
+         dict(dropout_matmul_xs=2, bias_act_bf16=LENET_NB3_CONVS),
+         dict(dropout_matmul=2 * SAMPLES,
+              bias_act_bf16=LENET_NB3_CONVS * SAMPLES), 1,
          10, SPATIAL_TEMPORAL_ATOL),
         ("vgg11_me_unfused", model_fn("vgg11_me", fused=False),
-         torch.from_numpy(cifar.x_test[:LENET_SMALL]).cuda(), {}, {}, 5, 10,
+         torch.from_numpy(cifar.x_test[:LENET_SMALL]).cuda(),
+         dict(bias_act_bf16=VGG11_ME_CONVS),
+         dict(bias_act_bf16=VGG11_ME_CONVS * SAMPLES), 5, 10,
          SPATIAL_TEMPORAL_ATOL),
         # spatial vs temporal to the resnet phase's tolerance: resnet18
         # runs its convs after the first site at batch S·N in the spatial
@@ -4523,7 +4654,9 @@ def phase_lenet(smi: str) -> dict:
         ("resnet18_layer_fused", model_fn("resnet18", dropout="layer",
                                           num_classes=RESNET_CLASSES),
          torch.from_numpy(cifar.x_test[:LENET_SMALL]).cuda(),
-         dict(dropout_conv_xs=6), dict(dropout_conv=6 * SAMPLES), 1,
+         dict(dropout_conv_xs=6, bias_act_bf16=RESNET18_SITE_CONVS),
+         dict(dropout_conv=6 * SAMPLES,
+              bias_act_bf16=RESNET18_SITE_CONVS * SAMPLES), 1,
          RESNET_CLASSES, CPU_REF_RTOL))
     for name, build, xr, want_sp, want_tm, exits, classes, st_tol in routes:
         t0 = time.perf_counter()
@@ -4644,9 +4777,10 @@ def phase_convert(smi: str) -> dict:
     out = _block_serve(
         "vgg19_me", lambda: get_model("vgg19_me", bayes=mc_cfg, fused=True,
                                       dtype=torch.bfloat16),
-        None, dict(dropout_matmul_samples=5),
-        dict(dropout_matmul=5 * SAMPLES), x, SPATIAL_TEMPORAL_ATOL,
-        float_tol, SAMPLES, False, 5, RESNET_CLASSES)
+        None, dict(dropout_matmul_samples=5, bias_act_bf16=VGG19_ME_CONVS),
+        dict(dropout_matmul=5 * SAMPLES,
+             bias_act_bf16=VGG19_ME_CONVS * SAMPLES), x,
+        SPATIAL_TEMPORAL_ATOL, float_tol, SAMPLES, False, 5, RESNET_CLASSES)
     eng = out.pop("engine")
     eager_prof = _profile_predict(eng, x, 11, reps=5)
     out.update(_compiled(eng, x, 11, SAMPLES))
@@ -4929,7 +5063,8 @@ def phase_shard(smi: str) -> dict:
                 got = o[key]
                 check(got["num_samples"] == SAMPLES,
                       f"{backend} {key}: {got['num_samples']} samples")
-                check(got["launches"] == {"dropout_matmul_samples": 5},
+                check(got["launches"] == {"dropout_matmul_samples": 5,
+                                          "bias_act_bf16": VGG11_ME_CONVS},
                       f"{backend} {key} launches {got['launches']}")
                 if d == 1:
                     check(got["logits_bit_equal_local"]
@@ -5256,6 +5391,7 @@ def main(argv: list[str]) -> int:
     import bayestpu_torch  # noqa: F401  (fails outside a checkout)
 
     partial = {"kernels": phase_kernels, "conv": phase_conv_kernels,
+               "epilogue": phase_epilogue,
                "convert": lambda: phase_convert(smi),
                "shard": lambda: phase_shard(smi),
                "tools": lambda: phase_tools(smi)}
@@ -5288,6 +5424,7 @@ def main(argv: list[str]) -> int:
 
     summary = timed("kernels", phase_kernels)
     summary.update(timed("conv", phase_conv_kernels))
+    summary.update(timed("epilogue", phase_epilogue))
     timed("backward", phase_backward)
     sl = timed("slice", phase_slice)
     timed("profile", phase_profile, sl)
@@ -5308,11 +5445,12 @@ def main(argv: list[str]) -> int:
         launches = sum(ph["launches"][name]
                        for ph in (sl, tr, i8, an, mk, bl, rn, ln, cv, sh, tl))
         check(launches > 0, f"{name} was never launched on the main paths")
-        conv = name in CONV_REPLACES
-        kernels.append({"name": name, "route": "cuda",
-                        "source": CONV_SOURCE if conv else SOURCE,
-                        "replaces": (CONV_REPLACES if conv
-                                     else REPLACES)[name],
+        source, replaces = (
+            (CONV_SOURCE, CONV_REPLACES) if name in CONV_REPLACES else
+            (EPILOGUE_SOURCE, EPILOGUE_REPLACES)
+            if name in EPILOGUE_REPLACES else (SOURCE, REPLACES))
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces[name],
                         "launches": launches,
                         "max_abs_err": stats["max_abs_err"],
                         "ms": stats["ms"], "plain_ms": stats["plain_ms"],

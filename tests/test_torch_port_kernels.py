@@ -249,8 +249,9 @@ def test_build_hash_tracks_sources():
     path = _build._lib_path("masked_matmul")
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libmasked_matmul-")
-    assert _build.sources() == ["masked_conv", "masked_matmul"]
+    assert _build.sources() == ["epilogue", "masked_conv", "masked_matmul"]
     assert _build._lib_path("masked_conv").name.startswith("libmasked_conv-")
+    assert _build._lib_path("epilogue").name.startswith("libepilogue-")
 
 
 # ------------------------------------------------- row0: one rank's rows
