@@ -23,6 +23,7 @@ JAX.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Any
 
@@ -395,7 +396,7 @@ def _has_device_spans(model: torch.nn.Module) -> bool:
     """Whether the model's predict holds device-timed spans: those of its
     quantization (``quant.*``), in any layer with a ``QuantConfig``, and
     those of a model that says it has some (``device_spans``: the ResNets'
-    ``resnet.stem`` and ``sites.conv``)."""
+    ``resnet.stem``, ``sites.conv`` and ``sites.window_conv``)."""
     return any(getattr(m, "quant", None) is not None
                or getattr(m, "device_spans", False)
                for m in model.modules())
@@ -419,7 +420,11 @@ class _Graph:
     def capture(cls, fn, x: torch.Tensor, seeds: torch.Tensor,
                 timed: bool = False, spans=None) -> "_Graph":
         """``fn(x, seeds)`` run twice on a side stream, then captured on
-        copies of x and seeds."""
+        copies of x and seeds, with Python's cyclic collector off: an
+        engine and its graphs form a cycle (``fn`` holds the engine), so a
+        collection inside the capture could destroy an earlier engine's
+        graph, which is not permitted while a stream captures and fails
+        this capture."""
         x, seeds = x.clone(), seeds.clone()
         cur = torch.cuda.current_stream(x.device)
         side = torch.cuda.Stream(x.device)
@@ -429,8 +434,14 @@ class _Graph:
                 fn(x, seeds)
         cur.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = fn(x, seeds)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                out = fn(x, seeds)
+        finally:
+            if collecting:
+                gc.enable()
         return cls(graph, x, seeds, out, fn, timed, spans)
 
     def instrumented(self) -> "_Graph":

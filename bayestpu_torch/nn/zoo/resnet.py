@@ -48,8 +48,10 @@ model's call order.
   MC heads unfused too (``BayesianDropout`` then the dense).
 
 Under a profiler the stem (with its pool) is the device span
-``resnet.stem`` and each deferred site's two convs the device span
-``sites.conv`` (``utils.profiler``); the counter ``sites.rows`` adds the
+``resnet.stem``, each deferred site's two convs the device span
+``sites.conv``, and inside it a site's ``convbn1`` wider than 1×1 (a
+BasicBlock's 3×3 stride-2 conv) the device span ``sites.window_conv``
+(``utils.profiler``); the counter ``sites.rows`` adds the
 rows the layers after the first site run on (S·N) as a forward starts the
 carry, and ``nn.fused.BayesConv`` counts each fused masked conv in
 ``sites.conv_launches``.
@@ -81,7 +83,7 @@ from bayestpu_torch.nn.layers import ConvBN, avg_pool, max_pool
 from bayestpu_torch.nn.multiexit import ExitOutputs, stack_exits
 from bayestpu_torch.nn.zoo.registry import register_model
 from bayestpu_torch.nn.zoo.sites import SiteModel, flatten_nhwc
-from bayestpu_torch.utils.profiler import count, span
+from bayestpu_torch.utils.profiler import NO_SPAN, count, span
 
 # torch's Conv2d(k=3, padding=1): symmetric, also at stride 2
 # (``bayestpu/nn/zoo/resnet.py:36-40``)
@@ -118,6 +120,9 @@ class _Block(nn.Module):
                            if has_projection else None)
         site = self.convbn1.conv
         self.has_site = site.masked or site.stochastic
+        # a site conv wider than 1×1 (a BasicBlock's 3×3 convbn1) is
+        # timed apart, inside ``sites.conv``
+        self.window_site = self.has_site and site.kernel.shape[-1] > 1
 
     def forward(self, x: torch.Tensor, seeds: torch.Tensor | None = None,
                 sample_idx=0, carry: int | None = None,
@@ -137,8 +142,10 @@ class _Block(nn.Module):
             x = x.contiguous(memory_format=torch.channels_last)
             xin = x.unflatten(0, (carry, -1)) if carry else x
             with span("sites.conv", x.is_cuda):
-                y = convs[0](xin, act="relu", emit_int8=True, seeds=seeds,
-                             sample_idx=sample_idx)
+                with (span("sites.window_conv", x.is_cuda)
+                      if self.window_site else NO_SPAN):
+                    y = convs[0](xin, act="relu", emit_int8=True,
+                                 seeds=seeds, sample_idx=sample_idx)
                 residual = self.downsample(
                     xin, seeds=seeds if proj_seeds is None else proj_seeds,
                     sample_idx=sample_idx)

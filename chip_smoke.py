@@ -42,7 +42,8 @@ ends the run with a nonzero exit and no result line.
    three deferred block sites of resnet18 at batch 128 (3x3 stride 2
    padded ((1, 1), (1, 1)) and the 1x1 stride-2 projection), the readout
    showing that the two convs of a block apply one mask, and the times of
-   the samples and _xs launches there; ``conv_int8_fused`` at every
+   the samples and _xs launches there and of the 3x3 ones at ImageNet
+   shapes (``RESNET18_IMAGENET_SITES``, row 10I); ``conv_int8_fused`` at every
    geometry of the int8 resnet18_me's and vgg11_me's deterministic convs
    (batch 128, f32 and int8 store, bit for bit); the 7x7 stride-2 window (x
    8x32x32x64 -> 64, the smaller tile of ``make_mma_geom``) in every
@@ -366,6 +367,10 @@ CONV_SITES = [(16, 64, 128), (8, 128, 256), (4, 256, 512), (2, 512, 512)]
 # its convbn1 (3x3, stride 2, padded ((1, 1), (1, 1)) as torch's padding=1)
 # and its downsample (1x1, stride 2) mask the input with one site's seeds
 RESNET_SITES = [(32, 64, 128), (16, 128, 256), (8, 256, 512)]
+# the same sites at ImageNet shapes (``stem="imagenet"``: 224 -> 56 after
+# the stem and its pool), as the block-site resnet18 of the benchmark
+# launches them at batch 128: row 10I
+RESNET18_IMAGENET_SITES = [(56, 64, 128), (28, 128, 256), (14, 256, 512)]
 RESNET_P3 = ((1, 1), (1, 1))
 # (kernel size, padding, epilogue activation) of a site's convs: vgg11's
 # 3x3 SAME conv with relu; resnet18's convbn1 with relu and its downsample
@@ -2171,11 +2176,13 @@ def phase_conv_kernels() -> dict:
     resnet18's three deferred sites (both convs, batch 128), the readout
     of their shared mask, ``conv_int8_fused`` at the int8 models' conv
     geometries (``_int8_model_convs``), the bf16 MC launches of resnet50's
-    six ImageNet block-site convs (``_resnet50_site_convs``), the MC
-    launches of resnet18's
+    six ImageNet block-site convs (``_resnet50_site_convs``), the counters
+    of one forward of each ImageNet block-site model
+    (``_blocks_forward_counters``), the MC launches of resnet18's
     ``dropout="layer"`` route at batch LENET_SMALL
     (``_resnet_small_checks``), and the times of the
-    launches its block-site spatial predict makes there; row 10's f32
+    launches its block-site spatial predict makes there and of its 3x3
+    launches at ImageNet shapes (row 10I); row 10's f32
     samples launch at AlexNet's conv5 (``_alex_conv5``); the 7x7 window at
     stride 2 (CONV_WINDOW7) checked in every routine and timed; row 10's
     f32 route at block site 1 in f32 and both mixed types, checked and
@@ -2201,12 +2208,17 @@ def phase_conv_kernels() -> dict:
     _int8_model_convs(gen)
     _resnet50_site_convs(gen)
     _pointwise_times(gen)
-    _resnet50_forward_counters(gen)
+    for model in BLOCKS_FORWARD:
+        _blocks_forward_counters(gen, model)
     _resnet_small_checks(gen)
     # as the block-site resnet18's spatial predict launches them
     _conv_times(gen, None, RESNET_SITES, RESNET_CONVS, 2, "resnet_site",
                 ("dropout_conv_samples", "bank_conv_samples",
                  "dropout_conv_xs", "bank_conv_xs"))
+    # its 3x3 site convs at ImageNet shapes (row 10I)
+    _conv_times(gen, None, RESNET18_IMAGENET_SITES,
+                {"3x3": RESNET_CONVS["3x3"]}, 2, "resnet18_imagenet_site",
+                ("dropout_conv_samples", "dropout_conv_xs"))
     _conv_times(gen, None, [(hw7, c7, f7)], {"7x7": (7, "SAME", "relu")},
                 2, "window7_s2_site",
                 ("dropout_conv", "dropout_conv_samples", "dropout_conv_int8",
@@ -2367,22 +2379,35 @@ def _pointwise_times(gen) -> None:
           "resnet50_six_events_ms": total})
 
 
-def _resnet50_forward_counters(gen) -> None:
-    """One eager spatial predict of the resnet50 blocks model (ImageNet
-    stem, block sites, bf16, batch BATCH, SAMPLES samples; the model's own
-    initial weights) on the card, and the program's counters of it: six
-    fused masked convs, all on the 1x1 routine, and the mask evaluations
-    their launches imply; 47 launches of the one-pass bf16 epilogue
-    (``launch_counts``), the route's 47 passes, 16 with the residual."""
+# the block-site models of the benchmark at ImageNet shapes: the counters
+# of one forward (``_blocks_forward_counters``): fused masked convs, those
+# on the 1x1 routine, one-pass bf16 epilogues and those with a residual
+BLOCKS_FORWARD = {
+    "resnet50": {"sites.conv_launches": 6, "conv.pointwise_launches": 6,
+                 "epilogue.launches": 47, "epilogue.residual_launches": 16},
+    "resnet18": {"sites.conv_launches": 6, "conv.pointwise_launches": 3,
+                 "epilogue.launches": 14, "epilogue.residual_launches": 8}}
+
+
+def _blocks_forward_counters(gen, name: str) -> None:
+    """One eager spatial predict of a BLOCKS_FORWARD model (ImageNet stem,
+    block sites, MC before the classifier, bf16, batch BATCH, SAMPLES
+    samples; the model's own initial weights) on the card, and the
+    program's counters of it against BLOCKS_FORWARD: the fused masked
+    convs, those on the 1x1 routine (resnet50: all six; resnet18: its
+    three projections, its 3x3 convbn1s on ``conv_mma_kernel``), the mask
+    evaluations their launches imply, and the one-pass bf16 epilogue's
+    launches (``launch_counts``) and passes, those with the residual."""
     import torch
     from bayestpu_torch.core.config import BayesConfig
     from bayestpu_torch.engine.engine import BayesEngine
     from bayestpu_torch.nn.zoo import get_model
     from bayestpu_torch.utils import profiler
-    model = get_model("resnet50", bayes=BayesConfig(rate=RATE), fused=True,
+    expect = BLOCKS_FORWARD[name]
+    model = get_model(name, bayes=BayesConfig(rate=RATE), fused=True,
                       dtype=torch.bfloat16, num_classes=1000,
                       input_shape=(224, 224, 3), n_exits=1, stem="imagenet",
-                      dropout="block").cuda().eval()
+                      dropout="block", dropout_exit=True).cuda().eval()
     engine = BayesEngine(model, model.bayes, device="cuda")
     engine.ready = True
     x = torch.randn(BATCH, 224, 224, 3, generator=gen).cuda()
@@ -2392,15 +2417,12 @@ def _resnet50_forward_counters(gen) -> None:
     epilogues = launch_counts()["bias_act_bf16"]
     counts = {k: v for k, v in profiler.counters().items()
               if k.startswith(("conv.", "sites.", "epilogue."))}
-    emit({"phase": "conv", "model": "resnet50_blocks", "batch": BATCH,
+    emit({"phase": "conv", "model": f"{name}_blocks", "batch": BATCH,
           "samples": SAMPLES, "counters": counts,
           "bias_act_bf16_launches": epilogues})
-    check(counts.get("sites.conv_launches") == 6
-          and counts.get("conv.pointwise_launches") == 6
-          and epilogues == 47
-          and counts.get("epilogue.launches") == 47
-          and counts.get("epilogue.residual_launches") == 16,
-          f"resnet50 blocks forward counters {counts}, "
+    check(all(counts.get(k) == v for k, v in expect.items())
+          and epilogues == expect["epilogue.launches"],
+          f"{name} blocks forward counters {counts}, "
           f"{epilogues} bias_act_bf16 launches")
     del engine, model
     torch.cuda.empty_cache()

@@ -197,3 +197,53 @@ def test_timing_helpers_on_the_host_clock():
     assert cmp["winner"] == "fast" and len(cmp["pairs"]) == 3
     assert cmp["median_ratio_a_over_b"] < 1
     assert cmp["median_fast_s"] < cmp["median_slow_s"]
+
+
+def test_graph_capture_runs_without_the_cyclic_collector(monkeypatch):
+    """``_Graph.capture`` captures with Python's cyclic collector off and
+    restores it after, also when the capture raises: a collection inside a
+    capture could destroy an earlier engine's unreachable graph (engine
+    and graphs form a cycle), which fails the capture on a card. The CUDA
+    streams and graph are stand-ins here; the collector is the real one."""
+    import contextlib
+    import gc
+    from types import SimpleNamespace
+
+    from bayestpu_torch.engine import engine as eng
+
+    capturing = []
+    stream = SimpleNamespace(wait_stream=lambda other: None)
+
+    @contextlib.contextmanager
+    def graph(g):
+        capturing.append(True)
+        try:
+            yield
+        finally:
+            capturing.pop()
+
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: stream)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda dev: stream)
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", object)
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    seen = []
+
+    def fn(x, seeds):
+        seen.append((bool(capturing), gc.isenabled()))
+        return x + 1
+
+    assert gc.isenabled()
+    g = eng._Graph.capture(fn, torch.zeros(2), torch.zeros(1))
+    assert seen == [(False, True), (False, True), (True, False)]
+    assert gc.isenabled() and torch.equal(g.out, torch.ones(2))
+
+    def fails(x, seeds):
+        if capturing:
+            raise RuntimeError("capture failed")
+        return x
+
+    with pytest.raises(RuntimeError, match="capture failed"):
+        eng._Graph.capture(fails, torch.zeros(2), torch.zeros(1))
+    assert gc.isenabled()

@@ -222,6 +222,8 @@ READERS = {
     "quant_im2col_ms.predict": ("engine.predict", "quant.im2col", "device"),
     "stem_ms.predict": ("engine.predict", "resnet.stem", "device"),
     "site_convs_ms.predict": ("engine.predict", "sites.conv", "device"),
+    "site_window_ms.predict": ("engine.predict", "sites.window_conv",
+                               "device"),
     "train_forward_ms.train": ("train.step", "train.forward", "device"),
     "train_backward_ms.train": ("train.step", "train.backward", "device"),
     "train_update_ms.train": ("train.step", "train.update", "device"),
