@@ -2,10 +2,11 @@
 // interface.
 //
 // Replaces the two Pallas TPU kernels of bayestpu/kernels/masked_conv.py
-// with two routines: conv_mma_kernel_1x1<Mask> for a bf16 conv with a 1x1
-// window (below), and conv_mma_kernel<TX, TS, Mask> (x of type TX, staged
-// and multiplied as TS), an implicit GEMM on the tensor cores, for every
-// other conv:
+// with three routines: conv_mma_kernel_1x1<Mask> for a bf16 MC conv with a
+// 1x1 window and window::conv_mma_kernel<Mask> for one with a 3x3 window
+// at stride 2 (both below), and conv_mma_kernel<TX, TS, Mask> (x of type
+// TX, staged and multiplied as TS), an implicit GEMM on the tensor cores,
+// for every other conv:
 //   <T, T, HashMask|NoMask>      <- _masked_conv_kernel (:371-417),
 //   <TX, float, HashMask|NoMask>    launched by _launch_masked (:473-510):
 //        dropout_conv, dropout_conv_samples, dropout_conv_inference (x
@@ -134,6 +135,37 @@
 // the six by bytes, the S bf16 outputs): the integer issue of the hash, 2.25
 // G evaluations, ~1.3 ms at stage 2's convbn1 alone, and the tensor pipe
 // drained after each chunk, where the two-level sum reads the partial.
+//
+// The window routine (window::conv_mma_kernel). launch_mma sends it an MC
+// conv (HashMask) of bf16 x and w with a 3x3 window at stride 2, a top and
+// a left pad of 0 or 1 (XLA's SAME, torch's padding=1), C a multiple of 64
+// and at most 1,024, at most 127 output columns and x 16-byte aligned
+// (takes_window); the shape and the types decide, never S or the launch
+// kind. Where conv_mma_kernel stages a 17 x 17 patch for each 8 x 8 output
+// tile and masks it again for each 128-channel tile of F, this routine
+// masks each input element once a sample (and again only in the halo row
+// two items share): an item of R whole output rows of one sample (R from
+// the shape alone, window_plan: 4, 4 and 8 at resnet18's ImageNet sites)
+// stages its band of input rows (all of C, zeros outside the image, by TMA
+// at a column stride of 2, so each tap reads its columns in a row) and the
+// stagers mask it in place while the consumers run every F tile over it:
+// wgmma m64n64k16 with A from the band by ldmatrix into registers (the
+// stride-2 gather and the tap offsets in the lanes' addresses) and B from
+// a ring of 16 KiB stages (64 channels of one tap, 128 output channels)
+// that a producer warp fills by TMA, multicast over clusters of 4; the
+// same two-level sum, a chunk's 9 taps of 64 channels from zero, then
+// added to the f32 total; the epilogue above. 128 registers a thread (16
+// warps) hold a consumer's sum, total and one group's A fragments, so a
+// warpgroup keeps one group of two k steps in flight and the two consumer
+// warpgroups take turns on the tensor core. What bounds it at resnet18's
+// three site convs (batch 128, S = 10, 148 GFLOP each, 0.150 ms at the
+// bf16 peak; 0.926, 0.729 and 0.734 ms measured): at stage 2 (C = 64) the
+// hash's integer issue, 284 M evaluations on six stager warps, busy ~3/4
+// of the launch; at stages 3 and 4 the products, a weight stage feeding
+// 64 output rows (64 operations a weight byte; a block's ring delivers
+// about 16 KiB a 330 ns, 0.35 and 0.47 ms of ring time alone), and at
+// stage 4 the refill of its one band (144 KiB: two do not fit) between
+// items.
 #include <cstddef>
 #include <cstdint>
 #include <type_traits>
@@ -1075,15 +1107,56 @@ __device__ __forceinline__ void store_tile_1x1(const Epi& e,
     }
     return;
   }
-  float ys[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) ys[i] = y[i];
-#pragma unroll 1
   for (int i = 0; i < 32; ++i) {
     const int r = rlo + 8 * ((i >> 1) & 1), f = fw + 8 * (i >> 2) + (i & 1);
     if (r < nrows && f < F)
-      store_y(e, ys[i], base + static_cast<size_t>(r) * F + f, out);
+      store_y(e, y[i], base + static_cast<size_t>(r) * F + f, out);
   }
+}
+
+// The epilogue of a consumer thread's 32 f32 totals (rows and columns as
+// store_tile_1x1 takes them): affine_of and epi_y in place, then the store
+__device__ __forceinline__ void store_epilogue(const Epi& e, float (&y)[32],
+                                               void* out, size_t base,
+                                               long long nrows, int rlo,
+                                               int fw, int F) {
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb) {
+    const int f = fw + nb * 8;
+    float sc[2] = {1.f, 1.f}, bi[2] = {0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      if (f + k < F) affine_of<float>(e, F, f + k, &sc[k], &bi[k]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      y[nb * 4 + i] = epi_y(e, y[nb * 4 + i], sc[i & 1], bi[i & 1]);
+  }
+  store_tile_1x1(e, y, out, base, nrows, rlo, fw, F);
+}
+
+// Eight bf16 values of x (one 16-byte vector of a row whose hash key is
+// rkey, channels with the keys key1, key2) under the MC mask: a kept value
+// times the scale, rounded to bf16, a dropped one 0; two to a word
+template <typename Mask>
+__device__ __forceinline__ uint4 mask_bf16x8(uint4 w4, uint32_t rkey,
+                                             const uint32_t (&key1)[8],
+                                             const uint32_t (&key2)[8],
+                                             const Mask& mask) {
+  uint32_t* w = reinterpret_cast<uint32_t*>(&w4);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const bool lo =
+        bayestpu::keyed_bits(rkey, key1[2 * k], key2[2 * k]) < mask.thresh;
+    const bool hi = bayestpu::keyed_bits(rkey, key1[2 * k + 1],
+                                         key2[2 * k + 1]) < mask.thresh;
+    const __nv_bfloat162 sc2 = __floats2bfloat162_rn(
+        __fmul_rn(__uint_as_float(w[k] << 16), mask.scale),
+        __fmul_rn(__uint_as_float(w[k] & 0xFFFF0000u), mask.scale));
+    w[k] = *reinterpret_cast<const uint32_t*>(&sc2) &
+           ((lo ? 0x0000FFFFu : 0u) | (hi ? 0xFFFF0000u : 0u));
+  }
+  return w4;
 }
 
 // A stager's vectors of A: 16-byte unit cv of row r, for r = sid / kv +
@@ -1283,22 +1356,7 @@ __global__ void __cluster_dims__(PW_CLUSTER, 1, 1)
         }
         uint4* p = reinterpret_cast<uint4*>(Ab + (cv >> 3) * PW_CHUNK +
                                             sw128(r, cv & 7));
-        uint4 w4 = *p;
-        uint32_t* w = reinterpret_cast<uint32_t*>(&w4);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const bool lo = bayestpu::keyed_bits(row.y, key1[2 * k],
-                                               key2[2 * k]) < mask.thresh;
-          const bool hi = bayestpu::keyed_bits(row.y, key1[2 * k + 1],
-                                               key2[2 * k + 1]) <
-                          mask.thresh;
-          const __nv_bfloat162 sc2 = __floats2bfloat162_rn(
-              __fmul_rn(__uint_as_float(w[k] << 16), mask.scale),
-              __fmul_rn(__uint_as_float(w[k] & 0xFFFF0000u), mask.scale));
-          w[k] = *reinterpret_cast<const uint32_t*>(&sc2) &
-                 ((lo ? 0x0000FFFFu : 0u) | (hi ? 0xFFFF0000u : 0u));
-        }
-        *p = w4;
+        *p = mask_bf16x8(*p, row.y, key1, key2, mask);
       }
       fence_proxy_async();   // generic-proxy writes, for wgmma to read
       mbar_arrive(afull0 + 8 * b);
@@ -1352,27 +1410,456 @@ __global__ void __cluster_dims__(PW_CLUSTER, 1, 1)
         // the warpgroup is done with A after the item's last products
         if (ft + 1 == nft && (tid & 127) == 0) mbar_arrive(aempty0 + 8 * b);
         // the epilogue of F tile ft, as conv_mma_kernel's
-        const int fw = ft * PW_BN + wg * (PW_BN / 2) + (lane & 3) * 2;
-#pragma unroll
-        for (int nb = 0; nb < 8; ++nb) {
-          const int f = fw + nb * 8;
-          float sc[2] = {1.f, 1.f}, bi[2] = {0.f, 0.f};
-#pragma unroll
-          for (int k = 0; k < 2; ++k)
-            if (f + k < g.F) affine_of<float>(e, g.F, f + k, &sc[k], &bi[k]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            tot[nb * 4 + i] =
-                epi_y(e, tot[nb * 4 + i], sc[i & 1], bi[i & 1]);
-        }
-        store_tile_1x1(e, tot, out, (static_cast<size_t>(s) * M + m0) * g.F,
-                       nrows, rlo, fw, g.F);
+        store_epilogue(e, tot, out, (static_cast<size_t>(s) * M + m0) * g.F,
+                       nrows, rlo,
+                       ft * PW_BN + wg * (PW_BN / 2) + (lane & 3) * 2, g.F);
       }
     }
   }
   __syncwarp();
   cluster_sync();   // no block leaves while a peer may still signal it
 }
+
+// ------------------------------------------ the window routine (wgmma)
+
+// (The file's header describes the routine.) An item is R output rows of
+// one sample (R·Wo pixels, up to WN_MAX_TILES 64-row M tiles), across
+// images where Wo is small. Its band in shared memory holds, for each k
+// chunk of 64 channels, the item's slots one after another: slot k of an
+// image's run of r output rows from oh on is input row 2·oh - pad_top + k
+// (2r + 1 slots a run, zeros outside the image). A slot is two halves of P
+// 128-byte rows (P = Wo + 1 rounded up to 8), the even columns c' = 0, 2,
+// .., 2·Wo of the shifted column c' = iw + pad_left, then the odd ones,
+// each half 1024-byte aligned and 128-byte swizzled as TMA writes it. Tap
+// (kh, kw) of output pixel (i, ow) of the item (i its output row, g the
+// run it lies in) reads row ow + kw / 2 of half kw % 2 of slot 2i + g + kh.
+constexpr int WN_CONSUMERS = 256;                    // two warpgroups
+constexpr int WN_STAGERS = 192;                      // six warps
+constexpr int WN_FETCH = WN_CONSUMERS + WN_STAGERS;  // the band's TMA warp
+constexpr int WN_PRODUCER = WN_FETCH + 32;           // the weights' warp
+constexpr int WN_THREADS = WN_PRODUCER + 32;  // 16 warps: 128 registers
+constexpr int WN_TAPS = 9;         // a 3 x 3 window
+constexpr int WN_MAX_TILES = 4;    // 64-pixel M tiles of an item, at most
+constexpr int WN_MAX_SLOTS = 96;   // slots of a band, at most
+constexpr int WN_MAX_KC = 16;      // k chunks: C at most 1,024
+constexpr int WN_MAX_NBUF = 2;     // bands, at most
+constexpr int WN_MIN_STAGES = 4;   // ring stages, at least
+constexpr int WN_MAX_WO = 127;     // output columns: a TMA box of 2·(Wo + 1)
+// shared memory beside the bands and the ring: the alignment, the slot
+// table and the barriers
+constexpr int WN_FIXED =
+    1024 + WN_MAX_SLOTS * 4 +
+    (2 * PW_MAX_STAGES + 3 * WN_MAX_NBUF * WN_MAX_KC) * 8;
+static_assert(WN_THREADS == 512, "four warps an SM sub-partition");
+
+// the window routine's stagers' own barrier (named barrier 2)
+__device__ __forceinline__ void window_stagers_sync() {
+  asm volatile("bar.sync 2, %0;\n" ::"n"(WN_STAGERS) : "memory");
+}
+
+// a shape's plan (window_plan): R output rows an item, nbuf bands, the
+// ring's stages, a band's slots and P
+struct WindowPlan {
+  int R, nbuf, stages, slots, P;
+};
+
+__device__ __forceinline__ void ldmatrix_x4_at(uint32_t (&r)[4],
+                                               uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d (+)= A (64 x 16, in registers: each warp's 16 rows as the m16n8k16 A
+// fragment) · B (64 x 16)^T, bf16 -> f32; d as wgmma_m64n64k16's
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d = A · B^T, as wgmma_m64n64k16_rs with scale_d 0: d's values are not
+// read (outputs only), so d holds nothing live before it
+__device__ __forceinline__ void wgmma_m64n64k16_rs_zero(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+        "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
+        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// a box of x's window map (window_x_map) at coordinates (channel, column,
+// row, image) to shared address `dst`, the barrier `bar` counting its
+// bytes (zeros outside x)
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+namespace window {
+
+// Item j of this block: sample s, first output row q0 of the sample's N·Ho
+// and its output rows nout (0: an item past the end, which keeps its part
+// in the cluster's weight loads and masks and stores nothing). The S
+// items of one band of rows run side by side, so a shared x is read from
+// memory about once.
+struct Item {
+  int s;
+  int q0;   // N·Ho < 2^31: x has fewer pixels
+  int nout;
+};
+
+__device__ __forceinline__ Item item_of(const Geom& g, int R, int j) {
+  const long long t = blockIdx.x + static_cast<long long>(j) * gridDim.x;
+  const int rows = g.N * g.Ho;
+  const long long q0 = t / g.S * R;
+  Item it;
+  it.s = static_cast<int>(t % g.S);
+  it.q0 = q0 < rows ? static_cast<int>(q0) : rows;
+  it.nout = rows - it.q0 < R ? rows - it.q0 : R;
+  return it;
+}
+
+// slots of an item: 2·nout, and one more for each image it spans
+__device__ __forceinline__ int item_slots(const Geom& g, const Item& it) {
+  if (it.nout == 0) return 0;
+  return 2 * it.nout + (it.q0 + it.nout - 1) / g.Ho - it.q0 / g.Ho + 1;
+}
+
+// slot k of an item: its image n and input row ih (outside 0 .. H - 1: a
+// row of zeros)
+__device__ __forceinline__ void slot_at(const Geom& g, const Item& it,
+                                        int k, int* n, int* ih) {
+  int q = it.q0;
+  for (int left = it.nout; left > 0;) {
+    const int oh = q % g.Ho;
+    const int r = g.Ho - oh < left ? g.Ho - oh : left;
+    if (k <= 2 * r) {
+      *n = q / g.Ho;
+      *ih = 2 * oh - g.pt + k;
+      return;
+    }
+    k -= 2 * r + 1;
+    q += r;
+    left -= r;
+  }
+}
+
+// The window routine: persistent blocks, one an SM, clusters of 4, whose
+// warps split the work. Two consumer warpgroups run the products and the
+// epilogue of each (F tile, M tile) of an item, 64 output channels each;
+// two stager warpgroups mask each k chunk of an item's band in place, each
+// element once, as its TMA bytes come in; a fetch warp loads the bands'
+// chunks by TMA as they free up; a producer warp keeps the weights' ring
+// full. A band's chunk is free once the item's last (F tile, M tile) is
+// done with it, so with one band the next item's chunks are fetched and
+// masked while the last F tile runs.
+template <typename Mask>
+__global__ void __cluster_dims__(PW_CLUSTER, 1, 1)
+    __launch_bounds__(WN_THREADS, 1)
+    conv_mma_kernel(const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap wmap, Mask mask,
+                    void* __restrict__ out, Geom g, Epi e, WindowPlan p,
+                    int J) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the swizzled tiles start at a 1024-byte boundary
+  unsigned char* sm =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const int nkc = g.C / PW_KC;                  // k chunks
+  const int SB = 2 * p.P * 128;                 // bytes of a slot's chunk
+  const int CB = p.slots * SB;                  // bytes of a band's chunk
+  const int BB = nkc * CB;                      // bytes of a band
+  unsigned char* band = sm;                     // nbuf x BB
+  unsigned char* ring = band + p.nbuf * BB;     // stages x PW_STAGE
+  // the slot table of the item being masked: the hash row of the slot's
+  // column 0, (n·H + ih)·W, or NO_PIXEL for a row of zeros
+  uint32_t* table = reinterpret_cast<uint32_t*>(ring + p.stages * PW_STAGE);
+  // barriers: a ring stage's full (its TMA bytes are in) and empty (the
+  // cluster's consumers are done with it); a band chunk's full (masked),
+  // empty (the consumers are done with it) and raw (its TMA bytes are in),
+  // chunk kc of band b at index b·WN_MAX_KC + kc
+  const uint32_t full0 = smem_addr(table + WN_MAX_SLOTS);
+  const uint32_t empty0 = full0 + 8 * PW_MAX_STAGES;
+  const uint32_t afull0 = empty0 + 8 * PW_MAX_STAGES;
+  const uint32_t aempty0 = afull0 + 8 * WN_MAX_NBUF * WN_MAX_KC;
+  const uint32_t araw0 = aempty0 + 8 * WN_MAX_NBUF * WN_MAX_KC;
+
+  const int tid = threadIdx.x;
+  const int nft = (g.F + PW_BN - 1) / PW_BN;
+  const int mtiles = (p.R * g.Wo + PW_BM - 1) / PW_BM;
+
+  if (tid == WN_PRODUCER) {
+    for (int i = 0; i < p.stages; ++i) {
+      mbar_init(full0 + 8 * i, 1);
+      mbar_init(empty0 + 8 * i, 2 * PW_CLUSTER);   // 2 warpgroups a block
+    }
+    for (int b = 0; b < p.nbuf; ++b)
+      for (int kc = 0; kc < nkc; ++kc) {
+        const uint32_t o = 8 * (b * WN_MAX_KC + kc);
+        mbar_init(afull0 + o, WN_STAGERS);
+        mbar_init(aempty0 + o, 2);
+        mbar_init(araw0 + o, 1);
+      }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();   // the barriers of every block
+
+  if (tid >= WN_PRODUCER) {
+    // the producer: one lane keeps the ring full, `stages` units ahead of
+    // the cluster's slowest consumer; per item the units (F tile, M tile, k
+    // chunk, tap), tap t of F tile ft at row t·F + ft·128 of the (KH·KW·F,
+    // Cp) weights (rows past the tap's F, never stored, read the next tap's)
+    if (tid == WN_PRODUCER) {
+      const int r0 = static_cast<int>(cluster_rank()) * PW_SLICE;
+      const uint32_t ring0 = smem_addr(ring);
+      int st = 0, ph = 0;
+      bool used = false;   // the ring has gone round once
+      for (int j = 0; j < J; ++j)
+        for (int ft = 0; ft < nft; ++ft)
+          for (int mt = 0; mt < mtiles; ++mt)
+            for (int kc = 0; kc < nkc; ++kc)
+              for (int t = 0; t < WN_TAPS; ++t) {
+                if (used) mbar_wait(empty0 + 8 * st, ph ^ 1);
+                mbar_expect_tx(full0 + 8 * st, PW_STAGE);
+                tma_multicast(ring0 + st * PW_STAGE + r0 * 128, &wmap,
+                              full0 + 8 * st, kc * PW_KC,
+                              t * g.F + ft * PW_BN + r0);
+                if (++st == p.stages) {
+                  st = 0;
+                  ph ^= 1;
+                  used = true;
+                }
+              }
+    }
+  } else if (tid >= WN_FETCH) {
+    // the fetch warp: one lane loads chunk kc of item j's band, raw, into
+    // band j % nbuf once the consumers are done with that chunk of the
+    // item before in it: per slot its even and its odd columns, Wo + 1
+    // each at a stride of 2 (zeros outside x)
+    if (tid == WN_FETCH) {
+      const uint32_t box = static_cast<uint32_t>(g.Wo + 1) * 128;
+      for (int j = 0; j < J; ++j) {
+        const int b = j % p.nbuf;
+        const Item it = item_of(g, p.R, j);
+        const int nsl = item_slots(g, it);
+        const int n0 = g.xstride ? it.s * g.N : 0;
+        for (int kc = 0; kc < nkc; ++kc) {
+          const uint32_t o = 8 * (b * WN_MAX_KC + kc);
+          if (j >= p.nbuf) mbar_wait(aempty0 + o, (j / p.nbuf - 1) & 1);
+          mbar_expect_tx(araw0 + o, 2 * box * nsl);
+          const uint32_t dst = smem_addr(band + b * BB + kc * CB);
+          for (int k = 0; k < nsl; ++k) {
+            int n = 0, ih = 0;
+            slot_at(g, it, k, &n, &ih);
+            for (int h = 0; h < 2; ++h)
+              tma_load4(dst + k * SB + h * p.P * 128, &xmap, araw0 + o,
+                        kc * PW_KC, h - g.pl, ih, n0 + n);
+          }
+        }
+      }
+    }
+  } else if (tid >= WN_CONSUMERS) {
+    // the stagers: each k chunk of item j's band masked in place as its
+    // bytes come in, each element once; a thread keeps its 16-byte unit cv
+    // (8 channels) and walks the chunk's 128-byte rows
+    const int sid = tid - WN_CONSUMERS;
+    const int cv = sid & 7;
+    constexpr int STEP = WN_STAGERS / 8;   // rows a step
+    const int P2 = 2 * p.P;
+    uint32_t key1[8], key2[8];
+    for (int j = 0; j < J; ++j) {
+      const int b = j % p.nbuf;
+      const Item it = item_of(g, p.R, j);
+      const int nsl = item_slots(g, it);
+      mask.begin(it.s);
+      window_stagers_sync();   // every stager is done with the last table
+      if (sid < nsl) {
+        int n = 0, ih = 0;
+        slot_at(g, it, sid, &n, &ih);
+        table[sid] = ih >= 0 && ih < g.H
+                         ? (static_cast<uint32_t>(n) * g.H + ih) * g.W
+                         : NO_PIXEL;
+      }
+      window_stagers_sync();
+      for (int kc = 0; kc < nkc; ++kc) {
+        const uint32_t o = 8 * (b * WN_MAX_KC + kc);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const uint32_t c = static_cast<uint32_t>(kc * PW_KC + cv * 8 + k);
+          key1[k] = bayestpu::col_key1(c);
+          key2[k] = bayestpu::col_key2(c);
+        }
+        mbar_wait(araw0 + o, (j / p.nbuf) & 1);
+        unsigned char* chunk = band + b * BB + kc * CB;
+        // row rho of the chunk: slot rho / 2P, half (rho % 2P) / P,
+        // position rho % P, column c' = 2·position + half
+        int rho = sid >> 3;
+        int slot = rho / P2, rem = rho - slot * P2;
+#pragma unroll 1
+        for (; rho < nsl * P2; rho += STEP) {
+          const int hf = rem >= p.P;
+          const int cs = 2 * (rem - hf * p.P) + hf;   // c'
+          const int iw = cs - g.pl;
+          const uint32_t base = table[slot];
+          if (cs <= 2 * g.Wo && iw >= 0 && iw < g.W && base != NO_PIXEL) {
+            uint4* v = reinterpret_cast<uint4*>(chunk + rho * 128 +
+                                                ((cv ^ (rho & 7)) << 4));
+            *v = mask_bf16x8(*v, mask.row_key(base + iw), key1, key2, mask);
+          }
+          rem += STEP;
+          while (rem >= P2) {
+            rem -= P2;
+            ++slot;
+          }
+        }
+        fence_proxy_async();   // generic-proxy writes, for the consumers
+        mbar_arrive(afull0 + o);
+      }
+    }
+  } else {
+    // the consumers: per (F tile, M tile) of an item and per k chunk, the
+    // tensor core sums the chunk's 9 taps of 64 channels from zero (part),
+    // then that partial is added to the f32 total (tot), so a sum over K
+    // rounds like an f32 sum. A comes from the band by ldmatrix into
+    // registers, two k steps a wgmma group, one group in flight a
+    // warpgroup: the two warpgroups take turns on the tensor core.
+    const int lane = tid & 31, warp = tid >> 5, wg = warp >> 2;
+    const int hf = lane >> 4;                       // the lane's k half
+    const int rlo = (warp & 3) * 16 + (lane >> 2);  // rows rlo, rlo + 8
+    const uint32_t band0 = smem_addr(band);
+    const uint32_t b0 = smem_addr(ring) + wg * (PW_BN / 2) * 128;
+    const int M = g.N * g.Ho * g.Wo;   // under 2^31: x has more pixels
+    float part[32], tot[32];
+    uint32_t a[2][4];   // a group's two k steps of A
+#pragma unroll
+    for (int i = 0; i < 32; ++i) tot[i] = 0.f;
+    int st = 0, ph = 0;   // the ring's stage and phase
+    for (int j = 0; j < J; ++j) {
+      const int b = j % p.nbuf;
+      const Item it = item_of(g, p.R, j);
+      const uint32_t bandb = band0 + b * BB;
+      const int oh0 = it.q0 % g.Ho;   // the item's first output row's
+      for (int ft = 0; ft < nft; ++ft) {
+        for (int mt = 0; mt < mtiles; ++mt) {
+          // the lane's A row: pixel m of the item (past its pixels pixel
+          // 0, not stored), at output row i, column ow, in the item's run
+          // `run`
+          const int m = mt * PW_BM + (warp & 3) * 16 + (lane & 15);
+          int i = 0, ow = 0;
+          if (m < it.nout * g.Wo) {
+            i = m / g.Wo;
+            ow = m - i * g.Wo;
+          }
+          const int run = (oh0 + i) / g.Ho;
+          const uint32_t lrow = bandb + (2 * i + run) * SB + ow * 128;
+          const bool last = ft + 1 == nft && mt + 1 == mtiles;
+          for (int kc = 0; kc < nkc; ++kc) {
+            const uint32_t o = 8 * (b * WN_MAX_KC + kc);
+            if (ft == 0 && mt == 0) mbar_wait(afull0 + o, (j / p.nbuf) & 1);
+            // tap (kh, kw): the chunk's first tap starts its sum from zero,
+            // so part is written before it is read there (a wgmma that
+            // reads none) and is dead between the chunks
+            auto tap = [&](auto first_tap, int kh, int kw) {
+              constexpr bool first = decltype(first_tap)::value;
+              mbar_wait(full0 + 8 * st, ph);
+              const uint32_t ta = lrow + kc * CB + kh * SB +
+                                  (kw & 1) * p.P * 128 + (kw >> 1) * 128;
+              const int p7 = (ow + (kw >> 1)) & 7;
+              const uint32_t bs = b0 + st * PW_STAGE;
+#pragma unroll
+              for (int q = 0; q < 2; ++q) {
+#pragma unroll
+                for (int k = 0; k < 2; ++k) {
+                  const int kk = 2 * q + k;
+                  ldmatrix_x4_at(a[k], ta + ((((kk << 1) | hf) ^ p7) << 4));
+                }
+                wgmma_fence();
+#pragma unroll
+                for (int k = 0; k < 2; ++k) {
+                  const int kk = 2 * q + k;
+                  if (first && kk == 0)
+                    wgmma_m64n64k16_rs_zero(part, a[k], sw128_desc(bs));
+                  else
+                    wgmma_m64n64k16_rs(part, a[k], sw128_desc(bs + kk * 32),
+                                       1);
+                }
+                wgmma_commit();
+                wgmma_wait_all();
+                fence_regs(part);
+              }
+              // the tap's products are done with its stage: tell every
+              // producer
+              mbar_arrive_at(empty0 + 8 * st,
+                             static_cast<uint32_t>(tid & (PW_CLUSTER - 1)),
+                             (tid & 127) < PW_CLUSTER);
+              if (++st == p.stages) {
+                st = 0;
+                ph ^= 1;
+              }
+            };
+            tap(std::true_type{}, 0, 0);
+#pragma unroll 1
+            for (int t = 1; t < WN_TAPS; ++t)
+              tap(std::false_type{}, t / 3, t % 3);
+            // the item's last products are done with the band's chunk
+            if (last && (tid & 127) == 0) mbar_arrive(aempty0 + o);
+#pragma unroll
+            for (int r = 0; r < 32; ++r)
+              tot[r] = kc == 0 ? part[r] : __fadd_rn(tot[r], part[r]);
+          }
+          // the epilogue of (F tile ft, M tile mt), as conv_mma_kernel's
+          store_epilogue(
+              e, tot, out,
+              (static_cast<size_t>(it.s) * M + it.q0 * g.Wo + mt * PW_BM) *
+                  g.F,
+              it.nout * g.Wo - mt * PW_BM, rlo,
+              ft * PW_BN + wg * (PW_BN / 2) + (lane & 3) * 2, g.F);
+        }
+      }
+    }
+  }
+  __syncwarp();
+  cluster_sync();   // no block leaves while a peer may still signal it
+}
+
+}  // namespace window
 
 // ---------------------------------------------------------------- launch
 
@@ -1611,11 +2098,149 @@ int launch_1x1(const void* x, const void* wk, const Mask& mask, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The most slots an item of R output rows takes: 2R, and one for each
+// image it spans (the items start at q0 = kR of the N·Ho rows; q0 mod Ho
+// repeats within k < Ho, and a short last item takes no more than a whole
+// one at its residue)
+int window_slots(const Geom& g, int R) {
+  const long long rows = static_cast<long long>(g.N) * g.Ho;
+  int most = 0;
+  for (long long k = 0; k < g.Ho && k * R < rows; ++k) {
+    const long long q0 = k * R, q1 = (q0 + R < rows ? q0 + R : rows) - 1;
+    const int slots =
+        static_cast<int>(2 * (q1 - q0 + 1) + q1 / g.Ho - q0 / g.Ho + 1);
+    if (slots > most) most = slots;
+  }
+  return most;
+}
+
+// The window routine's plan, fixed by the shape alone (never by S or the
+// launch kind): of the items of R output rows (R·Wo at most WN_MAX_TILES ·
+// 64 pixels) whose bands fit in shared memory beside WN_MIN_STAGES ring
+// stages, the one whose 64-row M tiles are filled most, counting any fill
+// of 7/8 or more as full; then the one with two bands over one; then the
+// fuller; then the larger R (the least halo). The ring takes what is left,
+// up to PW_MAX_STAGES. False: no R fits.
+bool window_plan(const Geom& g, WindowPlan* plan, size_t* smem) {
+  const int P = (g.Wo + 1 + 7) / 8 * 8;
+  const long long SB = 2LL * P * 128, nkc = g.C / PW_KC;
+  const long long rows = static_cast<long long>(g.N) * g.Ho;
+  long long best = -1;
+  for (int R = 1; R <= rows && R * g.Wo <= WN_MAX_TILES * PW_BM; ++R) {
+    const int slots = window_slots(g, R);
+    if (slots > WN_MAX_SLOTS) continue;
+    const long long band = nkc * slots * SB;
+    int nbuf = WN_MAX_NBUF;
+    while (nbuf > 0 && WN_FIXED + nbuf * band +
+                               WN_MIN_STAGES * PW_STAGE > PW_MAX_SMEM)
+      --nbuf;
+    if (nbuf == 0) continue;
+    const int tiles = (R * g.Wo + PW_BM - 1) / PW_BM;
+    const int fill = 1000 * R * g.Wo / (PW_BM * tiles);   // per mille
+    const long long key =
+        (((fill < 875 ? fill : 875) * 4LL + nbuf) * 1001 + fill) * 1024 + R;
+    if (key <= best) continue;
+    best = key;
+    long long stages = (PW_MAX_SMEM - WN_FIXED - nbuf * band) / PW_STAGE;
+    if (stages > PW_MAX_STAGES) stages = PW_MAX_STAGES;
+    *plan = WindowPlan{R, nbuf, static_cast<int>(stages), slots, P};
+    *smem = WN_FIXED + nbuf * band + stages * PW_STAGE;
+  }
+  return best >= 0;
+}
+
+// The window routine's shapes: a 3x3 window at stride 2 with a top and a
+// left pad of 0 or 1, C a multiple of 64 and at most WN_MAX_KC chunks,
+// x 16-byte aligned and under 2^31 pixels (TMA coordinates are int32), at
+// most WN_MAX_WO output columns (x's TMA box), and a plan that fits.
+bool takes_window(const Geom& g, const void* x) {
+  WindowPlan p;
+  size_t smem = 0;
+  return g.KH == 3 && g.KW == 3 && g.st == 2 && (g.pt == 0 || g.pt == 1) &&
+         (g.pl == 0 || g.pl == 1) && g.C % PW_KC == 0 &&
+         g.C <= WN_MAX_KC * PW_KC && g.Wo <= WN_MAX_WO &&
+         reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         static_cast<long long>(g.N) * g.H * g.W * (g.xstride ? g.S : 1) <
+             (1LL << 31) &&
+         window_plan(g, &p, &smem);
+}
+
+// The window routine's TMA map of x (N, H, W, C) bf16, or (S, N, H, W, C)
+// where it carries the samples: (channel, column, row, image), boxes of 64
+// channels by Wo + 1 columns at a stride of 2 by one row, 128-byte
+// swizzled, zeros outside x (a row or column of the padding).
+int window_x_map(const void* x, const Geom& g, CUtensorMap* map) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  const int err = tensor_map_encoder(&encode);
+  if (err != 0) return err;
+  const cuuint64_t row = static_cast<cuuint64_t>(g.C) * 2;   // bytes
+  const cuuint64_t dims[4] = {
+      static_cast<cuuint64_t>(g.C), static_cast<cuuint64_t>(g.W),
+      static_cast<cuuint64_t>(g.H),
+      static_cast<cuuint64_t>(g.N) * (g.xstride ? g.S : 1)};
+  const cuuint64_t strides[3] = {row, row * g.W, row * g.W * g.H};
+  const cuuint32_t box[4] = {PW_KC, static_cast<cuuint32_t>(2 * (g.Wo + 1)),
+                             1, 1};
+  const cuuint32_t elem[4] = {1, 2, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// window::conv_mma_kernel on bf16 x and wk (9, F, Cp), Cp = C: one
+// persistent block an SM, as many clusters as fit at once, the plan of
+// window_plan.
+template <typename Mask>
+int launch_window(const void* x, const void* wk, const Mask& mask, void* out,
+                  const Geom& g, const Epi& e, void* stream) {
+  WindowPlan p;
+  size_t smem = 0;
+  if (!window_plan(g, &p, &smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map, xm;
+  int err = weight_map(wk, g.KH * g.KW * g.F, (g.C + 15) / 16 * 16, &map);
+  if (err == 0) err = window_x_map(x, g, &xm);
+  if (err != 0) return err;
+  auto* kern = window::conv_mma_kernel<Mask>;
+  static bool smem_set = false;
+  static size_t occ_smem = 0;
+  static int occ_clusters = 0;
+  err = allow_smem(kern, &smem_set, PW_MAX_SMEM);
+  if (err != 0) return err;
+  if (occ_smem != smem) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(PW_CLUSTER);
+    cfg.blockDim = dim3(WN_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    int n = 0;
+    const cudaError_t r = cudaOccupancyMaxActiveClusters(
+        &n, reinterpret_cast<const void*>(kern), &cfg);
+    if (r != cudaSuccess) return static_cast<int>(r);
+    if (n < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    occ_smem = smem;
+    occ_clusters = n;
+  }
+  const long long rows = static_cast<long long>(g.N) * g.Ho;
+  const long long items = (rows + p.R - 1) / p.R * g.S;
+  long long clusters = (items + PW_CLUSTER - 1) / PW_CLUSTER;
+  if (clusters > occ_clusters) clusters = occ_clusters;
+  const long long blocks = clusters * PW_CLUSTER;
+  const long long J = (items + blocks - 1) / blocks;
+  if (J > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  kern<<<static_cast<unsigned>(blocks), WN_THREADS, smem,
+         static_cast<cudaStream_t>(stream)>>>(xm, map, mask, out, g, e, p,
+                                              static_cast<int>(J));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // x of type TX, wk (KH·KW, F, Cp) of the staged type TS with Cp = C
 // rounded up to 32 bytes of TS, zero-padded. An MC conv of bf16 x and w at
-// a shape that takes_1x1 takes runs the 1x1 routine, every other conv the
-// implicit GEMM; the shape and the types decide, never S or the launch
-// kind.
+// a shape that takes_1x1 takes runs the 1x1 routine, at one that
+// takes_window takes the window routine, every other conv the implicit
+// GEMM; the shape and the types decide, never S or the launch kind.
 template <typename TX, typename TS, typename Mask>
 int launch_mma(const void* x, const void* wk, const Mask& mask, void* out,
                const int* dims, int x_carries, const Epi& e, void* stream) {
@@ -1626,6 +2251,8 @@ int launch_mma(const void* x, const void* wk, const Mask& mask, void* out,
     if (rc == 1) return 0;             // nothing to compute
     if (rc != 0) return rc;
     if (takes_1x1(g, x)) return launch_1x1(x, wk, mask, out, g, e, stream);
+    if (takes_window(g, x))
+      return launch_window(x, wk, mask, out, g, e, stream);
   }
   size_t smem = 0;
   const int rc = make_mma_geom(

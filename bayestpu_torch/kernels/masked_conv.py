@@ -53,19 +53,22 @@ without a mask, as JAX does.
 
 Dispatch is by the tensors' device: CPU tensors take the plain version, CUDA
 tensors launch the kernel (or raise), any other device raises. Each launch
-adds one to its entry of ``launch_counts``. On the card every entry runs the
-tensor-core implicit GEMM of ``masked_conv.cu``, staged in the type
-``staged_dtype`` names: an MC conv of bf16 x and w in bf16, the int8 convs
-in int8, and every other float conv (f32 or mixed-type MC, every float bank
-conv) in f32, the masked x and the weights multiplied as three TF32
-products (about 22 bits of each f32 product), summed in f32 a chunk of 8
-channels at a time. A kernel window of more than ``MAX_WINDOW_TAPS`` taps
-is refused on every device.
+adds one to its entry of ``launch_counts``. On the card a bf16 MC conv
+with a 1x1 window runs the 1x1 routine (``takes_pointwise``) and one with
+a 3x3 window at stride 2 the window routine (``takes_window``); every
+other entry runs the tensor-core implicit GEMM of ``masked_conv.cu``,
+staged in the type ``staged_dtype`` names: an MC conv of bf16 x and w in
+bf16, the int8 convs in int8, and every other float conv (f32 or
+mixed-type MC, every float bank conv) in f32, the masked x and the
+weights multiplied as three TF32 products (about 22 bits of each f32
+product), summed in f32 a chunk of 8 channels at a time. A kernel window
+of more than ``MAX_WINDOW_TAPS`` taps is refused on every device.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -512,6 +515,20 @@ POINTWISE_MAX_C = 1024
 MMA_BN = 128
 MMA_PATCH_ROWS = 384
 MMA_BM = 64
+# the window routine's (window::conv_mma_kernel) limits and shared memory,
+# as masked_conv.cu's WN_* constants: a block's shared memory, the bytes
+# beside its bands and ring, a ring stage, the fewest stages, the most
+# slots of a band, bands, M tiles of an item and output columns, and the
+# largest C
+WINDOW_SMEM = 227 * 1024
+WINDOW_FIXED = 1024 + 96 * 4 + (2 * 8 + 3 * 2 * 16) * 8
+WINDOW_STAGE = 128 * 64 * 2
+WINDOW_MIN_STAGES = 4
+WINDOW_MAX_SLOTS = 96
+WINDOW_MAX_NBUF = 2
+WINDOW_MAX_TILES = 4
+WINDOW_MAX_WO = 127
+WINDOW_MAX_C = 1024
 # the MC entries, whose kernels hash a mask
 _HASHED = ("masked_conv", "masked_conv_xs", "masked_conv_int8",
            "masked_conv_int8_xs")
@@ -536,6 +553,82 @@ def takes_pointwise(entry: str, x: torch.Tensor, w: torch.Tensor, g: Geom,
             and c % 8 == 0 and -(-c // 64) * 64 <= POINTWISE_MAX_C
             and x.data_ptr() % 16 == 0
             and (stride == 1 or (g.wo <= POINTWISE_BM and h % 2 == 0)))
+
+
+def takes_window(entry: str, x: torch.Tensor, w: torch.Tensor, g: Geom,
+                 stride: int, hashed: bool) -> bool:
+    """Whether ``bt_<entry>`` runs the window routine
+    (``window::conv_mma_kernel``, ``takes_window`` of masked_conv.cu): an MC
+    launch (``hashed``) with x and w staged in bf16, a 3x3 window at stride
+    2 with a top and a left pad of 0 or 1 (XLA's SAME or torch's
+    ``padding=1``), C a multiple of 64 and at most WINDOW_MAX_C, x 16-byte
+    aligned and under 2^31 pixels and at most WINDOW_MAX_WO output columns
+    (its TMA map), and a plan that fits in shared memory
+    (``window_rows``); every other conv runs ``conv_mma_kernel``."""
+    n, c = x.shape[-4], x.shape[-3]
+    return (hashed and staged_dtype(entry, x, w) == torch.bfloat16
+            and w.shape[2] == w.shape[3] == 3 and stride == 2
+            and g.ph in (0, 1) and g.pw in (0, 1)
+            and c % 64 == 0 and c <= WINDOW_MAX_C
+            and x.numel() // c < 2 ** 31 and g.wo <= WINDOW_MAX_WO
+            and x.data_ptr() % 16 == 0
+            and window_rows(n, c, g.ho, g.wo) is not None)
+
+
+def _window_slots(n: int, ho: int, r: int) -> int:
+    """``window_slots``: the most slots (input rows) an item of r output
+    rows stages, 2r and one for each image it spans."""
+    rows = n * ho
+    most = 0
+    for k in range(min(ho, -(-rows // r))):
+        q0, q1 = k * r, min(k * r + r, rows) - 1
+        most = max(most, 2 * (q1 - q0 + 1) + q1 // ho - q0 // ho + 1)
+    return most
+
+
+@functools.lru_cache(maxsize=None)
+def window_rows(n: int, c: int, ho: int, wo: int) -> int | None:
+    """``window_plan``'s output rows an item, R, for n images of Ho x Wo
+    outputs and C channels, or None where no item fits: of the R whose
+    bands fit in shared memory beside WINDOW_MIN_STAGES ring stages, the
+    one whose 64-row M tiles are filled most (7/8 or more counts as full),
+    then two bands over one, then the fuller, then the larger R."""
+    p = -(-(wo + 1) // 8) * 8
+    best = None
+    for r in range(1, min(n * ho, WINDOW_MAX_TILES * 64 // wo) + 1):
+        slots = _window_slots(n, ho, r)
+        if slots > WINDOW_MAX_SLOTS:
+            continue
+        band = c // 64 * slots * 2 * p * 128
+        nbuf = next((b for b in range(WINDOW_MAX_NBUF, 0, -1)
+                     if WINDOW_FIXED + b * band
+                     + WINDOW_MIN_STAGES * WINDOW_STAGE <= WINDOW_SMEM), 0)
+        if nbuf == 0:
+            continue
+        fill = 1000 * r * wo // (64 * -(-r * wo // 64))
+        key = (min(fill, 875), nbuf, fill, r)
+        best = key if best is None or key > best else best
+    return None if best is None else best[3]
+
+
+@functools.lru_cache(maxsize=None)
+def _window_inputs(n: int, h: int, w: int, ho: int, wo: int, pt: int,
+                   pl: int, r: int) -> int:
+    """Input positions (one sample, one channel) that the window routine's
+    stagers mask: for each item of r output rows and each image's run of
+    it, the input rows its windows read inside the image, times the
+    columns c' = 0 .. 2·Wo whose input column lies inside it."""
+    cols = sum(0 <= cs - pl < w for cs in range(2 * wo + 1))
+    total, rows = 0, n * ho
+    for q in range(0, rows, r):
+        left = min(r, rows - q)
+        while left:
+            oh = q % ho
+            run = min(ho - oh, left)
+            lo, hi = 2 * oh - pt, 2 * (oh + run - 1) - pt + 2
+            total += max(0, min(hi, h - 1) - max(lo, 0) + 1)
+            q, left = q + run, left - run
+    return total * cols
 
 
 def _mma_tile(n: int, kh: int, kw: int, ho: int, wo: int, stride: int
@@ -569,15 +662,22 @@ def _inside(size: int, out: int, tile: int, patch: int, stride: int,
 
 
 def mask_hashes(n: int, h: int, w: int, c: int, f: int, kh: int, kw: int,
-                g: Geom, stride: int, samples: int, pointwise: bool) -> int:
+                g: Geom, stride: int, samples: int, pointwise: bool,
+                window: bool = False) -> int:
     """The mask evaluations of one MC launch of ``samples`` samples, as its
     kernel tiles the conv. The 1x1 routine masks each input element it reads
-    once a sample: ``samples·n·Ho·Wo·C``.
+    once a sample: ``samples·n·Ho·Wo·C``. The window routine masks each
+    input element its items' bands hold once a sample, whatever F is: a
+    row shared by two items (the halo) once for each
+    (``_window_inputs``).
     ``conv_mma_kernel`` masks, in each 128-channel tile of F, every position
     of its blocks' patches (the halo included) that lies inside the input,
     each of C channels."""
     if pointwise:
         return samples * n * g.ho * g.wo * c
+    if window:
+        return samples * c * _window_inputs(
+            n, h, w, g.ho, g.wo, g.ph, g.pw, window_rows(n, c, g.ho, g.wo))
     th, tw, ph, pw = _mma_tile(n, kh, kw, g.ho, g.wo, stride)
     return (samples * -(-f // MMA_BN) * n * c
             * _inside(h, g.ho, th, ph, stride, g.ph)
@@ -660,11 +760,15 @@ def _launch(entry: str, counter: str, x: torch.Tensor, w: torch.Tensor,
             n, c, f, h, wd, kh, kw, g, stride)
         hashed = entry in _HASHED and head[0] is not None
         pointwise = takes_pointwise(entry, x, w, g, stride, hashed)
+        window = takes_window(entry, x, w, g, stride, hashed)
         if pointwise:
             count("conv.pointwise_launches")
+        if window:
+            count("conv.window_launches")
         if hashed:
             count("conv.mask_hashes", mask_hashes(
-                n, h, wd, c, f, kh, kw, g, stride, num_samples, pointwise))
+                n, h, wd, c, f, kh, kw, g, stride, num_samples, pointwise,
+                window))
     return out.permute(0, 1, 4, 2, 3)
 
 

@@ -429,7 +429,8 @@ CONV_SUMMARY_SITE = {"dropout_conv_int8": 1, "bank_conv_int8": 1,
 # and 7 at 4; the conv template once for each type of x, staged type and
 # mask policy: the bank convs' three, bf16 and f32 x as tf32 and int8, and
 # row 10's eight, HashMask and NoMask each in bf16, int8 and on the f32
-# route with bf16 and f32 x)
+# route with bf16 and f32 x; the 1x1 routine's and the window routine's
+# one each, counted apart)
 MMA_KERNELS = ("conv_mma_kernel", "int8_samples_mma_kernel")
 # kernels redesigned on the CUDA cores, whose registers and spills the
 # build phase reports beside them (the chain template once for each
@@ -774,14 +775,22 @@ def phase_build() -> None:
           f"bank conv_mma_kernel instantiations {bank}")
     # row 10's eight (HashMask and NoMask: bf16, int8, and the f32 route
     # with f32 x and with bf16 x), the f32 route's six with the bank's two
-    # (mangled <float, float, ...> and <__nv_bfloat16, float, ...>); and the
-    # 1x1 routine's one (HashMask), on wgmma (HGMMA)
+    # (mangled <float, float, ...> and <__nv_bfloat16, float, ...>); the
+    # 1x1 routine's one (HashMask), on wgmma (HGMMA); and the window
+    # routine's one (window::conv_mma_kernel<HashMask>, mangled in the
+    # namespace "window"), on wgmma, with no stack frame
+    window = {n: d for n, d in report["kernels"].items()
+              if "window15conv_mma_kernelI" in n}
     mc = {n: d for n, d in report["kernels"].items()
-          if "conv_mma_kernelI" in n and "BankMask" not in n}
+          if "conv_mma_kernelI" in n and "BankMask" not in n
+          and n not in window}
     pointwise = {n: d for n, d in report["kernels"].items()
                  if "conv_mma_kernel_1x1" in n}
     check(len(pointwise) == 1, f"conv_mma_kernel_1x1 instantiations "
           f"{sorted(pointwise)}")
+    check(len(window) == 1 and all(d.get("stack_frame") == 0
+                                   for d in window.values()),
+          f"window::conv_mma_kernel instantiations {window}")
     f32_route = sorted(n for n in report["kernels"] if re.search(
         r"conv_mma_kernelI(?:f|[0-9]+__nv_bfloat16)f", n))
     emit({"phase": "conv_f32_route", "kernels": {
@@ -806,6 +815,10 @@ def phase_build() -> None:
         check(all(d["sass_tensor_core_ops"]["HGMMA"] > 0
                   for d in pointwise.values()),
               f"conv_mma_kernel_1x1 without HGMMA: {pointwise}")
+        check(all(d["sass_tensor_core_ops"]["HGMMA"] > 0
+                  and d["sass_tensor_core_ops"]["HMMA"] == 0
+                  for d in window.values()),
+              f"window::conv_mma_kernel not on HGMMA alone: {window}")
 
 
 def _inputs(shape: dict, dtype, gen):
@@ -2188,6 +2201,7 @@ def phase_conv_kernels() -> dict:
     f32 route at block site 1 in f32 and both mixed types, checked and
     timed (``_conv_f32_route``)."""
     import torch
+    from bayestpu_torch.utils import profiler
     gen = torch.Generator().manual_seed(4321)
     summary = {name: {"max_abs_err": 0.0} for name in CONV_REPLACES}
     hw, c, f = CONV_SITES[0]
@@ -2211,14 +2225,21 @@ def phase_conv_kernels() -> dict:
     for model in BLOCKS_FORWARD:
         _blocks_forward_counters(gen, model)
     _resnet_small_checks(gen)
-    # as the block-site resnet18's spatial predict launches them
-    _conv_times(gen, None, RESNET_SITES, RESNET_CONVS, 2, "resnet_site",
-                ("dropout_conv_samples", "bank_conv_samples",
-                 "dropout_conv_xs", "bank_conv_xs"))
-    # its 3x3 site convs at ImageNet shapes (row 10I)
-    _conv_times(gen, None, RESNET18_IMAGENET_SITES,
-                {"3x3": RESNET_CONVS["3x3"]}, 2, "resnet18_imagenet_site",
-                ("dropout_conv_samples", "dropout_conv_xs"))
+    # as the block-site resnet18's spatial predict launches them (row
+    # 10r), and its 3x3 site convs at ImageNet shapes (row 10I): the bf16
+    # MC 3x3 launches on the window routine
+    mc_names = ("dropout_conv_samples", "dropout_conv_xs")
+    for sites, convs, label, names in (
+            (RESNET_SITES, RESNET_CONVS, "resnet_site",
+             mc_names + ("bank_conv_samples", "bank_conv_xs")),
+            (RESNET18_IMAGENET_SITES, {"3x3": RESNET_CONVS["3x3"]},
+             "resnet18_imagenet_site", mc_names)):
+        before = profiler.counters().get("conv.window_launches", 0)
+        _conv_times(gen, None, sites, convs, 2, label, names)
+        window = profiler.counters().get("conv.window_launches", 0) - before
+        emit({"phase": "conv", "kernel": "window::conv_mma_kernel",
+              "shapes": label, "window_launches": window})
+        check(window > 0, f"{label}: no launch on the window routine")
     _conv_times(gen, None, [(hw7, c7, f7)], {"7x7": (7, "SAME", "relu")},
                 2, "window7_s2_site",
                 ("dropout_conv", "dropout_conv_samples", "dropout_conv_int8",
@@ -2381,11 +2402,16 @@ def _pointwise_times(gen) -> None:
 
 # the block-site models of the benchmark at ImageNet shapes: the counters
 # of one forward (``_blocks_forward_counters``): fused masked convs, those
-# on the 1x1 routine, one-pass bf16 epilogues and those with a residual
+# on the 1x1 routine and on the window routine, the mask evaluations, the
+# one-pass bf16 epilogues and those with a residual
 BLOCKS_FORWARD = {
     "resnet50": {"sites.conv_launches": 6, "conv.pointwise_launches": 6,
+                 "conv.window_launches": 0,
+                 "conv.mask_hashes": 2_247_884_800,
                  "epilogue.launches": 47, "epilogue.residual_launches": 16},
     "resnet18": {"sites.conv_launches": 6, "conv.pointwise_launches": 3,
+                 "conv.window_launches": 3,
+                 "conv.mask_hashes": 606_699_520,
                  "epilogue.launches": 14, "epilogue.residual_launches": 8}}
 
 
@@ -2395,9 +2421,10 @@ def _blocks_forward_counters(gen, name: str) -> None:
     samples; the model's own initial weights) on the card, and the
     program's counters of it against BLOCKS_FORWARD: the fused masked
     convs, those on the 1x1 routine (resnet50: all six; resnet18: its
-    three projections, its 3x3 convbn1s on ``conv_mma_kernel``), the mask
-    evaluations their launches imply, and the one-pass bf16 epilogue's
-    launches (``launch_counts``) and passes, those with the residual."""
+    three projections) and on the window routine (resnet18's three 3x3
+    convbn1s), the mask evaluations their launches imply, and the one-pass
+    bf16 epilogue's launches (``launch_counts``) and passes, those with the
+    residual (a counter no launch moved reads 0)."""
     import torch
     from bayestpu_torch.core.config import BayesConfig
     from bayestpu_torch.engine.engine import BayesEngine
@@ -2420,7 +2447,7 @@ def _blocks_forward_counters(gen, name: str) -> None:
     emit({"phase": "conv", "model": f"{name}_blocks", "batch": BATCH,
           "samples": SAMPLES, "counters": counts,
           "bias_act_bf16_launches": epilogues})
-    check(all(counts.get(k) == v for k, v in expect.items())
+    check(all(counts.get(k, 0) == v for k, v in expect.items())
           and epilogues == expect["epilogue.launches"],
           f"{name} blocks forward counters {counts}, "
           f"{epilogues} bias_act_bf16 launches")
